@@ -1,0 +1,27 @@
+"""pti_ldm_vae_tpu_torch — the PyTorch/CUDA port of ``pti_ldm_vae_tpu``.
+
+Same configs, checkpoints, CLIs and numerics as the JAX package, written in
+PyTorch for one NVIDIA H100 (Hopper, ``sm_90a``). The JAX package is the
+reference every module here is held to; this package imports neither JAX nor
+anything of ``pti_ldm_vae_tpu`` and keeps its own copies of the framework-free
+code it needs.
+
+Subpackages mirror the JAX package's layout, so each module has an obvious
+counterpart:
+
+- ``config``     JSON config loading with MONAI-compatible ``@ref`` resolution
+- ``data``       image IO (numpy TIFF/PNG), transforms, loader, factory
+- ``ops``        norm / resize / attention ops; ``ops.kernels`` holds the
+                 hand-written Hopper kernels (Triton GroupNorm+SiLU, CUDA
+                 flash-attention forward), each beside its plain PyTorch version
+- ``models``     AutoencoderKL with MONAI parameter names
+- ``checkpoint`` Flax-tree / MONAI ``.pth`` -> state dict conversion
+- ``utils``      determinism, visualization, model loading, CLI plumbing
+- ``train``      inference function (training comes later)
+- ``cli``        entry points (``inference_vae``)
+
+Entry points run on CUDA unless the caller passes ``--device cpu``; with no
+CUDA device and no explicit ``cpu`` they raise.
+"""
+
+__version__ = "0.1.0"

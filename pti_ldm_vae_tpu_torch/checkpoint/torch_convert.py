@@ -1,0 +1,168 @@
+"""Weights into the port: Flax parameter trees and MONAI ``.pth`` state dicts.
+
+Counterpart of ``pti_ldm_vae_tpu/checkpoint/torch_convert.py``. The port's
+``AutoencoderKL`` uses MONAI's parameter names, so:
+
+* :func:`state_dict_from_flax` carries the JAX package's ``{"params": ...}``
+  tree (numpy arrays) across: conv kernels HWIO -> OIHW, Dense kernels
+  [in, out] -> [out, in], GroupNorm scale/bias -> weight/bias — the mapping of
+  the JAX package's ``to_torch_state_dict``;
+* :func:`monai_state_dict` takes a reference ``.pth`` payload, raw or wrapped
+  in ``{"autoencoder_state_dict": ...}``, and splits MONAI's fused ``qkv``
+  attention projection (``use_combined_linear``) into ``to_q/to_k/to_v``.
+
+Both return a state dict that ``AutoencoderKL.load_state_dict(...,
+strict=True)`` takes. :func:`monai_layout` is the port's own copy of the key
+layout (MONAI 1.5.1, documented in ``docs/MONAI_NOTES.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["monai_layout", "state_dict_from_flax", "monai_state_dict"]
+
+
+def _levels(config: dict) -> tuple[list[int], list[int], list[bool]]:
+    channels = list(config["channels"])
+    nrb = config.get("num_res_blocks", 2)
+    num_res_blocks = [nrb] * len(channels) if isinstance(nrb, int) else list(nrb)
+    attn = config.get("attention_levels")
+    attention_levels = [False] * len(channels) if attn is None else list(attn)
+    return channels, num_res_blocks, attention_levels
+
+
+def monai_layout(config: dict) -> list[tuple[str, str, str]]:
+    """Ordered [(flax_path, monai_prefix, kind)] for the whole model.
+
+    kind: 'conv' (Convolution wrapper), 'norm' (GroupNorm), 'attn'
+    (SpatialAttentionBlock projections). flax_path is the '/'-joined module
+    path of the JAX package's model."""
+    channels, num_res_blocks, attention_levels = _levels(config)
+    n_levels = len(channels)
+    enc_attn = config.get("with_encoder_nonlocal_attn", True)
+    dec_attn = config.get("with_decoder_nonlocal_attn", True)
+    out: list[tuple[str, str, str]] = []
+
+    def res_entries(flax_base: str, monai_base: str, in_ch: int, out_ch: int):
+        out.append((f"{flax_base}/norm1", f"{monai_base}.norm1", "norm"))
+        out.append((f"{flax_base}/conv1", f"{monai_base}.conv1.conv", "conv"))
+        out.append((f"{flax_base}/norm2", f"{monai_base}.norm2", "norm"))
+        out.append((f"{flax_base}/conv2", f"{monai_base}.conv2.conv", "conv"))
+        if in_ch != out_ch:
+            out.append((f"{flax_base}/nin_shortcut", f"{monai_base}.nin_shortcut.conv", "conv"))
+
+    def attn_entries(flax_base: str, monai_base: str):
+        out.append((f"{flax_base}/norm", f"{monai_base}.norm", "norm"))
+        out.append((flax_base, f"{monai_base}.attn", "attn"))
+
+    # ----- encoder ------------------------------------------------------
+    n = 0
+    out.append(("encoder/conv_in", f"encoder.blocks.{n}.conv", "conv")); n += 1
+    in_ch = channels[0]
+    for level in range(n_levels):
+        out_ch = channels[level]
+        for block in range(num_res_blocks[level]):
+            res_entries(f"encoder/down_{level}_res_{block}", f"encoder.blocks.{n}", in_ch, out_ch)
+            n += 1
+            in_ch = out_ch
+            if attention_levels[level]:
+                attn_entries(f"encoder/down_{level}_attn_{block}", f"encoder.blocks.{n}")
+                n += 1
+        if level != n_levels - 1:
+            out.append(
+                (f"encoder/down_{level}_downsample/conv", f"encoder.blocks.{n}.conv.conv", "conv")
+            )
+            n += 1
+    if enc_attn:
+        res_entries("encoder/mid_res_1", f"encoder.blocks.{n}", channels[-1], channels[-1]); n += 1
+        attn_entries("encoder/mid_attn", f"encoder.blocks.{n}"); n += 1
+        res_entries("encoder/mid_res_2", f"encoder.blocks.{n}", channels[-1], channels[-1]); n += 1
+    out.append(("encoder/norm_out", f"encoder.blocks.{n}", "norm")); n += 1
+    out.append(("encoder/conv_out", f"encoder.blocks.{n}.conv", "conv")); n += 1
+
+    # ----- quant convs ----------------------------------------------------
+    out.append(("quant_conv_mu", "quant_conv_mu.conv", "conv"))
+    out.append(("quant_conv_log_sigma", "quant_conv_log_sigma.conv", "conv"))
+    out.append(("post_quant_conv", "post_quant_conv.conv", "conv"))
+
+    # ----- decoder --------------------------------------------------------
+    rev_channels = list(reversed(channels))
+    rev_blocks = list(reversed(num_res_blocks))
+    rev_attn = list(reversed(attention_levels))
+    n = 0
+    out.append(("decoder/conv_in", f"decoder.blocks.{n}.conv", "conv")); n += 1
+    if dec_attn:
+        res_entries("decoder/mid_res_1", f"decoder.blocks.{n}", rev_channels[0], rev_channels[0]); n += 1
+        attn_entries("decoder/mid_attn", f"decoder.blocks.{n}"); n += 1
+        res_entries("decoder/mid_res_2", f"decoder.blocks.{n}", rev_channels[0], rev_channels[0]); n += 1
+    in_ch = rev_channels[0]
+    for level in range(n_levels):
+        out_ch = rev_channels[level]
+        for block in range(rev_blocks[level]):
+            res_entries(f"decoder/up_{level}_res_{block}", f"decoder.blocks.{n}", in_ch, out_ch)
+            n += 1
+            in_ch = out_ch
+            if rev_attn[level]:
+                attn_entries(f"decoder/up_{level}_attn_{block}", f"decoder.blocks.{n}")
+                n += 1
+        if level != n_levels - 1:
+            out.append(
+                (f"decoder/up_{level}_upsample/conv", f"decoder.blocks.{n}.conv.conv", "conv")
+            )
+            n += 1
+    out.append(("decoder/norm_out", f"decoder.blocks.{n}", "norm")); n += 1
+    out.append(("decoder/conv_out", f"decoder.blocks.{n}.conv", "conv")); n += 1
+    return out
+
+
+def _get(tree: dict, path: str, leaf: str) -> np.ndarray:
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    return np.asarray(node[leaf])
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def state_dict_from_flax(variables: dict, config: dict) -> dict[str, torch.Tensor]:
+    """JAX ``{"params": ...}`` tree (numpy leaves) -> the port's MONAI-keyed
+    state dict."""
+    params = variables.get("params", variables)
+    sd: dict[str, torch.Tensor] = {}
+    for flax_path, monai_prefix, kind in monai_layout(config):
+        if kind == "conv":
+            k = _get(params, flax_path, "kernel")  # (*K, I, O) -> (O, I, *K)
+            sd[f"{monai_prefix}.weight"] = _tensor(np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
+            sd[f"{monai_prefix}.bias"] = _tensor(_get(params, flax_path, "bias"))
+        elif kind == "norm":
+            sd[f"{monai_prefix}.weight"] = _tensor(_get(params, flax_path, "scale"))
+            sd[f"{monai_prefix}.bias"] = _tensor(_get(params, flax_path, "bias"))
+        else:  # attn
+            for name in ("to_q", "to_k", "to_v"):
+                sd[f"{monai_prefix}.{name}.weight"] = _tensor(_get(params, f"{flax_path}/{name}", "kernel").T)
+                sd[f"{monai_prefix}.{name}.bias"] = _tensor(_get(params, f"{flax_path}/{name}", "bias"))
+            sd[f"{monai_prefix}.out_proj.weight"] = _tensor(_get(params, f"{flax_path}/proj_attn", "kernel").T)
+            sd[f"{monai_prefix}.out_proj.bias"] = _tensor(_get(params, f"{flax_path}/proj_attn", "bias"))
+    return sd
+
+
+def monai_state_dict(payload: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Reference ``.pth`` payload (raw, or ``{"autoencoder_state_dict": ...}``)
+    -> the port's state dict, with fused ``qkv`` projections split."""
+    raw = payload.get("autoencoder_state_dict", payload)
+    sd = {k: torch.as_tensor(v) for k, v in raw.items()}
+    for key in [k for k in sd if k.endswith(".qkv.weight")]:
+        prefix = key[: -len(".qkv.weight")]
+        w = sd.pop(key)
+        b = sd.pop(f"{prefix}.qkv.bias", torch.zeros(w.shape[0], dtype=w.dtype))
+        c = w.shape[0] // 3
+        for i, name in enumerate(("to_q", "to_k", "to_v")):
+            sd[f"{prefix}.{name}.weight"] = w[i * c:(i + 1) * c].clone()
+            sd[f"{prefix}.{name}.bias"] = b[i * c:(i + 1) * c].clone()
+    return sd

@@ -1,0 +1,18 @@
+from .datasets import list_tif_paths
+from .factory import create_vae_inference_dataloader
+from .io import read_image, write_png, write_tif
+from .loader import ShardedDataLoader, shard_indices
+from .transforms import local_normalize_by_mask_np, preprocess_image_np, resize_area_np
+
+__all__ = [
+    "ShardedDataLoader",
+    "create_vae_inference_dataloader",
+    "list_tif_paths",
+    "local_normalize_by_mask_np",
+    "preprocess_image_np",
+    "read_image",
+    "resize_area_np",
+    "shard_indices",
+    "write_png",
+    "write_tif",
+]

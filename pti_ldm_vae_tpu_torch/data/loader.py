@@ -1,0 +1,103 @@
+"""Host data pipeline: threaded decode/transform, static batch shapes, prefetch.
+
+Counterpart of ``pti_ldm_vae_tpu/data/loader.py`` for inference (Python
+decode path; the native fused TIFF decoder, shuffling, caching and
+multi-host sharding of the loader come with training). Batches are numpy
+dicts ``{"image": [B,H,W,1] f32, "mask": [B] f32}``: the final partial batch
+is zero-padded to ``batch_size`` with a per-sample validity mask, exactly as
+the JAX loader does, and a background thread keeps two batches prefetched.
+Device placement is the caller's job.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Iterator
+
+import numpy as np
+
+from .io import read_image
+from .transforms import preprocess_image_np
+
+__all__ = ["ShardedDataLoader", "shard_indices"]
+
+
+def shard_indices(
+    n: int, *, rank: int = 0, world: int = 1, shuffle: bool = False,
+    seed: int = 0, epoch: int = 0,
+) -> np.ndarray:
+    """DistributedSampler-equivalent index schedule (``dataloaders.py:542-550``):
+    optional per-epoch seeded shuffle, pad by wrapping to a multiple of
+    ``world``, then interleave ``rank::world``."""
+    if shuffle:
+        order = np.random.default_rng(seed + epoch).permutation(n)
+    else:
+        order = np.arange(n)
+    total = -(-n // world) * world
+    if total > n:
+        order = np.concatenate([order, order[: total - n]])
+    return order[rank::world]
+
+
+class ShardedDataLoader:
+    """Iterable over preprocessed, statically-shaped batches, in path order."""
+
+    def __init__(self, paths: list[str], patch_size: tuple[int, int], batch_size: int, *,
+                 num_workers: int = 8):
+        self.paths = list(paths)
+        self.patch_size = tuple(patch_size)
+        self.batch_size = int(batch_size)
+        self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+
+    def close(self) -> None:
+        """Stop the decode threads."""
+        self._pool.shutdown(wait=True)
+
+    def __len__(self) -> int:
+        return -(-len(self.paths) // self.batch_size)
+
+    def _sample(self, idx: int) -> np.ndarray:
+        return preprocess_image_np(read_image(self.paths[idx]), self.patch_size)
+
+    def _make_batch(self, idx_chunk: np.ndarray) -> dict[str, Any]:
+        images = list(self._pool.map(self._sample, [int(i) for i in idx_chunk]))
+        h, w = self.patch_size
+        batch = np.zeros((self.batch_size, h, w, images[0].shape[-1]), dtype=np.float32)
+        mask = np.zeros((self.batch_size,), dtype=np.float32)
+        for i, img in enumerate(images):
+            batch[i] = img
+            mask[i] = 1.0
+        return {"image": batch, "mask": mask}
+
+    def _batches(self) -> Iterator[dict[str, Any]]:
+        idx = shard_indices(len(self.paths))
+        for start in range(0, len(idx), self.batch_size):
+            yield self._make_batch(idx[start : start + self.batch_size])
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        """Iterate with a depth-2 background prefetch."""
+        q: queue.Queue = queue.Queue(maxsize=2)
+        sentinel = object()
+        error: list[BaseException] = []
+
+        def producer():
+            try:
+                for batch in self._batches():
+                    q.put(batch)
+            except BaseException as exc:  # re-raised in the consumer below
+                error.append(exc)
+            finally:
+                q.put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                thread.join()
+                if error:
+                    raise error[0]
+                return
+            yield item

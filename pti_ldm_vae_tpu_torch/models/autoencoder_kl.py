@@ -1,0 +1,353 @@
+"""AutoencoderKL — convolutional VAE in PyTorch with MONAI parameter names.
+
+Counterpart of ``pti_ldm_vae_tpu/models/autoencoder_kl.py`` (standard 2-D
+path). Architecture (MONAI 1.5.1 ``AutoencoderKL``, CompVis VAE lineage):
+
+* encoder: conv_in 3x3 -> per level {num_res_blocks x ResBlock
+  (GroupNorm->SiLU->Conv3x3, 1x1 skip on channel change) [+ self-attention]}
+  -> (0,1)-pad + 3x3 stride-2 conv between levels -> optional non-local mid
+  block (ResBlock -> SpatialAttention -> ResBlock) -> GroupNorm -> SiLU ->
+  Conv3x3 to latent_channels
+* two 1x1 quant convs give ``z_mu`` and a log-variance clamped to [-30, 20];
+  ``sigma = exp(0.5 * logvar)`` in f32; sampling ``z = mu + eps * sigma``
+* the decoder mirrors the encoder with nearest-x2 upsample + conv.
+
+Modules are built in MONAI's order under ``encoder.blocks.{n}`` /
+``decoder.blocks.{n}``, with ``Convolution`` wrappers adding the ``.conv``
+segment and attention under ``.attn.{to_q,to_k,to_v,out_proj}``, so
+``state_dict()`` keys are MONAI's and reference ``.pth`` files load with
+``strict=True``.
+
+Tensors between blocks are channel-last ([B, H, W, C], the JAX package's
+layout and the model's I/O layout). A convolution views its input as NCHW
+(a free permute of channel-last memory, i.e. ``torch.channels_last``), which
+cuDNN prefers on Hopper, and hands back the channel-last view of its output.
+Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernel and every
+attention through the flash-attention kernel (``ops/kernels``). Compute
+dtype: parameters stay f32, activations run in ``compute_dtype`` (bf16 on
+the accelerator by default).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention
+from ..ops.norm import DEFAULT_NORM_STATS, group_norm, group_norm_silu
+from ..ops.resize import upsample_nearest_2x
+
+__all__ = ["AutoencoderKL", "autoencoder_from_config"]
+
+LOGVAR_CLAMP_MIN = -30.0
+LOGVAR_CLAMP_MAX = 20.0
+
+
+class Convolution(nn.Module):
+    """MONAI ``Convolution`` wrapper (parameters under ``conv.``); NHWC in and out."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, *, stride: int = 1,
+                 padding: int = 0, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        y = F.conv2d(
+            x.to(cd).permute(0, 3, 1, 2), self.conv.weight.to(cd), self.conv.bias.to(cd),
+            stride=self.conv.stride, padding=self.conv.padding,
+        )
+        return y.permute(0, 2, 3, 1)
+
+
+class GroupNormOp(nn.Module):
+    """GroupNorm (MONAI ``weight``/``bias``) with optional fused SiLU; NHWC."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float, *, silu: bool = False,
+                 norm_stats: str = DEFAULT_NORM_STATS):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.num_groups, self.eps, self.silu, self.norm_stats = num_groups, eps, silu, norm_stats
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = group_norm_silu if self.silu else group_norm
+        return fn(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
+                  stats=self.norm_stats)
+
+
+class ResBlock(nn.Module):
+    """GroupNorm->SiLU->Conv3x3 (x2) residual block, 1x1 skip on channel change
+    (MONAI ``AEKLResBlock``)."""
+
+    def __init__(self, cin: int, cout: int, groups: int, eps: float, norm_stats: str,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        cd = dict(compute_dtype=compute_dtype)
+        self.norm1 = GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats)
+        self.conv1 = Convolution(cin, cout, 3, padding=1, **cd)
+        self.norm2 = GroupNormOp(groups, cout, eps, silu=True, norm_stats=norm_stats)
+        self.conv2 = Convolution(cout, cout, 3, padding=1, **cd)
+        self.nin_shortcut = Convolution(cin, cout, 1, **cd) if cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x.to(h.dtype) + h
+
+
+class SABlock(nn.Module):
+    """The q/k/v/output projections of MONAI ``SABlock`` (``use_combined_linear=False``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.out_proj = nn.Linear(channels, channels)
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class SpatialAttentionBlock(nn.Module):
+    """GroupNorm -> single-head self-attention over HW tokens -> residual add
+    (MONAI ``SpatialAttentionBlock`` with its default one head)."""
+
+    def __init__(self, channels: int, groups: int, eps: float, norm_stats: str,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.norm = GroupNormOp(groups, channels, eps, norm_stats=norm_stats)
+        self.attn = SABlock(channels)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, cd = x.shape[0], x.shape[-1], self.compute_dtype
+        seq = self.norm(x).reshape(b, -1, c)
+        q = _linear(seq, self.attn.to_q, cd)
+        k = _linear(seq, self.attn.to_k, cd)
+        v = _linear(seq, self.attn.to_v, cd)
+        out = multi_head_attention(q, k, v, num_heads=1)
+        out = _linear(out, self.attn.out_proj, cd)
+        return x.to(cd) + out.reshape(x.shape)
+
+
+class Downsample(nn.Module):
+    """(0,1) pad of H and W + 3x3 stride-2 valid conv (MONAI ``AEKLDownsample``)."""
+
+    def __init__(self, channels: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.conv = Convolution(channels, channels, 3, stride=2, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class Upsample(nn.Module):
+    """Nearest x2 + 3x3 conv (MONAI decoder upsample, non-transposed)."""
+
+    def __init__(self, channels: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.conv = Convolution(channels, channels, 3, padding=1, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(upsample_nearest_2x(x))
+
+
+class _Coder(nn.Module):
+    """Shared by Encoder and Decoder: ``blocks`` applied in order (MONAI layout)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+class Encoder(_Coder):
+    def __init__(self, in_channels: int, channels: Sequence[int], latent_channels: int,
+                 num_res_blocks: Sequence[int], groups: int, eps: float,
+                 attention_levels: Sequence[bool], with_nonlocal_attn: bool,
+                 norm_stats: str, compute_dtype: torch.dtype):
+        super().__init__()
+        cd = dict(compute_dtype=compute_dtype)
+        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
+        blocks: list[nn.Module] = [Convolution(in_channels, channels[0], 3, padding=1, **cd)]
+        cin = channels[0]
+        for level, ch in enumerate(channels):
+            for _ in range(num_res_blocks[level]):
+                blocks.append(ResBlock(cin, ch, **blk))
+                cin = ch
+                if attention_levels[level]:
+                    blocks.append(SpatialAttentionBlock(ch, **blk))
+            if level != len(channels) - 1:
+                blocks.append(Downsample(ch, **cd))
+        if with_nonlocal_attn:
+            blocks += [ResBlock(cin, cin, **blk), SpatialAttentionBlock(cin, **blk),
+                       ResBlock(cin, cin, **blk)]
+        blocks += [GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats),
+                   Convolution(cin, latent_channels, 3, padding=1, **cd)]
+        self.blocks = nn.ModuleList(blocks)
+
+
+class Decoder(_Coder):
+    def __init__(self, channels: Sequence[int], latent_channels: int, out_channels: int,
+                 num_res_blocks: Sequence[int], groups: int, eps: float,
+                 attention_levels: Sequence[bool], with_nonlocal_attn: bool,
+                 norm_stats: str, compute_dtype: torch.dtype):
+        super().__init__()
+        cd = dict(compute_dtype=compute_dtype)
+        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
+        rev_channels = list(reversed(channels))
+        rev_blocks = list(reversed(num_res_blocks))
+        rev_attention = list(reversed(attention_levels))
+        cin = rev_channels[0]
+        blocks: list[nn.Module] = [Convolution(latent_channels, cin, 3, padding=1, **cd)]
+        if with_nonlocal_attn:
+            blocks += [ResBlock(cin, cin, **blk), SpatialAttentionBlock(cin, **blk),
+                       ResBlock(cin, cin, **blk)]
+        for level, ch in enumerate(rev_channels):
+            for _ in range(rev_blocks[level]):
+                blocks.append(ResBlock(cin, ch, **blk))
+                cin = ch
+                if rev_attention[level]:
+                    blocks.append(SpatialAttentionBlock(ch, **blk))
+            if level != len(rev_channels) - 1:
+                blocks.append(Upsample(ch, **cd))
+        blocks += [GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats),
+                   Convolution(cin, out_channels, 3, padding=1, **cd)]
+        self.blocks = nn.ModuleList(blocks)
+
+
+class AutoencoderKL(nn.Module):
+    """Conv VAE with KL-regularized latent space, NHWC in and out.
+
+    Methods as in the JAX package (reference wrapper ``VAEModel``):
+
+    * ``forward(x, eps=None, generator=None)`` -> (reconstruction, z_mu, z_sigma)
+    * ``encode(x)`` -> (z_mu, z_sigma); ``encode_deterministic(x)`` -> z_mu
+    * ``sampling(z_mu, z_sigma, eps=None, generator=None)`` -> z
+    * ``encode_stage_2_inputs(x, eps=None, generator=None)`` -> sampled z
+    * ``decode(z)`` / ``decode_stage_2_outputs(z)`` -> reconstruction
+    * ``reconstruct_deterministic(x)`` -> decode(z_mu)
+
+    ``remat`` is accepted for config parity and is inert: it only matters to
+    a backward pass. ``s2d_stem`` ``"auto"`` and ``False`` take the standard
+    path; the space-to-depth forms are not ported yet.
+    """
+
+    def __init__(
+        self,
+        spatial_dims: int = 2,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        latent_channels: int = 4,
+        channels: Sequence[int] = (32, 64, 128, 128),
+        num_res_blocks: Sequence[int] | int = 2,
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        attention_levels: Sequence[bool] | None = None,
+        with_encoder_nonlocal_attn: bool = True,
+        with_decoder_nonlocal_attn: bool = True,
+        norm_stats: str = DEFAULT_NORM_STATS,
+        remat: bool = False,
+        s2d_stem: bool | str = False,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if spatial_dims not in (1, 2, 3):
+            raise ValueError(f"spatial_dims must be 1, 2, or 3, got {spatial_dims}")
+        if spatial_dims != 2:
+            raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
+        if s2d_stem not in (False, "auto"):
+            raise NotImplementedError(f"s2d_stem={s2d_stem!r} is not ported yet ('auto' or False)")
+        n_levels = len(channels)
+        nrb = (num_res_blocks,) * n_levels if isinstance(num_res_blocks, int) else tuple(num_res_blocks)
+        attn = (False,) * n_levels if attention_levels is None else tuple(attention_levels)
+        common = dict(num_res_blocks=nrb, groups=norm_num_groups, eps=norm_eps,
+                      attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype)
+        self.compute_dtype = compute_dtype
+        self.encoder = Encoder(in_channels, channels, latent_channels,
+                               with_nonlocal_attn=with_encoder_nonlocal_attn, **common)
+        self.decoder = Decoder(channels, latent_channels, out_channels,
+                               with_nonlocal_attn=with_decoder_nonlocal_attn, **common)
+        cd = dict(compute_dtype=compute_dtype)
+        self.quant_conv_mu = Convolution(latent_channels, latent_channels, 1, **cd)
+        self.quant_conv_log_sigma = Convolution(latent_channels, latent_channels, 1, **cd)
+        self.post_quant_conv = Convolution(latent_channels, latent_channels, 1, **cd)
+
+    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (z_mu, z_sigma), both f32; logvar clamped to [-30, 20] like MONAI."""
+        h = self.encoder(x.to(self.compute_dtype))
+        z_mu = self.quant_conv_mu(h)
+        z_log_var = self.quant_conv_log_sigma(h).float().clamp(LOGVAR_CLAMP_MIN, LOGVAR_CLAMP_MAX)
+        return z_mu.float(), torch.exp(0.5 * z_log_var)
+
+    def sampling(self, z_mu: torch.Tensor, z_sigma: torch.Tensor, eps: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """``z_mu + eps * z_sigma``; ``eps`` standard normal from ``generator``
+        unless given."""
+        if eps is None:
+            eps = torch.randn(z_mu.shape, generator=generator, dtype=z_mu.dtype,
+                              device=z_mu.device)
+        return z_mu + eps * z_sigma
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        z = self.post_quant_conv(z.to(self.compute_dtype))
+        return self.decoder(z).float()
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        z_mu, z_sigma = self.encode(x)
+        reconstruction = self.decode(self.sampling(z_mu, z_sigma, eps, generator))
+        return reconstruction, z_mu, z_sigma
+
+    def encode_stage_2_inputs(self, x: torch.Tensor, eps: torch.Tensor | None = None,
+                              generator: torch.Generator | None = None) -> torch.Tensor:
+        z_mu, z_sigma = self.encode(x)
+        return self.sampling(z_mu, z_sigma, eps, generator)
+
+    def encode_deterministic(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encode(x)[0]
+
+    def decode_stage_2_outputs(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decode(z)
+
+    def reconstruct_deterministic(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode_deterministic(x))
+
+
+def autoencoder_from_config(
+    config: dict,
+    *,
+    norm_stats: str = DEFAULT_NORM_STATS,
+    remat: bool = False,
+    s2d_stem: bool | str = False,
+    compute_dtype: torch.dtype = torch.float32,
+) -> AutoencoderKL:
+    """Build an AutoencoderKL from a reference-format ``autoencoder_def`` dict
+    (parity with ``VAEModel.from_config``, ``autoencoder.py:81-103``)."""
+    attn = config.get("attention_levels")
+    return AutoencoderKL(
+        spatial_dims=config["spatial_dims"],
+        in_channels=config["in_channels"],
+        out_channels=config["out_channels"],
+        latent_channels=config["latent_channels"],
+        channels=tuple(config["channels"]),
+        num_res_blocks=config.get("num_res_blocks", 2),
+        norm_num_groups=config.get("norm_num_groups", 32),
+        norm_eps=config.get("norm_eps", 1e-6),
+        attention_levels=tuple(attn) if attn is not None else None,
+        with_encoder_nonlocal_attn=config.get("with_encoder_nonlocal_attn", True),
+        with_decoder_nonlocal_attn=config.get("with_decoder_nonlocal_attn", True),
+        norm_stats=norm_stats,
+        remat=remat,
+        s2d_stem=s2d_stem,
+        compute_dtype=compute_dtype,
+    )

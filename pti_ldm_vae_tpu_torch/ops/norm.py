@@ -1,0 +1,74 @@
+"""Normalization ops on channel-last tensors (counterpart of
+``pti_ldm_vae_tpu/ops/norm.py``).
+
+    y = (x - mean_g) / sqrt(var_g + eps) * scale + bias
+
+with mean/var over each group's (spatial, C/G) slab, biased variance
+(``torch.nn.GroupNorm`` semantics), statistics in f32 whatever the input
+dtype. ``group_norm_silu`` sends every call through the hand-written
+GroupNorm+SiLU kernel on CUDA (``ops/kernels/groupnorm_silu.py``), whose
+plain version runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernels.groupnorm_silu import groupnorm_silu
+
+__all__ = ["DEFAULT_NORM_STATS", "group_norm", "group_norm_silu"]
+
+DEFAULT_NORM_STATS = "one_pass"
+
+
+def group_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    num_groups: int,
+    eps: float = 1e-6,
+    stats: str = DEFAULT_NORM_STATS,
+) -> torch.Tensor:
+    """GroupNorm over a channel-last [B, *spatial, C] tensor.
+
+    ``stats="one_pass"``: ``var = mean(x^2) - mean(x)^2`` clamped at 0;
+    ``stats="two_pass"``: ``var = mean((x - mean)^2)``, the centered form
+    MONAI computes."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+    if stats not in ("two_pass", "one_pass"):
+        raise ValueError(f"unknown stats mode {stats!r}")
+    xg = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    if stats == "one_pass":
+        var = torch.clamp(xg.square().mean(dim=(1, 3), keepdim=True) - mean.square(), min=0.0)
+    else:
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    xn = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    return (xn * scale.float() + bias.float()).to(x.dtype)
+
+
+def group_norm_silu(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    num_groups: int,
+    eps: float = 1e-6,
+    stats: str = DEFAULT_NORM_STATS,
+) -> torch.Tensor:
+    """Fused GroupNorm + SiLU on an NHWC tensor.
+
+    ``"one_pass"`` statistics go through the GroupNorm+SiLU kernel (its plain
+    version on the CPU). The kernel computes one-pass statistics only, so
+    ``"two_pass"`` runs plain on the CPU and raises on CUDA."""
+    if stats == "one_pass":
+        return groupnorm_silu(x.contiguous(), scale, bias, num_groups, eps)
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            "norm_stats 'two_pass' has no GroupNorm+SiLU kernel; use 'one_pass' on CUDA"
+        )
+    y = group_norm(x, scale, bias, num_groups=num_groups, eps=eps, stats=stats).float()
+    return (y * torch.sigmoid(y)).to(x.dtype)

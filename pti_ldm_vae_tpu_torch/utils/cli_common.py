@@ -1,0 +1,113 @@
+"""Shared CLI plumbing for inference (counterpart of the inference subset of
+``pti_ldm_vae_tpu/utils/cli_common.py``), plus device selection.
+
+Entry points run on CUDA unless ``--device cpu`` is passed; with no CUDA
+device and no explicit ``cpu`` they raise rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from ..data.factory import create_vae_inference_dataloader
+from ..models.autoencoder_kl import AutoencoderKL
+from .determinism import set_determinism
+from .vae_loader import load_vae_config, load_vae_model
+
+__all__ = [
+    "add_shared_io_args",
+    "resolve_device",
+    "init_device_and_seed",
+    "enable_parity_numerics",
+    "load_config_and_model",
+    "build_inference_dataloader",
+    "resolve_inference_output_dirs",
+]
+
+
+def add_shared_io_args(parser: argparse.ArgumentParser, output_help: str) -> None:
+    """Common IO arguments (reference ``cli_common.py:16-37``) and ``--device``."""
+    parser.add_argument("-c", "--config-file", required=True, help="Config json file")
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="Checkpoint path (torch .pth, MONAI keys)")
+    parser.add_argument("--input-dir", type=str, required=True,
+                        help="Directory containing input TIF images")
+    parser.add_argument("--output-dir", type=str, default=None, help=output_help)
+    parser.add_argument("--num-samples", type=int, default=None,
+                        help="Number of samples to process (default: all)")
+    parser.add_argument("--batch-size", type=int, default=8, help="Batch size (default: 8)")
+    parser.add_argument("--num-workers", type=int, default=4,
+                        help="Number of loader workers (default: 4)")
+    parser.add_argument("--seed", type=int, default=42,
+                        help="Random seed for determinism (default: 42)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; there is no silent CPU fallback")
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda[:i]`` or ``cpu``; raises when CUDA is asked for and absent."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    return device
+
+
+def init_device_and_seed(seed: int | None, device: torch.device) -> torch.Generator:
+    """Report the device and seed the RNGs (reference ``cli_common.py:40-54``);
+    returns a generator on ``device``."""
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
+    print(f"Using device: {device} ({where})")
+    return set_determinism(seed, device)
+
+
+def enable_parity_numerics() -> None:
+    """True f32 numerics: cuDNN runs f32 convolutions in TF32 unless told not to."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def load_config_and_model(
+    config_file: str, checkpoint_path: str, *, device: torch.device, exact: bool = False,
+) -> tuple[Any, AutoencoderKL]:
+    """Reference ``cli_common.py:57-70``: returns (config_namespace, model).
+
+    Compute dtype: bf16 on CUDA, f32 on the CPU or with ``exact=True``, which
+    also turns TF32 off and pins the standard (reference) formulation."""
+    if exact:
+        enable_parity_numerics()
+    compute_dtype = torch.float32 if exact or device.type == "cpu" else torch.bfloat16
+    config = load_vae_config(config_file)
+    model = load_vae_model(
+        config, checkpoint_path, device=device, compute_dtype=compute_dtype,
+        s2d_stem=False if exact else None,
+    )
+    return config, model
+
+
+def build_inference_dataloader(
+    input_dir: str, config: Any, batch_size: int, num_samples: int | None, num_workers: int
+):
+    patch_size = tuple(config.autoencoder_train["patch_size"])
+    return create_vae_inference_dataloader(
+        input_dir=input_dir, patch_size=patch_size, batch_size=batch_size,
+        num_samples=num_samples, num_workers=num_workers,
+    )
+
+
+def resolve_inference_output_dirs(
+    checkpoint_path: str, output_dir: str | None
+) -> tuple[Path, Path, Path]:
+    """Reference ``cli_common.py:102-134``."""
+    checkpoint_name = Path(checkpoint_path).stem or Path(checkpoint_path).name
+    base = Path(f"inference_vae_{checkpoint_name}") if output_dir is None else Path(output_dir)
+    out_tif = base / "results_tif"
+    out_png = base / "results_png"
+    out_tif.mkdir(parents=True, exist_ok=True)
+    out_png.mkdir(parents=True, exist_ok=True)
+    return base, out_tif, out_png

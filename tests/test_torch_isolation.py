@@ -1,0 +1,68 @@
+"""The PyTorch port stands alone: no JAX, no Flax/Optax/Orbax, nothing of the
+JAX package; it imports with JAX unavailable; and it never runs on the CPU
+unless asked to."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "pti_ldm_vae_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pti_ldm_vae_tpu")
+PORT_FILES = sorted(PORT.rglob("*.py"))
+
+
+def test_port_has_modules():
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
+    for expected in ("cli/inference_vae.py", "models/autoencoder_kl.py", "ops/norm.py",
+                     "ops/kernels/groupnorm_silu.py", "ops/kernels/flash_attention.py"):
+        assert expected in names
+    assert (PORT / "csrc" / "flash_attention.cu").exists()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(PORT).as_posix())
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_chip_smoke_has_no_forbidden_imports():
+    test_no_forbidden_imports(ROOT / "chip_smoke.py")
+
+
+def test_port_imports_with_jax_blocked():
+    modules = sorted(
+        "pti_ldm_vae_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT_FILES if p.name != "__init__.py"
+    )
+    blocked = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    code = (f"import sys; {blocked}\n"
+            f"import importlib\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            f"assert 'triton' not in sys.modules\n"
+            f"print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_cli_without_device_cpu_refuses_to_run_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from pti_ldm_vae_tpu_torch.cli.inference_vae import main
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["-c", "unused.json", "--checkpoint", "unused.pth", "--input-dir", str(tmp_path)])
