@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: kernels, main path, timings.
+"""Smoke run of the PyTorch port on one CUDA card: kernels, main paths, timings.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
 
@@ -7,35 +7,57 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
-2. build: the CUDA C++ kernels of ``pti_ldm_vae_tpu_torch/csrc`` with nvcc,
-   the Triton kernels at their first launch;
-3. kernel checks: every hand-written kernel against its plain PyTorch version
-   on the card, f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
-   version on the same bf16-rounded inputs, atol 2e-2), at the shapes the
-   main path gives it (GroupNorm+SiLU: the 8 shapes of a flagship
-   reconstruct at 256², batch 8; flash attention: [8,1,1024,128] and a
-   ragged [2,2,1000,64]);
-4. main path: ``pti_ldm_vae_tpu_torch.cli.inference_vae`` on 16 synthetic
-   300x300 TIFs at the flagship config ``config/vae_dente_no_adv.json``
-   (256², batch 8) with random weights from a seeded ``torch.Generator``,
-   once in bf16 (the default) and once with ``--f32``; each kernel's launch
-   count is set to 0 just before a run and read just after (42
+2. build: the CUDA C++ kernels of ``pti_ldm_vae_tpu_torch/csrc`` with nvcc
+   (one process per source, started together; ``ptxas`` registers and spills
+   reported), the Triton kernels at their first launch;
+3. kernel checks at the shapes the main paths give them (GroupNorm+SiLU: the
+   8 shapes of a flagship pass at 256², batch 8; flash attention:
+   [8,1,1024,128] and a ragged [2,2,1000,64]), every hand-written kernel
+   against its plain PyTorch version on the card:
+   forward kernels f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
+   version on the same bf16-rounded inputs, atol 2e-2); backward kernels the
+   same bars for ``dx``, ``dq``, ``dk``, ``dv``; ``dscale`` / ``dbias`` are
+   f32 sums over B*H*W terms of size ~1 (up to 524 288 here), held to rtol
+   1e-4 with atol 1e-5 * sqrt(B*H*W) (the rounding of a sum grows with the
+   root of its length); every backward runs twice and must give the same
+   bits (no float atomics);
+4. inference main path: ``pti_ldm_vae_tpu_torch.cli.inference_vae`` on 16
+   synthetic 300x300 TIFs at the flagship config
+   ``config/vae_dente_no_adv.json`` (256², batch 8) with random weights from a
+   seeded ``torch.Generator``, in bf16 (the default) and with ``--f32``; launch
+   counts are set to 0 just before a run and read just after (42
    GroupNorm+SiLU and 2 flash-attention launches per batch); outputs must be
    16 TIFs and 16 PNGs of finite values, and the f32 reconstructions of two
    images must match the CPU plain-version reconstruction to 1e-3;
-5. timing after warm-up, L2 flushed before each call: device time
+5. training main path: ``pti_ldm_vae_tpu_torch.cli.train_vae`` on 72 synthetic
+   TIFs at the same config (256², batch 8: 8 train steps and 1 validation
+   step per epoch, 2 epochs), in bf16 and with ``--f32``; launch counts per
+   train step 42 / 42 / 42 / 2 / 2 (GroupNorm+SiLU forward, backward reduce,
+   backward dx, flash forward, flash backward), per eval step and per train
+   triplet panel 42 / 0 / 0 / 2 / 0; finite losses, every parameter tensor
+   moved from its seeded init, best/last checkpoints written, the best one
+   reloaded through the inference CLI;
+6. training reference: one f32 generator step on the card (launch counts of
+   exactly one step asserted) against the same step on the CPU plain path
+   from the same weights, batch (2 images at 256², full width) and ``eps``:
+   loss terms within 1e-4 relative, every gradient tensor within 2e-3 of its
+   largest entry;
+7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
    one PyTorch library call that computes the same function, at every path
-   shape; reconstruct imgs/s at b8 (event time), its device idle share and
-   its device time by kind of kernel;
-6. the ``kernels`` line, the card line, and the result line
+   shape; reconstruct and train-step imgs/s at b8 (event time), device idle
+   share and device time by kind of kernel. To stay inside the time limit the
+   per-kernel timings take 10 iterations and the reconstruct 6;
+8. the ``kernels`` line (five kernels), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -54,10 +76,20 @@ F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=0.0, atol=2e-2)
 BATCH = 8
 N_IMAGES = 16
-# GroupNorm+SiLU launches per flagship reconstruct (21 encoder + 21 decoder)
-# and flash-attention launches (encoder and decoder mid blocks)
+# GroupNorm+SiLU launches per flagship pass (21 encoder + 21 decoder) and
+# flash-attention launches (encoder and decoder mid blocks)
 GN_PER_RECONSTRUCT = 42
 FLASH_PER_RECONSTRUCT = 2
+# training run: 72 images, 0.9 split -> 64 train (8 steps of 8) + 8 val (1 step)
+TRAIN_IMAGES = 72
+TRAIN_EPOCHS = 2
+TRAIN_STEPS_PER_EPOCH = 8
+EVAL_STEPS_PER_EPOCH = 1
+TRAIN_SEED = 42
+GRAD_BAR = 2e-3  # of each gradient tensor's largest entry, card f32 vs CPU f32
+
+KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx",
+                "flash_attention", "flash_attention_bwd")
 
 
 def emit(phase: str, **fields) -> None:
@@ -72,6 +104,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def dtype_key(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
 def _kernel_times_us(prof) -> dict[str, float]:
     """Device time (us) by kernel name in a profile, the L2 flush's fill kernel left out."""
     from torch.autograd import DeviceType
@@ -83,11 +119,12 @@ def _kernel_times_us(prof) -> dict[str, float]:
     return out
 
 
-def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> dict[str, float]:
+def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
     """Per call of ``fn()``, each after an L2 flush (a 128 MB write):
-    ``device_ms``, the summed device time of its kernels (torch.profiler), and
+    ``device_ms``, the summed device time of its kernels (torch.profiler),
     ``event_ms``, CUDA-event time from before its first launch to after its
-    last, which also holds any wait for the host to launch."""
+    last, which also holds any wait for the host to launch, and ``by_name``,
+    the device ms of each kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,8 +144,12 @@ def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> dict[str, float]:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    device = sum(_kernel_times_us(prof).values()) / 1e3 / iters
-    return {"device_ms": device, "event_ms": total / iters}
+    by_name = {name: us / 1e3 / iters for name, us in _kernel_times_us(prof).items()}
+    return {"device_ms": sum(by_name.values()), "event_ms": total / iters, "by_name": by_name}
+
+
+def named_ms(by_name: dict[str, float], *words: str) -> float:
+    return sum(ms for name, ms in by_name.items() if any(w in name for w in words))
 
 
 def check_close(name: str, got, want, tol: dict) -> float:
@@ -121,9 +162,9 @@ def check_close(name: str, got, want, tol: dict) -> float:
 
 
 def gn_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
-    """[(NHWC shape at batch 8, launches per reconstruct)] of every
-    GroupNorm+SiLU of a reconstruct, recorded with forward hooks during one
-    CPU reconstruct of a single 256² image (plain versions, no launch)."""
+    """[(NHWC shape at batch 8, launches per pass)] of every GroupNorm+SiLU of
+    a flagship pass, recorded with forward hooks during one CPU reconstruct of
+    a single 256² image (plain versions, no launch)."""
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import GroupNormOp
 
     counts: dict[tuple[int, ...], int] = {}
@@ -143,30 +184,33 @@ def gn_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
     return sorted(counts.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3])
 
 
-def reconstruct_breakdown(torch, reconstruct, x, iters: int = 5) -> dict[str, float]:
-    """Device ms per reconstruct by kind of kernel (torch.profiler, warm L2)."""
-    from torch.profiler import ProfilerActivity, profile
+# kinds of device kernels, first match wins (lower-cased kernel names)
+KINDS = (
+    ("groupnorm_silu_fwd", ("_stats_kernel", "_apply_kernel")),
+    ("groupnorm_silu_bwd", ("_bwd_reduce_kernel", "_bwd_dx_kernel")),
+    ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd", ("flash_bwd_",)),
+    ("optimizer", ("multi_tensor_apply", "adam")),
+    ("pool", ("max_pool",)),  # LPIPS trunk
+    ("conv_wgrad", ("wgrad",)),
+    ("conv_dgrad", ("dgrad",)),
+    # cuDNN's implicit-GEMM, FFT and layout kernels of the convolutions
+    ("conv_fwd", ("conv", "fprop", "implicit", "cudnn", "nhwc", "nchw", "fft",
+                  "pointwise_mult_and_sum_complex")),
+    ("gemm", ("gemm", "cutlass", "nvjet")),  # the attention block's projections
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel", "catarray", "fill")),
+)
 
-    reconstruct(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            reconstruct(x)
-        torch.cuda.synchronize()
-    kinds = (("groupnorm_silu", ("_stats_kernel", "_apply_kernel")),
-             ("flash_attention", ("flash_fwd_kernel",)),
-             # cuDNN's implicit-GEMM, FFT and layout kernels of the convolutions
-             ("conv", ("conv", "fprop", "implicit", "cudnn", "nhwc", "nchw", "fft",
-                       "pointwise_mult_and_sum_complex")),
-             ("gemm", ("gemm", "cutlass", "nvjet")),  # the attention block's projections
-             ("elementwise", ("elementwise_kernel",)))
-    out: dict[str, float] = {}
+
+def device_ms_by_kind(by_name: dict[str, float]) -> dict:
+    out: dict = {}
     other: dict[str, float] = {}
-    for name, us in _kernel_times_us(prof).items():
-        kind = next((k for k, keys in kinds if any(w in name.lower() for w in keys)), "other")
-        out[kind] = out.get(kind, 0.0) + us / 1e3 / iters
+    for name, ms in by_name.items():
+        kind = next((k for k, keys in KINDS if any(w in name.lower() for w in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + ms
         if kind == "other":
-            other[name[:90]] = us / 1e3 / iters
+            other[name[:90]] = ms
     out["top_other"] = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     return out
 
@@ -178,35 +222,94 @@ def bound(flops: float, dtype: str, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def ptxas_report(log: Path) -> dict:
+    """Registers and spills of every kernel in an nvcc ``-Xptxas -v`` log (per
+    kernel: the entry-function line, the spill line, then the register line)."""
+    kernels, name, spill = [], None, 0
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            kernels.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return {"kernels": len(kernels),
+            "max_registers": max((k["registers"] for k in kernels), default=0),
+            "spill_bytes": sum(k["spill_bytes"] for k in kernels),
+            # the instantiations the main paths run in bf16: head dim 128
+            "d128_bf16": [{"kernel": re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", k["kernel"])[:60],
+                           "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
+                          for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]]}
+
+
 def check_kernels(torch, gn_shapes, kernels_mod) -> dict[str, dict]:
-    from pti_ldm_vae_tpu_torch.ops.kernels import flash_attention_plain, groupnorm_silu_plain
+    from pti_ldm_vae_tpu_torch.ops.kernels import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+        groupnorm_silu_bwd_plain,
+        groupnorm_silu_plain,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"groupnorm_silu": {"float32": 0.0, "bfloat16": 0.0},
-            "flash_attention": {"float32": 0.0, "bfloat16": 0.0}}
+    errs = {name: {"float32": 0.0, "bfloat16": 0.0} for name in KERNEL_NAMES}
+
+    def note(name, key, err):
+        errs[name][key] = max(errs[name][key], err)
+
     for shape, _ in gn_shapes:
         c = shape[-1]
         x = torch.randn(shape, device="cuda", generator=gen)
         scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
         bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        g = torch.randn(shape, device="cuda", generator=gen)
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            xd = x.to(dtype)
+            key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
+            xd, gd = x.to(dtype), g.to(dtype)
             got = kernels_mod.groupnorm_silu(xd, scale, bias, 16, 1e-6)
-            want = groupnorm_silu_plain(xd.float(), scale, bias, 16, 1e-6)
-            key = str(dtype).split(".")[1]
-            err = check_close(f"groupnorm_silu {shape} {key}", got, want, tol)
-            errs["groupnorm_silu"][key] = max(errs["groupnorm_silu"][key], err)
+            want, mean_g, inv_g = _plain_forward(xd.float(), scale, bias, 16, 1e-6)
+            note("groupnorm_silu", key, check_close(f"groupnorm_silu {tag}", got, want, tol))
+            del got, want
+
+            leaves = (xd.clone().requires_grad_(), scale.clone().requires_grad_(),
+                      bias.clone().requires_grad_())
+            grads = [torch.autograd.grad(kernels_mod.groupnorm_silu(*leaves, 16, 1e-6), leaves, gd)
+                     for _ in range(2)]
+            for first, second in zip(*grads):
+                if not torch.equal(first, second):
+                    raise RuntimeError(f"groupnorm_silu backward {tag}: two runs differ")
+            dx, dscale, dbias = grads[0]
+            want_dx, want_dscale, want_dbias = groupnorm_silu_bwd_plain(
+                xd.float(), scale, bias, mean_g, inv_g, gd.float(), 16)
+            note("groupnorm_silu_bwd_dx", key, check_close(f"groupnorm_silu dx {tag}", dx, want_dx, tol))
+            note("groupnorm_silu_bwd_reduce", key, max(
+                check_close(f"groupnorm_silu dscale {tag}", dscale, want_dscale, sum_tol),
+                check_close(f"groupnorm_silu dbias {tag}", dbias, want_dbias, sum_tol)))
+            del grads, dx, want_dx, leaves
     for shape in ((BATCH, 1, 1024, 128), (2, 2, 1000, 64)):
-        q, k, v = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
+            qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
             got = kernels_mod.flash_attention(qd, kd, vd)
             want = flash_attention_plain(qd.float(), kd.float(), vd.float())
-            key = str(dtype).split(".")[1]
-            err = check_close(f"flash_attention {shape} {key}", got, want, tol)
-            errs["flash_attention"][key] = max(errs["flash_attention"][key], err)
-    emit("kernel_checks", ok=True, max_abs_err=errs,
-         tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL})
+            note("flash_attention", key, check_close(f"flash_attention {tag}", got, want, tol))
+
+            leaves = tuple(t.clone().requires_grad_() for t in (qd, kd, vd))
+            grads = [torch.autograd.grad(kernels_mod.flash_attention(*leaves), leaves, gd)
+                     for _ in range(2)]
+            for first, second in zip(*grads):
+                if not torch.equal(first, second):
+                    raise RuntimeError(f"flash_attention backward {tag}: two runs differ")
+            want = flash_attention_bwd_plain(qd.float(), kd.float(), vd.float(), gd.float())
+            for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want):
+                note("flash_attention_bwd", key,
+                     check_close(f"flash_attention {name} {tag}", ours, theirs, tol))
+    emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
+         tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
+                    "dscale_dbias": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
     return errs
 
 
@@ -229,20 +332,20 @@ def make_weights(torch, ae_def: dict, path: Path) -> None:
     torch.save(sd, path)
 
 
-def write_inputs(np, data_dir: Path) -> None:
+def write_inputs(np, data_dir: Path, n: int) -> None:
     from pti_ldm_vae_tpu_torch.data.io import write_tif
 
     data_dir.mkdir(parents=True)
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:300, 0:300]
-    for i in range(N_IMAGES):
+    for i in range(n):
         img = (np.sin(xx / (9.0 + i)) * np.cos(yy / (13.0 + i)) + 1.5
                + 0.2 * rng.normal(size=(300, 300))).astype(np.float32)
-        img[: 20 + i] = 0.0  # background, as the mask-aware normalization expects
+        img[: 20 + i % 40] = 0.0  # background, as the mask-aware normalization expects
         write_tif(str(data_dir / f"dente_{i:03d}.tif"), img)
 
 
-def run_cli(torch, np, kernels_mod, args: list[str], out: Path) -> dict:
+def run_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: int = N_IMAGES) -> dict:
     from pti_ldm_vae_tpu_torch.cli.inference_vae import main as inference_main
     from pti_ldm_vae_tpu_torch.data.io import read_image
 
@@ -251,22 +354,195 @@ def run_cli(torch, np, kernels_mod, args: list[str], out: Path) -> dict:
     n = inference_main(args + ["--output-dir", str(out)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"groupnorm_silu": kernels_mod.groupnorm_silu.launches,
-                "flash_attention": kernels_mod.flash_attention.launches}
-    batches = -(-N_IMAGES // BATCH)
-    want = {"groupnorm_silu": GN_PER_RECONSTRUCT * batches,
-            "flash_attention": FLASH_PER_RECONSTRUCT * batches}
-    if n != N_IMAGES or launches != want:
-        raise RuntimeError(f"main path: {n} images, launches {launches}, expected {want}")
+    launches = kernels_mod.launch_counts()
+    batches = -(-n_images // BATCH)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(groupnorm_silu=GN_PER_RECONSTRUCT * batches,
+                flash_attention=FLASH_PER_RECONSTRUCT * batches)
+    if n != n_images or launches != want:
+        raise RuntimeError(f"inference path: {n} images, launches {launches}, expected {want}")
     tifs = sorted((out / "results_tif").glob("*.tif"))
     pngs = sorted((out / "results_png").glob("*.png"))
-    if len(tifs) != N_IMAGES or len(pngs) != N_IMAGES:
-        raise RuntimeError(f"expected {N_IMAGES} TIFs and PNGs, got {len(tifs)} and {len(pngs)}")
+    if len(tifs) != n_images or len(pngs) != n_images:
+        raise RuntimeError(f"expected {n_images} TIFs and PNGs, got {len(tifs)} and {len(pngs)}")
     recon = [read_image(str(p))[:, 256:] for p in tifs]
     for p, r in zip(tifs, recon):
         if r.shape != (256, 256) or not np.isfinite(r).all():
             raise RuntimeError(f"{p.name}: bad reconstruction {r.shape}")
     return {"wall_s": wall, "launches": launches, "recon": recon}
+
+
+def run_train_cli(torch, np, kernels_mod, ae_def: dict, data_dir: Path, run_dir: Path,
+                  extra: list[str]) -> dict:
+    """The training entry point for 2 epochs at the flagship config, with the
+    launch counts, the losses, the parameters and the checkpoints checked."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+
+    cfg = json.loads(CONFIG.read_text())
+    cfg["data_base_dir"], cfg["run_dir"] = str(data_dir), str(run_dir)
+    cfg_path = run_dir.parent / f"{run_dir.name}.json"
+    cfg_path.write_text(json.dumps(cfg))
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--max-epochs", str(TRAIN_EPOCHS), "--no-wandb",
+                         "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    train_steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    # forward-only passes: the eval steps and one train triplet panel per epoch
+    forward_only = TRAIN_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1)
+    want = {
+        "groupnorm_silu": GN_PER_RECONSTRUCT * (train_steps + forward_only),
+        "groupnorm_silu_bwd_reduce": GN_PER_RECONSTRUCT * train_steps,
+        "groupnorm_silu_bwd_dx": GN_PER_RECONSTRUCT * train_steps,
+        "flash_attention": FLASH_PER_RECONSTRUCT * (train_steps + forward_only),
+        "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
+    }
+    if result["total_step"] != train_steps or launches != want:
+        raise RuntimeError(f"training path: {result}, launches {launches}, expected {want}")
+
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss_total" in r]
+    val_rows = [r for r in rows if "val/loss_total" in r]
+    if len(train_rows) != train_steps or len(val_rows) != TRAIN_EPOCHS:
+        raise RuntimeError(f"metrics.jsonl: {len(train_rows)} train rows, {len(val_rows)} val rows")
+    for r in train_rows + val_rows:
+        bad = [k for k, v in r.items() if k.startswith(("train/", "val/")) and not np.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"non-finite losses {bad} in {r}")
+    split = json.loads((run_dir / "splits" / "vae_split.json").read_text())
+    if len(split["train_files"]) != TRAIN_STEPS_PER_EPOCH * BATCH or len(split["val_files"]) != BATCH:
+        raise RuntimeError("unexpected train/val split")
+
+    weights = run_dir / "trained_weights"
+    full = sorted(weights.glob("checkpoint_epoch*.pth"))
+    best = sorted(weights.glob("autoencoder_epoch*.pth"))
+    if len(full) != 1 or len(best) != 1 or not (weights / "autoencoder_last.pth").exists():
+        raise RuntimeError(f"checkpoints: {sorted(p.name for p in weights.iterdir())}")
+    last = torch.load(weights / "autoencoder_last.pth", map_location="cpu", weights_only=True)
+    torch.manual_seed(TRAIN_SEED)  # the trainer's own seeding of the parameter init
+    init = autoencoder_from_config(ae_def).state_dict()
+    stuck = [k for k, v in last.items() if not torch.isfinite(v).all() or torch.equal(v, init[k])]
+    if set(last) != set(init) or stuck:
+        raise RuntimeError(f"parameters not finite or not moved from their init: {stuck[:5]}")
+    run_config = json.loads((run_dir / "run_config.json").read_text())
+    return {
+        "wall_s": wall, "launches": launches, "total_step": result["total_step"],
+        "best_val_loss": result["best_val_loss"],
+        "first_train": {k: v for k, v in train_rows[0].items() if k.startswith("train/")},
+        "last_train": {k: v for k, v in train_rows[-1].items() if k.startswith("train/")},
+        "val": [{k: v for k, v in r.items() if k.startswith("val/")} for r in val_rows],
+        "perceptual_pretrained": run_config["perceptual_pretrained"],
+        "checkpoints": sorted(p.name for p in weights.iterdir()),
+        "best_checkpoint": str(best[0]),
+    }
+
+
+def train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Path) -> None:
+    """One f32 generator step (losses and gradients) on the card against the
+    CPU plain path, same weights, batch and eps; also the launch counts of
+    exactly one train step and one eval step."""
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _generator_losses, make_eval_step
+
+    torch.manual_seed(7)
+    cpu_model = autoencoder_from_config(ae_def)
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", memory_format=torch.channels_last)
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, perceptual_weight=1.0)
+    images = torch.from_numpy(np.stack([
+        preprocess_image_np(read_image(str(p)), (256, 256))
+        for p in sorted(data_dir.glob("*.tif"))[:2]]))
+    mask = torch.ones(2)
+    eps = torch.randn(2, 32, 32, ae_def["latent_channels"], generator=torch.Generator().manual_seed(8))
+
+    def one(model, device):
+        lp = init_lpips_params(0, device)
+        total, aux = _generator_losses(model, lcfg, lp, images.to(device), mask.to(device),
+                                       eps.to(device), None)
+        total.backward()
+        terms = {k: float(aux[k].detach()) for k in ("recon_loss", "kl_loss", "perceptual_loss")}
+        terms["loss_total"] = float(total.detach())
+        return terms, {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    kernels_mod.reset_launch_counts()
+    got_terms, got_grads = one(gpu_model, "cuda")
+    torch.cuda.synchronize()
+    per_train_step = kernels_mod.launch_counts()
+    want = dict(zip(KERNEL_NAMES, (GN_PER_RECONSTRUCT,) * 3 + (FLASH_PER_RECONSTRUCT,) * 2))
+    if per_train_step != want:
+        raise RuntimeError(f"one train step launched {per_train_step}, expected {want}")
+    kernels_mod.reset_launch_counts()
+    make_eval_step(gpu_model, None, lcfg, adv_active=False)(
+        None, images.cuda(), mask.cuda(), None, init_lpips_params(0, "cuda"), eps=eps.cuda())
+    per_eval_step = kernels_mod.launch_counts()
+    want_eval = dict.fromkeys(KERNEL_NAMES, 0)
+    want_eval.update(groupnorm_silu=GN_PER_RECONSTRUCT, flash_attention=FLASH_PER_RECONSTRUCT)
+    if per_eval_step != want_eval:
+        raise RuntimeError(f"one eval step launched {per_eval_step}, expected {want_eval}")
+
+    want_terms, want_grads = one(cpu_model, "cpu")
+    term_err = {k: abs(got_terms[k] - v) / abs(v) for k, v in want_terms.items()}
+    grad_err = {}
+    for key, ref in want_grads.items():
+        scale = float(ref.abs().max())
+        err = float((got_grads[key] - ref).abs().max())
+        # a key projection's bias has gradient 0 in exact arithmetic (softmax is
+        # invariant to a constant along the keys): both sides hold rounding noise
+        grad_err[key] = err if key.endswith("to_k.bias") else err / scale
+    worst = max(grad_err, key=grad_err.get)
+    emit("train_reference", batch=2, terms_card=got_terms, terms_cpu=want_terms,
+         max_term_rel_err=max(term_err.values()), term_bar=1e-4,
+         max_grad_err_of_tensor_max=grad_err[worst], worst_tensor=worst, grad_bar=GRAD_BAR,
+         launches_per_train_step=per_train_step, launches_per_eval_step=per_eval_step)
+    if not max(term_err.values()) <= 1e-4:
+        raise RuntimeError(f"f32 CUDA loss terms differ from the CPU plain path: {term_err}")
+    if not grad_err[worst] <= GRAD_BAR:
+        raise RuntimeError(f"f32 CUDA gradient {worst} differs from the CPU plain path by "
+                           f"{grad_err[worst]} of its largest entry")
+
+
+def time_train_step(torch, ae_def: dict, flush, exact: bool) -> dict:
+    """Event ms, device ms and the device ms by kind of one b8 train step at
+    256²; the LPIPS share is the device ms a step without the perceptual term
+    saves."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+    from pti_ldm_vae_tpu_torch.utils.cli_common import enable_parity_numerics
+
+    if exact:
+        enable_parity_numerics()
+    torch.manual_seed(3)
+    torch.cuda.reset_peak_memory_stats()
+    dtype = torch.float32 if exact else torch.bfloat16
+    model = autoencoder_from_config(ae_def, compute_dtype=dtype).to(
+        device="cuda", memory_format=torch.channels_last)
+    state = create_train_state(model, lr=2.5e-5)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
+    mask = torch.ones(BATCH, device="cuda")
+    lp = init_lpips_params(0, "cuda")
+    out = {}
+    for name, lcfg in (("full", LossConfig()), ("no_lpips", LossConfig(use_perceptual=False))):
+        step = make_train_step(model, None, lcfg, adv_active=False)
+        out[name] = time_ms(lambda: step(state, x, mask, None, lp, generator=gen), flush,
+                            iters=6, warmup=3)
+    full = out["full"]
+    kinds = device_ms_by_kind(full["by_name"])
+    kinds["lpips_by_difference"] = full["device_ms"] - out["no_lpips"]["device_ms"]
+    return {"dtype": dtype_key(dtype), "event_ms": full["event_ms"], "device_ms": full["device_ms"],
+            "imgs_per_s": BATCH * 1e3 / full["event_ms"],
+            "device_idle_share": 1.0 - full["device_ms"] / full["event_ms"],
+            "event_ms_no_lpips": out["no_lpips"]["event_ms"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_ms_by_kind": kinds}
 
 
 def main() -> int:
@@ -295,19 +571,19 @@ def main() -> int:
     # 2. build
     from pti_ldm_vae_tpu_torch.ops import kernels as kernels_mod
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import SOURCES
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _triton_kernels
 
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention.cu")
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    libs = _build.build_all(SOURCES)
     import triton
 
     _triton_kernels()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
-         triton=triton.__version__, ptxas=ptxas[-8:])
+    emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=[p.name for p in libs],
+         triton=triton.__version__,
+         ptxas={p.name: ptxas_report(p.with_suffix(".log")) for p in libs})
 
-    # 3. kernel checks at the path's shapes
+    # 3. kernel checks at the paths' shapes
     from pti_ldm_vae_tpu_torch.config import load_config
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
 
@@ -316,10 +592,11 @@ def main() -> int:
     if sum(n for _, n in gn_shapes) != GN_PER_RECONSTRUCT:
         raise RuntimeError(f"GroupNorm+SiLU shapes {gn_shapes} do not add up to {GN_PER_RECONSTRUCT}")
     errs = check_kernels(torch, gn_shapes, kernels_mod)
+    torch.cuda.empty_cache()
 
-    # 4. main path through the CLI
+    # 4. inference main path through the CLI
     shutil.rmtree(WORK, ignore_errors=True)
-    write_inputs(np, WORK / "data" / "dente")
+    write_inputs(np, WORK / "data" / "dente", N_IMAGES)
     ckpt = WORK / "vae_flagship_random.pth"
     make_weights(torch, ae_def, ckpt)
     cli = ["-c", str(CONFIG), "--checkpoint", str(ckpt), "--input-dir", str(WORK / "data"),
@@ -345,33 +622,66 @@ def main() -> int:
     if not err_f32 <= 1e-3:
         raise RuntimeError(f"f32 CUDA reconstruction differs from the CPU plain path by {err_f32}")
 
-    # 5. timing
+    # 5. training main path through the CLI
+    train_data = WORK / "train_data"
+    write_inputs(np, train_data / "dente", TRAIN_IMAGES)
+    train = {}
+    for key, extra in (("bfloat16", []), ("float32", ["--f32"])):
+        train[key] = run_train_cli(torch, np, kernels_mod, ae_def, train_data,
+                                   WORK / f"run_{key}", extra)
+        emit("train_path", dtype=key, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, epochs=TRAIN_EPOCHS,
+             **train[key])
+    reloaded = run_cli(
+        torch, np, kernels_mod,
+        ["-c", str(CONFIG), "--checkpoint", train["bfloat16"]["best_checkpoint"], "--input-dir",
+         str(WORK / "data"), "--batch-size", str(BATCH), "--num-workers", "4", "--num-samples", "8"],
+        WORK / "out_trained", n_images=8)
+    emit("train_reload", checkpoint=Path(train["bfloat16"]["best_checkpoint"]).name,
+         images=8, launches=reloaded["launches"])
+
+    # 6. one f32 train step on the card against the CPU plain path
+    train_reference_check(torch, np, kernels_mod, ae_def, train_data / "dente")
+    torch.cuda.empty_cache()
+
+    # 7. timing
     import torch.nn.functional as F
 
-    from pti_ldm_vae_tpu_torch.ops.kernels import flash_attention_plain, groupnorm_silu_plain
+    from pti_ldm_vae_tpu_torch.ops.kernels import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+        groupnorm_silu_bwd_plain,
+        groupnorm_silu_plain,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_backward as flash_backward
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_forward as flash_forward
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_backward as gn_backward
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_forward as gn_forward
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
     flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rows = {"groupnorm_silu": [], "flash_attention": []}
+    rows: dict[str, list] = {name: [] for name in KERNEL_NAMES}
 
     def timed(prefix: str, fn) -> dict[str, float]:
         t = time_ms(fn, flush)
         return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
 
     for dtype in (torch.bfloat16, torch.float32):
-        key = str(dtype).split(".")[1]
+        key = dtype_key(dtype)
         for shape, n in gn_shapes:
             c = shape[-1]
             x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             scale = torch.ones(c, device="cuda")
             bias = torch.zeros(c, device="cuda")
+            nbytes = x.numel() * x.element_size()
+            head = {"shape": list(shape), "dtype": key, "per_pass": n}
+            # forward: ~8 f32 operations per element (two for the sums, one
+            # multiply-add, the SiLU's exp, add and divide)
             x_nchw = x.permute(0, 3, 1, 2)
-            # ~8 f32 operations per element: two for the sums, one multiply-add,
-            # the SiLU's exp, add and divide
-            bound_ms, bound_by = bound(8 * x.numel(), "float32", 2 * x.numel() * x.element_size())
+            bound_ms, bound_by = bound(8 * x.numel(), "float32", 2 * nbytes)
             row = {
-                "shape": list(shape), "dtype": key, "per_reconstruct": n,
+                **head,
                 **timed("", lambda: kernels_mod.groupnorm_silu(x, scale, bias, 16, 1e-6)),
                 **timed("plain_", lambda: groupnorm_silu_plain(x, scale, bias, 16, 1e-6)),
                 **timed("library_", lambda: F.silu(F.group_norm(
@@ -380,12 +690,40 @@ def main() -> int:
             }
             rows["groupnorm_silu"].append(row)
             emit("time_groupnorm_silu", **row)
+
+            # backward: one call launches the reduce and the dx kernel (plus one
+            # small torch.sum); the plain version and the library call do the
+            # work of both kernels at once
+            _, mean_g, inv_g = gn_forward(x, scale, bias, 16, 1e-6, save_stats=True)
+            ours = time_ms(lambda: gn_backward(x, scale, bias, mean_g, inv_g, g, 16), flush)
+            plain = timed("plain_", lambda: groupnorm_silu_bwd_plain(
+                x, scale, bias, mean_g, inv_g, g, 16))
+            leaves = (x_nchw.detach().requires_grad_(), scale.to(dtype).requires_grad_(),
+                      bias.to(dtype).requires_grad_())
+            y_lib = F.silu(F.group_norm(leaves[0], 16, leaves[1], leaves[2], 1e-6))
+            g_nchw = g.permute(0, 3, 1, 2)
+            library = timed("library_", lambda: torch.autograd.grad(
+                y_lib, leaves, g_nchw, retain_graph=True))
+            del y_lib, leaves
+            # ~20 f32 operations per element in either kernel (xhat, n, the
+            # sigmoid's exp and divide, dn, the products and sums)
+            for name, word, passes in (("groupnorm_silu_bwd_reduce", "_bwd_reduce_kernel", 2),
+                                       ("groupnorm_silu_bwd_dx", "_bwd_dx_kernel", 3)):
+                bound_ms, bound_by = bound(20 * x.numel(), "float32", passes * nbytes)
+                row = {**head, "ms": named_ms(ours["by_name"], word),
+                       "call_device_ms": ours["device_ms"], "event_ms": ours["event_ms"],
+                       **plain, **library, "bound_ms": bound_ms, "bound_by": bound_by}
+                rows[name].append(row)
+                emit(f"time_{name}", **row)
+
         shape = (BATCH, 1, 1024, 128)
-        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
-        bound_ms, bound_by = bound(4 * shape[0] * shape[1] * shape[2] ** 2 * shape[3], key,
-                                   4 * q.numel() * q.element_size())
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        nbytes = q.numel() * q.element_size()
+        head = {"shape": list(shape), "dtype": key, "per_pass": FLASH_PER_RECONSTRUCT}
+        products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
+        bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
         row = {
-            "shape": list(shape), "dtype": key, "per_reconstruct": FLASH_PER_RECONSTRUCT,
+            **head,
             **timed("", lambda: kernels_mod.flash_attention(q, k, v)),
             **timed("plain_", lambda: flash_attention_plain(q, k, v)),
             **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -394,6 +732,24 @@ def main() -> int:
         rows["flash_attention"].append(row)
         emit("time_flash_attention", **row)
 
+        out, lse = flash_forward(q, k, v, save_lse=True)
+        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        out_lib = F.scaled_dot_product_attention(*leaves)
+        # five products; reads q, k, v, out, dO, writes dq, dk, dv
+        bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
+        ours = time_ms(lambda: flash_backward(q, k, v, out, lse, g), flush)
+        row = {
+            **head, "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+            "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
+                             ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")},
+            **timed("plain_", lambda: flash_attention_bwd_plain(q, k, v, g)),
+            **timed("library_", lambda: torch.autograd.grad(out_lib, leaves, g, retain_graph=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        del out_lib, leaves
+        rows["flash_attention_bwd"].append(row)
+        emit("time_flash_attention_bwd", **row)
+
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
 
     x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
@@ -401,37 +757,55 @@ def main() -> int:
         _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
                                          exact=exact)
         reconstruct = make_inference_fn(model)
-        t = time_ms(lambda: reconstruct(x), flush, iters=10)
+        t = time_ms(lambda: reconstruct(x), flush, iters=6)
         emit("reconstruct_b8", dtype="float32" if exact else "bfloat16",
-             imgs_per_s=BATCH * 1e3 / t["event_ms"], **t,
-             device_idle_share=1.0 - t["device_ms"] / t["event_ms"],
-             device_ms_by_kind=reconstruct_breakdown(torch, reconstruct, x))
+             imgs_per_s=BATCH * 1e3 / t["event_ms"], device_ms=t["device_ms"],
+             event_ms=t["event_ms"], device_idle_share=1.0 - t["device_ms"] / t["event_ms"],
+             device_ms_by_kind=device_ms_by_kind(t["by_name"]))
+        del model, reconstruct
+    torch.cuda.empty_cache()
+    for exact in (False, True):
+        emit("train_step_b8", **time_train_step(torch, ae_def, flush, exact))
+        torch.cuda.empty_cache()
 
-    # 6. kernels line, card line, result line
+    # 8. kernels line, card line, result line
     def totals(name: str) -> dict:
         bf = [r for r in rows[name] if r["dtype"] == "bfloat16"]
-        return {k: sum(r[k] * r["per_reconstruct"] for r in bf)
+        return {k: sum(r[k] * r["per_pass"] for r in bf)
                 for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
 
-    gn, fa = totals("groupnorm_silu"), totals("flash_attention")
-    kernels = [
-        {"name": "groupnorm_silu", "route": "triton",
-         "source": "pti_ldm_vae_tpu_torch/ops/kernels/groupnorm_silu.py",
-         "replaces": "pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py:121",
-         "launches": bf16["launches"]["groupnorm_silu"],
-         "max_abs_err": errs["groupnorm_silu"]["bfloat16"],
-         "max_abs_err_f32": errs["groupnorm_silu"]["float32"],
-         **gn, "bound_by": rows["groupnorm_silu"][0]["bound_by"],
-         "scope": "bf16, device ms summed over the 42 launches of one b8 reconstruct"},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "pti_ldm_vae_tpu/ops/pallas/flash_attention.py:65",
-         "launches": bf16["launches"]["flash_attention"],
-         "max_abs_err": errs["flash_attention"]["bfloat16"],
-         "max_abs_err_f32": errs["flash_attention"]["float32"],
-         **fa, "bound_by": rows["flash_attention"][0]["bound_by"],
-         "scope": "bf16, device ms summed over the 2 launches of one b8 reconstruct"},
-    ]
+    gn_source = "pti_ldm_vae_tpu_torch/ops/kernels/groupnorm_silu.py"
+    gn_pallas = "pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py"
+    fa_pallas = "pti_ldm_vae_tpu/ops/pallas/flash_attention.py"
+    both = ("; plain_ms and library_ms are the whole backward (reduce and dx together), "
+            "event_ms the whole backward call")
+    described = {
+        "groupnorm_silu": ("triton", gn_source, f"{gn_pallas}:121",
+                           "bf16, device ms summed over the 42 launches of one b8 pass"),
+        "groupnorm_silu_bwd_reduce": ("triton", gn_source, f"{gn_pallas}:221",
+                                      "bf16, device ms summed over the 42 launches of one b8 "
+                                      "train step" + both),
+        "groupnorm_silu_bwd_dx": ("triton", gn_source, f"{gn_pallas}:248",
+                                  "bf16, device ms summed over the 42 launches of one b8 "
+                                  "train step" + both),
+        "flash_attention": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
+                            f"{fa_pallas}:65",
+                            "bf16, device ms summed over the 2 launches of one b8 pass"),
+        "flash_attention_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
+                                f"{fa_pallas}:122",
+                                "bf16, device ms summed over the 2 launches of one b8 train step "
+                                "(each launch: delta, dk/dv and dq kernels)"),
+    }
+    kernels = []
+    for name, (route, source, replaces, scope) in described.items():
+        kernels.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": train["bfloat16"]["launches"][name],
+            "launches_by_path": {"inference_vae": bf16["launches"][name],
+                                 "train_vae": train["bfloat16"]["launches"][name]},
+            "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
+            **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
+        })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,15 +10,18 @@ Subpackages mirror the JAX package's layout, so each module has an obvious
 counterpart:
 
 - ``config``     JSON config loading with MONAI-compatible ``@ref`` resolution
-- ``data``       image IO (numpy TIFF/PNG), transforms, loader, factory
+- ``data``       image IO (numpy TIFF/PNG), transforms, split, loader, factories
 - ``ops``        norm / resize / attention ops; ``ops.kernels`` holds the
-                 hand-written Hopper kernels (Triton GroupNorm+SiLU, CUDA
-                 flash-attention forward), each beside its plain PyTorch version
-- ``models``     AutoencoderKL with MONAI parameter names
-- ``checkpoint`` Flax-tree / MONAI ``.pth`` -> state dict conversion
-- ``utils``      determinism, visualization, model loading, CLI plumbing
-- ``train``      inference function (training comes later)
-- ``cli``        entry points (``inference_vae``)
+                 hand-written Hopper kernels (Triton GroupNorm+SiLU forward and
+                 backward, CUDA flash-attention forward and backward), each
+                 beside its plain PyTorch version
+- ``models``     AutoencoderKL with MONAI parameter names; LPIPS (SqueezeNet)
+- ``losses``     KL, reconstruction and total-loss composition
+- ``checkpoint`` Flax-tree / MONAI ``.pth`` -> state dict conversion;
+                 best/last checkpoint manager (reference ``.pth`` layout)
+- ``utils``      determinism, visualization, logging, model loading, CLI plumbing
+- ``train``      train state, train / eval / inference steps, ``VAETrainer``
+- ``cli``        entry points (``inference_vae``, ``train_vae``)
 
 Entry points run on CUDA unless the caller passes ``--device cpu``; with no
 CUDA device and no explicit ``cpu`` they raise.

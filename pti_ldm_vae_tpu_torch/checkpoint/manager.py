@@ -1,0 +1,140 @@
+"""Best/last checkpoint bookkeeping on ``torch.save`` (counterpart of
+``pti_ldm_vae_tpu/checkpoint/orbax_io.py:CheckpointManager``).
+
+Reference behavior (``train_vae.py:675-769``):
+
+* every validation: overwrite ``autoencoder_last.pth``;
+* on val improvement: write ``autoencoder_epoch{N}.pth`` (MONAI-keyed state
+  dict) and the full ``checkpoint_epoch{N}.pth`` (``autoencoder_state_dict``,
+  ``optimizer_g_state_dict``, ``epoch``, ``best_val_loss``, ``total_step``),
+  then delete the previous best's files — the new best is on disk before the
+  old one goes;
+* resume restores the model, the optimizer, epoch, best val loss and step
+  from the newest ``checkpoint_epoch{N}.pth``.
+
+The files are the reference's own layout, so the inference CLI and
+``utils/vae_loader.py`` read them as they are. Every file is written to a
+temporary name and renamed, so a crash mid-write leaves the previous file
+intact. Writes are synchronous (the JAX package writes on a background
+thread; at this model's 4.6 M parameters a write is milliseconds). A failed
+write leaves a ``CHECKPOINT_WRITE_FAILED`` marker in the directory before the
+error propagates; the marker is reported at the next start and cleared by the
+next successful write.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+from typing import Any
+
+import torch
+
+from ..train.state import GanTrainState
+
+__all__ = ["CheckpointManager", "save_atomic"]
+
+_FULL = re.compile(r"^checkpoint_epoch(\d+)\.pth$")
+
+
+def save_atomic(payload: Any, path: str) -> None:
+    """``torch.save`` to ``path`` through a temporary file and a rename."""
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+class CheckpointManager:
+    """Best/last checkpoints of one run directory."""
+
+    def __init__(self, model_dir: str):
+        self.model_dir = os.path.abspath(model_dir)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self._sentinel = os.path.join(self.model_dir, "CHECKPOINT_WRITE_FAILED")
+        if os.path.exists(self._sentinel):
+            print(
+                f"[WARN] {self._sentinel} exists: the previous run's final checkpoint "
+                "write FAILED — on-disk best/last may be stale. The marker clears on "
+                "the next successful write.", file=sys.stderr, flush=True,
+            )
+        self.best_epoch_saved: int | None = None
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.model_dir, name)
+
+    def _write(self, payload: Any, name: str) -> None:
+        try:
+            save_atomic(payload, self._path(name))
+        except OSError as exc:
+            try:
+                with open(self._sentinel, "w", encoding="utf-8") as fh:
+                    fh.write(f"[ERROR] checkpoint write failed: {exc!r}\n")
+            except OSError:
+                pass  # the same full disk that failed the write
+            raise
+
+    def save_epoch(self, *, state: GanTrainState, epoch: int, val_loss: float,
+                   best_val_loss: float, total_step: int) -> float:
+        """One epoch's checkpoint work: overwrite ``last`` and, on val
+        improvement, write the per-epoch best + full resume state and delete
+        the previous best. Returns the new best val loss."""
+        model_sd = _cpu(state.model_g.state_dict())
+        self._write(model_sd, "autoencoder_last.pth")
+        if os.path.exists(self._sentinel):
+            os.remove(self._sentinel)  # a fresh write supersedes a stale failure marker
+        if not val_loss < best_val_loss:
+            return best_val_loss
+        self._write(model_sd, f"autoencoder_epoch{epoch}.pth")
+        self._write(
+            {
+                "autoencoder_state_dict": model_sd,
+                "optimizer_g_state_dict": _cpu(state.optimizer_g.state_dict()),
+                "epoch": int(epoch),
+                "best_val_loss": float(val_loss),
+                "total_step": int(total_step),
+            },
+            f"checkpoint_epoch{epoch}.pth",
+        )
+        prev_best, self.best_epoch_saved = self.best_epoch_saved, epoch
+        if prev_best is not None and prev_best != epoch:
+            for name in (f"checkpoint_epoch{prev_best}.pth", f"autoencoder_epoch{prev_best}.pth"):
+                if os.path.exists(self._path(name)):
+                    os.remove(self._path(name))
+        return float(val_loss)
+
+    def find_latest_full(self) -> str | None:
+        """The ``checkpoint_epoch{N}.pth`` of the highest N, if any."""
+        found = [(int(m.group(1)), name) for name in os.listdir(self.model_dir)
+                 if (m := _FULL.match(name))]
+        return self._path(max(found)[1]) if found else None
+
+    def restore(self, state: GanTrainState) -> dict[str, Any] | None:
+        """Load the newest full checkpoint into ``state`` (model, optimizer,
+        step) in place; returns ``{"epoch", "best_val_loss", "total_step"}``
+        or ``None`` when there is none."""
+        path = self.find_latest_full()
+        if path is None:
+            return None
+        device = next(state.model_g.parameters()).device
+        raw = torch.load(path, map_location=device, weights_only=True)
+        state.model_g.load_state_dict(raw["autoencoder_state_dict"], strict=True)
+        state.optimizer_g.load_state_dict(raw["optimizer_g_state_dict"])
+        meta = {
+            "epoch": int(raw["epoch"]),
+            "best_val_loss": float(raw.get("best_val_loss", 100.0)),
+            "total_step": int(raw.get("total_step", 0)),
+        }
+        state.step = meta["total_step"]
+        self.best_epoch_saved = meta["epoch"]
+        return meta

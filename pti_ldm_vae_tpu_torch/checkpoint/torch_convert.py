@@ -14,6 +14,10 @@ Counterpart of ``pti_ldm_vae_tpu/checkpoint/torch_convert.py``. The port's
 Both return a state dict that ``AutoencoderKL.load_state_dict(...,
 strict=True)`` takes. :func:`monai_layout` is the port's own copy of the key
 layout (MONAI 1.5.1, documented in ``docs/MONAI_NOTES.md``).
+
+:func:`lpips_params_from_jax` carries the JAX package's LPIPS parameter tree
+across (HWIO conv kernels -> OIHW), and :func:`lpips_params_from_npz` reads
+the ``.npz`` file of converted pretrained weights that both packages load.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["monai_layout", "state_dict_from_flax", "monai_state_dict"]
+__all__ = ["monai_layout", "state_dict_from_flax", "monai_state_dict",
+           "lpips_params_from_jax", "lpips_params_from_npz"]
 
 
 def _levels(config: dict) -> tuple[list[int], list[int], list[bool]]:
@@ -166,3 +171,34 @@ def monai_state_dict(payload: dict[str, Any]) -> dict[str, torch.Tensor]:
             sd[f"{prefix}.{name}.weight"] = w[i * c:(i + 1) * c].clone()
             sd[f"{prefix}.{name}.bias"] = b[i * c:(i + 1) * c].clone()
     return sd
+
+
+def lpips_params_from_jax(tree: dict[str, Any]) -> dict[str, Any]:
+    """The JAX package's LPIPS tree (numpy leaves; ``conv0``,
+    ``fire{i}/{squeeze,expand1,expand3}`` with HWIO ``w`` and ``b``,
+    ``lin{i}/w``, ``_pretrained``) -> the port's LPIPS parameters: the same
+    nesting, f32 tensors, conv kernels OIHW."""
+    out: dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = lpips_params_from_jax(value)
+        else:
+            a = np.asarray(value, dtype=np.float32)
+            out[key] = _tensor(np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a)
+    return out
+
+
+def lpips_params_from_npz(path: str) -> dict[str, Any]:
+    """LPIPS parameters from a converted-weights ``.npz`` (flat keys
+    ``conv0/w``, ``fire0/squeeze/b``, ``lin0/w``, ...; HWIO kernels), marked
+    pretrained."""
+    tree: dict[str, Any] = {}
+    with np.load(path) as raw:
+        for key in raw.files:
+            parts = key.split("/")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = raw[key]
+    tree["_pretrained"] = np.ones((), dtype=np.float32)
+    return lpips_params_from_jax(tree)

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel pti_ldm_vae_tpu/ops/pallas/flash_attention.py
 // (_forward, body _kernel): softmax(q k^T * d^-0.5) v over [B, H, S, D]
 // tensors, self-attention only (k and v have q's length S), online softmax
-// with the running max and sum in f32.
+// with the running max and sum in f32. When the caller passes a buffer it also
+// writes each row's logsumexp of the scaled scores, lse = m + log(l), [B*H, S]
+// f32, which the backward (flash_attention_bwd.cu) reads to recompute p.
 //
 // Bound on an H100: at the VAE bottleneck ([8, 1, 1024, 128]) one call does
 // 4*B*H*S^2*D = 4.3 GFLOP on 8 MB of bf16 inputs, ~540 FLOP per byte, so the
@@ -59,7 +61,7 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int s, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int s, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kPadK = D + 1;        // odd row stride: column reads hit distinct banks
   constexpr int kPadP = kBlockK + 1;
@@ -191,13 +193,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         out[base + static_cast<size_t>(row) * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+      if (lse != nullptr && tx == 0)
+        lse[static_cast<size_t>(blockIdx.y) * s + row] = row_m[ty * 4 + i] + logf(row_l[ty * 4 + i]);
     }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh, int s,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                   int s, float scale, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -205,33 +209,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, scale);
+      static_cast<T*>(out), lse, s, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int bh, int s,
-                     int d, float scale, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                     int s, int d, float scale, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, bh, s, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, bh, s, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, bh, s, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, bh, s, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, bh, s, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, bh, s, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, bh, s, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, bh, s, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, out: contiguous [bh, s, d].
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, out: contiguous [bh, s, d]; lse: null or
+// contiguous f32 [bh, s].
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int bh, int s, int d, int dtype, float scale, void* stream) {
+                                   void* lse, int bh, int s, int d, int dtype, float scale,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* const lse_f = static_cast<float*>(lse);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(q, k, v, out, bh, s, d, scale, st);
+    err = dispatch<float>(q, k, v, out, lse_f, bh, s, d, scale, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(q, k, v, out, bh, s, d, scale, st);
+    err = dispatch<__nv_bfloat16>(q, k, v, out, lse_f, bh, s, d, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

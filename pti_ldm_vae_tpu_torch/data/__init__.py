@@ -1,11 +1,12 @@
-from .datasets import list_tif_paths
-from .factory import create_vae_inference_dataloader
+from .datasets import list_tif_paths, split_dataset
+from .factory import create_vae_dataloaders, create_vae_inference_dataloader
 from .io import read_image, write_png, write_tif
 from .loader import ShardedDataLoader, shard_indices
 from .transforms import local_normalize_by_mask_np, preprocess_image_np, resize_area_np
 
 __all__ = [
     "ShardedDataLoader",
+    "create_vae_dataloaders",
     "create_vae_inference_dataloader",
     "list_tif_paths",
     "local_normalize_by_mask_np",
@@ -13,6 +14,7 @@ __all__ = [
     "read_image",
     "resize_area_np",
     "shard_indices",
+    "split_dataset",
     "write_png",
     "write_tif",
 ]

@@ -1,12 +1,53 @@
-"""Loader factory for inference (counterpart of
-``pti_ldm_vae_tpu/data/factory.py:create_vae_inference_dataloader``)."""
+"""Loader factories (counterpart of ``pti_ldm_vae_tpu/data/factory.py``:
+``create_vae_dataloaders``, ``create_vae_inference_dataloader``)."""
 
 from __future__ import annotations
 
-from .datasets import list_tif_paths
+from typing import Any
+
+from .datasets import list_tif_paths, split_dataset
 from .loader import ShardedDataLoader
 
-__all__ = ["create_vae_inference_dataloader"]
+__all__ = ["create_vae_dataloaders", "create_vae_inference_dataloader"]
+
+
+def create_vae_dataloaders(
+    data_base_dir: str,
+    batch_size: int,
+    patch_size: tuple[int, int],
+    *,
+    rank: int = 0,
+    data_source: str = "edente",
+    train_split: float = 0.9,
+    num_workers: int = 4,
+    seed: int | None = 42,
+    subset_size: int | None = None,
+    val_dir: str | None = None,
+    cache_rate: float = 0.0,
+    world_size: int = 1,
+    ar_vae_enabled: bool = False,
+    regularized_attributes: dict[str, Any] | None = None,
+) -> tuple[ShardedDataLoader, ShardedDataLoader, list[str], list[str]]:
+    """Returns (train_loader, val_loader, train_paths, val_paths) — reference
+    ``create_vae_dataloaders`` contract (``dataloaders.py:370-593``). The
+    AR-VAE attribute branch is not ported yet and raises."""
+    if ar_vae_enabled:
+        raise NotImplementedError(
+            "AR-VAE attribute loading is not ported yet (it comes with losses/ar_vae.py)")
+    del regularized_attributes
+    paths = list_tif_paths(data_base_dir, data_source)
+    if subset_size is not None:
+        paths = paths[:subset_size]
+    val_override = list_tif_paths(val_dir, data_source) if val_dir is not None else None
+    train_paths, val_paths = split_dataset(
+        paths, train_split=train_split, seed=seed, val_paths_override=val_override)
+    common = dict(seed=seed, rank=rank, world=world_size, num_workers=num_workers)
+    train_loader = ShardedDataLoader(train_paths, patch_size, batch_size, shuffle=True,
+                                     cache_rate=cache_rate, **common)
+    # validation is always fully cached in the reference (``dataloaders.py:524``)
+    val_loader = ShardedDataLoader(val_paths, patch_size, batch_size, shuffle=False,
+                                   cache_rate=1.0 if cache_rate > 0 else 0.0, **common)
+    return train_loader, val_loader, train_paths, val_paths
 
 
 def create_vae_inference_dataloader(

@@ -1,11 +1,18 @@
-"""Host data pipeline: threaded decode/transform, static batch shapes, prefetch.
+"""Host data pipeline: threaded decode/transform, RAM cache, sharding,
+static batch shapes, prefetch.
 
-Counterpart of ``pti_ldm_vae_tpu/data/loader.py`` for inference (Python
-decode path; the native fused TIFF decoder, shuffling, caching and
-multi-host sharding of the loader come with training). Batches are numpy
-dicts ``{"image": [B,H,W,1] f32, "mask": [B] f32}``: the final partial batch
-is zero-padded to ``batch_size`` with a per-sample validity mask, exactly as
-the JAX loader does, and a background thread keeps two batches prefetched.
+Counterpart of ``pti_ldm_vae_tpu/data/loader.py`` (Python decode path; the
+native fused TIFF decoder is not ported):
+
+* optional RAM cache of transformed samples (``cache_rate``: the first
+  fraction of the dataset is cached),
+* DistributedSampler-style index schedule (``shard_indices``): per-epoch
+  seeded shuffle, pad by wrapping, ``rank::world`` interleave,
+* batches are numpy dicts ``{"image": [B,H,W,1] f32, "mask": [B] f32}``: the
+  final partial batch is zero-padded to ``batch_size`` with a per-sample
+  validity mask (or dropped with ``drop_last``), exactly as the JAX loader
+  does, and a background thread keeps two batches prefetched.
+
 Device placement is the caller's job.
 """
 
@@ -42,24 +49,46 @@ def shard_indices(
 
 
 class ShardedDataLoader:
-    """Iterable over preprocessed, statically-shaped batches, in path order."""
+    """Iterable over preprocessed, statically-shaped batches."""
 
     def __init__(self, paths: list[str], patch_size: tuple[int, int], batch_size: int, *,
-                 num_workers: int = 8):
+                 shuffle: bool = False, seed: int | None = 42, rank: int = 0, world: int = 1,
+                 cache_rate: float = 0.0, num_workers: int = 8, drop_last: bool = False):
+        if not 0.0 <= cache_rate <= 1.0:
+            raise ValueError(f"cache_rate must be in [0, 1], got {cache_rate}")
         self.paths = list(paths)
         self.patch_size = tuple(patch_size)
         self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed if seed is not None else 0
+        self.rank = rank
+        self.world = world
+        self.drop_last = drop_last
+        self.epoch = 0
+        self._cache: dict[int, np.ndarray] = {}
+        self._cache_limit = int(cache_rate * len(self.paths))
         self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
 
     def close(self) -> None:
         """Stop the decode threads."""
         self._pool.shutdown(wait=True)
 
+    def set_epoch(self, epoch: int) -> None:
+        """Reference ``train_loader.sampler.set_epoch`` parity: the shuffle
+        of the next iteration is seeded with ``seed + epoch``."""
+        self.epoch = epoch
+
     def __len__(self) -> int:
-        return -(-len(self.paths) // self.batch_size)
+        n = len(shard_indices(len(self.paths), rank=self.rank, world=self.world))
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _sample(self, idx: int) -> np.ndarray:
-        return preprocess_image_np(read_image(self.paths[idx]), self.patch_size)
+        if idx in self._cache:
+            return self._cache[idx]
+        img = preprocess_image_np(read_image(self.paths[idx]), self.patch_size)
+        if idx < self._cache_limit:
+            self._cache[idx] = img
+        return img
 
     def _make_batch(self, idx_chunk: np.ndarray) -> dict[str, Any]:
         images = list(self._pool.map(self._sample, [int(i) for i in idx_chunk]))
@@ -72,9 +101,13 @@ class ShardedDataLoader:
         return {"image": batch, "mask": mask}
 
     def _batches(self) -> Iterator[dict[str, Any]]:
-        idx = shard_indices(len(self.paths))
-        for start in range(0, len(idx), self.batch_size):
+        idx = shard_indices(len(self.paths), rank=self.rank, world=self.world,
+                            shuffle=self.shuffle, seed=self.seed, epoch=self.epoch)
+        end = len(idx) // self.batch_size * self.batch_size
+        for start in range(0, end, self.batch_size):
             yield self._make_batch(idx[start : start + self.batch_size])
+        if not self.drop_last and end < len(idx):
+            yield self._make_batch(idx[end:])
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         """Iterate with a depth-2 background prefetch."""

@@ -22,10 +22,10 @@ Tensors between blocks are channel-last ([B, H, W, C], the JAX package's
 layout and the model's I/O layout). A convolution views its input as NCHW
 (a free permute of channel-last memory, i.e. ``torch.channels_last``), which
 cuDNN prefers on Hopper, and hands back the channel-last view of its output.
-Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernel and every
-attention through the flash-attention kernel (``ops/kernels``). Compute
-dtype: parameters stay f32, activations run in ``compute_dtype`` (bf16 on
-the accelerator by default).
+Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernels and every
+attention through the flash-attention kernels (``ops/kernels``), forward and
+backward. Compute dtype: parameters stay f32, activations run in
+``compute_dtype`` (bf16 on the accelerator by default).
 """
 
 from __future__ import annotations
@@ -236,9 +236,10 @@ class AutoencoderKL(nn.Module):
     * ``decode(z)`` / ``decode_stage_2_outputs(z)`` -> reconstruction
     * ``reconstruct_deterministic(x)`` -> decode(z_mu)
 
-    ``remat`` is accepted for config parity and is inert: it only matters to
-    a backward pass. ``s2d_stem`` ``"auto"`` and ``False`` take the standard
-    path; the space-to-depth forms are not ported yet.
+    ``remat`` is accepted for config parity and is inert here: activation
+    checkpointing is not ported, inference does not need it, and the trainer
+    refuses a config that sets it. ``s2d_stem`` ``"auto"`` and ``False`` take
+    the standard path; the space-to-depth forms are not ported yet.
     """
 
     def __init__(

@@ -1,8 +1,9 @@
 """Multi-head self-attention over projected token tensors (counterpart of
 ``pti_ldm_vae_tpu/ops/attention.py``).
 
-Every call goes through the flash-attention forward kernel on CUDA
-(``ops/kernels/flash_attention.py``), whose plain version runs on the CPU.
+Every call goes through the flash-attention kernels on CUDA, forward and
+backward (``ops/kernels/flash_attention.py``), whose plain versions run on
+the CPU.
 """
 
 from __future__ import annotations

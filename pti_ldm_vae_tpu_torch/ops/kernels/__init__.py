@@ -1,30 +1,50 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-- ``groupnorm_silu``: Triton GroupNorm+SiLU forward (replaces
-  ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py:_forward``)
-- ``flash_attention``: CUDA C++ flash-attention forward, ``csrc/flash_attention.cu``
-  (replaces ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py:_forward``)
+- ``groupnorm_silu``: Triton GroupNorm+SiLU forward, backward reduce and
+  backward dx (replace ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``:
+  ``_forward`` and the two kernels of ``_bwd_pallas``)
+- ``flash_attention``: CUDA C++ flash-attention forward and backward,
+  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (replace
+  ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward`` and
+  ``_bwd_pallas``)
 
-Each wrapper launches its kernel for CUDA tensors and counts the launch in
-``<wrapper>.launches``; for CPU tensors it runs the plain version.
+Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
+kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
+plain versions. ``launch_counts()`` reads the five counts by kernel name,
+``reset_launch_counts()`` sets them to 0.
 """
 
-from .flash_attention import flash_attention, flash_attention_plain
-from .groupnorm_silu import groupnorm_silu, groupnorm_silu_plain
+from .flash_attention import flash_attention, flash_attention_bwd_plain, flash_attention_plain
+from .groupnorm_silu import groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain
 
-KERNELS = (groupnorm_silu, flash_attention)
+# kernel name -> (wrapper, the attribute that counts its launches)
+COUNTERS = {
+    "groupnorm_silu": (groupnorm_silu, "launches"),
+    "groupnorm_silu_bwd_reduce": (groupnorm_silu, "bwd_reduce_launches"),
+    "groupnorm_silu_bwd_dx": (groupnorm_silu, "bwd_dx_launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention, "bwd_launches"),
+}
 
 __all__ = [
-    "KERNELS",
+    "COUNTERS",
     "flash_attention",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
     "groupnorm_silu",
+    "groupnorm_silu_bwd_plain",
     "groupnorm_silu_plain",
+    "launch_counts",
     "reset_launch_counts",
 ]
 
 
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel since the last reset, by kernel name."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for kernel in KERNELS:
-        kernel.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)

@@ -19,9 +19,10 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "library_path", "build", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "library_path", "build", "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -68,6 +69,12 @@ def build(source: str) -> Path:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(sources: tuple[str, ...] | list[str]) -> list[Path]:
+    """Compile several sources at once, one nvcc process each; returns their paths."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -1,19 +1,31 @@
-"""Flash-attention forward: hand-written CUDA kernel + its plain PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels beside
+their plain PyTorch versions, bound to autograd.
 
-Replaces ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py`` (``_forward``,
-body ``_kernel``): ``softmax(q k^T * d^-0.5) v`` over ``[B, H, S, D]``
-tensors, self-attention only, softmax statistics in f32.
+Replaces ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward``
+(body ``_kernel``), ``softmax(q k^T * d^-0.5) v`` over ``[B, H, S, D]``
+tensors, self-attention only, softmax statistics in f32; and ``_bwd_pallas``
+(body ``_bwd_kernel``), which recomputes ``p`` and gives ``dv = p^T g``,
+``dp = g v^T``, ``ds = p * (dp - rowsum(dp * p))``, ``dq = ds k * d^-0.5``,
+``dk = ds^T q * d^-0.5``.
 
-Kernel: ``csrc/flash_attention.cu``, built with nvcc for ``sm_90a`` into a
-shared library and called through ctypes (see that file for the design). On
-the VAE's main path it runs twice per reconstruct (encoder and decoder mid
-blocks) at ``[B, 1, 1024, 128]``: 4.3 GFLOP per call at B=8, ~540 FLOP per
-input byte in bf16, so its bound on an H100 is arithmetic. This first kernel
-does its products with f32 FMAs, not the tensor cores.
+Kernels: ``csrc/flash_attention.cu`` (forward; it also writes the row
+logsumexp ``[B, H, S]`` f32 when a backward will follow) and
+``csrc/flash_attention_bwd.cu`` (a tiled backward in three launches: the
+``delta = rowsum(dO * O)`` pre-pass, one kernel for ``dk`` and ``dv``, one for
+``dq``; no float atomics, so gradients are bit-identical run to run), built
+with nvcc for ``sm_90a`` into shared libraries and called through ctypes (see
+those files for the designs). On the VAE's main path attention runs twice
+per step (encoder and decoder mid blocks) at ``[B, 1, 1024, 128]``: 4.3 GFLOP
+forward and 10.7 GFLOP backward per call at B=8, hundreds of FLOP per input
+byte, so the bound on an H100 is arithmetic. These first kernels do their
+products with f32 FMAs, not the tensor cores, and keep ``p`` and ``ds`` in
+f32 (the TPU backward rounds them to the input dtype before its products).
 
-``flash_attention`` launches the kernel for CUDA tensors (or raises) and runs
-the plain version for CPU tensors; nothing falls back from one to the other.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention`` launches the kernels for CUDA tensors (or raises) and
+runs the plain versions, forward and backward formula, for CPU tensors;
+nothing falls back from one to the other. ``flash_attention.launches`` counts
+forward launches, ``flash_attention.bwd_launches`` backward calls that
+launched the backward kernels.
 """
 
 from __future__ import annotations
@@ -23,29 +35,60 @@ import functools
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "SUPPORTED_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
+           "SUPPORTED_HEAD_DIMS", "SOURCES"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCE = "flash_attention.cu"
+_FWD_SOURCE = "flash_attention.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
+SOURCES = (_FWD_SOURCE, _BWD_SOURCE)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32 scores, f32 softmax, f32
-    weighted sum, result in the input dtype."""
+    """Plain PyTorch version of the forward kernel: f32 scores, f32 softmax,
+    f32 weighted sum, result in the input dtype."""
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(scores, dim=-1)
     return torch.matmul(weights, v.float()).to(q.dtype)
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` for the
+    upstream gradient ``g``, by the formulas in the module docstring with
+    everything in f32, results in the input dtypes."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _forward_library() -> ctypes.CDLL:
     from ._build import load
 
-    lib = load(_SOURCE)
+    lib = load(_FWD_SOURCE)
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load(_BWD_SOURCE)
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -61,33 +104,94 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention takes contiguous q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("flash_attention has no backward kernel yet")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Softmax attention over [B, H, S, D] tensors: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+def _launch_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The forward launch on CUDA tensors: (out, lse [B, H, S] f32 or None)."""
     _check(q, k, v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32) if save_lse else None
     if q.numel() == 0:
-        return out
-    lib = _library()
+        return out, lse
+    lib = _forward_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if save_lse else None,
             b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _launch_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward launches on CUDA tensors: (dq, dk, dv)."""
+    _check(q, k, v)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"upstream gradient {tuple(g.shape)} on {g.device} does not match q")
+    g = g.to(q.dtype).contiguous()  # autograd often hands over a strided view
+    b, h, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward and backward through the kernels (CUDA) or their plain versions (CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            out = flash_attention_plain(q, k, v)
+            ctx.save_for_backward(q, k, v)
+        else:
+            out, lse = _launch_forward(q, k, v, save_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.device.type == "cpu":
+            return flash_attention_bwd_plain(*ctx.saved_tensors, g)
+        return _launch_backward(*ctx.saved_tensors, g)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over [B, H, S, D] tensors, differentiable in q, k and
+    v: the CUDA kernels for CUDA tensors, the plain versions for CPU tensors.
+    With no gradient wanted nothing is saved and no logsumexp is written."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cuda":
+            _check(q, k, v)
+        return _FlashAttention.apply(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    return _launch_forward(q, k, v, save_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -5,9 +5,10 @@
 
 with mean/var over each group's (spatial, C/G) slab, biased variance
 (``torch.nn.GroupNorm`` semantics), statistics in f32 whatever the input
-dtype. ``group_norm_silu`` sends every call through the hand-written
-GroupNorm+SiLU kernel on CUDA (``ops/kernels/groupnorm_silu.py``), whose
-plain version runs on the CPU.
+dtype. ``group_norm_silu`` sends every call, forward and backward, through
+the hand-written GroupNorm+SiLU kernels on CUDA
+(``ops/kernels/groupnorm_silu.py``), whose plain versions run on the CPU.
+``group_norm`` is plain tensor code and differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -61,9 +62,10 @@ def group_norm_silu(
 ) -> torch.Tensor:
     """Fused GroupNorm + SiLU on an NHWC tensor.
 
-    ``"one_pass"`` statistics go through the GroupNorm+SiLU kernel (its plain
-    version on the CPU). The kernel computes one-pass statistics only, so
-    ``"two_pass"`` runs plain on the CPU and raises on CUDA."""
+    ``"one_pass"`` statistics go through the GroupNorm+SiLU kernels (their
+    plain versions on the CPU), forward and backward. The kernels compute
+    one-pass statistics only, so ``"two_pass"`` runs plain on the CPU (under
+    autograd) and raises on CUDA."""
     if stats == "one_pass":
         return groupnorm_silu(x.contiguous(), scale, bias, num_groups, eps)
     if x.device.type != "cpu":

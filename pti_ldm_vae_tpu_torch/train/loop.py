@@ -1,0 +1,363 @@
+"""VAE training orchestration — the ``train_vae`` workload (counterpart of
+``pti_ldm_vae_tpu/train/loop.py``).
+
+Behavioral equivalent of the reference script (``vae_scripts/train_vae.py``):
+config -> loaders -> model/optimizer -> epoch loop with per-epoch validation,
+last/best checkpointing, metric logging, validation triplet dumps, resume.
+
+* one device, no mesh: the batch goes to the trainer's device as it is;
+* bf16 compute / f32 parameters and Adam state by default on CUDA, f32 on the
+  CPU or when ``mixed_precision=False``;
+* metrics stay on the device during an epoch and are read after it: a host
+  read per step would stall the launch queue;
+* the host loader's prefetch overlaps IO with device compute.
+
+Not ported yet, and raising when configured: the adversarial branch
+(``adv_enabled: true``), AR-VAE, ``parallelism``, ``remat``, the
+space-to-depth stem (``s2d_stem`` other than false / "auto", which takes the
+standard path), resuming from a reference full checkpoint file
+(``checkpoint_dir`` pointing at a ``.pth``), profiler tracing.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..checkpoint.manager import CheckpointManager
+from ..config import resolve_bool
+from ..data.factory import create_vae_dataloaders
+from ..data.io import write_tif
+from ..losses.composite import compute_total_loss
+from ..models.autoencoder_kl import autoencoder_from_config
+from ..models.lpips import load_lpips_params, lpips_is_pretrained
+from ..ops.norm import DEFAULT_NORM_STATS
+from ..utils.determinism import set_determinism
+from ..utils.logging import MetricLogger, init_wandb_config
+from ..utils.visualization import normalize_batch_for_display
+from .state import create_train_state
+from .steps import LossConfig, make_eval_step, make_inference_fn, make_train_step
+
+__all__ = ["VAETrainer", "resolve_ar_settings"]
+
+
+def resolve_ar_settings(cfg: dict[str, Any]) -> dict[str, Any]:
+    """AR-VAE flags from both config blocks (reference ``train_vae.py:776-792``)."""
+    reg = cfg.get("regularized_attributes") or {}
+    train = cfg.get("autoencoder_train", {})
+    enabled = resolve_bool(train.get("ar_vae_enabled", False)) or resolve_bool(
+        reg.get("enabled", False)
+    )
+    raw_gamma = train.get("ar_vae_weight", reg.get("gamma", 0.0))
+    if isinstance(raw_gamma, str):
+        try:
+            gamma = float(raw_gamma)
+        except ValueError:
+            gamma = float(reg.get("gamma", 0.0))
+    else:
+        gamma = float(raw_gamma)
+    return {
+        "enabled": enabled,
+        "gamma": gamma,
+        "pairwise": reg.get("pairwise", "all"),
+        "subset_pairs": reg.get("subset_pairs"),
+        "block": reg,
+    }
+
+
+def _not_ported(what: str, later: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet; it comes with {later}")
+
+
+class VAETrainer:
+    def __init__(
+        self,
+        cfg: dict[str, Any],
+        *,
+        device: torch.device | str = "cuda",
+        seed: int = 42,
+        num_workers: int = 4,
+        cache_rate: float = 0.0,
+        subset_size: int | None = None,
+        resume: bool | None = None,
+        mixed_precision: bool | None = None,
+        log_every: int = 1,
+        use_wandb: bool | None = None,
+        profile_port: int | None = None,
+        trace_at_step: int | None = None,
+    ):
+        self.cfg = cfg
+        self.seed = seed
+        self.rank = 0
+        self.world = 1
+        self.device = torch.device(device)
+        if profile_port or trace_at_step is not None:
+            raise _not_ported("profiler tracing (--profile-port / --trace-at-step)",
+                              "utils/profiling.py")
+
+        train_cfg = cfg["autoencoder_train"]
+        self.batch_size = int(train_cfg["batch_size"])
+        self.patch_size = tuple(train_cfg["patch_size"])
+        self.max_epochs = int(train_cfg["max_epochs"])
+        self.val_interval = int(train_cfg.get("val_interval", 1))
+        self.adv_enabled = resolve_bool(train_cfg.get("adv_enabled", True))
+        self.run_dir = Path(cfg["run_dir"])
+        self.model_dir = self.run_dir / "trained_weights"
+        self.resume = resolve_bool(cfg.get("resume_ckpt", False)) if resume is None else resume
+        self.log_every = log_every
+        self.ar = resolve_ar_settings(cfg)
+
+        if self.adv_enabled:
+            raise _not_ported("the adversarial branch (adv_enabled: true)",
+                              "models/discriminator.py and losses/adversarial.py")
+        if self.ar["enabled"]:
+            raise _not_ported("AR-VAE (ar_vae_enabled / regularized_attributes.enabled)",
+                              "losses/ar_vae.py and attribute loading")
+        if cfg.get("parallelism"):
+            raise _not_ported("the 'parallelism' config block", "the multi-device slice")
+        if resolve_bool(cfg.get("remat", False)):
+            raise _not_ported("remat (activation checkpointing)", "a later slice")
+        s2d_stem = cfg.get("s2d_stem", "auto")
+        if s2d_stem != "auto":
+            if s2d_stem in ("encoder", "decoder") or resolve_bool(s2d_stem):
+                raise _not_ported(f"s2d_stem={s2d_stem!r}", "ops/space_to_depth.py")
+            s2d_stem = False
+
+        if mixed_precision is None:
+            mixed_precision = self.device.type == "cuda"
+        compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
+
+        # Overwrite protection (reference ``train_vae.py:794-803``).
+        if self.run_dir.exists() and not self.resume and any(self.run_dir.iterdir()):
+            raise ValueError(
+                f"Run directory already exists: {self.run_dir}\n"
+                "Change 'run_dir' in the config or set 'resume_ckpt: true'."
+            )
+        self.model_dir.mkdir(parents=True, exist_ok=True)
+        (self.run_dir / "splits").mkdir(parents=True, exist_ok=True)
+
+        # seeds python / numpy / torch (parameter init) and gives the device
+        # generator the posterior noise is drawn from
+        self.generator = set_determinism(seed, self.device)
+
+        # ---- data -------------------------------------------------------
+        self.train_loader, self.val_loader, train_paths, val_paths = create_vae_dataloaders(
+            cfg["data_base_dir"],
+            batch_size=self.batch_size,
+            patch_size=self.patch_size,
+            data_source=cfg.get("data_source", "edente"),
+            train_split=cfg.get("train_split", 0.9),
+            num_workers=num_workers,
+            seed=seed,
+            subset_size=subset_size,
+            val_dir=cfg.get("val_dir"),
+            cache_rate=cache_rate,
+        )
+        split_payload = {
+            "seed": seed,
+            "train_split": cfg.get("train_split", 0.9),
+            "subset_size": subset_size,
+            "val_dir": cfg.get("val_dir"),
+            "train_files": list(train_paths),
+            "val_files": list(val_paths),
+        }
+        with open(self.run_dir / "splits" / "vae_split.json", "w", encoding="utf-8") as fh:
+            json.dump(split_payload, fh, indent=2)
+
+        # ---- model, optimizer ---------------------------------------------
+        self.model = autoencoder_from_config(
+            cfg["autoencoder_def"], compute_dtype=compute_dtype,
+            norm_stats=str(cfg.get("norm_stats", DEFAULT_NORM_STATS)), s2d_stem=s2d_stem,
+        ).to(device=self.device, memory_format=torch.channels_last)
+        self.disc = None
+        self.state = create_train_state(self.model, lr=float(train_cfg["lr"]),
+                                        world_size=self.world)
+
+        # ---- losses -------------------------------------------------------
+        self.lcfg = LossConfig(
+            recon_loss=train_cfg.get("recon_loss", "l1"),
+            kl_weight=float(train_cfg["kl_weight"]),
+            perceptual_weight=float(train_cfg["perceptual_weight"]),
+            adv_weight=float(train_cfg.get("adv_weight", 0.5)),
+            ar_gamma=self.ar["gamma"],
+            kl_mode=cfg.get("kl_mode", "reference"),
+        )
+        self.lpips_params = load_lpips_params(device=self.device)
+        # whether the perceptual loss is real LPIPS or the random-feature
+        # fallback is recorded in the run config: no silent fallback
+        self.perceptual_pretrained = lpips_is_pretrained(self.lpips_params)
+        if not self.perceptual_pretrained:
+            print("[WARN] perceptual loss uses RANDOM features (no converted LPIPS weights "
+                  "found: set $PTI_LPIPS_WEIGHTS or place weights/lpips_squeeze.npz)")
+
+        self._train_step = make_train_step(self.model, self.disc, self.lcfg, adv_active=False)
+        self._eval_step = make_eval_step(self.model, self.disc, self.lcfg, adv_active=False)
+        self._triplet_infer = make_inference_fn(self.model)
+
+        # ---- bookkeeping ---------------------------------------------------
+        self.ckpt = CheckpointManager(str(self.model_dir))
+        self.start_epoch = 0
+        self.best_val_loss = 100.0
+        self.total_step = 0
+        if self.resume:
+            ckpt_path = str(cfg.get("checkpoint_dir") or "")
+            if ckpt_path and Path(ckpt_path).is_file():
+                raise _not_ported("resuming from a reference full checkpoint file",
+                                  "checkpoint/reference_resume.py")
+            meta = self.ckpt.restore(self.state)
+            if meta is None:
+                raise FileNotFoundError(f"No checkpoint to resume in {self.model_dir}")
+            self.start_epoch = meta["epoch"] + 1
+            self.best_val_loss = meta["best_val_loss"]
+            self.total_step = meta["total_step"]
+
+        wandb_cfg = cfg.get("wandb") or {}
+        if use_wandb is False:
+            wandb_cfg = {**wandb_cfg, "enabled": False}
+        run_config = init_wandb_config(cfg)
+        run_config["perceptual_pretrained"] = self.perceptual_pretrained
+        self.logger = MetricLogger(str(self.run_dir), rank=self.rank, wandb_cfg=wandb_cfg,
+                                   run_config=run_config)
+
+    # -- helpers --------------------------------------------------------------
+    def _device_batch(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        images = torch.from_numpy(batch["image"]).to(self.device, non_blocking=True)
+        mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
+        return images, mask
+
+    def close(self) -> None:
+        """Stop the loaders' decode threads and close the metric sink."""
+        self.train_loader.close()
+        self.val_loader.close()
+        self.logger.finish()
+
+    # -- epochs -----------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> None:
+        self.train_loader.set_epoch(epoch)
+        self.model.train()
+        # Metrics stay on the device during the epoch (no host sync per step)
+        # and are flushed after the last batch with correct step numbering;
+        # the batch-0 debug print and triplet panel are deferred the same way.
+        buffered: list[tuple[int, dict]] = []
+        batch0: tuple[dict, torch.Tensor] | None = None
+        for step, batch in enumerate(self.train_loader):
+            images, mask = self._device_batch(batch)
+            _, metrics = self._train_step(self.state, images, mask, None, self.lpips_params,
+                                          generator=self.generator)
+            self.total_step += 1
+            if step % self.log_every == 0:
+                buffered.append((self.total_step, metrics))
+            if step == 0:
+                batch0 = (metrics, images[:1])
+        if batch0 is not None:
+            metrics0, img0 = batch0
+            # KL-explosion debug stats (reference ``train_vae.py:432-442``)
+            print(
+                f"[DEBUG] Train batch0 stats | z_mu mean={float(metrics0['debug/z_mu_mean']):.4f} | "
+                f"z_sigma mean={float(metrics0['debug/z_sigma_mean']):.4f} | "
+                f"kl_loss={float(metrics0['train/kl_loss']):.4f}"
+            )
+            self._log_train_triplet(img0, epoch)
+        for step_num, metrics in buffered:
+            payload = {k: float(v) for k, v in metrics.items() if not k.startswith("debug/")}
+            payload["train/step"] = step_num
+            self.logger.log(payload, step=step_num)
+
+    def _log_train_triplet(self, img: torch.Tensor, epoch: int) -> None:
+        """[original | reconstruction | diff] panel for the epoch's first
+        image, rot90 k=3 display convention (reference ``train_vae.py:479-493``);
+        the reconstruction uses end-of-epoch weights."""
+        recon = self._triplet_infer(img).cpu().numpy()
+        img = img.cpu().numpy()
+        diff = np.abs(img - recon)
+        panels = np.concatenate([
+            normalize_batch_for_display(img),
+            normalize_batch_for_display(recon),
+            normalize_batch_for_display(diff),
+        ], axis=2)[0, :, :, 0]
+        triplet = np.rot90(panels, k=3)
+        self.logger.log_images("train/triplets", [(triplet * 255).astype(np.uint8)],
+                               step=self.total_step)
+
+    def validate(self, epoch: int) -> float:
+        """Returns the epoch-mean reconstruction loss (the best-model
+        criterion, reference ``validate`` -> ``val_recon_epoch_loss``)."""
+        self.model.eval()
+        sums: dict[str, torch.Tensor] | None = None
+        n_batches = 0
+        start_epoch_to_save, save_every = 10, 5
+        do_save_images = epoch >= start_epoch_to_save and epoch % save_every == 0
+        epoch_dir = self.run_dir / "validation_samples" / f"epoch_{epoch}"
+        if do_save_images:
+            for sub in ("originale", "reconstruction", "diff"):
+                (epoch_dir / sub).mkdir(parents=True, exist_ok=True)
+
+        dumps: list[tuple[int, torch.Tensor, torch.Tensor]] = []
+        for step, batch in enumerate(self.val_loader):
+            images, mask = self._device_batch(batch)
+            metrics, recon = self._eval_step(self.state, images, mask, None, self.lpips_params,
+                                             generator=self.generator)
+            # sums accumulate on the device; one host read after the loop
+            sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
+            n_batches += 1
+            if do_save_images:
+                dumps.append((step, images[0, :, :, 0], recon[0, :, :, 0]))
+
+        for step, img_dev, rec_dev in dumps:
+            img, rec = img_dev.cpu().numpy(), rec_dev.cpu().numpy()
+            diff = np.abs(img - rec)
+            # rot90 k=3 display convention (reference ``train_vae.py:616-618``)
+            write_tif(str(epoch_dir / "originale" / f"step{step:03}.tif"), np.rot90(img, k=3))
+            write_tif(str(epoch_dir / "reconstruction" / f"step{step:03}.tif"), np.rot90(rec, k=3))
+            write_tif(str(epoch_dir / "diff" / f"step{step:03}.tif"), np.rot90(diff, k=3))
+
+        means = {k: float(v) / max(n_batches, 1) for k, v in (sums or {}).items()}
+        val_total = compute_total_loss(
+            means.get("recon_loss", 0.0),
+            means.get("kl_loss", 0.0),
+            means.get("perceptual_loss", 0.0),
+            means.get("adv_gen_loss", 0.0),
+            means.get("ar_loss", 0.0),
+            kl_weight=self.lcfg.kl_weight,
+            perceptual_weight=self.lcfg.perceptual_weight,
+            adv_weight=self.lcfg.adv_weight,
+            ar_gamma=self.lcfg.ar_gamma,
+            ar_vae_enabled=self.lcfg.ar_vae_enabled,
+        )
+        self.logger.log({
+            "val/recon_loss": means.get("recon_loss", 0.0),
+            "val/kl_loss": means.get("kl_loss", 0.0),
+            "val/perceptual_loss": means.get("perceptual_loss", 0.0),
+            "val/adv_gen_loss": 0.0,
+            "val/adv_disc_loss": 0.0,
+            "val/loss_total": float(val_total),
+            "epoch": epoch,
+        })
+        return means.get("recon_loss", 0.0)
+
+    # -- main loop -------------------------------------------------------------
+    def train(self) -> dict[str, Any]:
+        try:
+            for epoch in range(self.start_epoch, self.max_epochs):
+                start_time = time.time()
+                self.train_epoch(epoch)
+                if epoch % self.val_interval == 0:
+                    val_loss = self.validate(epoch)
+                    elapsed = time.time() - start_time
+                    print(f"Epoch {epoch} val_loss: {val_loss:.4f} | Time: {elapsed:.1f}s")
+                    self.logger.log({"time_per_epoch": elapsed, "epoch": epoch})
+                    self.best_val_loss = self.ckpt.save_epoch(
+                        state=self.state,
+                        epoch=epoch,
+                        val_loss=val_loss,
+                        best_val_loss=self.best_val_loss,
+                        total_step=self.total_step,
+                    )
+        finally:
+            self.close()
+        return {"best_val_loss": self.best_val_loss, "total_step": self.total_step}

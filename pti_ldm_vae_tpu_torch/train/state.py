@@ -1,0 +1,58 @@
+"""Train state: generator + optional discriminator, two Adam optimizers
+(counterpart of ``pti_ldm_vae_tpu/train/state.py``).
+
+The JAX package keeps an immutable pytree that a pure step replaces; PyTorch
+parameters and optimizer state are updated in place, so the state here is a
+small mutable object: the generator module, its ``torch.optim.Adam``, and a
+step counter. The discriminator fields are present and empty until the
+adversarial branch is ported.
+
+LR x world_size scaling as in the reference (``train_vae.py:301-304``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+__all__ = ["GanTrainState", "create_train_state"]
+
+
+@dataclass
+class GanTrainState:
+    step: int
+    model_g: nn.Module
+    optimizer_g: torch.optim.Optimizer
+    model_d: nn.Module | None = None       # None while the adversarial branch is off
+    optimizer_d: torch.optim.Optimizer | None = None
+
+    def apply_g(self) -> None:
+        """One Adam update of the generator from the gradients on its
+        parameters; clears them afterwards."""
+        self.optimizer_g.step()
+        self.optimizer_g.zero_grad(set_to_none=True)
+        self.step += 1
+
+
+def create_train_state(
+    model_g: nn.Module,
+    *,
+    lr: float,
+    world_size: int = 1,
+    model_d: nn.Module | None = None,
+    b1: float = 0.9,
+    b2: float = 0.999,
+) -> GanTrainState:
+    """Adam with torch defaults (eps=1e-8), lr scaled by world size. On CUDA
+    the update of all parameters is PyTorch's fused Adam (one library kernel
+    per dtype and device), on the CPU its plain loop; the arithmetic is the
+    same."""
+    if model_d is not None:
+        raise NotImplementedError("the discriminator is ported with the adversarial step")
+    params = [p for p in model_g.parameters() if p.requires_grad]
+    fused = bool(params) and all(p.device.type == "cuda" for p in params)
+    optimizer_g = torch.optim.Adam(params, lr=lr * world_size, betas=(b1, b2), eps=1e-8,
+                                   fused=fused)
+    return GanTrainState(step=0, model_g=model_g, optimizer_g=optimizer_g)

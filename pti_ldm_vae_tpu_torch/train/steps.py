@@ -1,18 +1,180 @@
-"""Inference step (counterpart of ``pti_ldm_vae_tpu/train/steps.py:make_inference_fn``).
+"""Train / eval / inference steps for the VAE workload (counterpart of
+``pti_ldm_vae_tpu/train/steps.py``).
 
-Training steps come with the backward kernels in a later part of the port.
+One function computes the generator update: forward, all loss terms,
+backward, Adam. Batches are zero-padded to a static size and every loss term
+is a masked mean, so padding never leaks into gradients (same contract as
+the JAX package, whose loader this port's loader mirrors). Losses accumulate
+in f32 while the conv stack runs in the model's ``compute_dtype`` (bf16 on
+the card by default; bf16 needs no gradient scaling).
+
+The backward of every GroupNorm+SiLU and of both attentions runs through the
+hand-written kernels of ``ops/kernels`` on CUDA tensors.
+
+Not ported yet, and raising when asked for: the adversarial branch
+(``adv_active=True``, a discriminator) and the AR-VAE term
+(``ar_vae_enabled``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import AutoencoderKL
+from ..models.lpips import lpips_distance_per_sample
+from .state import GanTrainState
 
-__all__ = ["make_inference_fn"]
+__all__ = ["LossConfig", "make_train_step", "make_eval_step", "make_inference_fn"]
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Static loss hyperparameters (from the ``autoencoder_train`` config block)."""
+
+    recon_loss: str = "l1"
+    kl_weight: float = 1e-3
+    perceptual_weight: float = 1.0
+    adv_weight: float = 0.5
+    ar_gamma: float = 0.0
+    ar_vae_enabled: bool = False
+    ar_spec: Any | None = None
+    kl_mode: str = "reference"  # see losses/kl.py
+    use_perceptual: bool = True
+
+
+def _masked_mean(per_sample: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over valid samples (padding-safe batch mean)."""
+    mask = mask.float()
+    return torch.sum(per_sample * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _per_sample_recon(pred: torch.Tensor, target: torch.Tensor, kind: str) -> torch.Tensor:
+    diff = pred.float() - target.float()
+    per = diff.abs() if kind != "l2" else diff.square()
+    return per.mean(dim=tuple(range(1, per.dim())))
+
+
+def _per_sample_kl(z_mu: torch.Tensor, z_sigma: torch.Tensor, mode: str) -> torch.Tensor:
+    """Per-sample KL matching losses/kl.py semantics (sum over non-batch dims)."""
+    z_mu = z_mu.float()
+    second = z_sigma.float()
+    if mode == "corrected":
+        second = torch.log(second.square() + 1e-8)
+    dims = tuple(range(1, second.dim()))
+    return -0.5 * torch.sum(1.0 + second - z_mu.square() - torch.exp(second), dim=dims)
+
+
+def _check_ported(disc, lcfg: LossConfig, adv_active: bool) -> None:
+    if adv_active or disc is not None:
+        raise NotImplementedError(
+            "the adversarial branch (discriminator, adv_active=True) is not ported yet: "
+            "it comes with models/discriminator.py and losses/adversarial.py")
+    if lcfg.ar_vae_enabled:
+        raise NotImplementedError(
+            "the AR-VAE term (ar_vae_enabled=True) is not ported yet: it comes with "
+            "losses/ar_vae.py and attribute loading")
+
+
+def _generator_losses(
+    model: AutoencoderKL, lcfg: LossConfig, lpips_params, images: torch.Tensor,
+    mask: torch.Tensor, eps: torch.Tensor | None, generator: torch.Generator | None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """All generator-side loss terms; shared by the train and eval paths."""
+    recon, z_mu, z_sigma = model(images, eps, generator)
+
+    recons_loss = _masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask)
+    kl_loss = _masked_mean(_per_sample_kl(z_mu, z_sigma, lcfg.kl_mode), mask)
+
+    zero = torch.zeros((), dtype=torch.float32, device=recon.device)
+    if lcfg.use_perceptual:
+        if recon.dim() != 4:
+            raise ValueError(
+                f"perceptual loss supports 2-D (NHWC) models only here, got a rank-{recon.dim()} "
+                "reconstruction; set perceptual_weight=0 / use_perceptual=False")
+        p_loss = _masked_mean(
+            lpips_distance_per_sample(lpips_params, recon, images, model.compute_dtype), mask)
+    else:
+        p_loss = zero
+
+    total = compute_total_loss(
+        recons_loss, kl_loss, p_loss, zero, zero,
+        kl_weight=lcfg.kl_weight,
+        perceptual_weight=lcfg.perceptual_weight,
+        adv_weight=lcfg.adv_weight,
+        ar_gamma=lcfg.ar_gamma,
+        ar_vae_enabled=lcfg.ar_vae_enabled,
+    )
+    aux = {
+        "recon": recon, "z_mu": z_mu, "z_sigma": z_sigma,
+        "recon_loss": recons_loss, "kl_loss": kl_loss, "perceptual_loss": p_loss,
+        "adv_gen_loss": zero, "ar_loss": zero,
+    }
+    return total, aux
+
+
+def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: bool) -> Callable:
+    """Build the train step. Signature of the returned function:
+
+        state, metrics = step(state, images, mask, attributes, lpips_params,
+                              eps=None, generator=None)
+
+    ``state`` is updated in place and handed back. The posterior noise is
+    ``eps`` when given, else drawn from ``generator`` (a ``torch.Generator``
+    on the model's device). ``metrics`` are 0-dim tensors on the device: read
+    them after the epoch, not per step."""
+    _check_ported(disc, lcfg, adv_active)
+
+    def step(state: GanTrainState, images, mask, attributes, lpips_params,
+             eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
+        del attributes  # only the AR-VAE term reads them
+        loss_g, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator)
+        loss_g.backward()
+        state.apply_g()
+        zero = aux["adv_gen_loss"]
+        metrics = {
+            "train/recon_loss": aux["recon_loss"],
+            "train/kl_loss": aux["kl_loss"],
+            "train/perceptual_loss": aux["perceptual_loss"],
+            "train/adv_gen_loss": zero,
+            "train/adv_disc_loss": zero,
+            "train/loss_total": loss_g,
+            # debug stats (reference ``train_vae.py:432-442``), cheap scalars
+            "debug/z_mu_mean": aux["z_mu"].mean(),
+            "debug/z_sigma_mean": aux["z_sigma"].mean(),
+        }
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_eval_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: bool) -> Callable:
+    """Validation step (reference ``validate``): stochastic forward and all
+    loss terms, no gradient. Returns ``(metrics, reconstruction)`` so the
+    caller can dump triplets."""
+    _check_ported(disc, lcfg, adv_active)
+
+    def step(state: GanTrainState, images, mask, attributes, lpips_params,
+             eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
+        del state, attributes
+        with torch.no_grad():
+            total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator)
+        metrics = {
+            "recon_loss": aux["recon_loss"],
+            "kl_loss": aux["kl_loss"],
+            "perceptual_loss": aux["perceptual_loss"],
+            "adv_gen_loss": aux["adv_gen_loss"],
+            "adv_disc_loss": aux["adv_gen_loss"],
+            "ar_loss": aux["ar_loss"],
+            "loss_total": total,
+        }
+        return metrics, aux["recon"]
+
+    return step
 
 
 def make_inference_fn(model: AutoencoderKL) -> Callable[[np.ndarray | torch.Tensor], torch.Tensor]:

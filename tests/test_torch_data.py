@@ -1,12 +1,15 @@
 """The PyTorch port's host data path, held to the JAX package bit for bit:
-preprocessing, path listing, sharding, loader batches and masks, and TIF/PNG
-files written by one package and read by the other."""
+preprocessing, path listing, the seeded split, sharding and epoch order,
+loader batches and masks, and TIF/PNG files written by one package and read
+by the other."""
 
 import numpy as np
 import pytest
 
 from pti_ldm_vae_tpu.data import io as jax_io
 from pti_ldm_vae_tpu.data.datasets import list_tif_paths as jax_list_tif_paths
+from pti_ldm_vae_tpu.data.datasets import split_dataset as jax_split_dataset
+from pti_ldm_vae_tpu.data.factory import create_vae_dataloaders as jax_create_vae_dataloaders
 from pti_ldm_vae_tpu.data.loader import ShardedDataLoader as JaxLoader
 from pti_ldm_vae_tpu.data.loader import shard_indices as jax_shard_indices
 from pti_ldm_vae_tpu.data.transforms import local_normalize_by_mask_np as jax_normalize
@@ -15,8 +18,11 @@ from pti_ldm_vae_tpu.data.transforms import resize_area_np as jax_resize
 from pti_ldm_vae_tpu.ops.resize import _area_matrix_np as jax_area_matrix
 from pti_ldm_vae_tpu.utils.visualization import normalize_batch_for_display as jax_display
 from pti_ldm_vae_tpu_torch.data import io
-from pti_ldm_vae_tpu_torch.data.datasets import list_tif_paths
-from pti_ldm_vae_tpu_torch.data.factory import create_vae_inference_dataloader
+from pti_ldm_vae_tpu_torch.data.datasets import list_tif_paths, split_dataset
+from pti_ldm_vae_tpu_torch.data.factory import (
+    create_vae_dataloaders,
+    create_vae_inference_dataloader,
+)
 from pti_ldm_vae_tpu_torch.data.loader import shard_indices
 from pti_ldm_vae_tpu_torch.data.transforms import (
     local_normalize_by_mask_np,
@@ -172,3 +178,59 @@ def test_png_reader_undoes_every_filter(tmp_path):
             + io._png_chunk(b"IDAT", zlib.compress(b"".join(rows))) + io._png_chunk(b"IEND", b""))
     (tmp_path / "f.png").write_bytes(data)
     np.testing.assert_array_equal(io.read_image(str(tmp_path / "f.png")), img.astype(np.float32))
+
+
+@pytest.mark.parametrize("seed,train_split", [(42, 0.9), (7, 0.5), (None, 0.75)])
+def test_split_dataset_identical(seed, train_split):
+    paths = [f"/data/dente/img_{i:03d}.tif" for i in range(23)]
+    train, val, _, _ = jax_split_dataset(paths, train_split=train_split, seed=seed)
+    assert split_dataset(paths, train_split=train_split, seed=seed) == (train, val)
+    override = ["/val/a.tif", "/val/b.tif"]
+    train, val, _, _ = jax_split_dataset(paths, seed=seed, val_paths_override=override)
+    assert split_dataset(paths, seed=seed, val_paths_override=override) == (train, val)
+    with pytest.raises(ValueError, match="train_split"):
+        split_dataset(paths, train_split=1.0)
+
+
+@pytest.mark.parametrize("batch_size,drop_last", [(2, False), (4, False), (4, True)])
+def test_training_loaders_follow_the_jax_epoch_order(tif_dir, batch_size, drop_last):
+    """Same split, same per-epoch shuffle (``default_rng(seed + epoch)``), same
+    batches and masks as the JAX package's train and val loaders, for three
+    epochs; cached samples are served unchanged."""
+    py_decode = lambda p: jax_preprocess(jax_io.read_image(p), (32, 32))  # noqa: E731
+    kw = dict(data_source="both", train_split=0.7, num_workers=2, seed=5, cache_rate=0.5)
+    ours_train, ours_val, train_paths, val_paths = create_vae_dataloaders(
+        str(tif_dir), batch_size, (32, 32), **kw)
+    theirs_train, theirs_val, jax_train_paths, jax_val_paths = jax_create_vae_dataloaders(
+        str(tif_dir), batch_size, (32, 32), **kw)
+    assert (train_paths, val_paths) == (jax_train_paths, jax_val_paths)
+    for loader in (theirs_train, theirs_val):
+        loader._transform = py_decode  # the native fused decoder is not ported
+    for loader in (ours_train, theirs_train):
+        loader.drop_last = drop_last
+    assert len(ours_train) == len(theirs_train) and len(ours_val) == len(theirs_val)
+    orders = []
+    for epoch in range(3):
+        ours_train.set_epoch(epoch)
+        theirs_train.set_epoch(epoch)
+        got, want = list(ours_train), list(theirs_train)
+        assert len(got) == len(want) == len(ours_train)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a["image"], b["image"])
+            np.testing.assert_array_equal(a["mask"], b["mask"])
+        orders.append(np.concatenate([a["image"][:, 5, 5, 0] for a in got]))
+    assert not np.array_equal(orders[0], orders[1])  # reshuffled every epoch
+    for a, b in zip(list(ours_val), list(theirs_val)):
+        np.testing.assert_array_equal(a["image"], b["image"])
+        np.testing.assert_array_equal(a["mask"], b["mask"])
+    assert len(ours_train._cache) == int(0.5 * len(train_paths))
+    assert len(ours_val._cache) == len(val_paths)  # validation is fully cached
+    ours_train.close()
+    ours_val.close()
+
+
+def test_training_loader_factory_rejects_unported_and_bad_arguments(tif_dir):
+    with pytest.raises(NotImplementedError, match="AR-VAE"):
+        create_vae_dataloaders(str(tif_dir), 2, (32, 32), ar_vae_enabled=True)
+    with pytest.raises(ValueError, match="cache_rate"):
+        create_vae_dataloaders(str(tif_dir), 2, (32, 32), data_source="both", cache_rate=1.5)

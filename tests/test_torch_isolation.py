@@ -18,10 +18,14 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
-    for expected in ("cli/inference_vae.py", "models/autoencoder_kl.py", "ops/norm.py",
-                     "ops/kernels/groupnorm_silu.py", "ops/kernels/flash_attention.py"):
+    for expected in ("cli/inference_vae.py", "cli/train_vae.py", "models/autoencoder_kl.py",
+                     "models/lpips.py", "ops/norm.py", "ops/kernels/groupnorm_silu.py",
+                     "ops/kernels/flash_attention.py", "losses/kl.py", "losses/composite.py",
+                     "utils/losses.py", "utils/logging.py", "train/state.py", "train/steps.py",
+                     "train/loop.py", "checkpoint/manager.py", "data/factory.py"):
         assert expected in names
-    assert (PORT / "csrc" / "flash_attention.cu").exists()
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert (PORT / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(PORT).as_posix())
