@@ -12,7 +12,10 @@ result line):
    reported), the Triton kernels at their first launch;
 3. kernel checks at the shapes the main paths give them (GroupNorm+SiLU: the
    8 shapes of a flagship pass at 256², batch 8; flash attention:
-   [8,1,1024,128] and a ragged [2,2,1000,64]), every hand-written kernel
+   [8,1,1024,128] and a ragged [2,2,1000,64]; the 3x3 convolution: the 14
+   distinct shapes of the 47 convolutions of a flagship pass, as forward,
+   input gradient and filter gradient, and a ragged [1,20,12,3->5]; its
+   filter gradient ``dW`` is held like ``dscale``), every hand-written kernel
    against its plain PyTorch version on the card:
    forward kernels f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
    version on the same bf16-rounded inputs, atol 2e-2); backward kernels the
@@ -42,14 +45,36 @@ result line):
    from the same weights, batch (2 images at 256², full width) and ``eps``:
    loss terms within 1e-4 relative, every gradient tensor within 2e-3 of its
    largest entry;
+6a. adversarial training main path: ``cli.train_vae --conv-kernel`` on
+   ``config/vae_dente_2.json`` (same architecture, PatchGAN + LSGAN at
+   ``adv_weight`` 3.0) with ``adv_warmup_epochs: 0`` for 3 epochs of 8 steps,
+   so that epoch 0 runs the warm-up step and epochs 1-2 the adversarial one;
+   all seven launch counts as computed from the step counts (per adversarial
+   or warm-up train step 47 + 46 convolution-kernel launches, forward and
+   input gradient, and 47 filter-gradient launches), ``train/adv_disc_loss``
+   0 in epoch 0 and > 0 afterwards, finite losses, the discriminator and both
+   optimizers in the checkpoints, and a resumed run that continues;
+6b. adversarial training reference: one f32 adversarial step (generator
+   pass, then the discriminator pass on the detached reconstruction) with
+   ``conv_kernel=True`` on the card against the CPU plain path, batch 2 at
+   256², full width: loss terms incl. both adversarial ones within 1e-4
+   relative; of its largest entry, every gradient tensor of the generator
+   without the adversarial term (the convolution kernels' dgrad and wgrad)
+   and of the discriminator on one shared reconstruction within 2e-3, and
+   every gradient tensor that passes through the discriminator from the two
+   sides' own reconstructions within 2e-2 (LeakyReLU kinks: see
+   ``adv_train_reference_check``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
    one PyTorch library call that computes the same function, at every path
    shape; reconstruct and train-step imgs/s at b8 (event time), device idle
-   share and device time by kind of kernel. To stay inside the time limit the
+   share and device time by kind of kernel, also with ``conv_kernel=True``
+   (and the train step with the adversarial branch active). The convolution
+   kernels' library call is ``F.conv2d`` on channels-last tensors with TF32
+   off, and its backward for one operand. To stay inside the time limit the
    per-kernel timings take 10 iterations and the reconstruct 6;
-8. the ``kernels`` line (five kernels), the card line, and the result line
+8. the ``kernels`` line (seven kernels), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -66,6 +91,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "config" / "vae_dente_no_adv.json"
+ADV_CONFIG = ROOT / "config" / "vae_dente_2.json"
 WORK = ROOT / "build" / "chip_smoke"
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and peak rates by input type
@@ -87,9 +113,35 @@ TRAIN_STEPS_PER_EPOCH = 8
 EVAL_STEPS_PER_EPOCH = 1
 TRAIN_SEED = 42
 GRAD_BAR = 2e-3  # of each gradient tensor's largest entry, card f32 vs CPU f32
+ADV_GRAD_BAR = 2e-2  # the same through the discriminator's LeakyReLU kinks (adv_train_reference_check)
+
+# 3x3 stride-1 convolutions per flagship pass (22 encoder + 25 decoder); in a
+# train step each also runs its filter gradient, and all but the encoder's
+# stem (whose input needs no gradient) the forward kernel once more as dgrad
+CONV_PER_RECONSTRUCT = 47
+CONV_DGRAD_PER_STEP = 46
+ADV_EPOCHS = 3
+ADV_RESUME_EPOCHS = 4
+RAGGED_CONV = (1, 20, 12, 3, 5)
 
 KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx",
-                "flash_attention", "flash_attention_bwd")
+                "flash_attention", "flash_attention_bwd", "conv3x3", "conv3x3_wgrad")
+
+
+def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) -> dict[str, int]:
+    """Launch counts of a run of ``train_steps`` train steps and
+    ``forward_only`` forward passes (eval steps, triplet panels, reconstructs)."""
+    passes = train_steps + forward_only
+    conv = CONV_PER_RECONSTRUCT * passes + CONV_DGRAD_PER_STEP * train_steps if conv_kernel else 0
+    return {
+        "groupnorm_silu": GN_PER_RECONSTRUCT * passes,
+        "groupnorm_silu_bwd_reduce": GN_PER_RECONSTRUCT * train_steps,
+        "groupnorm_silu_bwd_dx": GN_PER_RECONSTRUCT * train_steps,
+        "flash_attention": FLASH_PER_RECONSTRUCT * passes,
+        "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
+        "conv3x3": conv,
+        "conv3x3_wgrad": CONV_PER_RECONSTRUCT * train_steps if conv_kernel else 0,
+    }
 
 
 def emit(phase: str, **fields) -> None:
@@ -184,8 +236,33 @@ def gn_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
     return sorted(counts.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3])
 
 
+def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
+    """[((B, H, W, Cin, Cout) at batch 8, launches per pass)] of every 3x3
+    convolution a ``conv_kernel=True`` flagship pass sends to the convolution
+    kernel, recorded like ``gn_path_shapes``."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import Convolution
+
+    counts: dict[tuple[int, ...], int] = {}
+
+    def hook(module, args):
+        if module.conv_kernel:
+            shape = (BATCH, *args[0].shape[1:], module.conv.out_channels)
+            counts[shape] = counts.get(shape, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, Convolution)]
+    try:
+        with torch.inference_mode():
+            model.reconstruct_deterministic(torch.zeros(1, 256, 256, 1))
+    finally:
+        for h in handles:
+            h.remove()
+    return sorted(counts.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3] * kv[0][4])
+
+
 # kinds of device kernels, first match wins (lower-cased kernel names)
 KINDS = (
+    ("conv3x3_wgrad", ("conv3x3_wgrad_kernel",)),
+    ("conv3x3", ("conv3x3_kernel",)),
     ("groupnorm_silu_fwd", ("_stats_kernel", "_apply_kernel")),
     ("groupnorm_silu_bwd", ("_bwd_reduce_kernel", "_bwd_dx_kernel")),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
@@ -243,8 +320,21 @@ def ptxas_report(log: Path) -> dict:
                           for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]]}
 
 
-def check_kernels(torch, gn_shapes, kernels_mod) -> dict[str, dict]:
+def conv_inputs(torch, shape, gen):
+    """f32 ``x``, weight matrix and upstream gradient of a convolution shape,
+    scaled so that outputs and input gradients are of size ~1: the matrix by
+    (9*Cin)^-0.5 as an initializer would, the gradient by (Cin/Cout)^0.5."""
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device="cuda", generator=gen)
+    wmat = torch.randn(9 * cin, cout, device="cuda", generator=gen) * (9 * cin) ** -0.5
+    g = torch.randn(b, h, w, cout, device="cuda", generator=gen) * (cin / cout) ** 0.5
+    return x, wmat, g
+
+
+def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]:
     from pti_ldm_vae_tpu_torch.ops.kernels import (
+        conv3x3_bwd_plain,
+        conv3x3_plain,
         flash_attention_bwd_plain,
         flash_attention_plain,
         groupnorm_silu_bwd_plain,
@@ -307,9 +397,34 @@ def check_kernels(torch, gn_shapes, kernels_mod) -> dict[str, dict]:
             for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want):
                 note("flash_attention_bwd", key,
                      check_close(f"flash_attention {name} {tag}", ours, theirs, tol))
+    for shape in [s for s, _ in conv_shapes] + [RAGGED_CONV]:
+        x, wmat, g = conv_inputs(torch, shape, gen)
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
+            xd, gd = x.to(dtype), g.to(dtype)
+            wd = wmat.to(dtype).float()  # the matrix as the kernels see it
+            got = kernels_mod.conv3x3(xd, wmat)
+            want = conv3x3_plain(xd.float(), wd)
+            err_fwd = check_close(f"conv3x3 {tag}", got, want, tol)
+            del got, want
+
+            leaves = (xd.clone().requires_grad_(), wmat.clone().requires_grad_())
+            grads = [torch.autograd.grad(kernels_mod.conv3x3(*leaves), leaves, gd) for _ in range(2)]
+            for first, second in zip(*grads):
+                if not torch.equal(first, second):
+                    raise RuntimeError(f"conv3x3 backward {tag}: two runs differ")
+            dx, dw = grads[0]
+            want_dx, want_dw = conv3x3_bwd_plain(xd.float(), wd, gd.float())
+            note("conv3x3", key, max(err_fwd, check_close(f"conv3x3 dgrad {tag}", dx, want_dx, tol)))
+            note("conv3x3_wgrad", key, check_close(f"conv3x3 wgrad {tag}", dw, want_dw, sum_tol))
+            del grads, dx, dw, want_dx, want_dw, leaves
+        del x, wmat, g
+    torch.cuda.empty_cache()
     emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
+         conv_shapes=[[list(s), n] for s, n in conv_shapes] + [[list(RAGGED_CONV), 0]],
          tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
-                    "dscale_dbias": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
+                    "dscale_dbias_dW": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
     return errs
 
 
@@ -355,10 +470,7 @@ def run_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: int = 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels_mod.launch_counts()
-    batches = -(-n_images // BATCH)
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(groupnorm_silu=GN_PER_RECONSTRUCT * batches,
-                flash_attention=FLASH_PER_RECONSTRUCT * batches)
+    want = expected_launches(0, -(-n_images // BATCH), "--conv-kernel" in args)
     if n != n_images or launches != want:
         raise RuntimeError(f"inference path: {n} images, launches {launches}, expected {want}")
     tifs = sorted((out / "results_tif").glob("*.tif"))
@@ -394,13 +506,7 @@ def run_train_cli(torch, np, kernels_mod, ae_def: dict, data_dir: Path, run_dir:
     train_steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
     # forward-only passes: the eval steps and one train triplet panel per epoch
     forward_only = TRAIN_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1)
-    want = {
-        "groupnorm_silu": GN_PER_RECONSTRUCT * (train_steps + forward_only),
-        "groupnorm_silu_bwd_reduce": GN_PER_RECONSTRUCT * train_steps,
-        "groupnorm_silu_bwd_dx": GN_PER_RECONSTRUCT * train_steps,
-        "flash_attention": FLASH_PER_RECONSTRUCT * (train_steps + forward_only),
-        "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
-    }
+    want = expected_launches(train_steps, forward_only, conv_kernel=False)
     if result["total_step"] != train_steps or launches != want:
         raise RuntimeError(f"training path: {result}, launches {launches}, expected {want}")
 
@@ -474,15 +580,14 @@ def train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Path) 
     got_terms, got_grads = one(gpu_model, "cuda")
     torch.cuda.synchronize()
     per_train_step = kernels_mod.launch_counts()
-    want = dict(zip(KERNEL_NAMES, (GN_PER_RECONSTRUCT,) * 3 + (FLASH_PER_RECONSTRUCT,) * 2))
+    want = expected_launches(1, 0, conv_kernel=False)
     if per_train_step != want:
         raise RuntimeError(f"one train step launched {per_train_step}, expected {want}")
     kernels_mod.reset_launch_counts()
     make_eval_step(gpu_model, None, lcfg, adv_active=False)(
         None, images.cuda(), mask.cuda(), None, init_lpips_params(0, "cuda"), eps=eps.cuda())
     per_eval_step = kernels_mod.launch_counts()
-    want_eval = dict.fromkeys(KERNEL_NAMES, 0)
-    want_eval.update(groupnorm_silu=GN_PER_RECONSTRUCT, flash_attention=FLASH_PER_RECONSTRUCT)
+    want_eval = expected_launches(0, 1, conv_kernel=False)
     if per_eval_step != want_eval:
         raise RuntimeError(f"one eval step launched {per_eval_step}, expected {want_eval}")
 
@@ -507,10 +612,207 @@ def train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Path) 
                            f"{grad_err[worst]} of its largest entry")
 
 
-def time_train_step(torch, ae_def: dict, flush, exact: bool) -> dict:
+def run_adv_train_cli(torch, np, kernels_mod, data_dir: Path, run_dir: Path) -> dict:
+    """The training entry point on the adversarial flagship config with the
+    convolution kernels: 3 epochs with ``adv_warmup_epochs: 0``, so epoch 0
+    runs the warm-up step and epochs 1-2 the adversarial one; then a resumed
+    run to epoch 4. Launch counts, losses and checkpoints are checked."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+
+    cfg = json.loads(ADV_CONFIG.read_text())
+    cfg["data_base_dir"], cfg["run_dir"] = str(data_dir), str(run_dir)
+    cfg["autoencoder_train"]["adv_warmup_epochs"] = 0
+    cfg_path = run_dir.parent / f"{run_dir.name}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    cli = ["--no-wandb", "--num-workers", "4", "--seed", str(TRAIN_SEED), "--conv-kernel"]
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--max-epochs", str(ADV_EPOCHS), *cli])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    train_steps = ADV_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    want = expected_launches(train_steps, ADV_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1), conv_kernel=True)
+    if result["total_step"] != train_steps or launches != want or not all(launches.values()):
+        raise RuntimeError(f"adversarial path: {result}, launches {launches}, expected {want}")
+
+    def rows_of(kind: str) -> list[dict]:
+        lines = (run_dir / "metrics.jsonl").read_text().splitlines()
+        return [r for r in map(json.loads, lines) if f"{kind}/loss_total" in r]
+
+    train_rows, val_rows = rows_of("train"), rows_of("val")
+    if len(train_rows) != train_steps or len(val_rows) != ADV_EPOCHS:
+        raise RuntimeError(f"metrics.jsonl: {len(train_rows)} train rows, {len(val_rows)} val rows")
+    for r in train_rows + val_rows:
+        bad = [k for k, v in r.items() if k.startswith(("train/", "val/")) and not np.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"non-finite losses {bad} in {r}")
+    warm, active = train_rows[:TRAIN_STEPS_PER_EPOCH], train_rows[TRAIN_STEPS_PER_EPOCH:]
+    if any(r["train/adv_disc_loss"] != 0.0 or r["train/adv_gen_loss"] != 0.0 for r in warm):
+        raise RuntimeError("the adversarial terms are not 0 during the warm-up epoch")
+    if not all(r["train/adv_disc_loss"] > 0.0 and r["train/adv_gen_loss"] > 0.0 for r in active):
+        raise RuntimeError("the adversarial terms are not > 0 once the branch is active")
+    if val_rows[0]["val/adv_disc_loss"] != 0.0 or not val_rows[-1]["val/adv_disc_loss"] > 0.0:
+        raise RuntimeError(f"val/adv_disc_loss: {[r['val/adv_disc_loss'] for r in val_rows]}")
+
+    weights = run_dir / "trained_weights"
+    full = sorted(weights.glob("checkpoint_epoch*.pth"))
+    names = sorted(p.name for p in weights.iterdir())
+    if len(full) != 1 or not {"autoencoder_last.pth", "discriminator_last.pth"} <= set(names):
+        raise RuntimeError(f"checkpoints: {names}")
+    raw = torch.load(full[0], map_location="cpu", weights_only=True)
+    need = {"autoencoder_state_dict", "discriminator_state_dict", "optimizer_g_state_dict",
+            "optimizer_d_state_dict", "epoch", "best_val_loss", "total_step"}
+    if not need <= set(raw) or f"discriminator_epoch{raw['epoch']}.pth" not in names:
+        raise RuntimeError(f"full checkpoint holds {sorted(raw)}; files {names}")
+    last_d = torch.load(weights / "discriminator_last.pth", map_location="cpu", weights_only=True)
+    if not all(torch.isfinite(v).all() for v in last_d.values()):
+        raise RuntimeError("discriminator_last.pth holds non-finite values")
+
+    # resume: continues at the best epoch + 1 from both models and both optimizers
+    cfg["resume_ckpt"] = True
+    cfg_path.write_text(json.dumps(cfg))
+    resumed = train_main(["-c", str(cfg_path), "--max-epochs", str(ADV_RESUME_EPOCHS), *cli])
+    torch.cuda.synchronize()
+    new_rows = rows_of("train")[train_steps:]
+    first_step = TRAIN_STEPS_PER_EPOCH * (raw["epoch"] + 1) + 1
+    if (resumed["total_step"] != ADV_RESUME_EPOCHS * TRAIN_STEPS_PER_EPOCH
+            or not new_rows or new_rows[0]["train/step"] != first_step
+            or not all(np.isfinite(r["train/loss_total"]) for r in new_rows)):
+        raise RuntimeError(f"resume: {resumed}, first new step "
+                           f"{new_rows[0]['train/step'] if new_rows else None}, expected {first_step}")
+    adv_terms = ("train/adv_gen_loss", "train/adv_disc_loss", "train/loss_total")
+    return {
+        "wall_s": wall, "launches": launches, "total_step": result["total_step"],
+        "best_val_loss": result["best_val_loss"],
+        "first_warmup": {k: warm[0][k] for k in adv_terms},
+        "first_adversarial": {k: active[0][k] for k in adv_terms},
+        "last_adversarial": {k: active[-1][k] for k in adv_terms},
+        "val_adv_disc_loss": [r["val/adv_disc_loss"] for r in val_rows],
+        "checkpoints": names, "resumed_from_epoch": raw["epoch"],
+        "resumed_total_step": resumed["total_step"],
+    }
+
+
+def adv_train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Path,
+                              weights: Path) -> None:
+    """One f32 adversarial step (generator pass, discriminator pass; losses
+    and gradients of both models) with the convolution kernels on the card
+    against the CPU plain path, same weights, batch and eps; also the launch
+    counts of its one forward and two backward passes through the generator
+    (the adversarial term's share is taken apart by a backward of its own).
+    The generator starts from the seeded
+    variance-preserving weights of ``make_weights`` (a default-initialized
+    decoder draws nearly flat images, whose spatial variance after the
+    discriminator's first layers falls below the instance norm's eps).
+
+    Bars. Loss terms: 1e-4 relative. Gradients, each tensor against its
+    largest entry: the generator's gradient of everything but the adversarial
+    term, which runs through the convolution kernels' dgrad and wgrad, and
+    the discriminator's gradients on one and the same reconstruction: 2e-3.
+    Whatever passes through the discriminator from a reconstruction that
+    differs in f32 rounding (2e-5 here) is held to 2e-2: a LeakyReLU unit
+    whose pre-activation lies within that difference takes the other slope
+    on one side, and a share p of such units moves a gradient by about
+    sqrt(p) of its size (5e-3 to 8e-3 measured, with cuDNN convolutions in
+    the generator as with the kernels)."""
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _discriminator_loss, _generator_losses
+
+    cpu_model = autoencoder_from_config(ae_def, conv_kernel=True)
+    cpu_model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True), strict=True)
+    # the trainer's own init: instance norm keeps the logits of size ~1
+    cpu_disc = PatchDiscriminator(generator=torch.Generator().manual_seed(10))
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", memory_format=torch.channels_last)
+    gpu_disc = copy.deepcopy(cpu_disc).to(device="cuda", memory_format=torch.channels_last)
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, perceptual_weight=1.0, adv_weight=3.0)
+    images = torch.from_numpy(np.stack([
+        preprocess_image_np(read_image(str(p)), (256, 256))
+        for p in sorted(data_dir.glob("*.tif"))[:2]]))
+    mask = torch.ones(2)
+    eps = torch.randn(2, 32, 32, ae_def["latent_channels"], generator=torch.Generator().manual_seed(11))
+
+    def disc_grads(disc, recon, x, m):
+        d_loss = _discriminator_loss(disc, recon, x, m)
+        grads = torch.autograd.grad(lcfg.adv_weight * d_loss, list(disc.parameters()))
+        return d_loss.detach(), {k: g.cpu() for (k, _), g in zip(disc.named_parameters(), grads)}
+
+    def one(model, disc, device, shared_recon):
+        lp = init_lpips_params(0, device)
+        x, m = images.to(device), mask.to(device)
+        params = list(model.parameters())
+        total, aux = _generator_losses(model, lcfg, lp, x, m, eps.to(device), None, disc)
+        # the adversarial term's share apart, then the whole objective
+        adv_part = torch.autograd.grad(aux["adv_gen_loss"], params, retain_graph=True)
+        whole = torch.autograd.grad(total, params)
+        d_loss, d_grads = disc_grads(disc, aux["recon"], x, m)
+        terms = {k: float(aux[k].detach()) for k in
+                 ("recon_loss", "kl_loss", "perceptual_loss", "adv_gen_loss")}
+        terms.update(loss_total=float(total.detach()), adv_disc_loss=float(d_loss))
+        names = [k for k, _ in model.named_parameters()]
+        grads = {
+            "generator": {k: g.cpu() for k, g in zip(names, whole)},
+            "generator_without_adversary": {k: (g - lcfg.adv_weight * a).cpu()
+                                            for k, g, a in zip(names, whole, adv_part)},
+            "discriminator": d_grads,
+            "discriminator_on_shared_reconstruction": disc_grads(
+                disc, (aux["recon"].detach() if shared_recon is None else shared_recon).to(device),
+                x, m)[1],
+        }
+        return terms, grads, aux["recon"].detach().cpu()
+
+    want_terms, want_grads, cpu_recon = one(cpu_model, cpu_disc, "cpu", None)
+    kernels_mod.reset_launch_counts()
+    got_terms, got_grads, gpu_recon = one(gpu_model, gpu_disc, "cuda", cpu_recon)
+    torch.cuda.synchronize()
+    per_step = kernels_mod.launch_counts()
+    # the second backward of the generator repeats the 46 + 47 backward launches of the
+    # convolutions (and the backward launches of the other kernels)
+    want = expected_launches(1, 0, conv_kernel=True)
+    for name in ("groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx", "flash_attention_bwd",
+                 "conv3x3_wgrad"):
+        want[name] *= 2
+    want["conv3x3"] += CONV_DGRAD_PER_STEP
+    if per_step != want:
+        raise RuntimeError(f"one adversarial step launched {per_step}, expected {want}")
+
+    term_err = {k: abs(got_terms[k] - v) / abs(v) for k, v in want_terms.items()}
+    bars = {"generator": ADV_GRAD_BAR, "discriminator": ADV_GRAD_BAR,
+            "generator_without_adversary": GRAD_BAR,
+            "discriminator_on_shared_reconstruction": GRAD_BAR}
+    worst = {}
+    for group, refs in want_grads.items():
+        errs = {}
+        for key, ref in refs.items():
+            err = float((got_grads[group][key] - ref).abs().max())
+            # a key projection's bias has gradient 0 in exact arithmetic: rounding noise on both sides
+            errs[key] = err if key.endswith("to_k.bias") else err / float(ref.abs().max())
+        key = max(errs, key=errs.get)
+        worst[group] = {"tensor": key, "err_of_tensor_max": errs[key], "bar": bars[group]}
+    emit("adv_train_reference", batch=2, conv_kernel=True, terms_card=got_terms,
+         terms_cpu=want_terms, max_term_rel_err=max(term_err.values()), term_bar=1e-4,
+         reconstruction_max_abs_diff=float((gpu_recon - cpu_recon).abs().max()),
+         worst_gradient=worst, launches=per_step)
+    if not max(term_err.values()) <= 1e-4:
+        raise RuntimeError(f"f32 CUDA adversarial loss terms differ from the CPU plain path: {term_err}")
+    for group, w in worst.items():
+        if not w["err_of_tensor_max"] <= w["bar"]:
+            raise RuntimeError(f"f32 CUDA {group} gradient {w['tensor']} differs from the CPU plain "
+                               f"path by {w['err_of_tensor_max']} of its largest entry (bar {w['bar']})")
+
+
+def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
+                    adv_active: bool = False) -> dict:
     """Event ms, device ms and the device ms by kind of one b8 train step at
     256²; the LPIPS share is the device ms a step without the perceptual term
-    saves."""
+    saves. ``conv_kernel``: the 3x3 convolutions through the convolution
+    kernels; ``adv_active``: the adversarial step (PatchGAN, adv_weight 3.0)."""
+    from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
     from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
     from pti_ldm_vae_tpu_torch.train.state import create_train_state
@@ -522,27 +824,109 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool) -> dict:
     torch.manual_seed(3)
     torch.cuda.reset_peak_memory_stats()
     dtype = torch.float32 if exact else torch.bfloat16
-    model = autoencoder_from_config(ae_def, compute_dtype=dtype).to(
+    model = autoencoder_from_config(ae_def, compute_dtype=dtype, conv_kernel=conv_kernel).to(
         device="cuda", memory_format=torch.channels_last)
-    state = create_train_state(model, lr=2.5e-5)
+    disc = None
+    if adv_active:
+        disc = PatchDiscriminator(compute_dtype=dtype, generator=torch.Generator().manual_seed(5)).to(
+            device="cuda", memory_format=torch.channels_last)
+    state = create_train_state(model, lr=2.5e-5, model_d=disc)
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
     mask = torch.ones(BATCH, device="cuda")
     lp = init_lpips_params(0, "cuda")
     out = {}
-    for name, lcfg in (("full", LossConfig()), ("no_lpips", LossConfig(use_perceptual=False))):
-        step = make_train_step(model, None, lcfg, adv_active=False)
+    for name, lcfg in (("full", LossConfig(adv_weight=3.0)),
+                       ("no_lpips", LossConfig(adv_weight=3.0, use_perceptual=False))):
+        step = make_train_step(model, disc, lcfg, adv_active=adv_active)
         out[name] = time_ms(lambda: step(state, x, mask, None, lp, generator=gen), flush,
                             iters=6, warmup=3)
     full = out["full"]
     kinds = device_ms_by_kind(full["by_name"])
     kinds["lpips_by_difference"] = full["device_ms"] - out["no_lpips"]["device_ms"]
-    return {"dtype": dtype_key(dtype), "event_ms": full["event_ms"], "device_ms": full["device_ms"],
+    return {"dtype": dtype_key(dtype), "conv_kernel": conv_kernel, "adv_active": adv_active,
+            "event_ms": full["event_ms"], "device_ms": full["device_ms"],
             "imgs_per_s": BATCH * 1e3 / full["event_ms"],
             "device_idle_share": 1.0 - full["device_ms"] / full["event_ms"],
             "event_ms_no_lpips": out["no_lpips"]["event_ms"],
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "device_ms_by_kind": kinds}
+
+
+def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
+    """Per distinct convolution shape of the flagship pass and dtype: the
+    forward kernel as forward and as input gradient, and the filter-gradient
+    kernel, each beside its bound, its plain version and the library call
+    (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
+    one operand). The filter gradient's time includes the fold of its partial
+    sums (one ``torch.sum``)."""
+    import torch.nn.functional as F
+
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+        _launch_forward,
+        _launch_wgrad,
+        conv3x3_bwd_plain,
+        conv3x3_plain,
+        flip_transpose,
+    )
+
+    def timed(prefix: str, fn) -> dict[str, float]:
+        t = time_ms(fn, flush)
+        return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        key = dtype_key(dtype)
+        for shape, n in conv_shapes:
+            b, h, w, cin, cout = shape
+            x, wmat, g = (t.to(dtype).contiguous() for t in conv_inputs(torch, shape, gen))
+            wflip = flip_transpose(wmat, cin, cout).contiguous()
+            flops = 2.0 * 9 * cin * cout * b * h * w
+            size = x.element_size()
+            # only the encoder's stem reads the 1-channel image, whose gradient
+            # nobody wants: its dgrad is not on the path
+            n_dgrad = 0 if cin == 1 else n
+            head = {"shape": list(shape), "dtype": key}
+
+            # the library call: NCHW views of the channels-last memory, OIHW channels-last weight
+            x_lib = x.permute(0, 3, 1, 2).detach().requires_grad_()
+            w_lib = (wmat.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+                     .contiguous(memory_format=torch.channels_last).requires_grad_())
+            g_lib = g.permute(0, 3, 1, 2)
+            y_lib = F.conv2d(x_lib, w_lib, padding=1)
+
+            bound_ms, bound_by = bound(flops, key, (x.numel() + wmat.numel() + g.numel()) * size)
+            row = {**head, "role": "forward", "per_pass": n,
+                   **timed("", lambda: _launch_forward(x, wmat)),
+                   **timed("plain_", lambda: conv3x3_plain(x, wmat)),
+                   **timed("library_", lambda: F.conv2d(x_lib.detach(), w_lib.detach(), padding=1)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows["conv3x3"].append(row)
+            emit("time_conv3x3", **row)
+
+            row = {**head, "role": "dgrad", "per_pass": n_dgrad,
+                   **timed("", lambda: _launch_forward(g, wflip)),
+                   **timed("plain_", lambda: conv3x3_plain(g, wflip)),
+                   **timed("library_", lambda: torch.autograd.grad(y_lib, x_lib, g_lib,
+                                                                   retain_graph=True)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows["conv3x3"].append(row)
+            emit("time_conv3x3", **row)
+
+            bound_ms, bound_by = bound(flops, key,
+                                       (x.numel() + g.numel()) * size + wmat.numel() * 4)
+            ours = time_ms(lambda: _launch_wgrad(x, g), flush)
+            row = {**head, "role": "wgrad", "per_pass": n,
+                   "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+                   "kernel_only_ms": named_ms(ours["by_name"], "conv3x3_wgrad_kernel"),
+                   # the plain backward computes dx too; its dW part is nine products
+                   **timed("plain_", lambda: conv3x3_bwd_plain(x, wmat, g)[1]),
+                   **timed("library_", lambda: torch.autograd.grad(y_lib, w_lib, g_lib,
+                                                                   retain_graph=True)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows["conv3x3_wgrad"].append(row)
+            emit("time_conv3x3_wgrad", **row)
+            del x, wmat, g, wflip, x_lib, w_lib, g_lib, y_lib
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -571,11 +955,12 @@ def main() -> int:
     # 2. build
     from pti_ldm_vae_tpu_torch.ops import kernels as kernels_mod
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import SOURCES
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import SOURCES as CONV_SOURCES
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import SOURCES as FLASH_SOURCES
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _triton_kernels
 
     t0 = time.perf_counter()
-    libs = _build.build_all(SOURCES)
+    libs = _build.build_all((*FLASH_SOURCES, *CONV_SOURCES))  # one nvcc each, started together
     import triton
 
     _triton_kernels()
@@ -588,10 +973,16 @@ def main() -> int:
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
 
     ae_def = load_config(CONFIG)["autoencoder_def"]
-    gn_shapes = gn_path_shapes(autoencoder_from_config(ae_def), torch)
+    probe = autoencoder_from_config(ae_def, conv_kernel=True)
+    gn_shapes = gn_path_shapes(probe, torch)
     if sum(n for _, n in gn_shapes) != GN_PER_RECONSTRUCT:
         raise RuntimeError(f"GroupNorm+SiLU shapes {gn_shapes} do not add up to {GN_PER_RECONSTRUCT}")
-    errs = check_kernels(torch, gn_shapes, kernels_mod)
+    conv_shapes = conv_path_shapes(probe, torch)
+    if sum(n for _, n in conv_shapes) != CONV_PER_RECONSTRUCT:
+        raise RuntimeError(f"3x3 convolution shapes {conv_shapes} do not add up to "
+                           f"{CONV_PER_RECONSTRUCT}")
+    del probe
+    errs = check_kernels(torch, gn_shapes, conv_shapes, kernels_mod)
     torch.cuda.empty_cache()
 
     # 4. inference main path through the CLI
@@ -606,6 +997,11 @@ def main() -> int:
     f32 = run_cli(torch, np, kernels_mod, cli + ["--f32"], WORK / "out_f32")
     emit("main_path", dtype="float32", **{k: v for k, v in f32.items() if k != "recon"})
 
+    conv_f32 = run_cli(torch, np, kernels_mod, cli + ["--f32", "--conv-kernel"],
+                       WORK / "out_f32_conv_kernel")
+    emit("main_path", dtype="float32", conv_kernel=True,
+         **{k: v for k, v in conv_f32.items() if k != "recon"})
+
     from pti_ldm_vae_tpu_torch.data.io import read_image
     from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
     from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
@@ -618,9 +1014,12 @@ def main() -> int:
         ref = cpu_model.reconstruct_deterministic(torch.from_numpy(inputs)).numpy()[..., 0]
     err_f32 = float(np.abs(np.stack(f32["recon"][:2]) - ref).max())
     err_bf16 = float(np.abs(np.stack(bf16["recon"][:2]) - ref).max())
-    emit("reference", images=2, max_abs_err_f32=err_f32, max_abs_err_bf16=err_bf16, bar_f32=1e-3)
-    if not err_f32 <= 1e-3:
-        raise RuntimeError(f"f32 CUDA reconstruction differs from the CPU plain path by {err_f32}")
+    err_conv = float(np.abs(np.stack(conv_f32["recon"][:2]) - ref).max())
+    emit("reference", images=2, max_abs_err_f32=err_f32, max_abs_err_bf16=err_bf16,
+         max_abs_err_f32_conv_kernel=err_conv, bar_f32=1e-3)
+    if not max(err_f32, err_conv) <= 1e-3:
+        raise RuntimeError(f"f32 CUDA reconstruction differs from the CPU plain path by {err_f32} "
+                           f"(cuDNN convolutions), {err_conv} (convolution kernels)")
 
     # 5. training main path through the CLI
     train_data = WORK / "train_data"
@@ -641,6 +1040,14 @@ def main() -> int:
 
     # 6. one f32 train step on the card against the CPU plain path
     train_reference_check(torch, np, kernels_mod, ae_def, train_data / "dente")
+    torch.cuda.empty_cache()
+
+    # 6a. adversarial training main path through the CLI, convolution kernels on
+    adv = run_adv_train_cli(torch, np, kernels_mod, train_data, WORK / "run_adv")
+    emit("adv_train_path", dtype="bfloat16", conv_kernel=True, steps_per_epoch=TRAIN_STEPS_PER_EPOCH,
+         epochs=ADV_EPOCHS, adv_warmup_epochs=0, **adv)
+    # 6b. one f32 adversarial step on the card against the CPU plain path
+    adv_train_reference_check(torch, np, kernels_mod, ae_def, train_data / "dente", ckpt)
     torch.cuda.empty_cache()
 
     # 7. timing
@@ -750,22 +1157,28 @@ def main() -> int:
         rows["flash_attention_bwd"].append(row)
         emit("time_flash_attention_bwd", **row)
 
+    time_conv3x3(torch, conv_shapes, flush, gen, rows)
+
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
 
     x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
-    for exact in (False, True):
+    for exact, conv_kernel in ((False, False), (True, False), (False, True), (True, True)):
         _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
-                                         exact=exact)
+                                         exact=exact, conv_kernel=conv_kernel)
         reconstruct = make_inference_fn(model)
         t = time_ms(lambda: reconstruct(x), flush, iters=6)
-        emit("reconstruct_b8", dtype="float32" if exact else "bfloat16",
+        emit("reconstruct_b8", dtype="float32" if exact else "bfloat16", conv_kernel=conv_kernel,
              imgs_per_s=BATCH * 1e3 / t["event_ms"], device_ms=t["device_ms"],
              event_ms=t["event_ms"], device_idle_share=1.0 - t["device_ms"] / t["event_ms"],
              device_ms_by_kind=device_ms_by_kind(t["by_name"]))
         del model, reconstruct
     torch.cuda.empty_cache()
-    for exact in (False, True):
-        emit("train_step_b8", **time_train_step(torch, ae_def, flush, exact))
+    # the generator-only step on cuDNN convolutions (both types), the adversarial
+    # step on cuDNN convolutions, the adversarial step on the convolution kernels
+    for exact, conv_kernel, adv_active in ((False, False, False), (True, False, False),
+                                           (False, False, True), (False, True, True),
+                                           (True, True, True)):
+        emit("train_step_b8", **time_train_step(torch, ae_def, flush, exact, conv_kernel, adv_active))
         torch.cuda.empty_cache()
 
     # 8. kernels line, card line, result line
@@ -795,14 +1208,26 @@ def main() -> int:
                                 f"{fa_pallas}:122",
                                 "bf16, device ms summed over the 2 launches of one b8 train step "
                                 "(each launch: delta, dk/dv and dq kernels)"),
+        "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
+                    "pti_ldm_vae_tpu/ops/pallas/conv2d.py:120",
+                    "bf16, device ms summed over the 47 forward and 46 input-gradient launches "
+                    "of one b8 train step with conv_kernel=True; library_ms: F.conv2d and its "
+                    "input gradient, channels-last, TF32 off"),
+        "conv3x3_wgrad": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad.cu",
+                          "pti_ldm_vae_tpu/ops/pallas/conv2d.py:137",
+                          "bf16, device ms summed over the 47 launches of one b8 train step with "
+                          "conv_kernel=True, the torch.sum of the partial sums included; "
+                          "library_ms: F.conv2d's filter gradient"),
     }
     kernels = []
     for name, (route, source, replaces, scope) in described.items():
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": train["bfloat16"]["launches"][name],
+            "launches": adv["launches"][name],
             "launches_by_path": {"inference_vae": bf16["launches"][name],
-                                 "train_vae": train["bfloat16"]["launches"][name]},
+                                 "inference_vae_conv_kernel": conv_f32["launches"][name],
+                                 "train_vae": train["bfloat16"]["launches"][name],
+                                 "train_vae_adversarial_conv_kernel": adv["launches"][name]},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
         })

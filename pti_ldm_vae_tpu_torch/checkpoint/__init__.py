@@ -1,5 +1,8 @@
 from .manager import CheckpointManager
+from .reference_resume import load_reference_checkpoint
 from .torch_convert import (
+    disc_monai_layout,
+    disc_state_dict_from_flax,
     lpips_params_from_jax,
     lpips_params_from_npz,
     monai_layout,
@@ -9,6 +12,9 @@ from .torch_convert import (
 
 __all__ = [
     "CheckpointManager",
+    "disc_monai_layout",
+    "disc_state_dict_from_flax",
+    "load_reference_checkpoint",
     "lpips_params_from_jax",
     "lpips_params_from_npz",
     "monai_layout",

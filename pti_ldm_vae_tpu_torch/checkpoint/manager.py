@@ -3,14 +3,19 @@
 
 Reference behavior (``train_vae.py:675-769``):
 
-* every validation: overwrite ``autoencoder_last.pth``;
+* every validation: overwrite ``autoencoder_last.pth`` and, with a
+  discriminator, ``discriminator_last.pth``;
 * on val improvement: write ``autoencoder_epoch{N}.pth`` (MONAI-keyed state
-  dict) and the full ``checkpoint_epoch{N}.pth`` (``autoencoder_state_dict``,
-  ``optimizer_g_state_dict``, ``epoch``, ``best_val_loss``, ``total_step``),
-  then delete the previous best's files — the new best is on disk before the
-  old one goes;
-* resume restores the model, the optimizer, epoch, best val loss and step
-  from the newest ``checkpoint_epoch{N}.pth``.
+  dict), with a discriminator ``discriminator_epoch{N}.pth``, and the full
+  ``checkpoint_epoch{N}.pth`` (``autoencoder_state_dict``,
+  ``optimizer_g_state_dict``, with a discriminator also
+  ``discriminator_state_dict`` and ``optimizer_d_state_dict``, ``epoch``,
+  ``best_val_loss``, ``total_step``), then delete the previous best's files —
+  the new best is on disk before the old one goes;
+* resume restores both models, both optimizers, epoch, best val loss and step
+  from the newest ``checkpoint_epoch{N}.pth``; a checkpoint without a
+  discriminator leaves a live one as it was initialized (the reference does
+  the same, ``train_vae.py:320-325``).
 
 The files are the reference's own layout, so the inference CLI and
 ``utils/vae_loader.py`` read them as they are. Every file is written to a
@@ -90,25 +95,31 @@ class CheckpointManager:
         improvement, write the per-epoch best + full resume state and delete
         the previous best. Returns the new best val loss."""
         model_sd = _cpu(state.model_g.state_dict())
+        disc_sd = _cpu(state.model_d.state_dict()) if state.model_d is not None else None
         self._write(model_sd, "autoencoder_last.pth")
+        if disc_sd is not None:
+            self._write(disc_sd, "discriminator_last.pth")
         if os.path.exists(self._sentinel):
             os.remove(self._sentinel)  # a fresh write supersedes a stale failure marker
         if not val_loss < best_val_loss:
             return best_val_loss
         self._write(model_sd, f"autoencoder_epoch{epoch}.pth")
-        self._write(
-            {
-                "autoencoder_state_dict": model_sd,
-                "optimizer_g_state_dict": _cpu(state.optimizer_g.state_dict()),
-                "epoch": int(epoch),
-                "best_val_loss": float(val_loss),
-                "total_step": int(total_step),
-            },
-            f"checkpoint_epoch{epoch}.pth",
-        )
+        full = {
+            "autoencoder_state_dict": model_sd,
+            "optimizer_g_state_dict": _cpu(state.optimizer_g.state_dict()),
+            "epoch": int(epoch),
+            "best_val_loss": float(val_loss),
+            "total_step": int(total_step),
+        }
+        if disc_sd is not None:
+            self._write(disc_sd, f"discriminator_epoch{epoch}.pth")
+            full["discriminator_state_dict"] = disc_sd
+            full["optimizer_d_state_dict"] = _cpu(state.optimizer_d.state_dict())
+        self._write(full, f"checkpoint_epoch{epoch}.pth")
         prev_best, self.best_epoch_saved = self.best_epoch_saved, epoch
         if prev_best is not None and prev_best != epoch:
-            for name in (f"checkpoint_epoch{prev_best}.pth", f"autoencoder_epoch{prev_best}.pth"):
+            for name in (f"checkpoint_epoch{prev_best}.pth", f"autoencoder_epoch{prev_best}.pth",
+                         f"discriminator_epoch{prev_best}.pth"):
                 if os.path.exists(self._path(name)):
                     os.remove(self._path(name))
         return float(val_loss)
@@ -120,7 +131,7 @@ class CheckpointManager:
         return self._path(max(found)[1]) if found else None
 
     def restore(self, state: GanTrainState) -> dict[str, Any] | None:
-        """Load the newest full checkpoint into ``state`` (model, optimizer,
+        """Load the newest full checkpoint into ``state`` (models, optimizers,
         step) in place; returns ``{"epoch", "best_val_loss", "total_step"}``
         or ``None`` when there is none."""
         path = self.find_latest_full()
@@ -130,6 +141,10 @@ class CheckpointManager:
         raw = torch.load(path, map_location=device, weights_only=True)
         state.model_g.load_state_dict(raw["autoencoder_state_dict"], strict=True)
         state.optimizer_g.load_state_dict(raw["optimizer_g_state_dict"])
+        if state.model_d is not None and raw.get("discriminator_state_dict"):
+            state.model_d.load_state_dict(raw["discriminator_state_dict"], strict=True)
+            if raw.get("optimizer_d_state_dict"):
+                state.optimizer_d.load_state_dict(raw["optimizer_d_state_dict"])
         meta = {
             "epoch": int(raw["epoch"]),
             "best_val_loss": float(raw.get("best_val_loss", 100.0)),

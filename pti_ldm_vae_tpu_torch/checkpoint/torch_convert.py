@@ -12,7 +12,8 @@ Counterpart of ``pti_ldm_vae_tpu/checkpoint/torch_convert.py``. The port's
   attention projection (``use_combined_linear``) into ``to_q/to_k/to_v``.
 
 Both return a state dict that ``AutoencoderKL.load_state_dict(...,
-strict=True)`` takes. :func:`monai_layout` is the port's own copy of the key
+strict=True)`` takes. :func:`disc_state_dict_from_flax` does the same for the
+PatchGAN discriminator (:func:`disc_monai_layout` is its key layout). :func:`monai_layout` is the port's own copy of the key
 layout (MONAI 1.5.1, documented in ``docs/MONAI_NOTES.md``).
 
 :func:`lpips_params_from_jax` carries the JAX package's LPIPS parameter tree
@@ -27,8 +28,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["monai_layout", "state_dict_from_flax", "monai_state_dict",
-           "lpips_params_from_jax", "lpips_params_from_npz"]
+__all__ = ["monai_layout", "state_dict_from_flax", "monai_state_dict", "disc_monai_layout",
+           "disc_state_dict_from_flax", "lpips_params_from_jax", "lpips_params_from_npz"]
 
 
 def _levels(config: dict) -> tuple[list[int], list[int], list[bool]]:
@@ -143,7 +144,7 @@ def state_dict_from_flax(variables: dict, config: dict) -> dict[str, torch.Tenso
     for flax_path, monai_prefix, kind in monai_layout(config):
         if kind == "conv":
             k = _get(params, flax_path, "kernel")  # (*K, I, O) -> (O, I, *K)
-            sd[f"{monai_prefix}.weight"] = _tensor(np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
+            sd[f"{monai_prefix}.weight"] = _tensor(_oihw(k))
             sd[f"{monai_prefix}.bias"] = _tensor(_get(params, flax_path, "bias"))
         elif kind == "norm":
             sd[f"{monai_prefix}.weight"] = _tensor(_get(params, flax_path, "scale"))
@@ -154,6 +155,37 @@ def state_dict_from_flax(variables: dict, config: dict) -> dict[str, torch.Tenso
                 sd[f"{monai_prefix}.{name}.bias"] = _tensor(_get(params, f"{flax_path}/{name}", "bias"))
             sd[f"{monai_prefix}.out_proj.weight"] = _tensor(_get(params, f"{flax_path}/proj_attn", "kernel").T)
             sd[f"{monai_prefix}.out_proj.bias"] = _tensor(_get(params, f"{flax_path}/proj_attn", "bias"))
+    return sd
+
+
+def _oihw(kernel: np.ndarray) -> np.ndarray:
+    """Flax conv kernel (*K, I, O) -> torch (O, I, *K)."""
+    return np.transpose(kernel, (kernel.ndim - 1, kernel.ndim - 2, *range(kernel.ndim - 2)))
+
+
+def disc_monai_layout(num_layers_d: int = 3) -> list[tuple[str, str, bool]]:
+    """Ordered [(flax_module, monai_prefix, has_bias)] of the PatchDiscriminator.
+
+    MONAI names its Sequential children ``initial_conv``, ``"0"`` ...
+    ``str(num_layers_d-1)``, ``final_conv``; only the first and the last
+    convolution carry a bias."""
+    out = [("conv_0", "initial_conv.conv", True)]
+    for layer in range(num_layers_d - 1):
+        out.append((f"conv_{layer + 1}", f"{layer}.conv", False))
+    out.append(("conv_penultimate", f"{num_layers_d - 1}.conv", False))
+    out.append(("conv_final", "final_conv.conv", True))
+    return out
+
+
+def disc_state_dict_from_flax(variables: dict, num_layers_d: int = 3) -> dict[str, torch.Tensor]:
+    """The JAX package's PatchDiscriminator ``{"params": ...}`` tree (numpy
+    leaves) -> the port's MONAI-keyed state dict (kernels HWIO -> OIHW)."""
+    params = variables.get("params", variables)
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, monai_prefix, has_bias in disc_monai_layout(num_layers_d):
+        sd[f"{monai_prefix}.weight"] = _tensor(_oihw(np.asarray(params[flax_name]["kernel"])))
+        if has_bias:
+            sd[f"{monai_prefix}.bias"] = _tensor(np.asarray(params[flax_name]["bias"]))
     return sd
 
 

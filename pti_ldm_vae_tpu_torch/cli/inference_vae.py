@@ -7,7 +7,8 @@ reconstruction]`` float TIF plus a percentile-normalized PNG. Runs on CUDA
 unless ``--device cpu`` is given.
 
     python -m pti_ldm_vae_tpu_torch.cli.inference_vae -c config/vae_dente_no_adv.json \\
-        --checkpoint vae.pth --input-dir data/ --output-dir out/ [--f32] [--device cpu]
+        --checkpoint vae.pth --input-dir data/ --output-dir out/ [--f32] [--conv-kernel] \\
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--f32", action="store_true",
                         help="Exact f32 numerics (f32 compute, TF32 off) — the "
                              "numerics reference-parity is measured under")
+    parser.add_argument("--conv-kernel", action="store_true",
+                        help="3x3 stride-1 convolutions through the hand-written "
+                             "convolution kernels instead of cuDNN")
     return parser.parse_args(argv)
 
 
@@ -75,7 +79,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     init_device_and_seed(args.seed, device)
     config, model = load_config_and_model(
-        args.config_file, args.checkpoint, device=device, exact=args.f32
+        args.config_file, args.checkpoint, device=device, exact=args.f32,
+        conv_kernel=args.conv_kernel,
     )
     print(f"[INFO] Loaded config from {args.config_file}")
 

@@ -3,7 +3,7 @@ workload parity with ``vae_scripts/train_vae.py``). Runs on CUDA unless
 ``--device cpu`` is given.
 
     python -m pti_ldm_vae_tpu_torch.cli.train_vae -c config/vae_dente_no_adv.json \\
-        [--no-wandb] [--f32] [--device cpu]
+        [--no-wandb] [--f32] [--conv-kernel] [--device cpu]
 """
 
 from __future__ import annotations
@@ -55,6 +55,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "\"one_pass\", \"two_pass\" runs on the CPU only")
     parser.add_argument("--f32", action="store_true",
                         help="f32 compute with TF32 off (parity runs)")
+    parser.add_argument("--conv-kernel", action="store_true",
+                        help="3x3 stride-1 convolutions of the autoencoder through the "
+                             "hand-written convolution kernels (forward, input and filter "
+                             "gradient) instead of cuDNN")
     parser.add_argument("--profile-port", type=int, default=None,
                         help="Profiler server port; not ported yet, raises")
     parser.add_argument("--trace-at-step", type=int, default=None,
@@ -98,6 +102,7 @@ def main(argv=None) -> dict:
         use_wandb=False if args.no_wandb else None,
         profile_port=args.profile_port,
         trace_at_step=args.trace_at_step,
+        conv_kernel=args.conv_kernel,
     )
     return trainer.train()
 

@@ -24,7 +24,12 @@ layout and the model's I/O layout). A convolution views its input as NCHW
 cuDNN prefers on Hopper, and hands back the channel-last view of its output.
 Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernels and every
 attention through the flash-attention kernels (``ops/kernels``), forward and
-backward. Compute dtype: parameters stay f32, activations run in
+backward. With ``conv_kernel=True`` every 3x3 stride-1 padding-1 convolution
+(the stems, the res-block convolutions, the upsample convolutions, the output
+convolutions) goes through the hand-written convolution kernels instead
+(``ops/conv.py``), on the channel-last tensor as it is; the 1x1 skips, the
+stride-2 downsample and the quant convolutions stay with cuDNN. Parameters
+and state-dict keys are the same either way. Compute dtype: parameters stay f32, activations run in
 ``compute_dtype`` (bf16 on the accelerator by default).
 """
 
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..ops.conv import conv3x3
 from ..ops.norm import DEFAULT_NORM_STATS, group_norm, group_norm_silu
 from ..ops.resize import upsample_nearest_2x
 
@@ -50,13 +56,18 @@ class Convolution(nn.Module):
     """MONAI ``Convolution`` wrapper (parameters under ``conv.``); NHWC in and out."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, *, stride: int = 1,
-                 padding: int = 0, compute_dtype: torch.dtype = torch.float32):
+                 padding: int = 0, compute_dtype: torch.dtype = torch.float32,
+                 conv_kernel: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding)
         self.compute_dtype = compute_dtype
+        # the convolution kernels compute the 3x3 stride-1 SAME form only
+        self.conv_kernel = conv_kernel and (kernel_size, stride, padding) == (3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
+        if self.conv_kernel:
+            return conv3x3(x.to(cd), self.conv.weight, self.conv.bias)
         y = F.conv2d(
             x.to(cd).permute(0, 3, 1, 2), self.conv.weight.to(cd), self.conv.bias.to(cd),
             stride=self.conv.stride, padding=self.conv.padding,
@@ -85,9 +96,9 @@ class ResBlock(nn.Module):
     (MONAI ``AEKLResBlock``)."""
 
     def __init__(self, cin: int, cout: int, groups: int, eps: float, norm_stats: str,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, conv_kernel: bool = False):
         super().__init__()
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, conv_kernel=conv_kernel)
         self.norm1 = GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats)
         self.conv1 = Convolution(cin, cout, 3, padding=1, **cd)
         self.norm2 = GroupNormOp(groups, cout, eps, silu=True, norm_stats=norm_stats)
@@ -152,9 +163,10 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest x2 + 3x3 conv (MONAI decoder upsample, non-transposed)."""
 
-    def __init__(self, channels: int, compute_dtype: torch.dtype):
+    def __init__(self, channels: int, compute_dtype: torch.dtype, conv_kernel: bool = False):
         super().__init__()
-        self.conv = Convolution(channels, channels, 3, padding=1, compute_dtype=compute_dtype)
+        self.conv = Convolution(channels, channels, 3, padding=1, compute_dtype=compute_dtype,
+                                conv_kernel=conv_kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(upsample_nearest_2x(x))
@@ -173,25 +185,27 @@ class Encoder(_Coder):
     def __init__(self, in_channels: int, channels: Sequence[int], latent_channels: int,
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
-                 norm_stats: str, compute_dtype: torch.dtype):
+                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False):
         super().__init__()
         cd = dict(compute_dtype=compute_dtype)
+        ck = dict(conv_kernel=conv_kernel, **cd)
         blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
-        blocks: list[nn.Module] = [Convolution(in_channels, channels[0], 3, padding=1, **cd)]
+        res = dict(conv_kernel=conv_kernel, **blk)
+        blocks: list[nn.Module] = [Convolution(in_channels, channels[0], 3, padding=1, **ck)]
         cin = channels[0]
         for level, ch in enumerate(channels):
             for _ in range(num_res_blocks[level]):
-                blocks.append(ResBlock(cin, ch, **blk))
+                blocks.append(ResBlock(cin, ch, **res))
                 cin = ch
                 if attention_levels[level]:
                     blocks.append(SpatialAttentionBlock(ch, **blk))
             if level != len(channels) - 1:
                 blocks.append(Downsample(ch, **cd))
         if with_nonlocal_attn:
-            blocks += [ResBlock(cin, cin, **blk), SpatialAttentionBlock(cin, **blk),
-                       ResBlock(cin, cin, **blk)]
+            blocks += [ResBlock(cin, cin, **res), SpatialAttentionBlock(cin, **blk),
+                       ResBlock(cin, cin, **res)]
         blocks += [GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats),
-                   Convolution(cin, latent_channels, 3, padding=1, **cd)]
+                   Convolution(cin, latent_channels, 3, padding=1, **ck)]
         self.blocks = nn.ModuleList(blocks)
 
 
@@ -199,28 +213,30 @@ class Decoder(_Coder):
     def __init__(self, channels: Sequence[int], latent_channels: int, out_channels: int,
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
-                 norm_stats: str, compute_dtype: torch.dtype):
+                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False):
         super().__init__()
         cd = dict(compute_dtype=compute_dtype)
+        ck = dict(conv_kernel=conv_kernel, **cd)
         blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
+        res = dict(conv_kernel=conv_kernel, **blk)
         rev_channels = list(reversed(channels))
         rev_blocks = list(reversed(num_res_blocks))
         rev_attention = list(reversed(attention_levels))
         cin = rev_channels[0]
-        blocks: list[nn.Module] = [Convolution(latent_channels, cin, 3, padding=1, **cd)]
+        blocks: list[nn.Module] = [Convolution(latent_channels, cin, 3, padding=1, **ck)]
         if with_nonlocal_attn:
-            blocks += [ResBlock(cin, cin, **blk), SpatialAttentionBlock(cin, **blk),
-                       ResBlock(cin, cin, **blk)]
+            blocks += [ResBlock(cin, cin, **res), SpatialAttentionBlock(cin, **blk),
+                       ResBlock(cin, cin, **res)]
         for level, ch in enumerate(rev_channels):
             for _ in range(rev_blocks[level]):
-                blocks.append(ResBlock(cin, ch, **blk))
+                blocks.append(ResBlock(cin, ch, **res))
                 cin = ch
                 if rev_attention[level]:
                     blocks.append(SpatialAttentionBlock(ch, **blk))
             if level != len(rev_channels) - 1:
-                blocks.append(Upsample(ch, **cd))
+                blocks.append(Upsample(ch, **ck))
         blocks += [GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats),
-                   Convolution(cin, out_channels, 3, padding=1, **cd)]
+                   Convolution(cin, out_channels, 3, padding=1, **ck)]
         self.blocks = nn.ModuleList(blocks)
 
 
@@ -240,6 +256,9 @@ class AutoencoderKL(nn.Module):
     checkpointing is not ported, inference does not need it, and the trainer
     refuses a config that sets it. ``s2d_stem`` ``"auto"`` and ``False`` take
     the standard path; the space-to-depth forms are not ported yet.
+    ``conv_kernel`` sends the 3x3 stride-1 convolutions through the
+    hand-written convolution kernels (default: cuDNN, as the JAX models call
+    ``lax.conv``).
     """
 
     def __init__(
@@ -259,6 +278,7 @@ class AutoencoderKL(nn.Module):
         remat: bool = False,
         s2d_stem: bool | str = False,
         compute_dtype: torch.dtype = torch.float32,
+        conv_kernel: bool = False,
     ):
         super().__init__()
         if spatial_dims not in (1, 2, 3):
@@ -271,8 +291,10 @@ class AutoencoderKL(nn.Module):
         nrb = (num_res_blocks,) * n_levels if isinstance(num_res_blocks, int) else tuple(num_res_blocks)
         attn = (False,) * n_levels if attention_levels is None else tuple(attention_levels)
         common = dict(num_res_blocks=nrb, groups=norm_num_groups, eps=norm_eps,
-                      attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype)
+                      attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype,
+                      conv_kernel=conv_kernel)
         self.compute_dtype = compute_dtype
+        self.conv_kernel = conv_kernel
         self.encoder = Encoder(in_channels, channels, latent_channels,
                                with_nonlocal_attn=with_encoder_nonlocal_attn, **common)
         self.decoder = Decoder(channels, latent_channels, out_channels,
@@ -331,6 +353,7 @@ def autoencoder_from_config(
     remat: bool = False,
     s2d_stem: bool | str = False,
     compute_dtype: torch.dtype = torch.float32,
+    conv_kernel: bool = False,
 ) -> AutoencoderKL:
     """Build an AutoencoderKL from a reference-format ``autoencoder_def`` dict
     (parity with ``VAEModel.from_config``, ``autoencoder.py:81-103``)."""
@@ -351,4 +374,5 @@ def autoencoder_from_config(
         remat=remat,
         s2d_stem=s2d_stem,
         compute_dtype=compute_dtype,
+        conv_kernel=conv_kernel,
     )

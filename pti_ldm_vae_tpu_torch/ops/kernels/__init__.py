@@ -7,13 +7,18 @@
   ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (replace
   ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward`` and
   ``_bwd_pallas``)
+- ``conv3x3``: CUDA C++ 3x3 stride-1 SAME convolution, ``csrc/conv3x3.cu``
+  (forward and input gradient) and ``csrc/conv3x3_wgrad.cu`` (filter
+  gradient) (replace ``pti_ldm_vae_tpu/ops/pallas/conv2d.py``:
+  ``_conv3x3_fwd_pallas`` and ``_conv3x3_dw_pallas``)
 
 Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
 kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
-plain versions. ``launch_counts()`` reads the five counts by kernel name,
+plain versions. ``launch_counts()`` reads the seven counts by kernel name,
 ``reset_launch_counts()`` sets them to 0.
 """
 
+from .conv3x3 import conv3x3, conv3x3_bwd_plain, conv3x3_plain
 from .flash_attention import flash_attention, flash_attention_bwd_plain, flash_attention_plain
 from .groupnorm_silu import groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain
 
@@ -24,10 +29,15 @@ COUNTERS = {
     "groupnorm_silu_bwd_dx": (groupnorm_silu, "bwd_dx_launches"),
     "flash_attention": (flash_attention, "launches"),
     "flash_attention_bwd": (flash_attention, "bwd_launches"),
+    "conv3x3": (conv3x3, "launches"),
+    "conv3x3_wgrad": (conv3x3, "wgrad_launches"),
 }
 
 __all__ = [
     "COUNTERS",
+    "conv3x3",
+    "conv3x3_bwd_plain",
+    "conv3x3_plain",
     "flash_attention",
     "flash_attention_bwd_plain",
     "flash_attention_plain",

@@ -8,7 +8,8 @@ with mean/var over each group's (spatial, C/G) slab, biased variance
 dtype. ``group_norm_silu`` sends every call, forward and backward, through
 the hand-written GroupNorm+SiLU kernels on CUDA
 (``ops/kernels/groupnorm_silu.py``), whose plain versions run on the CPU.
-``group_norm`` is plain tensor code and differentiates through autograd.
+``group_norm`` and ``instance_norm`` are plain tensor code and differentiate
+through autograd.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from .kernels.groupnorm_silu import groupnorm_silu
 
-__all__ = ["DEFAULT_NORM_STATS", "group_norm", "group_norm_silu"]
+__all__ = ["DEFAULT_NORM_STATS", "group_norm", "group_norm_silu", "instance_norm"]
 
 DEFAULT_NORM_STATS = "one_pass"
 
@@ -74,3 +75,29 @@ def group_norm_silu(
         )
     y = group_norm(x, scale, bias, num_groups=num_groups, eps=eps, stats=stats).float()
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def instance_norm(
+    x: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+    scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """InstanceNorm over a channel-last tensor of any spatial rank: per
+    sample and channel, statistics over the spatial positions in f32,
+    centered (two-pass) biased variance.
+
+    Matches ``torch.nn.InstanceNorm{2,3}d`` defaults (``affine=False``,
+    ``track_running_stats=False``) as the reference's PatchDiscriminator uses
+    them (norm="INSTANCE")."""
+    xf = x.float()
+    dims = tuple(range(1, x.dim() - 1))
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    out = (xf - mean) / torch.sqrt(var + eps)
+    if scale is not None:
+        out = out * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

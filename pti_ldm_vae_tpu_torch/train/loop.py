@@ -2,8 +2,13 @@
 ``pti_ldm_vae_tpu/train/loop.py``).
 
 Behavioral equivalent of the reference script (``vae_scripts/train_vae.py``):
-config -> loaders -> model/optimizer -> epoch loop with per-epoch validation,
-last/best checkpointing, metric logging, validation triplet dumps, resume.
+config -> loaders -> models/optimizers -> epoch loop with per-epoch
+validation, last/best checkpointing, metric logging, validation triplet dumps,
+resume (from the run's own checkpoints or from a reference full checkpoint
+file). With ``adv_enabled`` (the default, as in the reference) a PatchGAN
+discriminator trains beside the autoencoder once ``epoch >
+adv_warmup_epochs`` (default 5: the reference hardcodes ``epoch > 5``,
+``train_vae.py:399,449``); one train and one eval step are built per phase.
 
 * one device, no mesh: the batch goes to the trainer's device as it is;
 * bf16 compute / f32 parameters and Adam state by default on CUDA, f32 on the
@@ -12,11 +17,9 @@ last/best checkpointing, metric logging, validation triplet dumps, resume.
   read per step would stall the launch queue;
 * the host loader's prefetch overlaps IO with device compute.
 
-Not ported yet, and raising when configured: the adversarial branch
-(``adv_enabled: true``), AR-VAE, ``parallelism``, ``remat``, the
-space-to-depth stem (``s2d_stem`` other than false / "auto", which takes the
-standard path), resuming from a reference full checkpoint file
-(``checkpoint_dir`` pointing at a ``.pth``), profiler tracing.
+Not ported yet, and raising when configured: AR-VAE, ``parallelism``,
+``remat``, the space-to-depth stem (``s2d_stem`` other than false / "auto",
+which takes the standard path), profiler tracing.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
+from ..checkpoint.reference_resume import load_reference_checkpoint
 from ..config import resolve_bool
 from ..data.factory import create_vae_dataloaders
 from ..data.io import write_tif
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import autoencoder_from_config
+from ..models.discriminator import PatchDiscriminator
 from ..models.lpips import load_lpips_params, lpips_is_pretrained
 from ..ops.norm import DEFAULT_NORM_STATS
 from ..utils.determinism import set_determinism
@@ -90,6 +95,7 @@ class VAETrainer:
         use_wandb: bool | None = None,
         profile_port: int | None = None,
         trace_at_step: int | None = None,
+        conv_kernel: bool = False,
     ):
         self.cfg = cfg
         self.seed = seed
@@ -106,15 +112,16 @@ class VAETrainer:
         self.max_epochs = int(train_cfg["max_epochs"])
         self.val_interval = int(train_cfg.get("val_interval", 1))
         self.adv_enabled = resolve_bool(train_cfg.get("adv_enabled", True))
+        self.adv_warmup_epochs = int(train_cfg.get("adv_warmup_epochs", 5))
         self.run_dir = Path(cfg["run_dir"])
         self.model_dir = self.run_dir / "trained_weights"
         self.resume = resolve_bool(cfg.get("resume_ckpt", False)) if resume is None else resume
         self.log_every = log_every
         self.ar = resolve_ar_settings(cfg)
 
-        if self.adv_enabled:
-            raise _not_ported("the adversarial branch (adv_enabled: true)",
-                              "models/discriminator.py and losses/adversarial.py")
+        if self.adv_enabled and int(cfg.get("spatial_dims", 2)) != 2:
+            raise _not_ported("the adversarial branch for spatial_dims other than 2 (a 1-D or "
+                              "3-D PatchGAN discriminator)", "the 1-D / 3-D model slice")
         if self.ar["enabled"]:
             raise _not_ported("AR-VAE (ar_vae_enabled / regularized_attributes.enabled)",
                               "losses/ar_vae.py and attribute loading")
@@ -169,14 +176,23 @@ class VAETrainer:
         with open(self.run_dir / "splits" / "vae_split.json", "w", encoding="utf-8") as fh:
             json.dump(split_payload, fh, indent=2)
 
-        # ---- model, optimizer ---------------------------------------------
+        # ---- models, optimizers -------------------------------------------
         self.model = autoencoder_from_config(
             cfg["autoencoder_def"], compute_dtype=compute_dtype,
             norm_stats=str(cfg.get("norm_stats", DEFAULT_NORM_STATS)), s2d_stem=s2d_stem,
+            conv_kernel=conv_kernel,
         ).to(device=self.device, memory_format=torch.channels_last)
         self.disc = None
+        if self.adv_enabled:
+            # the reference's fixed PatchGAN (``train_vae.py:268-275``), its
+            # init drawn from a generator of its own seeded from the run's seed
+            self.disc = PatchDiscriminator(
+                spatial_dims=cfg.get("spatial_dims", 2), num_layers_d=3, channels=32,
+                in_channels=1, out_channels=1, compute_dtype=compute_dtype,
+                generator=torch.Generator().manual_seed(seed + 1),
+            ).to(device=self.device, memory_format=torch.channels_last)
         self.state = create_train_state(self.model, lr=float(train_cfg["lr"]),
-                                        world_size=self.world)
+                                        world_size=self.world, model_d=self.disc)
 
         # ---- losses -------------------------------------------------------
         self.lcfg = LossConfig(
@@ -195,8 +211,12 @@ class VAETrainer:
             print("[WARN] perceptual loss uses RANDOM features (no converted LPIPS weights "
                   "found: set $PTI_LPIPS_WEIGHTS or place weights/lpips_squeeze.npz)")
 
-        self._train_step = make_train_step(self.model, self.disc, self.lcfg, adv_active=False)
-        self._eval_step = make_eval_step(self.model, self.disc, self.lcfg, adv_active=False)
+        # ---- steps (one per GAN phase) -----------------------------------
+        phases = (False, True) if self.adv_enabled else (False,)
+        self._train_steps = {on: make_train_step(self.model, self.disc, self.lcfg, adv_active=on)
+                             for on in phases}
+        self._eval_steps = {on: make_eval_step(self.model, self.disc, self.lcfg, adv_active=on)
+                            for on in phases}
         self._triplet_infer = make_inference_fn(self.model)
 
         # ---- bookkeeping ---------------------------------------------------
@@ -207,11 +227,16 @@ class VAETrainer:
         if self.resume:
             ckpt_path = str(cfg.get("checkpoint_dir") or "")
             if ckpt_path and Path(ckpt_path).is_file():
-                raise _not_ported("resuming from a reference full checkpoint file",
-                                  "checkpoint/reference_resume.py")
-            meta = self.ckpt.restore(self.state)
-            if meta is None:
-                raise FileNotFoundError(f"No checkpoint to resume in {self.model_dir}")
+                # a reference full checkpoint (torch .pth): weights, Adam
+                # moments and counters load as they are, so a run started
+                # under the torch reference continues here
+                meta = load_reference_checkpoint(ckpt_path, self.state)
+                print(f"[INFO] Resumed from reference checkpoint {ckpt_path} "
+                      f"(epoch {meta['epoch']})")
+            else:
+                meta = self.ckpt.restore(self.state)
+                if meta is None:
+                    raise FileNotFoundError(f"No checkpoint to resume in {self.model_dir}")
             self.start_epoch = meta["epoch"] + 1
             self.best_val_loss = meta["best_val_loss"]
             self.total_step = meta["total_step"]
@@ -230,6 +255,9 @@ class VAETrainer:
         mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
         return images, mask
 
+    def _adv_active(self, epoch: int) -> bool:
+        return bool(self.adv_enabled and epoch > self.adv_warmup_epochs)
+
     def close(self) -> None:
         """Stop the loaders' decode threads and close the metric sink."""
         self.train_loader.close()
@@ -240,6 +268,7 @@ class VAETrainer:
     def train_epoch(self, epoch: int) -> None:
         self.train_loader.set_epoch(epoch)
         self.model.train()
+        step_fn = self._train_steps[self._adv_active(epoch)]
         # Metrics stay on the device during the epoch (no host sync per step)
         # and are flushed after the last batch with correct step numbering;
         # the batch-0 debug print and triplet panel are deferred the same way.
@@ -247,8 +276,8 @@ class VAETrainer:
         batch0: tuple[dict, torch.Tensor] | None = None
         for step, batch in enumerate(self.train_loader):
             images, mask = self._device_batch(batch)
-            _, metrics = self._train_step(self.state, images, mask, None, self.lpips_params,
-                                          generator=self.generator)
+            _, metrics = step_fn(self.state, images, mask, None, self.lpips_params,
+                                 generator=self.generator)
             self.total_step += 1
             if step % self.log_every == 0:
                 buffered.append((self.total_step, metrics))
@@ -288,6 +317,7 @@ class VAETrainer:
         """Returns the epoch-mean reconstruction loss (the best-model
         criterion, reference ``validate`` -> ``val_recon_epoch_loss``)."""
         self.model.eval()
+        eval_fn = self._eval_steps[self._adv_active(epoch)]
         sums: dict[str, torch.Tensor] | None = None
         n_batches = 0
         start_epoch_to_save, save_every = 10, 5
@@ -300,8 +330,8 @@ class VAETrainer:
         dumps: list[tuple[int, torch.Tensor, torch.Tensor]] = []
         for step, batch in enumerate(self.val_loader):
             images, mask = self._device_batch(batch)
-            metrics, recon = self._eval_step(self.state, images, mask, None, self.lpips_params,
-                                             generator=self.generator)
+            metrics, recon = eval_fn(self.state, images, mask, None, self.lpips_params,
+                                     generator=self.generator)
             # sums accumulate on the device; one host read after the loop
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
             n_batches += 1
@@ -333,8 +363,10 @@ class VAETrainer:
             "val/recon_loss": means.get("recon_loss", 0.0),
             "val/kl_loss": means.get("kl_loss", 0.0),
             "val/perceptual_loss": means.get("perceptual_loss", 0.0),
-            "val/adv_gen_loss": 0.0,
-            "val/adv_disc_loss": 0.0,
+            "val/adv_gen_loss": self.lcfg.adv_weight * means.get("adv_gen_loss", 0.0)
+            if self.adv_enabled else 0.0,
+            "val/adv_disc_loss": self.lcfg.adv_weight * means.get("adv_disc_loss", 0.0)
+            if self.adv_enabled else 0.0,
             "val/loss_total": float(val_total),
             "epoch": epoch,
         })

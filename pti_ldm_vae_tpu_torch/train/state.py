@@ -3,9 +3,9 @@
 
 The JAX package keeps an immutable pytree that a pure step replaces; PyTorch
 parameters and optimizer state are updated in place, so the state here is a
-small mutable object: the generator module, its ``torch.optim.Adam``, and a
-step counter. The discriminator fields are present and empty until the
-adversarial branch is ported.
+small mutable object: the generator module, its ``torch.optim.Adam``, a step
+counter and, when the adversarial branch is on, the discriminator module and
+its own ``torch.optim.Adam``.
 
 LR x world_size scaling as in the reference (``train_vae.py:301-304``).
 """
@@ -35,6 +35,13 @@ class GanTrainState:
         self.optimizer_g.zero_grad(set_to_none=True)
         self.step += 1
 
+    def apply_d(self) -> None:
+        """One Adam update of the discriminator from the gradients on its
+        parameters; clears them afterwards. The step counter follows the
+        generator alone."""
+        self.optimizer_d.step()
+        self.optimizer_d.zero_grad(set_to_none=True)
+
 
 def create_train_state(
     model_g: nn.Module,
@@ -45,14 +52,16 @@ def create_train_state(
     b1: float = 0.9,
     b2: float = 0.999,
 ) -> GanTrainState:
-    """Adam with torch defaults (eps=1e-8), lr scaled by world size. On CUDA
-    the update of all parameters is PyTorch's fused Adam (one library kernel
-    per dtype and device), on the CPU its plain loop; the arithmetic is the
-    same."""
-    if model_d is not None:
-        raise NotImplementedError("the discriminator is ported with the adversarial step")
-    params = [p for p in model_g.parameters() if p.requires_grad]
-    fused = bool(params) and all(p.device.type == "cuda" for p in params)
-    optimizer_g = torch.optim.Adam(params, lr=lr * world_size, betas=(b1, b2), eps=1e-8,
-                                   fused=fused)
-    return GanTrainState(step=0, model_g=model_g, optimizer_g=optimizer_g)
+    """Adam with torch defaults (eps=1e-8), lr scaled by world size, one
+    optimizer per model (the discriminator's only when ``model_d`` is given).
+    On CUDA the update of all parameters is PyTorch's fused Adam (one library
+    kernel per dtype and device), on the CPU its plain loop; the arithmetic is
+    the same."""
+
+    def adam(model: nn.Module) -> torch.optim.Adam:
+        params = [p for p in model.parameters() if p.requires_grad]
+        fused = bool(params) and all(p.device.type == "cuda" for p in params)
+        return torch.optim.Adam(params, lr=lr * world_size, betas=(b1, b2), eps=1e-8, fused=fused)
+
+    return GanTrainState(step=0, model_g=model_g, optimizer_g=adam(model_g), model_d=model_d,
+                         optimizer_d=adam(model_d) if model_d is not None else None)

@@ -1,18 +1,23 @@
 """Train / eval / inference steps for the VAE workload (counterpart of
 ``pti_ldm_vae_tpu/train/steps.py``).
 
-One function computes the generator update: forward, all loss terms,
-backward, Adam. Batches are zero-padded to a static size and every loss term
+One function computes the generator update (forward, all loss terms,
+backward, Adam) and, when the adversarial branch is active, the discriminator
+update on the detached reconstruction of the same forward, as the reference's
+two-optimizer schedule does (G step ``train_vae.py:384-445``, D step
+``:448-458``). The GAN warm-up gate is a static flag: build one step per
+phase. Batches are zero-padded to a static size and every loss term
 is a masked mean, so padding never leaks into gradients (same contract as
 the JAX package, whose loader this port's loader mirrors). Losses accumulate
 in f32 while the conv stack runs in the model's ``compute_dtype`` (bf16 on
 the card by default; bf16 needs no gradient scaling).
 
 The backward of every GroupNorm+SiLU and of both attentions runs through the
-hand-written kernels of ``ops/kernels`` on CUDA tensors.
+hand-written kernels of ``ops/kernels`` on CUDA tensors, and so do the 3x3
+convolutions of a model built with ``conv_kernel=True``, forward, input
+gradient and filter gradient.
 
-Not ported yet, and raising when asked for: the adversarial branch
-(``adv_active=True``, a discriminator) and the AR-VAE term
+Not ported yet, and raising when asked for: the AR-VAE term
 (``ar_vae_enabled``).
 """
 
@@ -69,11 +74,25 @@ def _per_sample_kl(z_mu: torch.Tensor, z_sigma: torch.Tensor, mode: str) -> torc
     return -0.5 * torch.sum(1.0 + second - z_mu.square() - torch.exp(second), dim=dims)
 
 
+def _per_sample_lsgan(logits: torch.Tensor, target: float) -> torch.Tensor:
+    per = (logits.float() - target).square()
+    return per.mean(dim=tuple(range(1, per.dim())))
+
+
+def _discriminator_loss(disc, recon: torch.Tensor, images: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """0.5 * (fake -> 0 + real -> 1) on the detached reconstruction, masked
+    means over the padded batch (reference ``train_vae.py:449-455``)."""
+    logits_fake = disc(recon.detach())[-1]
+    logits_real = disc(images)[-1]
+    fake = _masked_mean(_per_sample_lsgan(logits_fake, 0.0), mask)
+    real = _masked_mean(_per_sample_lsgan(logits_real, 1.0), mask)
+    return 0.5 * (fake + real)
+
+
 def _check_ported(disc, lcfg: LossConfig, adv_active: bool) -> None:
-    if adv_active or disc is not None:
-        raise NotImplementedError(
-            "the adversarial branch (discriminator, adv_active=True) is not ported yet: "
-            "it comes with models/discriminator.py and losses/adversarial.py")
+    if adv_active and disc is None:
+        raise ValueError("adv_active=True needs a discriminator (got disc=None)")
     if lcfg.ar_vae_enabled:
         raise NotImplementedError(
             "the AR-VAE term (ar_vae_enabled=True) is not ported yet: it comes with "
@@ -83,8 +102,11 @@ def _check_ported(disc, lcfg: LossConfig, adv_active: bool) -> None:
 def _generator_losses(
     model: AutoencoderKL, lcfg: LossConfig, lpips_params, images: torch.Tensor,
     mask: torch.Tensor, eps: torch.Tensor | None, generator: torch.Generator | None,
+    disc=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """All generator-side loss terms; shared by the train and eval paths."""
+    """All generator-side loss terms; shared by the train and eval paths.
+    With a discriminator the LSGAN generator term (fake -> 1 through ``disc``)
+    joins the total."""
     recon, z_mu, z_sigma = model(images, eps, generator)
 
     recons_loss = _masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask)
@@ -101,8 +123,13 @@ def _generator_losses(
     else:
         p_loss = zero
 
+    if disc is not None:
+        adv_gen = _masked_mean(_per_sample_lsgan(disc(recon)[-1], 1.0), mask)
+    else:
+        adv_gen = zero
+
     total = compute_total_loss(
-        recons_loss, kl_loss, p_loss, zero, zero,
+        recons_loss, kl_loss, p_loss, adv_gen, zero,
         kl_weight=lcfg.kl_weight,
         perceptual_weight=lcfg.perceptual_weight,
         adv_weight=lcfg.adv_weight,
@@ -112,7 +139,7 @@ def _generator_losses(
     aux = {
         "recon": recon, "z_mu": z_mu, "z_sigma": z_sigma,
         "recon_loss": recons_loss, "kl_loss": kl_loss, "perceptual_loss": p_loss,
-        "adv_gen_loss": zero, "ar_loss": zero,
+        "adv_gen_loss": adv_gen, "ar_loss": zero,
     }
     return total, aux
 
@@ -123,25 +150,42 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
         state, metrics = step(state, images, mask, attributes, lpips_params,
                               eps=None, generator=None)
 
+    ``adv_active`` is the static warm-up gate (``epoch > 5`` in the
+    reference); build one step per phase. When it is on, the generator's
+    objective gains ``adv_weight`` x the LSGAN term through ``disc`` — whose
+    parameters take no gradient in that pass — and, after the generator's
+    Adam update, the discriminator takes one Adam step on ``adv_weight * 0.5 *
+    (fake -> 0 + real -> 1)`` with the detached reconstruction of the same
+    forward (reference ``train_vae.py:456``).
+
     ``state`` is updated in place and handed back. The posterior noise is
     ``eps`` when given, else drawn from ``generator`` (a ``torch.Generator``
     on the model's device). ``metrics`` are 0-dim tensors on the device: read
     them after the epoch, not per step."""
     _check_ported(disc, lcfg, adv_active)
+    params_g = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: GanTrainState, images, mask, attributes, lpips_params,
              eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
         del attributes  # only the AR-VAE term reads them
-        loss_g, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator)
-        loss_g.backward()
+        loss_g, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
+                                        disc if adv_active else None)
+        # gradients for the generator's parameters only: none lands on the
+        # discriminator, whose own pass below starts from clean slots
+        loss_g.backward(inputs=params_g)
         state.apply_g()
-        zero = aux["adv_gen_loss"]
+
+        disc_loss = torch.zeros_like(loss_g.detach())
+        if adv_active:
+            disc_loss = _discriminator_loss(disc, aux["recon"], images, mask)
+            (lcfg.adv_weight * disc_loss).backward()
+            state.apply_d()
         metrics = {
             "train/recon_loss": aux["recon_loss"],
             "train/kl_loss": aux["kl_loss"],
             "train/perceptual_loss": aux["perceptual_loss"],
-            "train/adv_gen_loss": zero,
-            "train/adv_disc_loss": zero,
+            "train/adv_gen_loss": lcfg.adv_weight * aux["adv_gen_loss"],
+            "train/adv_disc_loss": lcfg.adv_weight * disc_loss,
             "train/loss_total": loss_g,
             # debug stats (reference ``train_vae.py:432-442``), cheap scalars
             "debug/z_mu_mean": aux["z_mu"].mean(),
@@ -154,21 +198,25 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
 
 def make_eval_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: bool) -> Callable:
     """Validation step (reference ``validate``): stochastic forward and all
-    loss terms, no gradient. Returns ``(metrics, reconstruction)`` so the
-    caller can dump triplets."""
+    loss terms, plus the discriminator loss when the adversarial branch is
+    active (unscaled, like ``adv_gen_loss``), no gradient. Returns ``(metrics,
+    reconstruction)`` so the caller can dump triplets."""
     _check_ported(disc, lcfg, adv_active)
 
     def step(state: GanTrainState, images, mask, attributes, lpips_params,
              eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
         del state, attributes
         with torch.no_grad():
-            total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator)
+            total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
+                                           disc if adv_active else None)
+            disc_loss = (_discriminator_loss(disc, aux["recon"], images, mask) if adv_active
+                         else torch.zeros_like(total))
         metrics = {
             "recon_loss": aux["recon_loss"],
             "kl_loss": aux["kl_loss"],
             "perceptual_loss": aux["perceptual_loss"],
             "adv_gen_loss": aux["adv_gen_loss"],
-            "adv_disc_loss": aux["adv_gen_loss"],
+            "adv_disc_loss": disc_loss,
             "ar_loss": aux["ar_loss"],
             "loss_total": total,
         }

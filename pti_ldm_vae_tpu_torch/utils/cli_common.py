@@ -26,6 +26,8 @@ __all__ = [
     "load_config_and_model",
     "build_inference_dataloader",
     "resolve_inference_output_dirs",
+    "resolve_eval_output_dir",
+    "serialize_args",
 ]
 
 
@@ -74,18 +76,21 @@ def enable_parity_numerics() -> None:
 
 def load_config_and_model(
     config_file: str, checkpoint_path: str, *, device: torch.device, exact: bool = False,
+    conv_kernel: bool = False,
 ) -> tuple[Any, AutoencoderKL]:
     """Reference ``cli_common.py:57-70``: returns (config_namespace, model).
 
     Compute dtype: bf16 on CUDA, f32 on the CPU or with ``exact=True``, which
-    also turns TF32 off and pins the standard (reference) formulation."""
+    also turns TF32 off and pins the standard (reference) formulation.
+    ``conv_kernel`` sends the 3x3 convolutions through the hand-written
+    kernels."""
     if exact:
         enable_parity_numerics()
     compute_dtype = torch.float32 if exact or device.type == "cpu" else torch.bfloat16
     config = load_vae_config(config_file)
     model = load_vae_model(
         config, checkpoint_path, device=device, compute_dtype=compute_dtype,
-        s2d_stem=False if exact else None,
+        s2d_stem=False if exact else None, conv_kernel=conv_kernel,
     )
     return config, model
 
@@ -111,3 +116,23 @@ def resolve_inference_output_dirs(
     out_tif.mkdir(parents=True, exist_ok=True)
     out_png.mkdir(parents=True, exist_ok=True)
     return base, out_tif, out_png
+
+
+def resolve_eval_output_dir(config_file: str, output_dir: str | None) -> Path:
+    """``evals/<config_stem>`` unless given (reference ``vae_loader.py:46-56``)."""
+    out = Path(output_dir) if output_dir is not None else Path("evals") / Path(config_file).stem
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def serialize_args(args: Any) -> dict[str, Any]:
+    """CLI args -> JSON-serializable (reference ``eval_metrics.py:66-83``)."""
+    out: dict[str, Any] = {}
+    for key, value in vars(args).items():
+        if hasattr(value, "__fspath__"):
+            out[key] = str(value)
+        elif isinstance(value, (list, tuple)):
+            out[key] = [str(item) for item in value]
+        else:
+            out[key] = value
+    return out

@@ -48,6 +48,7 @@ def _top_level(config: Any, key: str, default: Any) -> Any:
 def load_vae_model(
     config: Any, checkpoint_path: str, *, device: torch.device | str,
     compute_dtype: torch.dtype = torch.float32, s2d_stem: bool | str | None = None,
+    conv_kernel: bool = False,
 ) -> AutoencoderKL:
     """The autoencoder of ``config`` with the checkpoint's weights, in eval
     mode on ``device`` (reference ``vae_loader.py:27-43``).
@@ -55,7 +56,7 @@ def load_vae_model(
     Top-level extension keys as in the JAX package: ``remat`` (inert at
     inference), ``norm_stats`` and ``s2d_stem`` (default ``"auto"``, which
     takes the standard path here). The ``s2d_stem`` keyword overrides the
-    config."""
+    config. ``conv_kernel`` is the model field of that name."""
     ae_def = _top_level(config, "autoencoder_def", None)
     remat = bool(_top_level(config, "remat", False))
     norm_stats = str(_top_level(config, "norm_stats", DEFAULT_NORM_STATS))
@@ -65,7 +66,7 @@ def load_vae_model(
         s2d_stem = bool(s2d_stem)
     model = autoencoder_from_config(
         ae_def, norm_stats=norm_stats, remat=remat, s2d_stem=s2d_stem,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, conv_kernel=conv_kernel,
     )
     model.load_state_dict(load_autoencoder_state_dict(checkpoint_path), strict=True)
     model.requires_grad_(False)

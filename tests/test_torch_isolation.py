@@ -22,9 +22,13 @@ def test_port_has_modules():
                      "models/lpips.py", "ops/norm.py", "ops/kernels/groupnorm_silu.py",
                      "ops/kernels/flash_attention.py", "losses/kl.py", "losses/composite.py",
                      "utils/losses.py", "utils/logging.py", "train/state.py", "train/steps.py",
-                     "train/loop.py", "checkpoint/manager.py", "data/factory.py"):
+                     "train/loop.py", "checkpoint/manager.py", "data/factory.py",
+                     "ops/conv.py", "ops/kernels/conv3x3.py", "models/discriminator.py",
+                     "losses/adversarial.py", "checkpoint/reference_resume.py",
+                     "utils/eval_metrics.py", "cli/evaluate_vae.py"):
         assert expected in names
-    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
+                   "conv3x3_wgrad.cu"):
         assert (PORT / "csrc" / source).exists()
 
 

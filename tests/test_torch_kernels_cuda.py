@@ -11,14 +11,21 @@ plain f32 version on the same bf16-rounded inputs, atol 2e-2 (one bf16
 rounding of outputs up to ~6). Backward: the same bars for ``dx``, ``dq``,
 ``dk`` and ``dv``; ``dscale`` and ``dbias`` are f32 sums over B*H*W terms of
 size ~1, held to rtol 1e-4 with atol 1e-5 * sqrt(B*H*W) (rounding of a sum
-grows with the root of its length). Every backward runs twice and must give
-the same bits: the kernels use no float atomics.
+grows with the root of its length), and so is the convolution's filter
+gradient ``dW``. Every backward runs twice and must give the same bits: the
+kernels use no float atomics. The convolution's weights are scaled by
+(9*Cin)^-0.5, as an initializer would, and its upstream gradient by
+(Cin/Cout)^0.5, so that outputs and input gradients are of size ~1 (one bf16
+rounding of a value of 16 is already 0.06).
 """
 
 import pytest
 import torch
 
 from pti_ldm_vae_tpu_torch.ops.kernels import (
+    conv3x3,
+    conv3x3_bwd_plain,
+    conv3x3_plain,
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
@@ -35,6 +42,10 @@ from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels run only on the card)")
+    # the plain versions are the f32 yardstick: cuDNN would run their f32
+    # convolutions in TF32 (about three decimal digits) unless told not to
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -132,3 +143,67 @@ def test_no_gradient_saves_nothing_and_counts_no_backward(cuda):
         y = groupnorm_silu(x, scale, bias, 16, 1e-6)
     assert not y.requires_grad and y.grad_fn is None
     assert launch_counts()["groupnorm_silu"] == 1
+
+
+# (B, H, W, Cin, Cout): a res-block conv, a ragged image with odd channel
+# counts, the thin ends (Cin=1, Cout=1, Cout=4 / Cin=4), a wide bottleneck conv
+CONV_SHAPES = [(2, 64, 64, 32, 32), (1, 20, 12, 3, 5), (2, 40, 70, 1, 32), (2, 33, 31, 32, 1),
+               (3, 32, 32, 128, 4), (2, 32, 32, 4, 128), (2, 32, 32, 128, 128), (1, 16, 48, 64, 96)]
+
+
+def _conv_inputs(shape, dtype, device, gen):
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device=device, generator=gen).to(dtype)
+    wmat = torch.randn(9 * cin, cout, device=device, generator=gen) * (9 * cin) ** -0.5
+    return x, wmat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for shape in CONV_SHAPES:
+        x, wmat = _conv_inputs(shape, dtype, cuda, gen)
+        reset_launch_counts()
+        # a strided input, as the nearest upsample hands one over
+        got = conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), wmat)
+        assert launch_counts()["conv3x3"] == 1 and got.dtype == dtype and got.is_contiguous()
+        want = conv3x3_plain(x.float(), wmat.to(dtype).float())
+        torch.testing.assert_close(got.float(), want, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_backward_kernels_match_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for shape in CONV_SHAPES:
+        b, h, w, cin, cout = shape
+        x, wmat = _conv_inputs(shape, dtype, cuda, gen)
+        x.requires_grad_()
+        wmat.requires_grad_()
+        g = (torch.randn(b, w, h, cout, device=cuda, generator=gen) * (cin / cout) ** 0.5
+             ).to(dtype).transpose(1, 2)
+        reset_launch_counts()
+        dx, dw = torch.autograd.grad(conv3x3(x, wmat), (x, wmat), g)
+        counts = launch_counts()
+        assert (counts["conv3x3"], counts["conv3x3_wgrad"]) == (2, 1)  # forward + dgrad, wgrad
+        assert dx.dtype == dtype and dw.dtype == torch.float32 and dw.shape == wmat.shape
+        want_dx, want_dw = conv3x3_bwd_plain(x.detach().float(), wmat.detach().to(dtype).float(),
+                                             g.float())
+        torch.testing.assert_close(dx.float(), want_dx, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
+        torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5,
+                                   msg=lambda m: f"{shape}: {m}")
+        again = torch.autograd.grad(conv3x3(x, wmat), (x, wmat), g)
+        assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+@pytest.mark.cuda
+def test_conv3x3_skips_the_gradients_nobody_wants(cuda):
+    x = torch.randn(2, 16, 16, 8, device=cuda)
+    wmat = (torch.randn(72, 8, device=cuda) / 8).requires_grad_()
+    reset_launch_counts()
+    conv3x3(x, wmat).sum().backward()
+    counts = launch_counts()
+    assert (counts["conv3x3"], counts["conv3x3_wgrad"]) == (1, 1)  # no input gradient
+    with torch.no_grad():
+        assert conv3x3(x, wmat).grad_fn is None

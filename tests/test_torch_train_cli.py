@@ -174,7 +174,8 @@ def test_resume_without_checkpoint_raises(workspace, tmp_path):
 
 
 @pytest.mark.parametrize("patch,match", [
-    (lambda c: c["autoencoder_train"].update(adv_enabled=True), "adversarial"),
+    (lambda c: (c["autoencoder_train"].update(adv_enabled=True), c.update(spatial_dims=3)),
+     "adversarial"),
     (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), "AR-VAE"),
     (lambda c: c.update(regularized_attributes={"enabled": True}), "AR-VAE"),
     (lambda c: c.update(parallelism={"spatial": 2}), "parallelism"),

@@ -213,14 +213,15 @@ def test_step_draws_eps_from_generator(world):
     assert float(a["perceptual_loss"]) == 0.0
 
 
-@pytest.mark.parametrize("kwargs,lcfg", [
-    (dict(adv_active=True), LossConfig()),
-    (dict(adv_active=False), LossConfig(ar_vae_enabled=True)),
+@pytest.mark.parametrize("kwargs,lcfg,error,match", [
+    # the adversarial branch is ported; without a discriminator it has nothing to run
+    (dict(adv_active=True), LossConfig(), ValueError, "needs a discriminator"),
+    (dict(adv_active=False), LossConfig(ar_vae_enabled=True), NotImplementedError, "not ported yet"),
 ], ids=["adversarial", "ar_vae"])
-def test_unported_branches_raise(kwargs, lcfg):
+def test_unported_branches_raise(kwargs, lcfg, error, match):
     model = autoencoder_from_config(TOY)
     for make in (make_train_step, make_eval_step):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(error, match=match):
             make(model, None, lcfg, **kwargs)
 
 
