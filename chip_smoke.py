@@ -9,21 +9,30 @@ result line):
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
 2. build: the CUDA C++ kernels of ``pti_ldm_vae_tpu_torch/csrc`` with nvcc
    (one process per source, started together; ``ptxas`` registers and spills
-   reported), the Triton kernels at their first launch;
+   reported; for the two tensor-core sources also the shared memory per block
+   and the resident blocks per SM of every instantiation, and whether their
+   SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``), read with
+   ``cuobjdump`` where the toolkit has it), the Triton kernels at their first
+   launch;
 3. kernel checks at the shapes the main paths give them (GroupNorm+SiLU: the
    8 shapes of a flagship pass at 256², batch 8; flash attention:
-   [8,1,1024,128] and a ragged [2,2,1000,64]; the 3x3 convolution: the 14
-   distinct shapes of the 47 convolutions of a flagship pass, as forward,
-   input gradient and filter gradient, and a ragged [1,20,12,3->5]; its
-   filter gradient ``dW`` is held like ``dscale``), every hand-written kernel
+   [8,1,1024,128], a ragged [2,2,1000,64] and [2,1,S,D] for D in 16, 32, 64,
+   128 and S in 1024, 200, the backward from the logsumexp the forward wrote;
+   the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
+   flagship pass, as forward, input gradient and filter gradient, a ragged
+   [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
+   [2,37,70,24->40] (which must go to the tensor-core kernel); its filter
+   gradient ``dW`` is held like ``dscale``; bf16 inputs take the tensor-core
+   kernels wherever the wrappers' rules send them there, f32 inputs the FMA
+   kernels), every hand-written kernel
    against its plain PyTorch version on the card:
    forward kernels f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
    version on the same bf16-rounded inputs, atol 2e-2); backward kernels the
    same bars for ``dx``, ``dq``, ``dk``, ``dv``; ``dscale`` / ``dbias`` are
    f32 sums over B*H*W terms of size ~1 (up to 524 288 here), held to rtol
    1e-4 with atol 1e-5 * sqrt(B*H*W) (the rounding of a sum grows with the
-   root of its length); every backward runs twice and must give the same
-   bits (no float atomics);
+   root of its length); every backward, and the flash and convolution
+   forward, runs twice and must give the same bits (no float atomics);
 4. inference main path: ``pti_ldm_vae_tpu_torch.cli.inference_vae`` on 16
    synthetic 300x300 TIFs at the flagship config
    ``config/vae_dente_no_adv.json`` (256², batch 8) with random weights from a
@@ -122,7 +131,11 @@ CONV_PER_RECONSTRUCT = 47
 CONV_DGRAD_PER_STEP = 46
 ADV_EPOCHS = 3
 ADV_RESUME_EPOCHS = 4
-RAGGED_CONV = (1, 20, 12, 3, 5)
+RAGGED_CONV = (1, 20, 12, 3, 5)  # Cin 3: the f32-FMA kernel in either type
+RAGGED_CONV_WGMMA = (2, 37, 70, 24, 40)  # Cin 24: the tensor-core kernel in bf16
+FLASH_CHECK_SHAPES = ((BATCH, 1, 1024, 128), (2, 2, 1000, 64),
+                      *((2, 1, s, d) for d in (16, 32, 64, 128) for s in (1024, 200)))
+WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu")
 
 KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx",
                 "flash_attention", "flash_attention_bwd", "conv3x3", "conv3x3_wgrad")
@@ -191,12 +204,17 @@ def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    by_name = {name: us / 1e3 / iters for name, us in _kernel_times_us(prof).items()}
+    for _ in range(3):  # a trace now and then comes back without its device events: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        by_name = {name: us / 1e3 / iters for name, us in _kernel_times_us(prof).items()}
+        if by_name:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device kernel in three traces")
     return {"device_ms": sum(by_name.values()), "event_ms": total / iters, "by_name": by_name}
 
 
@@ -262,10 +280,10 @@ def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
 # kinds of device kernels, first match wins (lower-cased kernel names)
 KINDS = (
     ("conv3x3_wgrad", ("conv3x3_wgrad_kernel",)),
-    ("conv3x3", ("conv3x3_kernel",)),
+    ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
     ("groupnorm_silu_fwd", ("_stats_kernel", "_apply_kernel")),
     ("groupnorm_silu_bwd", ("_bwd_reduce_kernel", "_bwd_dx_kernel")),
-    ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("optimizer", ("multi_tensor_apply", "adam")),
     ("pool", ("max_pool",)),  # LPIPS trunk
@@ -311,13 +329,87 @@ def ptxas_report(log: Path) -> dict:
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
             kernels.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill})
             name = None
+    def short(name: str) -> str:
+        # kernel name and template arguments (element type, integers) out of the mangled name
+        if m := re.search(r"\d((?:flash|conv3x3)\w*?_kernel)I(13__nv_bfloat16|f)?((?:Li\d+E)*)E", name):
+            kind = {"13__nv_bfloat16": ["bf16"], "f": ["f32"], None: []}[m.group(2)]
+            return f"{m.group(1)}<{','.join(kind + re.findall(r'Li(\d+)E', m.group(3)))}>"
+        return re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", name)[:60]
+
     return {"kernels": len(kernels),
+            "each": {short(k["kernel"]): [k["registers"], k["spill_bytes"]] for k in kernels},
             "max_registers": max((k["registers"] for k in kernels), default=0),
             "spill_bytes": sum(k["spill_bytes"] for k in kernels),
             # the instantiations the main paths run in bf16: head dim 128
-            "d128_bf16": [{"kernel": re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", k["kernel"])[:60],
+            "d128_bf16": [{"kernel": short(k["kernel"]),
                            "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
                           for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]]}
+
+
+def wgmma_occupancy(torch, shapes) -> dict:
+    """Shared memory per block (bytes) and resident blocks per SM, as the CUDA
+    runtime reports them for this card, of the tensor-core convolution kernel
+    at the tile each of ``shapes`` (forward and, with the channels swapped,
+    input gradient) takes, with the tiles, the persistent blocks and the tiles
+    per block that follow; and of every flash-attention instantiation."""
+    import ctypes
+
+    from pti_ldm_vae_tpu_torch.ops.kernels import _build
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import wgmma_smem_bytes, wgmma_tile
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    out: dict = {}
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    conv = _build.load("conv3x3_wgmma.cu")
+    # the tiles the flagship pass's shapes take (Cin sizes the weight slab, kc the halo ring)
+    for shape in shapes:
+        b, h, w, cin, cout = shape
+        if conv_forward_kernel(torch.bfloat16, cin) != "wgmma":
+            continue
+        mt, tn, kc = wgmma_tile(b, h, w, cin, cout, n_sm)
+        err = conv.conv3x3_wgmma_occupancy(mt, tn, kc, cin, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0 or smem.value != wgmma_smem_bytes(cin, mt, tn, kc):
+            raise RuntimeError(f"conv3x3_wgmma_occupancy({mt}, {tn}, {kc}, {cin}): CUDA error {err}, "
+                               f"{smem.value} bytes against {wgmma_smem_bytes(cin, mt, tn, kc)}")
+        tiles = b * -(-h // 8) * -(-w // (8 * mt))
+        groups = -(-cout // tn)
+        resident = min(tiles, -(-blocks.value * n_sm // groups)) * groups
+        out[f"conv3x3_wgmma {list(shape)}"] = {
+            "mt": mt, "tn": tn, "kc": kc, "smem_bytes": smem.value, "blocks_per_sm": blocks.value,
+            "tiles": tiles * groups, "blocks": resident,
+            "tiles_per_block": round(tiles * groups / resident, 2)}
+    flash = _build.load("flash_attention_wgmma.cu")
+    for d in (16, 32, 64, 128):
+        err = flash.flash_attention_wgmma_occupancy(d, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"flash_attention_wgmma_occupancy({d}): CUDA error {err}")
+        out[f"flash_attention_wgmma d{d}"] = {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    return out
+
+
+def sass_report(libs: list[Path]) -> dict:
+    """Whether each tensor-core library's SASS holds ``HGMMA`` (wgmma) and
+    ``LDGSTS`` (cp.async) instructions, counted with ``cuobjdump -sass``; says
+    so where the toolkit has no ``cuobjdump``."""
+    import os
+
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+        tool = str(candidate) if candidate.exists() else None
+    if tool is None:
+        return {"cuobjdump": None, "note": "no cuobjdump on this machine: SASS not read"}
+    out: dict = {"cuobjdump": tool}
+    for lib in libs:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        counts = {word: sass.count(word) for word in ("HGMMA", "LDGSTS", "UTMALDG")}
+        if not counts["HGMMA"] or not counts["LDGSTS"]:
+            raise RuntimeError(f"{lib.name}: SASS holds no HGMMA or no LDGSTS: {counts}")
+        out[lib.name] = counts
+    return out
 
 
 def conv_inputs(torch, shape, gen):
@@ -339,6 +431,10 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
         flash_attention_plain,
         groupnorm_silu_bwd_plain,
         groupnorm_silu_plain,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        forward_kernel as flash_forward_kernel,
     )
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
 
@@ -378,12 +474,16 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
                 check_close(f"groupnorm_silu dscale {tag}", dscale, want_dscale, sum_tol),
                 check_close(f"groupnorm_silu dbias {tag}", dbias, want_dbias, sum_tol)))
             del grads, dx, want_dx, leaves
-    for shape in ((BATCH, 1, 1024, 128), (2, 2, 1000, 64)):
+    routes: dict[str, dict] = {"flash_attention": {}, "conv3x3": {}}
+    for shape in FLASH_CHECK_SHAPES:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
+            routes["flash_attention"][tag] = flash_forward_kernel(dtype, shape[-1])
             got = kernels_mod.flash_attention(qd, kd, vd)
+            if not torch.equal(got, kernels_mod.flash_attention(qd, kd, vd)):
+                raise RuntimeError(f"flash_attention forward {tag}: two runs differ")
             want = flash_attention_plain(qd.float(), kd.float(), vd.float())
             note("flash_attention", key, check_close(f"flash_attention {tag}", got, want, tol))
 
@@ -397,14 +497,19 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
             for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want):
                 note("flash_attention_bwd", key,
                      check_close(f"flash_attention {name} {tag}", ours, theirs, tol))
-    for shape in [s for s, _ in conv_shapes] + [RAGGED_CONV]:
+    for shape in [s for s, _ in conv_shapes] + [RAGGED_CONV, RAGGED_CONV_WGMMA]:
         x, wmat, g = conv_inputs(torch, shape, gen)
         sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             xd, gd = x.to(dtype), g.to(dtype)
             wd = wmat.to(dtype).float()  # the matrix as the kernels see it
+            # which kernel the forward and the input gradient (Cout in Cin's place) take
+            routes["conv3x3"][tag] = [conv_forward_kernel(dtype, shape[3]),
+                                      conv_forward_kernel(dtype, shape[4])]
             got = kernels_mod.conv3x3(xd, wmat)
+            if not torch.equal(got, kernels_mod.conv3x3(xd, wmat)):
+                raise RuntimeError(f"conv3x3 forward {tag}: two runs differ")
             want = conv3x3_plain(xd.float(), wd)
             err_fwd = check_close(f"conv3x3 {tag}", got, want, tol)
             del got, want
@@ -421,8 +526,19 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
             del grads, dx, dw, want_dx, want_dw, leaves
         del x, wmat, g
     torch.cuda.empty_cache()
+    by_rule = {f"{RAGGED_CONV} bfloat16": ["fma", "fma"],
+               f"{RAGGED_CONV_WGMMA} bfloat16": ["wgmma", "wgmma"],
+               f"{RAGGED_CONV_WGMMA} float32": ["fma", "fma"]}
+    for tag, want_route in by_rule.items():
+        if routes["conv3x3"][tag] != want_route:
+            raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
+    if any(r != ("wgmma" if "bfloat16" in tag else "fma") for tag, r in routes["flash_attention"].items()):
+        raise RuntimeError(f"flash_attention forward routes: {routes['flash_attention']}")
     emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
-         conv_shapes=[[list(s), n] for s, n in conv_shapes] + [[list(RAGGED_CONV), 0]],
+         forward_bit_identical=True, forward_kernel=routes,
+         flash_shapes=[list(s) for s in FLASH_CHECK_SHAPES],
+         conv_shapes=[[list(s), n] for s, n in conv_shapes]
+         + [[list(RAGGED_CONV), 0], [list(RAGGED_CONV_WGMMA), 0]],
          tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
                     "dscale_dbias_dW": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
     return errs
@@ -858,8 +974,10 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
     forward kernel as forward and as input gradient, and the filter-gradient
     kernel, each beside its bound, its plain version and the library call
     (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
-    one operand). The filter gradient's time includes the fold of its partial
-    sums (one ``torch.sum``)."""
+    one operand). ``kernel`` names the forward kernel the wrapper's rule picks
+    for the call (``wgmma``: the tensor-core kernel, ``fma``: the f32-FMA one).
+    The filter gradient's time includes the fold of its partial sums (one
+    ``torch.sum``)."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
@@ -868,6 +986,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
         conv3x3_bwd_plain,
         conv3x3_plain,
         flip_transpose,
+        forward_kernel,
     )
 
     def timed(prefix: str, fn) -> dict[str, float]:
@@ -895,7 +1014,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
             y_lib = F.conv2d(x_lib, w_lib, padding=1)
 
             bound_ms, bound_by = bound(flops, key, (x.numel() + wmat.numel() + g.numel()) * size)
-            row = {**head, "role": "forward", "per_pass": n,
+            row = {**head, "role": "forward", "per_pass": n, "kernel": forward_kernel(dtype, cin),
                    **timed("", lambda: _launch_forward(x, wmat)),
                    **timed("plain_", lambda: conv3x3_plain(x, wmat)),
                    **timed("library_", lambda: F.conv2d(x_lib.detach(), w_lib.detach(), padding=1)),
@@ -903,7 +1022,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
             rows["conv3x3"].append(row)
             emit("time_conv3x3", **row)
 
-            row = {**head, "role": "dgrad", "per_pass": n_dgrad,
+            row = {**head, "role": "dgrad", "per_pass": n_dgrad, "kernel": forward_kernel(dtype, cout),
                    **timed("", lambda: _launch_forward(g, wflip)),
                    **timed("plain_", lambda: conv3x3_plain(g, wflip)),
                    **timed("library_", lambda: torch.autograd.grad(y_lib, x_lib, g_lib,
@@ -982,6 +1101,9 @@ def main() -> int:
         raise RuntimeError(f"3x3 convolution shapes {conv_shapes} do not add up to "
                            f"{CONV_PER_RECONSTRUCT}")
     del probe
+    both_ways = sorted({s for s, _ in conv_shapes} | {(*s[:3], s[4], s[3]) for s, _ in conv_shapes})
+    emit("wgmma_kernels", occupancy=wgmma_occupancy(torch, both_ways),
+         sass=sass_report([_build.library_path(src) for src in WGMMA_SOURCES]))
     errs = check_kernels(torch, gn_shapes, conv_shapes, kernels_mod)
     torch.cuda.empty_cache()
 
@@ -1061,6 +1183,9 @@ def main() -> int:
     )
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_backward as flash_backward
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_forward as flash_forward
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        forward_kernel as flash_forward_kernel,
+    )
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_backward as gn_backward
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_forward as gn_forward
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
@@ -1130,7 +1255,7 @@ def main() -> int:
         products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
         bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
         row = {
-            **head,
+            **head, "kernel": flash_forward_kernel(dtype, shape[-1]),
             **timed("", lambda: kernels_mod.flash_attention(q, k, v)),
             **timed("plain_", lambda: flash_attention_plain(q, k, v)),
             **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -1201,17 +1326,20 @@ def main() -> int:
         "groupnorm_silu_bwd_dx": ("triton", gn_source, f"{gn_pallas}:248",
                                   "bf16, device ms summed over the 42 launches of one b8 "
                                   "train step" + both),
-        "flash_attention": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_wgmma.cu",
                             f"{fa_pallas}:65",
-                            "bf16, device ms summed over the 2 launches of one b8 pass"),
+                            "bf16 (the tensor-core kernel; f32 inputs: source_f32), device ms "
+                            "summed over the 2 launches of one b8 pass"),
         "flash_attention_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
                                 f"{fa_pallas}:122",
                                 "bf16, device ms summed over the 2 launches of one b8 train step "
                                 "(each launch: delta, dk/dv and dq kernels)"),
-        "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
+        "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgmma.cu",
                     "pti_ldm_vae_tpu/ops/pallas/conv2d.py:120",
-                    "bf16, device ms summed over the 47 forward and 46 input-gradient launches "
-                    "of one b8 train step with conv_kernel=True; library_ms: F.conv2d and its "
+                    "bf16 (the tensor-core kernel where Cin is a multiple of 8, else the "
+                    "kernel of source_f32, which also takes f32 inputs), device ms summed over the "
+                    "47 forward and 46 input-gradient launches of one b8 train step with "
+                    "conv_kernel=True; library_ms: F.conv2d and its "
                     "input gradient, channels-last, TF32 off"),
         "conv3x3_wgrad": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad.cu",
                           "pti_ldm_vae_tpu/ops/pallas/conv2d.py:137",
@@ -1219,10 +1347,14 @@ def main() -> int:
                           "conv_kernel=True, the torch.sum of the partial sums included; "
                           "library_ms: F.conv2d's filter gradient"),
     }
+    f32_sources = {"flash_attention": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
+                   "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu"}
     kernels = []
     for name, (route, source, replaces, scope) in described.items():
         kernels.append({
-            "name": name, "route": route, "source": source, "replaces": replaces,
+            "name": name, "route": route, "source": source,
+            **({"source_f32": f32_sources[name]} if name in f32_sources else {}),
+            "replaces": replaces,
             "launches": adv["launches"][name],
             "launches_by_path": {"inference_vae": bf16["launches"][name],
                                  "inference_vae_conv_kernel": conv_f32["launches"][name],

@@ -5,8 +5,10 @@ Each source compiles on first use into ``build/`` at the repository root
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into a library named after the source and a hash of its text, so an edited
-source never loads a stale library. The library exposes plain C functions
+into a library named after the source and a hash of its text and of the text
+of every header of ``csrc/`` it includes (``#include "name.cuh"``, followed
+through nested includes), so an edited source or header never loads a stale
+library. The library exposes plain C functions
 (no PyTorch headers: a build takes seconds, not minutes). ``ptxas``'s
 register / shared-memory report is kept beside the library in ``<name>.log``.
 """
@@ -16,13 +18,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "library_path", "build", "build_all", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "source_files", "library_path", "build", "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -45,10 +48,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str) -> list[Path]:
+    """``csrc/<source>`` and, in the order met, every file of ``csrc/`` it
+    includes with quotes, directly or through another such file."""
+    found: list[Path] = []
+    todo = [CSRC_DIR / source]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            if (CSRC_DIR / name).is_file():
+                todo.append(CSRC_DIR / name)
+    return found
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in source_files(source):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:12]}.so"
 
 
 def build(source: str) -> Path:

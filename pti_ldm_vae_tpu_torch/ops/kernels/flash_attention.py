@@ -8,8 +8,13 @@ tensors, self-attention only, softmax statistics in f32; and ``_bwd_pallas``
 ``dp = g v^T``, ``ds = p * (dp - rowsum(dp * p))``, ``dq = ds k * d^-0.5``,
 ``dk = ds^T q * d^-0.5``.
 
-Kernels: ``csrc/flash_attention.cu`` (forward; it also writes the row
-logsumexp ``[B, H, S]`` f32 when a backward will follow) and
+Kernels: ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention.cu``
+(forward; either also writes the row logsumexp ``[B, H, S]`` f32 when a
+backward will follow; ``forward_kernel`` picks by dtype alone: bf16 inputs go
+to the tensor-core kernel, ``wgmma`` for both products with ``p`` rounded to
+bf16 between them, f32 inputs, and bf16 tensors whose base address is not
+16-byte aligned, to the f32-FMA kernel; neither stands in for the other when
+a build or a launch fails) and
 ``csrc/flash_attention_bwd.cu`` (a tiled backward in three launches: the
 ``delta = rowsum(dO * O)`` pre-pass, one kernel for ``dk`` and ``dv``, one for
 ``dq``; no float atomics, so gradients are bit-identical run to run), built
@@ -17,9 +22,10 @@ with nvcc for ``sm_90a`` into shared libraries and called through ctypes (see
 those files for the designs). On the VAE's main path attention runs twice
 per step (encoder and decoder mid blocks) at ``[B, 1, 1024, 128]``: 4.3 GFLOP
 forward and 10.7 GFLOP backward per call at B=8, hundreds of FLOP per input
-byte, so the bound on an H100 is arithmetic. These first kernels do their
-products with f32 FMAs, not the tensor cores, and keep ``p`` and ``ds`` in
-f32 (the TPU backward rounds them to the input dtype before its products).
+byte, so the bound on an H100 is arithmetic. The backward kernels and the f32
+forward do their products with f32 FMAs, not the tensor cores, and keep ``p``
+and ``ds`` in f32 (the TPU backward rounds them to the input dtype before its
+products).
 
 ``flash_attention`` launches the kernels for CUDA tensors (or raises) and
 runs the plain versions, forward and backward formula, for CPU tensors;
@@ -36,18 +42,33 @@ import functools
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
-           "SUPPORTED_HEAD_DIMS", "SOURCES"]
+           "forward_kernel", "SUPPORTED_HEAD_DIMS", "SOURCES"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "flash_attention.cu"
+_WGMMA_SOURCE = "flash_attention_wgmma.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
-SOURCES = (_FWD_SOURCE, _BWD_SOURCE)
+SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _BWD_SOURCE)
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+    """Which kernel computes the forward: ``"wgmma"`` (the tensor-core kernel,
+    ``csrc/flash_attention_wgmma.cu``) for bf16 inputs of a supported head dim
+    (all are multiples of 16, one ``wgmma`` depth step) at 16-byte aligned
+    base addresses, any sequence length; else ``"fma"``
+    (``csrc/flash_attention.cu``)."""
+    if dtype == torch.bfloat16 and head_dim in SUPPORTED_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "fma"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel: f32 scores, f32 softmax,
-    f32 weighted sum, result in the input dtype."""
+    """Plain PyTorch version of the forward kernels: f32 scores, f32 softmax,
+    f32 weighted sum, result in the input dtype. The tensor-core kernel rounds
+    the unnormalized weights ``p`` (in [0, 1]) to bf16 before its second
+    product, which this version does not; the bf16 bar (atol 2e-2 against this
+    version in f32 on the same rounded inputs) covers that rounding."""
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(scores, dim=-1)
@@ -78,6 +99,17 @@ def _forward_library() -> ctypes.CDLL:
     lib = load(_FWD_SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _wgmma_library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load(_WGMMA_SOURCE)
+    fn = lib.flash_attention_wgmma_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -116,16 +148,19 @@ def _launch_forward(
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32) if save_lse else None
     if q.numel() == 0:
         return out, lse
-    lib = _forward_library()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    kernel = forward_kernel(q.dtype, d, aligned)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if save_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if save_lse else None,
-            b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream,
-        )
+        if kernel == "wgmma":
+            err = _wgmma_library().flash_attention_wgmma_fwd(*pointers, b * h, s, d, d**-0.5, stream)
+        else:
+            err = _forward_library().flash_attention_fwd(
+                *pointers, b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention forward ({kernel} kernel) launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out, lse
 

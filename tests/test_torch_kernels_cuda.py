@@ -16,7 +16,10 @@ gradient ``dW``. Every backward runs twice and must give the same bits: the
 kernels use no float atomics. The convolution's weights are scaled by
 (9*Cin)^-0.5, as an initializer would, and its upstream gradient by
 (Cin/Cout)^0.5, so that outputs and input gradients are of size ~1 (one bf16
-rounding of a value of 16 is already 0.06).
+rounding of a value of 16 is already 0.06). bf16 inputs take the tensor-core
+kernels (``wgmma``) wherever the wrappers' rules send them there, and the
+f32-FMA kernels otherwise; the tensor-core flash forward also rounds ``p`` to
+bf16 between its products, which the same bf16 bar covers.
 """
 
 import pytest
@@ -35,7 +38,12 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
 )
+from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
+
+# every head dim at a whole and a ragged number of tiles, and the two older shapes
+FLASH_SHAPES = [(2, 1, 1024, 128), (2, 2, 1000, 64), (1, 3, 77, 32), (1, 1, 5, 16),
+                *((2, 1, s, d) for d in (16, 32, 64, 128) for s in (1024, 200))]
 
 
 @pytest.fixture
@@ -69,9 +77,10 @@ def test_groupnorm_silu_kernel_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    for shape in [(2, 1, 1024, 128), (2, 2, 1000, 64), (1, 3, 77, 32), (1, 1, 5, 16)]:
+    for shape in FLASH_SHAPES:
         q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(3))
         got = flash_attention(q, k, v)
+        assert torch.equal(got, flash_attention(q, k, v))  # two runs, the same bits
         want = flash_attention_plain(q.float(), k.float(), v.float())
         tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
         torch.testing.assert_close(got.float(), want, **tol)
@@ -116,7 +125,7 @@ def test_groupnorm_silu_backward_kernels_match_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    for shape in [(2, 1, 1024, 128), (2, 2, 1000, 64), (1, 3, 77, 32), (1, 1, 5, 16)]:
+    for shape in FLASH_SHAPES:  # the backward reads the logsumexp the forward kernel wrote
         q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
                    for _ in range(3))
         b, h, s, d = shape
@@ -146,9 +155,12 @@ def test_no_gradient_saves_nothing_and_counts_no_backward(cuda):
 
 
 # (B, H, W, Cin, Cout): a res-block conv, a ragged image with odd channel
-# counts, the thin ends (Cin=1, Cout=1, Cout=4 / Cin=4), a wide bottleneck conv
+# counts (the FMA kernel in bf16 too), the thin ends (Cin=1, Cout=1, Cout=4 /
+# Cin=4), a wide bottleneck conv, and a ragged image whose channels (24 -> 40)
+# the tensor-core kernel takes, at batch 8 (its widest tile) and batch 1
 CONV_SHAPES = [(2, 64, 64, 32, 32), (1, 20, 12, 3, 5), (2, 40, 70, 1, 32), (2, 33, 31, 32, 1),
-               (3, 32, 32, 128, 4), (2, 32, 32, 4, 128), (2, 32, 32, 128, 128), (1, 16, 48, 64, 96)]
+               (3, 32, 32, 128, 4), (2, 32, 32, 4, 128), (2, 32, 32, 128, 128), (1, 16, 48, 64, 96),
+               (2, 37, 70, 24, 40), (8, 37, 70, 24, 40), (8, 64, 64, 64, 128)]
 
 
 def _conv_inputs(shape, dtype, device, gen):
@@ -168,6 +180,7 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype):
         # a strided input, as the nearest upsample hands one over
         got = conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), wmat)
         assert launch_counts()["conv3x3"] == 1 and got.dtype == dtype and got.is_contiguous()
+        assert torch.equal(got, conv3x3(x, wmat))  # two runs, the same bits
         want = conv3x3_plain(x.float(), wmat.to(dtype).float())
         torch.testing.assert_close(got.float(), want, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
 
@@ -207,3 +220,21 @@ def test_conv3x3_skips_the_gradients_nobody_wants(cuda):
     assert (counts["conv3x3"], counts["conv3x3_wgrad"]) == (1, 1)  # no input gradient
     with torch.no_grad():
         assert conv3x3(x, wmat).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_bf16_routes_follow_the_rules(cuda):
+    assert conv_forward_kernel(torch.bfloat16, 24) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, 3) == "fma"
+    assert conv_forward_kernel(torch.float32, 24) == "fma"
+    # an unaligned bf16 view goes to the FMA kernel and still agrees
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    flat = torch.randn(2 * 16 * 16 * 16 + 1, device=cuda, generator=gen).bfloat16()
+    x = flat[1:].view(2, 16, 16, 16)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    wmat = torch.randn(144, 8, device=cuda, generator=gen) / 12
+    reset_launch_counts()
+    got = conv3x3(x, wmat)
+    assert launch_counts()["conv3x3"] == 1
+    want = conv3x3_plain(x.float(), wmat.bfloat16().float())
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
