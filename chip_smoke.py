@@ -9,11 +9,11 @@ result line):
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
 2. build: the CUDA C++ kernels of ``pti_ldm_vae_tpu_torch/csrc`` with nvcc
    (one process per source, started together; ``ptxas`` registers and spills
-   reported; for the two tensor-core sources also the shared memory per block
-   and the resident blocks per SM of every instantiation, and whether their
-   SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``), read with
-   ``cuobjdump`` where the toolkit has it), the Triton kernels at their first
-   launch;
+   reported; for the four tensor-core sources also the shared memory per block
+   and the resident blocks per SM of every instantiation the path takes, and
+   whether their SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``),
+   read with ``cuobjdump`` where the toolkit has it), the Triton kernels at
+   their first launch;
 3. kernel checks at the shapes the main paths give them (GroupNorm+SiLU: the
    8 shapes of a flagship pass at 256², batch 8; flash attention:
    [8,1,1024,128], a ragged [2,2,1000,64] and [2,1,S,D] for D in 16, 32, 64,
@@ -24,7 +24,8 @@ result line):
    [2,37,70,24->40] (which must go to the tensor-core kernel); its filter
    gradient ``dW`` is held like ``dscale``; bf16 inputs take the tensor-core
    kernels wherever the wrappers' rules send them there, f32 inputs the FMA
-   kernels), every hand-written kernel
+   kernels, forward and backward, and the routes are asserted against the
+   rules), every hand-written kernel
    against its plain PyTorch version on the card:
    forward kernels f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
    version on the same bf16-rounded inputs, atol 2e-2); backward kernels the
@@ -135,7 +136,8 @@ RAGGED_CONV = (1, 20, 12, 3, 5)  # Cin 3: the f32-FMA kernel in either type
 RAGGED_CONV_WGMMA = (2, 37, 70, 24, 40)  # Cin 24: the tensor-core kernel in bf16
 FLASH_CHECK_SHAPES = ((BATCH, 1, 1024, 128), (2, 2, 1000, 64),
                       *((2, 1, s, d) for d in (16, 32, 64, 128) for s in (1024, 200)))
-WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu")
+WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
+                 "flash_attention_bwd_wgmma.cu")
 
 KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx",
                 "flash_attention", "flash_attention_bwd", "conv3x3", "conv3x3_wgrad")
@@ -279,7 +281,7 @@ def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
 
 # kinds of device kernels, first match wins (lower-cased kernel names)
 KINDS = (
-    ("conv3x3_wgrad", ("conv3x3_wgrad_kernel",)),
+    ("conv3x3_wgrad", ("conv3x3_wgrad_kernel", "conv3x3_wgrad_wgmma_kernel")),
     ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
     ("groupnorm_silu_fwd", ("_stats_kernel", "_apply_kernel")),
     ("groupnorm_silu_bwd", ("_bwd_reduce_kernel", "_bwd_dx_kernel")),
@@ -351,12 +353,22 @@ def wgmma_occupancy(torch, shapes) -> dict:
     runtime reports them for this card, of the tensor-core convolution kernel
     at the tile each of ``shapes`` (forward and, with the channels swapped,
     input gradient) takes, with the tiles, the persistent blocks and the tiles
-    per block that follow; and of every flash-attention instantiation."""
+    per block that follow; of the tensor-core filter gradient at the tile and
+    slab count each shape takes; and of every flash-attention instantiation,
+    forward and backward."""
     import ctypes
 
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
-    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import wgmma_smem_bytes, wgmma_tile
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+        wgmma_smem_bytes,
+        wgmma_tile,
+        wgrad_kernel,
+        wgrad_warpgroups,
+        wgrad_wgmma_slabs,
+        wgrad_wgmma_smem_bytes,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import bwd_wgmma_smem_bytes
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -380,12 +392,32 @@ def wgmma_occupancy(torch, shapes) -> dict:
             "mt": mt, "tn": tn, "kc": kc, "smem_bytes": smem.value, "blocks_per_sm": blocks.value,
             "tiles": tiles * groups, "blocks": resident,
             "tiles_per_block": round(tiles * groups / resident, 2)}
-    flash = _build.load("flash_attention_wgmma.cu")
-    for d in (16, 32, 64, 128):
-        err = flash.flash_attention_wgmma_occupancy(d, ctypes.byref(smem), ctypes.byref(blocks))
-        if err != 0:
-            raise RuntimeError(f"flash_attention_wgmma_occupancy({d}): CUDA error {err}")
-        out[f"flash_attention_wgmma d{d}"] = {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    wgrad = _build.load("conv3x3_wgrad_wgmma.cu")
+    for shape in shapes:
+        b, h, w, cin, cout = shape
+        if wgrad_kernel(torch.bfloat16, cin, cout) != "wgmma":
+            continue
+        wg = wgrad_warpgroups(cout)
+        err = wgrad.conv3x3_wgrad_wgmma_occupancy(wg, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0 or smem.value != wgrad_wgmma_smem_bytes(wg):
+            raise RuntimeError(f"conv3x3_wgrad_wgmma_occupancy({wg}): CUDA error {err}, {smem.value} "
+                               f"bytes against {wgrad_wgmma_smem_bytes(wg)}")
+        n_slab = wgrad_wgmma_slabs(shape, wg, n_sm)
+        groups = -(-cin // 64) * -(-cout // (32 * wg))
+        out[f"conv3x3_wgrad_wgmma {list(shape)}"] = {
+            "warpgroups": wg, "smem_bytes": smem.value, "blocks_per_sm": blocks.value,
+            "slabs": n_slab, "blocks": n_slab * groups,
+            "partial_bytes_per_input_byte": round(
+                n_slab * 9 * cin * cout * 4 / (b * h * w * (cin + cout) * 2), 3)}
+    for source, fn in (("flash_attention_wgmma.cu", "flash_attention_wgmma_occupancy"),
+                       ("flash_attention_bwd_wgmma.cu", "flash_attention_bwd_wgmma_occupancy")):
+        lib = _build.load(source)
+        for d in (16, 32, 64, 128):
+            err = getattr(lib, fn)(d, ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0 or ("bwd" in fn and smem.value != bwd_wgmma_smem_bytes(d)):
+                raise RuntimeError(f"{fn}({d}): CUDA error {err}, {smem.value} bytes")
+            out[f"{source.removesuffix('.cu')} d{d}"] = {"smem_bytes": smem.value,
+                                                         "blocks_per_sm": blocks.value}
     return out
 
 
@@ -433,6 +465,10 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
         groupnorm_silu_plain,
     )
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import wgrad_kernel
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        backward_kernel as flash_backward_kernel,
+    )
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         forward_kernel as flash_forward_kernel,
     )
@@ -474,13 +510,15 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
                 check_close(f"groupnorm_silu dscale {tag}", dscale, want_dscale, sum_tol),
                 check_close(f"groupnorm_silu dbias {tag}", dbias, want_dbias, sum_tol)))
             del grads, dx, want_dx, leaves
-    routes: dict[str, dict] = {"flash_attention": {}, "conv3x3": {}}
+    routes: dict[str, dict] = {"flash_attention": {}, "flash_attention_bwd": {}, "conv3x3": {},
+                               "conv3x3_wgrad": {}}
     for shape in FLASH_CHECK_SHAPES:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
             routes["flash_attention"][tag] = flash_forward_kernel(dtype, shape[-1])
+            routes["flash_attention_bwd"][tag] = flash_backward_kernel(dtype, shape[-1])
             got = kernels_mod.flash_attention(qd, kd, vd)
             if not torch.equal(got, kernels_mod.flash_attention(qd, kd, vd)):
                 raise RuntimeError(f"flash_attention forward {tag}: two runs differ")
@@ -507,6 +545,7 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
             # which kernel the forward and the input gradient (Cout in Cin's place) take
             routes["conv3x3"][tag] = [conv_forward_kernel(dtype, shape[3]),
                                       conv_forward_kernel(dtype, shape[4])]
+            routes["conv3x3_wgrad"][tag] = wgrad_kernel(dtype, shape[3], shape[4])
             got = kernels_mod.conv3x3(xd, wmat)
             if not torch.equal(got, kernels_mod.conv3x3(xd, wmat)):
                 raise RuntimeError(f"conv3x3 forward {tag}: two runs differ")
@@ -532,10 +571,18 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
     for tag, want_route in by_rule.items():
         if routes["conv3x3"][tag] != want_route:
             raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
-    if any(r != ("wgmma" if "bfloat16" in tag else "fma") for tag, r in routes["flash_attention"].items()):
-        raise RuntimeError(f"flash_attention forward routes: {routes['flash_attention']}")
+    for name in ("flash_attention", "flash_attention_bwd"):  # every head dim, any S: bf16 on wgmma
+        if any(r != ("wgmma" if "bfloat16" in tag else "fma") for tag, r in routes[name].items()):
+            raise RuntimeError(f"{name} routes: {routes[name]}")
+    if routes["flash_attention_bwd"][f"{(2, 2, 1000, 64)} bfloat16"] != "wgmma":
+        raise RuntimeError("the ragged flash backward did not take the tensor-core kernel")
+    # filter gradient: every bf16 shape on wgmma (the thin ones, the four of the path and
+    # RAGGED_CONV, through zero channels up to 8), every f32 one on the FMA kernel
+    for tag, route in routes["conv3x3_wgrad"].items():
+        if route != ("wgmma" if "bfloat16" in tag else "fma"):
+            raise RuntimeError(f"conv3x3_wgrad {tag} went to {route}")
     emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
-         forward_bit_identical=True, forward_kernel=routes,
+         forward_bit_identical=True, kernel_routes=routes,
          flash_shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          conv_shapes=[[list(s), n] for s, n in conv_shapes]
          + [[list(RAGGED_CONV), 0], [list(RAGGED_CONV_WGMMA), 0]],
@@ -974,10 +1021,10 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
     forward kernel as forward and as input gradient, and the filter-gradient
     kernel, each beside its bound, its plain version and the library call
     (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
-    one operand). ``kernel`` names the forward kernel the wrapper's rule picks
-    for the call (``wgmma``: the tensor-core kernel, ``fma``: the f32-FMA one).
-    The filter gradient's time includes the fold of its partial sums (one
-    ``torch.sum``)."""
+    one operand). ``kernel`` names the kernel the wrapper's rule picks for the
+    call (``wgmma``: a tensor-core kernel, ``fma``: an f32-FMA one). The filter
+    gradient's time (``ms``) includes the fold of its partial sums (one
+    ``torch.sum``); ``kernel_only_ms`` leaves it out."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
@@ -987,6 +1034,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
         conv3x3_plain,
         flip_transpose,
         forward_kernel,
+        wgrad_kernel,
     )
 
     def timed(prefix: str, fn) -> dict[str, float]:
@@ -1034,9 +1082,10 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
             bound_ms, bound_by = bound(flops, key,
                                        (x.numel() + g.numel()) * size + wmat.numel() * 4)
             ours = time_ms(lambda: _launch_wgrad(x, g), flush)
-            row = {**head, "role": "wgrad", "per_pass": n,
+            row = {**head, "role": "wgrad", "per_pass": n, "kernel": wgrad_kernel(dtype, cin, cout),
                    "ms": ours["device_ms"], "event_ms": ours["event_ms"],
-                   "kernel_only_ms": named_ms(ours["by_name"], "conv3x3_wgrad_kernel"),
+                   "kernel_only_ms": named_ms(ours["by_name"], "conv3x3_wgrad_kernel",
+                                              "conv3x3_wgrad_wgmma_kernel"),
                    # the plain backward computes dx too; its dW part is nine products
                    **timed("plain_", lambda: conv3x3_bwd_plain(x, wmat, g)[1]),
                    **timed("library_", lambda: torch.autograd.grad(y_lib, w_lib, g_lib,
@@ -1184,6 +1233,9 @@ def main() -> int:
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_backward as flash_backward
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_forward as flash_forward
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        backward_kernel as flash_backward_kernel,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         forward_kernel as flash_forward_kernel,
     )
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_backward as gn_backward
@@ -1271,9 +1323,11 @@ def main() -> int:
         bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
         ours = time_ms(lambda: flash_backward(q, k, v, out, lse, g), flush)
         row = {
-            **head, "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+            **head, "kernel": flash_backward_kernel(dtype, shape[-1]),
+            "ms": ours["device_ms"], "event_ms": ours["event_ms"],
             "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
-                             ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")},
+                             ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                              "flash_bwd_wgmma_kernel")},
             **timed("plain_", lambda: flash_attention_bwd_plain(q, k, v, g)),
             **timed("library_", lambda: torch.autograd.grad(out_lib, leaves, g, retain_graph=True)),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1330,10 +1384,11 @@ def main() -> int:
                             f"{fa_pallas}:65",
                             "bf16 (the tensor-core kernel; f32 inputs: source_f32), device ms "
                             "summed over the 2 launches of one b8 pass"),
-        "flash_attention_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
                                 f"{fa_pallas}:122",
-                                "bf16, device ms summed over the 2 launches of one b8 train step "
-                                "(each launch: delta, dk/dv and dq kernels)"),
+                                "bf16 (the tensor-core kernel; f32 inputs: source_f32), device ms "
+                                "summed over the 2 calls of one b8 train step (each call: the delta "
+                                "pre-pass and one launch of dk/dv and dq blocks)"),
         "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgmma.cu",
                     "pti_ldm_vae_tpu/ops/pallas/conv2d.py:120",
                     "bf16 (the tensor-core kernel where Cin is a multiple of 8, else the "
@@ -1341,14 +1396,18 @@ def main() -> int:
                     "47 forward and 46 input-gradient launches of one b8 train step with "
                     "conv_kernel=True; library_ms: F.conv2d and its "
                     "input gradient, channels-last, TF32 off"),
-        "conv3x3_wgrad": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad.cu",
+        "conv3x3_wgrad": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
                           "pti_ldm_vae_tpu/ops/pallas/conv2d.py:137",
-                          "bf16, device ms summed over the 47 launches of one b8 train step with "
+                          "bf16 (the tensor-core kernel where Cin and Cout are multiples of 8, "
+                          "else the kernel of source_f32, which also takes f32 inputs), device ms "
+                          "summed over the 47 launches of one b8 train step with "
                           "conv_kernel=True, the torch.sum of the partial sums included; "
                           "library_ms: F.conv2d's filter gradient"),
     }
     f32_sources = {"flash_attention": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
-                   "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu"}
+                   "flash_attention_bwd": "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
+                   "conv3x3_wgrad": "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad.cu"}
     kernels = []
     for name, (route, source, replaces, scope) in described.items():
         kernels.append({

@@ -233,7 +233,7 @@ conv3x3_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
           // A: 8 output rows (one halo row apart) x 8 pixels; depth: two planes
           const uint64_t desc_a = make_desc(
               a_base + 2 * kk * kPlane + (ky * HC + 8 * m + kx) * 16, kPlane, HC * 16);
-          WgmmaSS<TN, 1>::run(acc[m], desc_a, desc_b, 1);
+          WgmmaSS<TN, 0, 1>::run(acc[m], desc_a, desc_b, 1);
         }
       }
     }

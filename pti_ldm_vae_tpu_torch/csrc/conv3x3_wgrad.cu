@@ -1,17 +1,19 @@
-// Filter gradient of the 3x3 stride-1 SAME convolution for Hopper (sm_90a).
+// Filter gradient of the 3x3 stride-1 SAME convolution for Hopper (sm_90a),
+// f32-FMA kernel: the f32 (parity) route, and bf16 views whose base address
+// is not 16-byte aligned. Aligned bf16 operands take the tensor-core kernel
+// of conv3x3_wgrad_wgmma.cu (ops/kernels/conv3x3.py:wgrad_kernel).
 //
 // Replaces the TPU kernel pti_ldm_vae_tpu/ops/pallas/conv2d.py
 // (_conv3x3_dw_pallas, body _dw_kernel):
 //   dW[(ky*3+kx)*Cin + ci, co] = sum over b, h, w of
 //                                x[b, h+ky-1, w+kx-1, ci] * dy[b, h, w, co]
-// in f32, for NHWC x and dy of type f32 or bf16 (x read as zero outside the
-// image). It is a matrix product [9*Cin, B*H*W] x [B*H*W, Cout] with a small
+// in f32, for NHWC x and dy of type f32 (or unaligned bf16; x read as zero
+// outside the image). It is a matrix product [9*Cin, B*H*W] x [B*H*W, Cout] with a small
 // result (at most 1152 x 128 here) and a long reduction (524 288 pixels at
 // 8x256x256).
 //
-// Bound on an H100: 2*9*Cin*Cout FLOP per pixel, x and dy read once. This
-// first kernel does its products as f32 FMAs for both types (measured against
-// the CUDA cores' 67 TFLOP/s); wgmma on bf16 tiles is later work.
+// Bound on an H100: 2*9*Cin*Cout FLOP per pixel, x and dy read once; in f32
+// the products run on the CUDA cores' 67 TFLOP/s, as FMAs.
 //
 // Design. The TPU kernel adds into one resident [9*Cin, Cout] block across a
 // sequential grid. Blocks on a GPU run in no order, so here the pixels are cut

@@ -1,4 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a), f32 and bf16 inputs.
+// Flash-attention backward for Hopper (sm_90a), f32-FMA kernel: the f32
+// (parity) route, and bf16 tensors whose base address is not 16-byte aligned.
+// Aligned bf16 inputs take the tensor-core kernel of
+// flash_attention_bwd_wgmma.cu (ops/kernels/flash_attention.py:backward_kernel).
 //
 // Replaces the TPU kernel pti_ldm_vae_tpu/ops/pallas/flash_attention.py
 // (_bwd_pallas, body _bwd_kernel): with s = q k^T * d^-0.5 and p = softmax(s),
@@ -35,9 +38,8 @@
 // rounded once to the input dtype.
 //
 // Bound on an H100: 5 products of 2*S^2*D operations per (b, h), 10.7 GFLOP
-// at [8, 1, 1024, 128] on 14 MB of bf16 traffic, so the bound is arithmetic.
-// Like the forward, this first kernel does its products with f32 FMAs from
-// shared memory, not the tensor cores; wgmma with TMA-fed tiles is later work.
+// at [8, 1, 1024, 128]: in f32 the CUDA cores' 67 TFLOP/s, as FMAs from
+// shared memory.
 //
 // Rows and columns past S (the ragged last tile) are zero-filled on load and
 // their p and ds are forced to 0; their outputs are never stored. Shared

@@ -143,7 +143,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     for (int ks = 0; ks < D / 16; ++ks) {
       const uint64_t desc_q = make_desc(q_smem + 2 * ks * kPlane, kPlane, 128);
       const uint64_t desc_k = make_desc(k_smem + 2 * ks * kPlane, kPlane, 128);
-      WgmmaSS<kBlockK, 0>::run(sc, desc_q, desc_k, ks > 0 ? 1 : 0);
+      WgmmaSS<kBlockK, 0, 0>::run(sc, desc_q, desc_k, ks > 0 ? 1 : 0);
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -1,10 +1,11 @@
 // PTX wrappers shared by the Hopper (sm_90a) tensor-core kernels of this
-// directory (conv3x3_wgmma.cu, flash_attention_wgmma.cu): asynchronous
-// 16-byte copies into shared memory (cp.async, with zero fill), the
-// shared-memory matrix descriptor of wgmma, its fence / commit / wait, and
-// the bf16 x bf16 -> f32 warpgroup products m64nNk16 with A read from shared
-// memory (WgmmaSS, N = 8, 32, 64) or from registers (WgmmaRS, N = 16, 32, 64,
-// 128): the widths the two kernels use.
+// directory (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, flash_attention_wgmma.cu,
+// flash_attention_bwd_wgmma.cu): asynchronous 16- and 4-byte copies into
+// shared memory (cp.async, with zero fill), the shared-memory matrix
+// descriptor of wgmma, its fence / commit / wait, and the bf16 x bf16 -> f32
+// warpgroup products m64nNk16 with A read from shared memory (WgmmaSS, N = 8,
+// 32, 64; either operand K-major or MN-major) or from registers (WgmmaRS, N =
+// 16, 32, 64, 128): the widths the four kernels use.
 //
 // Operand layouts (no swizzle). wgmma reads an operand as 8-row x 16-byte
 // "core matrices", each stored as 128 contiguous bytes (row r at byte 16*r).
@@ -16,7 +17,12 @@
 // operand (N contiguous: 8 bf16 of N per 16-byte row, the 8 rows being 8
 // consecutive depths; the instruction's transpose-B bit set) both fit the
 // layout [groups of 8 along one axis][index along the other axis][8 bf16],
-// which 16-byte copies from a row-major global array fill directly.
+// which 16-byte copies from a row-major global array fill directly. An
+// MN-major A operand (M contiguous: 8 bf16 of M per 16-byte row, the 8 rows
+// being 8 consecutive depths; the transpose-A bit set, allowed for bf16 A
+// from shared memory) is laid out like the MN-major B: LBO steps 8 depths, SBO
+// 8 indices of M. The filter gradient of the convolution reads both operands
+// so, since channels are contiguous in NHWC and pixels are its depth.
 //
 // The accumulator of m64nNk16 lives in N/2 f32 registers per thread of the
 // warpgroup: thread t (warp w = t/32, lane l) holds, for j = 0 .. N/8-1,
@@ -45,6 +51,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (cp.async.ca: the .cg form takes 16 bytes only), zero-filled when
+// valid == false; for rows of f32 statistics whose start is not 16-byte aligned.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -90,25 +103,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // d[64 x N] (+)= a[64 x 16] * b[16 x N]; scale_d == 0 overwrites d. A from
-// shared memory, K-major; B K-major (TransB = 0) or MN-major (TransB = 1).
-template <int N, int TransB>
+// shared memory, K-major (TransA = 0) or MN-major (TransA = 1); B K-major
+// (TransB = 0) or MN-major (TransB = 1).
+template <int N, int TransA, int TransB>
 struct WgmmaSS;
 // The same with A from registers; B MN-major.
 template <int N>
 struct WgmmaRS;
 
-template <int TransB>
-struct WgmmaSS<8, TransB> {
+template <int TransA, int TransB>
+struct WgmmaSS<8, TransA, TransB> {
   static __device__ __forceinline__ void run(float (&d)[4], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, %7;\n}\n"
+      "%4, %5, p, 1, 1, %7, %8;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
   }
 };
 
@@ -127,8 +141,8 @@ struct WgmmaRS<16> {
   }
 };
 
-template <int TransB>
-struct WgmmaSS<32, TransB> {
+template <int TransA, int TransB>
+struct WgmmaSS<32, TransA, TransB> {
   static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
     asm volatile(
@@ -136,11 +150,11 @@ struct WgmmaSS<32, TransB> {
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
   }
 };
 
@@ -161,8 +175,8 @@ struct WgmmaRS<32> {
   }
 };
 
-template <int TransB>
-struct WgmmaSS<64, TransB> {
+template <int TransA, int TransB>
+struct WgmmaSS<64, TransA, TransB> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
     asm volatile(
@@ -172,13 +186,13 @@ struct WgmmaSS<64, TransB> {
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
   }
 };
 

@@ -4,12 +4,15 @@
   backward dx (replace ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``:
   ``_forward`` and the two kernels of ``_bwd_pallas``)
 - ``flash_attention``: CUDA C++ flash-attention forward and backward,
-  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (replace
+  ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
+  (bf16, tensor cores) and ``csrc/flash_attention.cu`` and
+  ``csrc/flash_attention_bwd.cu`` (f32 FMAs) (replace
   ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward`` and
   ``_bwd_pallas``)
-- ``conv3x3``: CUDA C++ 3x3 stride-1 SAME convolution, ``csrc/conv3x3.cu``
-  (forward and input gradient) and ``csrc/conv3x3_wgrad.cu`` (filter
-  gradient) (replace ``pti_ldm_vae_tpu/ops/pallas/conv2d.py``:
+- ``conv3x3``: CUDA C++ 3x3 stride-1 SAME convolution, forward and input
+  gradient ``csrc/conv3x3_wgmma.cu`` / ``csrc/conv3x3.cu`` and filter
+  gradient ``csrc/conv3x3_wgrad_wgmma.cu`` / ``csrc/conv3x3_wgrad.cu`` (bf16
+  tensor cores / f32 FMAs) (replace ``pti_ldm_vae_tpu/ops/pallas/conv2d.py``:
   ``_conv3x3_fwd_pallas`` and ``_conv3x3_dw_pallas``)
 
 Each wrapper is differentiable (a ``torch.autograd.Function``), launches its

@@ -10,23 +10,30 @@ flipped, channel-transposed matrix, the input gradient; and
 ``_conv3x3_dw_pallas`` (body ``_dw_kernel``), ``dW = patches(x)^T @ dy`` in
 f32.
 
-Kernels: ``csrc/conv3x3_wgmma.cu``, ``csrc/conv3x3.cu`` and
-``csrc/conv3x3_wgrad.cu`` (see those files for the designs and what bounds
-them), built with nvcc for ``sm_90a`` into shared libraries and called through
-ctypes. The forward / input gradient has two kernels, picked by
-``forward_kernel`` from the dtype and the shape alone: bf16 operands with
-``Cin`` a multiple of 8 up to 128 go to the tensor-core kernel (``wgmma`` on bf16 tiles,
-f32 sums, asynchronous staging; the matrix's columns padded with zeros to a
-multiple of 8 by ``pad_columns``); f32 operands, and bf16 operands with any
-other ``Cin`` (the 1-channel stem, the 4-channel latent, wider than 128) or a base address
-that is not 16-byte aligned, go to the f32-FMA kernel, which takes every
-shape. Nothing chooses between them at run time and neither stands in for the
-other when a build or a launch fails. The filter gradient is written as
-f32 partial sums over pixel slabs, ``[n_slab, 9*Cin, Cout]``, and folded by
-one ``torch.sum`` over the slab axis: no float atomics, so two runs give the
-same bits; it does its products as f32 FMAs, for bf16 inputs too. All kernels
-compute on the operands as given (bf16 products are exact in f32), sum in f32
-and round the output once.
+Kernels, built with nvcc for ``sm_90a`` into shared libraries and called
+through ctypes (see the sources for the designs and what bounds them); two
+routes for each function, picked by pure functions of dtype, shape and
+alignment (``forward_kernel``, ``wgrad_kernel``). Nothing chooses between
+them at run time and neither stands in for the other when a build or a
+launch fails.
+
+- forward / input gradient: ``csrc/conv3x3_wgmma.cu`` for bf16 operands with
+  ``Cin`` a multiple of 8 up to 128 (``wgmma`` on bf16 tiles, f32 sums,
+  asynchronous staging; the matrix's columns padded with zeros to a multiple
+  of 8 by ``pad_columns``); ``csrc/conv3x3.cu`` (f32 FMAs, every shape) for
+  f32 operands and for bf16 operands with any other ``Cin`` (the 1-channel
+  stem, the 4-channel latent, wider than 128) or a base address that is not
+  16-byte aligned;
+- filter gradient: ``csrc/conv3x3_wgrad_wgmma.cu`` for bf16 operands
+  (``wgmma`` with both operands read MN-major from staged tiles; a thin side,
+  ``Cin`` or ``Cout`` no multiple of 8, padded with zero channels by
+  ``pad_channels``); ``csrc/conv3x3_wgrad.cu`` (f32 FMAs) for f32 operands
+  and unaligned bf16 ones. Both write f32 partial sums over pixel slabs,
+  ``[n_slab, 9*Cin, Cout]``, folded by one ``torch.sum`` over the slab axis:
+  no float atomics, so two runs give the same bits.
+
+All kernels compute on the operands as given (bf16 products are exact in
+f32), sum in f32 and round the output once.
 
 ``conv3x3(x, wmat)`` takes the weight matrix in any float dtype (the f32
 parameter, repacked), rounds it to ``x``'s dtype for the kernels as the TPU
@@ -47,15 +54,18 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_bwd_plain", "flip_transpose", "forward_kernel",
-           "pad_columns", "wgmma_smem_bytes", "wgmma_tile", "SOURCES"]
+           "pad_channels", "pad_columns", "unpad_wgrad", "wgmma_smem_bytes", "wgmma_tile",
+           "wgrad_kernel", "wgrad_slabs",
+           "wgrad_warpgroups", "wgrad_wgmma_slabs", "wgrad_wgmma_smem_bytes", "SOURCES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "conv3x3.cu"
 _WGMMA_SOURCE = "conv3x3_wgmma.cu"
 _WGRAD_SOURCE = "conv3x3_wgrad.cu"
-SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _WGRAD_SOURCE)
+_WGRAD_WGMMA_SOURCE = "conv3x3_wgrad_wgmma.cu"
+SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _WGRAD_WGMMA_SOURCE, _WGRAD_SOURCE)
 
-# the kernels' tiling (csrc/conv3x3_wgrad.cu), which sizes the partial sums
+# the FMA filter gradient's tiling (csrc/conv3x3_wgrad.cu), which sizes the partial sums
 _TILE_H, _TILE_W, _WGRAD_CI = 4, 32, 16
 _WGRAD_BLOCKS_PER_SM = 4
 _WGRAD_PARTIALS_BYTES = 16 * 2**20
@@ -246,8 +256,8 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def wgrad_slabs(x_shape: tuple[int, ...], cout: int, n_sm: int) -> int:
-    """How many pixel slabs the filter gradient is cut into: enough blocks to
-    fill the card a few times over, partial sums within a few MiB."""
+    """How many pixel slabs the f32-FMA filter gradient is cut into: enough
+    blocks to fill the card a few times over, partial sums within a few MiB."""
     b, h, w, cin = x_shape
     n_tiles = b * _ceil_div(h, _TILE_H) * _ceil_div(w, _TILE_W)
     tile_c = 64 if cout > 32 else 32 if cout > 16 else 16
@@ -258,6 +268,92 @@ def wgrad_slabs(x_shape: tuple[int, ...], cout: int, n_sm: int) -> int:
     return _ceil_div(n_tiles, _ceil_div(n_tiles, n_slab))  # no slab without a tile
 
 
+def wgrad_kernel(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) -> str:
+    """Which kernel computes the filter gradient: ``"wgmma"`` (the
+    tensor-core kernel, ``csrc/conv3x3_wgrad_wgmma.cu``) for bf16 operands
+    whose base addresses are 16-byte aligned, any image size and channel
+    count (``cin`` and ``cout`` do not decide the route); else ``"fma"``
+    (``csrc/conv3x3_wgrad.cu``): f32 operands, and unaligned bf16 views,
+    which 16-byte copies cannot read.
+
+    The kernel reads 8 channels per 16-byte piece, so a thin side (``Cin``
+    or ``Cout`` no multiple of 8: the flagship's 1-channel stem and output
+    convs and its 4-channel latent convs) is padded with zero channels by the
+    wrapper (``pad_channels``) and the padded rows or columns of ``dW`` are
+    dropped. The copy is one pass over the thin tensor. On an H100 the padded
+    route is 3x faster than the FMA kernel at 32->1 and 1.5x at 128->4, and
+    within a tenth of it at 1->32 and 4->128 (``PERF.md``, the filter
+    gradient's per-shape table), so every bf16 call takes one route."""
+    if dtype == torch.bfloat16 and aligned:
+        return "wgmma"
+    return "fma"
+
+
+def pad_channels(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with zero channels appended up to a multiple of 8 on its last
+    axis, as the tensor-core filter gradient reads it (``t`` itself when it
+    already is)."""
+    pad = -t.shape[-1] % 8
+    return t if pad == 0 else F.pad(t, (0, pad))
+
+
+def wgrad_wgmma_smem_bytes(wg: int) -> int:
+    """Shared memory per block of the tensor-core filter gradient with ``wg``
+    warpgroups (``smem_bytes`` of ``csrc/conv3x3_wgrad_wgmma.cu``): three
+    stages of the x halo (8 planes of 10 x 18 pixels, 2960 bytes each with
+    padding) and of the dy tile (``wg`` * 4 planes of 8 x 16 pixels, 2064
+    bytes each)."""
+    return 3 * (8 * 2960 + wg * 4 * 2064)
+
+
+def wgrad_warpgroups(cout: int) -> int:
+    """Warpgroups per block of the tensor-core filter gradient: a warpgroup
+    owns all nine taps x 64 input channels x 32 output channels; at ``Cout``
+    up to 32 a block is one (two blocks per SM), wider ``Cout`` takes two on
+    64 output channels, which share each staged x halo (the kernel is bound
+    by its copies, and this halves the x it copies). Measured on an H100 at
+    every flagship shape with ``tools/check_wgmma_kernels.py --tiles``."""
+    return 1 if cout <= 32 else 2
+
+
+# the longest run of pixels one accumulator sums before its partial is written: wgmma's f32
+# accumulation rounds more coarsely than one f32 add per product, and the error grows with
+# the run (tools/check_wgmma_kernels.py --tiles measures it against float64): over the
+# flagship's shapes the worst dW error reached 0.71 of the bar chip_smoke.py holds it to at
+# 2048 pixels, 0.32 at 1024 (an H100, tools/check_wgmma_kernels.py)
+WGRAD_SLAB_PIXELS = 1024
+
+
+def wgrad_wgmma_slabs(shape: tuple[int, ...], wg: int, n_sm: int) -> int:
+    """How many pixel slabs the tensor-core filter gradient cuts ``shape`` =
+    ``(B, H, W, Cin, Cout)`` into. The blocks of a slab are its output tiles
+    (64-channel groups of ``Cin`` x ``32*wg``-groups of ``Cout``); slabs
+    multiply them by whole waves of the blocks the card holds at once (two
+    per SM at ``wg`` 1, one at 2: registers and shared memory), as few waves
+    as keep a slab within ``WGRAD_SLAB_PIXELS`` pixels; at most one slab per
+    pixel tile of 8 x 16 (the kernel hands slab ``i`` the tiles ``[i * n /
+    n_slab, (i + 1) * n / n_slab)``). Fewer slabs, so that the partial sums
+    stay within a quarter of the input bytes, were slower at the 32² and 64²
+    levels, where the card then idles."""
+    b, h, w, cin, cout = shape
+    n_tiles = b * _ceil_div(h, 8) * _ceil_div(w, 16)
+    groups = _ceil_div(cin, 64) * _ceil_div(cout, 32 * wg)
+    one_wave = _ceil_div(2 // wg * n_sm, groups)
+    waves = _ceil_div(_ceil_div(b * h * w, WGRAD_SLAB_PIXELS), one_wave)
+    return min(n_tiles, waves * one_wave)
+
+
+@functools.cache
+def _wgrad_wgmma_library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load(_WGRAD_WGMMA_SOURCE)
+    fn = lib.conv3x3_wgrad_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The filter-gradient launch on contiguous CUDA tensors of one dtype:
     ``dW [9*Cin, Cout]`` in f32."""
@@ -266,17 +362,40 @@ def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0 or g.numel() == 0:
         return torch.zeros((9 * cin, cout), device=x.device, dtype=torch.float32)
     n_sm = _sm_count(x.device)
-    n_slab = wgrad_slabs(tuple(x.shape), cout, n_sm)
-    partials = torch.empty((n_slab, 9 * cin, cout), device=x.device, dtype=torch.float32)
-    lib = _wgrad_library()
+    kernel = wgrad_kernel(x.dtype, cin, cout, x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+    if kernel == "wgmma":
+        x, g = pad_channels(x), pad_channels(g)
+        wg = wgrad_warpgroups(g.shape[-1])
+        n_slab = wgrad_wgmma_slabs(tuple(x.shape) + (g.shape[-1],), wg, n_sm)
+    else:
+        n_slab = wgrad_slabs(tuple(x.shape), cout, n_sm)
+    cin_k, cout_k = x.shape[-1], g.shape[-1]
+    partials = torch.empty((n_slab, 9 * cin_k, cout_k), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), partials.data_ptr(), b, h, w, cin,
-                                cout, n_slab, _DTYPE_CODES[x.dtype], stream)
+        if kernel == "wgmma":
+            err = _wgrad_wgmma_library().conv3x3_wgrad_wgmma(
+                x.data_ptr(), g.data_ptr(), partials.data_ptr(), b, h, w, cin_k, cout_k, n_slab, wg,
+                stream)
+        else:
+            err = _wgrad_library().conv3x3_wgrad(
+                x.data_ptr(), g.data_ptr(), partials.data_ptr(), b, h, w, cin, cout, n_slab,
+                _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3x3_wgrad ({kernel} kernel) launch failed: CUDA error {err}")
     conv3x3.wgrad_launches += 1
-    return partials.sum(dim=0) if n_slab > 1 else partials[0]
+    dw = partials.sum(dim=0) if n_slab > 1 else partials[0]
+    return unpad_wgrad(dw, cin, cout)
+
+
+def unpad_wgrad(dw: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """``dW [9*Cin, Cout]`` out of the filter gradient of channel-padded
+    operands, ``[9*cin_k, cout_k]``: the rows and columns of the padding
+    dropped (``dw`` itself when nothing was padded)."""
+    cin_k, cout_k = dw.shape[0] // 9, dw.shape[1]
+    if (cin_k, cout_k) == (cin, cout):
+        return dw
+    return dw.reshape(9, cin_k, cout_k)[:, :cin, :cout].reshape(9 * cin, cout)
 
 
 class _Conv3x3(torch.autograd.Function):

@@ -8,24 +8,29 @@ tensors, self-attention only, softmax statistics in f32; and ``_bwd_pallas``
 ``dp = g v^T``, ``ds = p * (dp - rowsum(dp * p))``, ``dq = ds k * d^-0.5``,
 ``dk = ds^T q * d^-0.5``.
 
-Kernels: ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention.cu``
-(forward; either also writes the row logsumexp ``[B, H, S]`` f32 when a
-backward will follow; ``forward_kernel`` picks by dtype alone: bf16 inputs go
-to the tensor-core kernel, ``wgmma`` for both products with ``p`` rounded to
-bf16 between them, f32 inputs, and bf16 tensors whose base address is not
-16-byte aligned, to the f32-FMA kernel; neither stands in for the other when
-a build or a launch fails) and
-``csrc/flash_attention_bwd.cu`` (a tiled backward in three launches: the
-``delta = rowsum(dO * O)`` pre-pass, one kernel for ``dk`` and ``dv``, one for
-``dq``; no float atomics, so gradients are bit-identical run to run), built
-with nvcc for ``sm_90a`` into shared libraries and called through ctypes (see
-those files for the designs). On the VAE's main path attention runs twice
-per step (encoder and decoder mid blocks) at ``[B, 1, 1024, 128]``: 4.3 GFLOP
-forward and 10.7 GFLOP backward per call at B=8, hundreds of FLOP per input
-byte, so the bound on an H100 is arithmetic. The backward kernels and the f32
-forward do their products with f32 FMAs, not the tensor cores, and keep ``p``
-and ``ds`` in f32 (the TPU backward rounds them to the input dtype before its
-products).
+Kernels, two routes each way, picked by a pure function of dtype, head dim
+and alignment (``forward_kernel``, ``backward_kernel``; no flag, and neither
+stands in for the other when a build or a launch fails):
+
+- forward: ``csrc/flash_attention_wgmma.cu`` for bf16 (``wgmma`` for both
+  products, ``p`` rounded to bf16 between them) and ``csrc/flash_attention.cu``
+  for f32 and for bf16 tensors whose base address is not 16-byte aligned
+  (f32 FMAs); either also writes the row logsumexp ``[B, H, S]`` f32 when a
+  backward will follow;
+- backward: ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (the
+  ``delta = rowsum(dO * O)`` pre-pass, then one launch whose blocks compute
+  ``dk``/``dv`` per kv tile or ``dq`` per q tile, every product on ``wgmma``,
+  ``p`` and ``ds`` rounded to bf16 before the products they feed, as the TPU
+  kernel rounds them to the input dtype) and ``csrc/flash_attention_bwd.cu``
+  for f32 and unaligned bf16 (three launches: pre-pass, ``dk``/``dv``
+  kernel, ``dq`` kernel, f32 FMAs, ``p`` and ``ds`` kept in f32). Neither
+  uses float atomics, so gradients are bit-identical run to run.
+
+All are built with nvcc for ``sm_90a`` into shared libraries and called
+through ctypes (see the sources for the designs). On the VAE's main path
+attention runs twice per step (encoder and decoder mid blocks) at ``[B, 1,
+1024, 128]``: 4.3 GFLOP forward and 10.7 GFLOP backward per call at B=8,
+hundreds of FLOP per input byte, so the bound on an H100 is arithmetic.
 
 ``flash_attention`` launches the kernels for CUDA tensors (or raises) and
 runs the plain versions, forward and backward formula, for CPU tensors;
@@ -42,14 +47,16 @@ import functools
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
-           "forward_kernel", "SUPPORTED_HEAD_DIMS", "SOURCES"]
+           "forward_kernel", "backward_kernel", "bwd_wgmma_smem_bytes", "SUPPORTED_HEAD_DIMS",
+           "SOURCES"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "flash_attention.cu"
 _WGMMA_SOURCE = "flash_attention_wgmma.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
-SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _BWD_SOURCE)
+_BWD_WGMMA_SOURCE = "flash_attention_bwd_wgmma.cu"
+SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _BWD_WGMMA_SOURCE, _BWD_SOURCE)
 
 
 def forward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
@@ -61,6 +68,29 @@ def forward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> s
     if dtype == torch.bfloat16 and head_dim in SUPPORTED_HEAD_DIMS and aligned:
         return "wgmma"
     return "fma"
+
+
+def backward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+    """Which kernel computes the backward: ``"wgmma"`` (the tensor-core
+    kernel, ``csrc/flash_attention_bwd_wgmma.cu``) for bf16 inputs of a
+    supported head dim whose tensors (q, k, v, out, the upstream gradient and
+    the three gradients) start 16-byte aligned, any sequence length (ragged
+    tiles are masked); else ``"fma"`` (``csrc/flash_attention_bwd.cu``): f32
+    inputs, which keep f32 ``p`` and ``ds``, and unaligned bf16 views, which
+    16-byte copies cannot read."""
+    if dtype == torch.bfloat16 and head_dim in SUPPORTED_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "fma"
+
+
+def bwd_wgmma_smem_bytes(head_dim: int) -> int:
+    """Shared memory per block of the tensor-core backward (``smem_bytes`` of
+    ``csrc/flash_attention_bwd_wgmma.cu``): a resident slot for each of the
+    block's two warpgroups and a ring of three streamed slots, each slot two
+    64-row tiles (``head_dim / 8`` planes of 1040 bytes) and a row of
+    statistics (512 bytes)."""
+    slot = 2 * (head_dim // 8 * (64 * 16 + 16)) + 512
+    return (2 + 3) * slot
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -80,7 +110,10 @@ def flash_attention_bwd_plain(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` for the
     upstream gradient ``g``, by the formulas in the module docstring with
-    everything in f32, results in the input dtypes."""
+    everything in f32, results in the input dtypes. The tensor-core kernel
+    rounds ``p`` and ``ds`` to bf16 before the products they feed, which this
+    version does not; the bf16 bar (atol 2e-2 against this version in f32 on
+    the same rounded inputs) covers that rounding."""
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
@@ -110,6 +143,17 @@ def _wgmma_library() -> ctypes.CDLL:
     lib = load(_WGMMA_SOURCE)
     fn = lib.flash_attention_wgmma_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_wgmma_library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load(_BWD_WGMMA_SOURCE)
+    fn = lib.flash_attention_bwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -179,16 +223,20 @@ def _launch_backward(
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    lib = _backward_library()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, g, dq, dk, dv))
+    kernel = backward_kernel(q.dtype, d, aligned)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream,
-        )
+        if kernel == "wgmma":
+            err = _bwd_wgmma_library().flash_attention_bwd_wgmma(
+                *pointers, b * h, s, d, d**-0.5, stream)
+        else:
+            err = _backward_library().flash_attention_bwd(
+                *pointers, b * h, s, d, _DTYPE_CODES[q.dtype], d**-0.5, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention backward ({kernel} kernel) launch failed: CUDA error {err}")
     flash_attention.bwd_launches += 1
     return dq, dk, dv
 

@@ -28,7 +28,8 @@ def test_port_has_modules():
                      "utils/eval_metrics.py", "cli/evaluate_vae.py"):
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
-                   "conv3x3_wgrad.cu"):
+                   "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
+                   "flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu", "hopper_mma.cuh"):
         assert (PORT / "csrc" / source).exists()
 
 

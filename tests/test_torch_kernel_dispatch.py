@@ -200,11 +200,14 @@ def test_flash_forward_kernel_rule(head_dim):
 def test_new_sources_are_built_with_the_rest():
     assert "conv3x3_wgmma.cu" in CONV_SOURCES and "conv3x3.cu" in CONV_SOURCES
     assert "flash_attention_wgmma.cu" in FLASH_SOURCES and "flash_attention.cu" in FLASH_SOURCES
+    assert "conv3x3_wgrad_wgmma.cu" in CONV_SOURCES and "conv3x3_wgrad.cu" in CONV_SOURCES
+    assert "flash_attention_bwd_wgmma.cu" in FLASH_SOURCES and "flash_attention_bwd.cu" in FLASH_SOURCES
     for source in (*CONV_SOURCES, *FLASH_SOURCES):
         assert (_build.CSRC_DIR / source).is_file()
 
 
-@pytest.mark.parametrize("source", ["conv3x3_wgmma.cu", "flash_attention_wgmma.cu"])
+@pytest.mark.parametrize("source", ["conv3x3_wgmma.cu", "flash_attention_wgmma.cu",
+                                    "conv3x3_wgrad_wgmma.cu", "flash_attention_bwd_wgmma.cu"])
 def test_build_hash_covers_included_headers(source, tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC_DIR, tmp_path / "csrc")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path / "csrc")

@@ -19,7 +19,10 @@ kernels use no float atomics. The convolution's weights are scaled by
 rounding of a value of 16 is already 0.06). bf16 inputs take the tensor-core
 kernels (``wgmma``) wherever the wrappers' rules send them there, and the
 f32-FMA kernels otherwise; the tensor-core flash forward also rounds ``p`` to
-bf16 between its products, which the same bf16 bar covers.
+bf16 between its products, which the same bf16 bar covers, and the
+tensor-core attention backward rounds ``p`` and ``ds`` to bf16 before the
+products they feed, under the same bar. The tensor-core filter gradient
+sums exact products in f32 and keeps the ``dW`` bar.
 """
 
 import pytest
@@ -38,7 +41,9 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
 )
+from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import _launch_wgrad, wgrad_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
+from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import backward_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
 
 # every head dim at a whole and a ragged number of tiles, and the two older shapes
@@ -238,3 +243,67 @@ def test_bf16_routes_follow_the_rules(cuda):
     assert launch_counts()["conv3x3"] == 1
     want = conv3x3_plain(x.float(), wmat.bfloat16().float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+
+
+# the filter gradient's bf16 shapes of a flagship pass (all on the tensor-core kernel, the
+# thin ones padded) and ragged ones: 24 -> 40 at two batch sizes, a Cin that leaves a group
+# of 8 channels, thin odd channel counts
+WGRAD_SHAPES = [(8, 256, 256, 32, 32), (8, 256, 256, 64, 32), (8, 256, 256, 64, 64),
+                (8, 128, 128, 32, 64), (8, 128, 128, 64, 64), (8, 128, 128, 128, 64),
+                (8, 128, 128, 128, 128), (8, 64, 64, 64, 128), (8, 64, 64, 128, 128),
+                (8, 32, 32, 128, 128), (8, 256, 256, 1, 32), (8, 256, 256, 32, 1),
+                (8, 32, 32, 128, 4), (8, 32, 32, 4, 128), (2, 37, 70, 24, 40), (8, 37, 70, 24, 40),
+                (1, 11, 19, 72, 16), (1, 20, 12, 3, 5)]
+
+
+@pytest.mark.cuda
+def test_backward_routes_follow_the_rules(cuda):
+    for shape in FLASH_SHAPES + [(8, 1, 1024, 128)]:
+        assert backward_kernel(torch.bfloat16, shape[-1]) == "wgmma"
+        assert backward_kernel(torch.float32, shape[-1]) == "fma"
+    for b, h, w, cin, cout in CONV_SHAPES + WGRAD_SHAPES:  # thin channel counts padded to 8
+        assert wgrad_kernel(torch.bfloat16, cin, cout) == "wgmma"
+        assert wgrad_kernel(torch.float32, cin, cout) == "fma"
+
+
+@pytest.mark.cuda
+def test_conv3x3_wgrad_wgmma_matches_plain_at_path_shapes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for shape in WGRAD_SHAPES:
+        b, h, w, cin, cout = shape
+        x = torch.randn(b, h, w, cin, device=cuda, generator=gen).bfloat16()
+        g = (torch.randn(b, h, w, cout, device=cuda, generator=gen) * (cin / cout) ** 0.5).bfloat16()
+        reset_launch_counts()
+        got = _launch_wgrad(x, g)
+        assert launch_counts()["conv3x3_wgrad"] == 1 and got.dtype == torch.float32
+        assert torch.equal(got, _launch_wgrad(x, g))  # two runs, the same bits
+        _, want = conv3x3_bwd_plain(x.float(), torch.zeros(9 * cin, cout, device=cuda), g.float())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5,
+                                   msg=lambda m: f"{shape}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_wgmma_at_the_path_shape(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for shape in [(8, 1, 1024, 128), (2, 2, 1000, 64)]:
+        q, k, v, g = (torch.randn(shape, device=cuda, generator=gen).bfloat16() for _ in range(4))
+        leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(flash_attention(*leaves), leaves, g)
+        again = torch.autograd.grad(flash_attention(*leaves), leaves, g)
+        want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
+        for ours, twice, theirs in zip(got, again, want):
+            assert torch.equal(ours, twice)
+            torch.testing.assert_close(ours.float(), theirs, rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_unaligned_bf16_backward_takes_the_fma_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.randn(2 * 16 * 16 * 16 + 1, device=cuda, generator=gen).bfloat16()
+    x = flat[1:].view(2, 16, 16, 16)
+    g = torch.randn(2, 16, 16, 8, device=cuda, generator=gen).bfloat16()
+    assert x.data_ptr() % 16 != 0
+    assert wgrad_kernel(x.dtype, 16, 8, aligned=False) == "fma"
+    got = _launch_wgrad(x, g)
+    _, want = conv3x3_bwd_plain(x.float(), torch.zeros(144, 8, device=cuda), g.float())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * 512 ** 0.5)
