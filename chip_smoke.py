@@ -7,15 +7,19 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
-2. build: the CUDA C++ kernels of ``pti_ldm_vae_tpu_torch/csrc`` with nvcc
-   (one process per source, started together; ``ptxas`` registers and spills
-   reported; for the four tensor-core sources also the shared memory per block
-   and the resident blocks per SM of every instantiation the path takes, and
-   whether their SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``),
-   read with ``cuobjdump`` where the toolkit has it), the Triton kernels at
-   their first launch;
+2. build: the ten CUDA C++ sources of ``pti_ldm_vae_tpu_torch/csrc`` with
+   nvcc (one process per source, started together; ``ptxas`` registers and
+   spills reported, and none allowed in the two GroupNorm+SiLU libraries; for
+   the four tensor-core sources also the shared memory per block and the
+   resident blocks per SM of every instantiation the path takes, and whether
+   their SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``), read
+   with ``cuobjdump`` where the toolkit has it; for the GroupNorm+SiLU cluster
+   kernels the cut ``gn_plan`` gives each path shape and the clusters the card
+   holds at once);
 3. kernel checks at the shapes the main paths give them (GroupNorm+SiLU: the
-   8 shapes of a flagship pass at 256², batch 8; flash attention:
+   8 shapes of a flagship pass at 256², batch 8, ragged (1,7,9,24) and
+   (3,17,9,48) with 4 groups, and 32x256²x64, the b32 shape of the widest
+   clusters, in bf16; flash attention:
    [8,1,1024,128], a ragged [2,2,1000,64] and [2,1,S,D] for D in 16, 32, 64,
    128 and S in 1024, 200, the backward from the logsumexp the forward wrote;
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
@@ -39,15 +43,15 @@ result line):
    ``config/vae_dente_no_adv.json`` (256², batch 8) with random weights from a
    seeded ``torch.Generator``, in bf16 (the default) and with ``--f32``; launch
    counts are set to 0 just before a run and read just after (42
-   GroupNorm+SiLU and 2 flash-attention launches per batch); outputs must be
+   GroupNorm+SiLU forward and 2 flash-attention launches per batch); outputs must be
    16 TIFs and 16 PNGs of finite values, and the f32 reconstructions of two
    images must match the CPU plain-version reconstruction to 1e-3;
 5. training main path: ``pti_ldm_vae_tpu_torch.cli.train_vae`` on 72 synthetic
    TIFs at the same config (256², batch 8: 8 train steps and 1 validation
    step per epoch, 2 epochs), in bf16 and with ``--f32``; launch counts per
-   train step 42 / 42 / 42 / 2 / 2 (GroupNorm+SiLU forward, backward reduce,
-   backward dx, flash forward, flash backward), per eval step and per train
-   triplet panel 42 / 0 / 0 / 2 / 0; finite losses, every parameter tensor
+   train step 42 / 42 / 2 / 2 (GroupNorm+SiLU forward, GroupNorm+SiLU
+   backward, flash forward, flash backward), per eval step and per train
+   triplet panel 42 / 0 / 2 / 0; finite losses, every parameter tensor
    moved from its seeded init, best/last checkpoints written, the best one
    reloaded through the inference CLI;
 6. training reference: one f32 generator step on the card (launch counts of
@@ -59,7 +63,7 @@ result line):
    ``config/vae_dente_2.json`` (same architecture, PatchGAN + LSGAN at
    ``adv_weight`` 3.0) with ``adv_warmup_epochs: 0`` for 3 epochs of 8 steps,
    so that epoch 0 runs the warm-up step and epochs 1-2 the adversarial one;
-   all seven launch counts as computed from the step counts (per adversarial
+   all six launch counts as computed from the step counts (per adversarial
    or warm-up train step 47 + 46 convolution-kernel launches, forward and
    input gradient, and 47 filter-gradient launches), ``train/adv_disc_loss``
    0 in epoch 0 and > 0 afterwards, finite losses, the discriminator and both
@@ -80,11 +84,14 @@ result line):
    one PyTorch library call that computes the same function, at every path
    shape; reconstruct and train-step imgs/s at b8 (event time), device idle
    share and device time by kind of kernel, also with ``conv_kernel=True``
-   (and the train step with the adversarial branch active). The convolution
+   (and the train step with the adversarial branch active). GroupNorm+SiLU
+   bounds count the bytes of the fused kernels: forward x read and y
+   written, backward x and g read and dx written. The convolution
    kernels' library call is ``F.conv2d`` on channels-last tensors with TF32
    off, and its backward for one operand. To stay inside the time limit the
    per-kernel timings take 10 iterations and the reconstruct 6;
-8. the ``kernels`` line (seven kernels), the card line, and the result line
+8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
+   sites), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -139,8 +146,11 @@ FLASH_CHECK_SHAPES = ((BATCH, 1, 1024, 128), (2, 2, 1000, 64),
 WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
                  "flash_attention_bwd_wgmma.cu")
 
-KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx",
-                "flash_attention", "flash_attention_bwd", "conv3x3", "conv3x3_wgrad")
+KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd", "flash_attention", "flash_attention_bwd",
+                "conv3x3", "conv3x3_wgrad")
+# GroupNorm+SiLU shapes checked beside the path's: (shape, groups)
+GN_EXTRA_SHAPES = (((1, 7, 9, 24), 4), ((3, 17, 9, 48), 4))
+GN_B32_SHAPE = (32, 256, 256, 64)  # checked in bf16 only
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) -> dict[str, int]:
@@ -150,8 +160,7 @@ def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) ->
     conv = CONV_PER_RECONSTRUCT * passes + CONV_DGRAD_PER_STEP * train_steps if conv_kernel else 0
     return {
         "groupnorm_silu": GN_PER_RECONSTRUCT * passes,
-        "groupnorm_silu_bwd_reduce": GN_PER_RECONSTRUCT * train_steps,
-        "groupnorm_silu_bwd_dx": GN_PER_RECONSTRUCT * train_steps,
+        "groupnorm_silu_bwd": GN_PER_RECONSTRUCT * train_steps,
         "flash_attention": FLASH_PER_RECONSTRUCT * passes,
         "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
         "conv3x3": conv,
@@ -283,8 +292,8 @@ def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
 KINDS = (
     ("conv3x3_wgrad", ("conv3x3_wgrad_kernel", "conv3x3_wgrad_wgmma_kernel")),
     ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
-    ("groupnorm_silu_fwd", ("_stats_kernel", "_apply_kernel")),
-    ("groupnorm_silu_bwd", ("_bwd_reduce_kernel", "_bwd_dx_kernel")),
+    ("groupnorm_silu_fwd", ("groupnorm_silu_fwd_kernel",)),
+    ("groupnorm_silu_bwd", ("groupnorm_silu_bwd_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("optimizer", ("multi_tensor_apply", "adam")),
@@ -333,7 +342,8 @@ def ptxas_report(log: Path) -> dict:
             name = None
     def short(name: str) -> str:
         # kernel name and template arguments (element type, integers) out of the mangled name
-        if m := re.search(r"\d((?:flash|conv3x3)\w*?_kernel)I(13__nv_bfloat16|f)?((?:Li\d+E)*)E", name):
+        if m := re.search(r"\d((?:flash|conv3x3|groupnorm)\w*?_kernel)I(13__nv_bfloat16|f)?((?:Li\d+E)*)E",
+                          name):
             kind = {"13__nv_bfloat16": ["bf16"], "f": ["f32"], None: []}[m.group(2)]
             return f"{m.group(1)}<{','.join(kind + re.findall(r'Li(\d+)E', m.group(3)))}>"
         return re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", name)[:60]
@@ -421,6 +431,32 @@ def wgmma_occupancy(torch, shapes) -> dict:
     return out
 
 
+def gn_plans(torch, shapes) -> dict:
+    """The cut ``gn_plan`` gives each GroupNorm+SiLU shape (16 groups), forward
+    and backward, in both types, with the clusters of that cut the card holds
+    at once (``cudaOccupancyMaxActiveClusters``) and the blocks of one call."""
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import (
+        _BWD_SOURCE,
+        _DTYPE_CODES,
+        _FWD_SOURCE,
+        gn_plan,
+        max_active_clusters,
+    )
+
+    out = {}
+    for shape in shapes:
+        b, h, w, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind, source in (("fwd", _FWD_SOURCE), ("bwd", _BWD_SOURCE)):
+                plan = gn_plan(b, h, w, c, 16, dtype, kind == "bwd")
+                out[f"{kind} {list(shape)} {dtype_key(dtype)}"] = {
+                    **plan._asdict(), "blocks": b * (c // plan.slice_channels) * plan.cluster_size,
+                    "clusters_resident": max_active_clusters(
+                        source, _DTYPE_CODES[dtype], plan.vec, plan.cluster_size, plan.threads,
+                        plan.smem_bytes)}
+    return out
+
+
 def sass_report(libs: list[Path]) -> dict:
     """Whether each tensor-core library's SASS holds ``HGMMA`` (wgmma) and
     ``LDGSTS`` (cp.async) instructions, counted with ``cuobjdump -sass``; says
@@ -472,46 +508,62 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         forward_kernel as flash_forward_kernel,
     )
-    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {name: {"float32": 0.0, "bfloat16": 0.0} for name in KERNEL_NAMES}
+    routes: dict[str, dict] = {"groupnorm_silu": {}, "flash_attention": {},
+                               "flash_attention_bwd": {}, "conv3x3": {}, "conv3x3_wgrad": {}}
 
     def note(name, key, err):
         errs[name][key] = max(errs[name][key], err)
 
-    for shape, _ in gn_shapes:
-        c = shape[-1]
+    gn_cases = ([(s, 16, (torch.float32, torch.bfloat16)) for s, _ in gn_shapes]
+                + [(s, n, (torch.float32, torch.bfloat16)) for s, n in GN_EXTRA_SHAPES]
+                + [(GN_B32_SHAPE, 16, (torch.bfloat16,))])
+    for shape, groups, dtypes in gn_cases:
+        b, h, w, c = shape
         x = torch.randn(shape, device="cuda", generator=gen)
         scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
         bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
         g = torch.randn(shape, device="cuda", generator=gen)
-        sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)
+        for dtype in dtypes:
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             xd, gd = x.to(dtype), g.to(dtype)
-            got = kernels_mod.groupnorm_silu(xd, scale, bias, 16, 1e-6)
-            want, mean_g, inv_g = _plain_forward(xd.float(), scale, bias, 16, 1e-6)
+            fwd, bwd = (gn_plan(b, h, w, c, groups, dtype, backward) for backward in (False, True))
+            if fwd.vec * xd.element_size() != 16 or bwd.vec != fwd.vec:  # the 16-byte route
+                raise RuntimeError(f"groupnorm_silu {tag}: plans {fwd}, {bwd}")
+            routes["groupnorm_silu"][tag] = [list(fwd), list(bwd)]
+            kernels_mod.reset_launch_counts()
+            got = kernels_mod.groupnorm_silu(xd, scale, bias, groups, 1e-6)
+            if not torch.equal(got, kernels_mod.groupnorm_silu(xd, scale, bias, groups, 1e-6)):
+                raise RuntimeError(f"groupnorm_silu forward {tag}: two runs differ")
+            want, mean_g, inv_g = _plain_forward(xd.float(), scale, bias, groups, 1e-6)
             note("groupnorm_silu", key, check_close(f"groupnorm_silu {tag}", got, want, tol))
             del got, want
 
             leaves = (xd.clone().requires_grad_(), scale.clone().requires_grad_(),
                       bias.clone().requires_grad_())
-            grads = [torch.autograd.grad(kernels_mod.groupnorm_silu(*leaves, 16, 1e-6), leaves, gd)
+            grads = [torch.autograd.grad(kernels_mod.groupnorm_silu(*leaves, groups, 1e-6), leaves, gd)
                      for _ in range(2)]
+            counts = kernels_mod.launch_counts()
+            if (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) != (4, 2):
+                raise RuntimeError(f"groupnorm_silu {tag}: launches {counts}, one per call expected")
             for first, second in zip(*grads):
                 if not torch.equal(first, second):
                     raise RuntimeError(f"groupnorm_silu backward {tag}: two runs differ")
             dx, dscale, dbias = grads[0]
             want_dx, want_dscale, want_dbias = groupnorm_silu_bwd_plain(
-                xd.float(), scale, bias, mean_g, inv_g, gd.float(), 16)
-            note("groupnorm_silu_bwd_dx", key, check_close(f"groupnorm_silu dx {tag}", dx, want_dx, tol))
-            note("groupnorm_silu_bwd_reduce", key, max(
+                xd.float(), scale, bias, mean_g, inv_g, gd.float(), groups)
+            note("groupnorm_silu_bwd", key, max(
+                check_close(f"groupnorm_silu dx {tag}", dx, want_dx, tol),
                 check_close(f"groupnorm_silu dscale {tag}", dscale, want_dscale, sum_tol),
                 check_close(f"groupnorm_silu dbias {tag}", dbias, want_dbias, sum_tol)))
-            del grads, dx, want_dx, leaves
-    routes: dict[str, dict] = {"flash_attention": {}, "flash_attention_bwd": {}, "conv3x3": {},
-                               "conv3x3_wgrad": {}}
+            del grads, dx, want_dx, leaves, xd, gd
+        del x, g
+    torch.cuda.empty_cache()
     for shape in FLASH_CHECK_SHAPES:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -583,6 +635,7 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
             raise RuntimeError(f"conv3x3_wgrad {tag} went to {route}")
     emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
          forward_bit_identical=True, kernel_routes=routes,
+         gn_shapes=[[list(s), n] for s, n, _ in gn_cases],
          flash_shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          conv_shapes=[[list(s), n] for s, n in conv_shapes]
          + [[list(RAGGED_CONV), 0], [list(RAGGED_CONV_WGMMA), 0]],
@@ -937,8 +990,7 @@ def adv_train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Pa
     # the second backward of the generator repeats the 46 + 47 backward launches of the
     # convolutions (and the backward launches of the other kernels)
     want = expected_launches(1, 0, conv_kernel=True)
-    for name in ("groupnorm_silu_bwd_reduce", "groupnorm_silu_bwd_dx", "flash_attention_bwd",
-                 "conv3x3_wgrad"):
+    for name in ("groupnorm_silu_bwd", "flash_attention_bwd", "conv3x3_wgrad"):
         want[name] *= 2
     want["conv3x3"] += CONV_DGRAD_PER_STEP
     if per_step != want:
@@ -1125,16 +1177,17 @@ def main() -> int:
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import SOURCES as CONV_SOURCES
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import SOURCES as FLASH_SOURCES
-    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _triton_kernels
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import SOURCES as GN_SOURCES
 
     t0 = time.perf_counter()
-    libs = _build.build_all((*FLASH_SOURCES, *CONV_SOURCES))  # one nvcc each, started together
-    import triton
-
-    _triton_kernels()
+    # one nvcc each, started together
+    libs = _build.build_all((*FLASH_SOURCES, *CONV_SOURCES, *GN_SOURCES))
+    ptxas = {p.name: ptxas_report(p.with_suffix(".log")) for p in libs}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=[p.name for p in libs],
-         triton=triton.__version__,
-         ptxas={p.name: ptxas_report(p.with_suffix(".log")) for p in libs})
+         ptxas=ptxas)
+    for src in GN_SOURCES:
+        if ptxas[_build.library_path(src).name]["spill_bytes"]:
+            raise RuntimeError(f"{src} spills registers: {ptxas[_build.library_path(src).name]}")
 
     # 3. kernel checks at the paths' shapes
     from pti_ldm_vae_tpu_torch.config import load_config
@@ -1153,6 +1206,7 @@ def main() -> int:
     both_ways = sorted({s for s, _ in conv_shapes} | {(*s[:3], s[4], s[3]) for s, _ in conv_shapes})
     emit("wgmma_kernels", occupancy=wgmma_occupancy(torch, both_ways),
          sass=sass_report([_build.library_path(src) for src in WGMMA_SOURCES]))
+    emit("gn_kernels", plans=gn_plans(torch, [s for s, _ in gn_shapes] + [GN_B32_SHAPE]))
     errs = check_kernels(torch, gn_shapes, conv_shapes, kernels_mod)
     torch.cuda.empty_cache()
 
@@ -1261,7 +1315,7 @@ def main() -> int:
             nbytes = x.numel() * x.element_size()
             head = {"shape": list(shape), "dtype": key, "per_pass": n}
             # forward: ~8 f32 operations per element (two for the sums, one
-            # multiply-add, the SiLU's exp, add and divide)
+            # multiply-add, the SiLU's exp, add and divide); x read, y written
             x_nchw = x.permute(0, 3, 1, 2)
             bound_ms, bound_by = bound(8 * x.numel(), "float32", 2 * nbytes)
             row = {
@@ -1275,9 +1329,8 @@ def main() -> int:
             rows["groupnorm_silu"].append(row)
             emit("time_groupnorm_silu", **row)
 
-            # backward: one call launches the reduce and the dx kernel (plus one
-            # small torch.sum); the plain version and the library call do the
-            # work of both kernels at once
+            # backward: one launch of the fused kernel plus one small torch.sum
+            # over the images (both in ms; kernel_only_ms leaves the sum out)
             _, mean_g, inv_g = gn_forward(x, scale, bias, 16, 1e-6, save_stats=True)
             ours = time_ms(lambda: gn_backward(x, scale, bias, mean_g, inv_g, g, 16), flush)
             plain = timed("plain_", lambda: groupnorm_silu_bwd_plain(
@@ -1289,16 +1342,14 @@ def main() -> int:
             library = timed("library_", lambda: torch.autograd.grad(
                 y_lib, leaves, g_nchw, retain_graph=True))
             del y_lib, leaves
-            # ~20 f32 operations per element in either kernel (xhat, n, the
-            # sigmoid's exp and divide, dn, the products and sums)
-            for name, word, passes in (("groupnorm_silu_bwd_reduce", "_bwd_reduce_kernel", 2),
-                                       ("groupnorm_silu_bwd_dx", "_bwd_dx_kernel", 3)):
-                bound_ms, bound_by = bound(20 * x.numel(), "float32", passes * nbytes)
-                row = {**head, "ms": named_ms(ours["by_name"], word),
-                       "call_device_ms": ours["device_ms"], "event_ms": ours["event_ms"],
-                       **plain, **library, "bound_ms": bound_ms, "bound_by": bound_by}
-                rows[name].append(row)
-                emit(f"time_{name}", **row)
+            # ~20 f32 operations per element (xhat, n, the sigmoid's exp and
+            # divide, dn, the products and sums); x and g read, dx written
+            bound_ms, bound_by = bound(20 * x.numel(), "float32", 3 * nbytes)
+            row = {**head, "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+                   "kernel_only_ms": named_ms(ours["by_name"], "groupnorm_silu_bwd_kernel"),
+                   **plain, **library, "bound_ms": bound_ms, "bound_by": bound_by}
+            rows["groupnorm_silu_bwd"].append(row)
+            emit("time_groupnorm_silu_bwd", **row)
 
         shape = (BATCH, 1, 1024, 128)
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
@@ -1366,26 +1417,25 @@ def main() -> int:
         return {k: sum(r[k] * r["per_pass"] for r in bf)
                 for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
 
-    gn_source = "pti_ldm_vae_tpu_torch/ops/kernels/groupnorm_silu.py"
     gn_pallas = "pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py"
     fa_pallas = "pti_ldm_vae_tpu/ops/pallas/flash_attention.py"
-    both = ("; plain_ms and library_ms are the whole backward (reduce and dx together), "
-            "event_ms the whole backward call")
     described = {
-        "groupnorm_silu": ("triton", gn_source, f"{gn_pallas}:121",
-                           "bf16, device ms summed over the 42 launches of one b8 pass"),
-        "groupnorm_silu_bwd_reduce": ("triton", gn_source, f"{gn_pallas}:221",
-                                      "bf16, device ms summed over the 42 launches of one b8 "
-                                      "train step" + both),
-        "groupnorm_silu_bwd_dx": ("triton", gn_source, f"{gn_pallas}:248",
-                                  "bf16, device ms summed over the 42 launches of one b8 "
-                                  "train step" + both),
+        "groupnorm_silu": ("cuda", "pti_ldm_vae_tpu_torch/csrc/groupnorm_silu_fwd.cu",
+                           f"{gn_pallas}:121",
+                           "bf16 and f32 (one kernel), device ms summed over the 42 launches of "
+                           "one b8 pass; bound: x read and y written"),
+        "groupnorm_silu_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/groupnorm_silu_bwd.cu",
+                               f"{gn_pallas}:221,248",
+                               "bf16 and f32 (one kernel, in place of the TPU's reduce and dx "
+                               "kernels), device ms summed over the 42 calls of one b8 train "
+                               "step (each: one launch and the torch.sum over images); bound: "
+                               "x and g read and dx written"),
         "flash_attention": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_wgmma.cu",
                             f"{fa_pallas}:65",
                             "bf16 (the tensor-core kernel; f32 inputs: source_f32), device ms "
                             "summed over the 2 launches of one b8 pass"),
         "flash_attention_bwd": ("cuda", "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
-                                f"{fa_pallas}:122",
+                                f"{fa_pallas}:121",
                                 "bf16 (the tensor-core kernel; f32 inputs: source_f32), device ms "
                                 "summed over the 2 calls of one b8 train step (each call: the delta "
                                 "pre-pass and one launch of dk/dv and dq blocks)"),

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-- ``groupnorm_silu``: Triton GroupNorm+SiLU forward, backward reduce and
-  backward dx (replace ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``:
-  ``_forward`` and the two kernels of ``_bwd_pallas``)
+- ``groupnorm_silu``: CUDA C++ GroupNorm+SiLU forward and backward, one
+  thread-block-cluster launch each, ``csrc/groupnorm_silu_fwd.cu`` and
+  ``csrc/groupnorm_silu_bwd.cu`` (replace
+  ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``: ``_forward`` and both
+  kernels of ``_bwd_pallas``)
 - ``flash_attention``: CUDA C++ flash-attention forward and backward,
   ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
   (bf16, tensor cores) and ``csrc/flash_attention.cu`` and
@@ -17,7 +19,7 @@
 
 Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
 kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
-plain versions. ``launch_counts()`` reads the seven counts by kernel name,
+plain versions. ``launch_counts()`` reads the six counts by kernel name,
 ``reset_launch_counts()`` sets them to 0.
 """
 
@@ -28,8 +30,7 @@ from .groupnorm_silu import groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_
 # kernel name -> (wrapper, the attribute that counts its launches)
 COUNTERS = {
     "groupnorm_silu": (groupnorm_silu, "launches"),
-    "groupnorm_silu_bwd_reduce": (groupnorm_silu, "bwd_reduce_launches"),
-    "groupnorm_silu_bwd_dx": (groupnorm_silu, "bwd_dx_launches"),
+    "groupnorm_silu_bwd": (groupnorm_silu, "bwd_launches"),
     "flash_attention": (flash_attention, "launches"),
     "flash_attention_bwd": (flash_attention, "bwd_launches"),
     "conv3x3": (conv3x3, "launches"),

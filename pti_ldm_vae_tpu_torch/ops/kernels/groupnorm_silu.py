@@ -1,60 +1,44 @@
-"""Fused GroupNorm + SiLU, forward and backward: hand-written Triton kernels
-beside their plain PyTorch versions, bound to autograd.
+"""Fused GroupNorm + SiLU, forward and backward: hand-written CUDA C++
+thread-block-cluster kernels beside their plain PyTorch versions, bound to
+autograd.
 
 Replaces ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``:
 
-* ``_forward`` (body ``_kernel``): per-image f32 sums and sums of squares
-  per group of contiguous channels, the one-pass biased variance (clamped at
-  0, as the plain path ``ops/norm.py`` of the JAX package does), then
-  ``silu(x * mul + add)`` computed in f32 and stored once in the input
-  dtype; also the ``[B, G]`` f32 mean and inverse std, which the backward
-  reads instead of recomputing them;
-* ``_bwd_pallas`` (bodies ``_bwd_reduce_kernel`` and ``_bwd_dx_kernel``):
-  with ``xhat = (x - mean) * inv``, ``n = xhat * gamma + beta`` and
+* ``_forward`` (body ``_kernel``) by ``csrc/groupnorm_silu_fwd.cu``: per-image
+  f32 sums and sums of squares per group of contiguous channels, the
+  one-pass biased variance (clamped at 0, as the plain path ``ops/norm.py``
+  of the JAX package does), then ``silu(x * mul + add)`` computed in f32 and
+  stored once in the input dtype; also the ``[B, G]`` f32 mean and inverse
+  std, which the backward reads instead of recomputing them;
+* ``_bwd_pallas`` (bodies ``_bwd_reduce_kernel`` and ``_bwd_dx_kernel``) by
+  one launch of ``csrc/groupnorm_silu_bwd.cu``: with
+  ``xhat = (x - mean) * inv``, ``n = xhat * gamma + beta`` and
   ``dn = g * sigmoid(n) * (1 + n * (1 - sigmoid(n)))`` (the upstream gradient
-  through the SiLU), the reduce kernel gives ``r1 = sum_rows dn`` and
-  ``r2 = sum_rows dn * xhat`` per (image, channel); the dx kernel gives
+  through the SiLU), ``r1 = sum_rows dn`` and ``r2 = sum_rows dn * xhat`` per
+  (image, channel), then
   ``dx = inv * (dn * gamma - A_g / m - xhat * B_g / m)`` with
   ``A_g = sum_g gamma * r1``, ``B_g = sum_g gamma * r2`` and
-  ``m = HW * C / G``; ``dgamma = sum_b r2`` and ``dbeta = sum_b r1``.
+  ``m = HW * C / G``; ``dgamma = sum_b r2`` and ``dbeta = sum_b r1`` (one
+  small ``torch.sum`` of the kernel's ``[B, 2, C]`` output).
 
-Bound on an H100: every kernel here is a reduction and/or one elementwise
-pass, a few FLOP per element, so the bound is bytes. Forward: one read and
-one write of ``x``. Backward reduce: one read of ``x`` and ``g``. Backward
-dx: one read of ``x`` and ``g``, one write of ``dx``. On the VAE's main path
-(42 calls per flagship step at b8, 256²x32 down to 32²x128) ``x`` is 36.0 M
-elements per image.
+Bound on an H100: a few FLOP per element, so bytes. Forward: one read and
+one write of ``x``. Backward: one read of ``x`` and ``g``, one write of
+``dx``. On the VAE's main path (42 calls per flagship pass at b8, 256²x32
+down to 32²x128) ``x`` is 36.0 M elements per image.
 
-Design (the TPU kernels ran one grid step per image in the forward, and
-summed ``r1`` / ``r2`` across a sequential row-block grid axis in the
-backward; on this card blocks run in parallel in no order, and 8 images
-would fill 8 of 132 SMs):
-
-1. ``_stats_kernel``, grid (B, n_blk): each program sums a contiguous slab of
-   rows of one image into per-channel f32 partial sums and sums of squares,
-   ``[B, n_blk, 2, C]``. Rows are split so that B * n_blk fills the card.
-2. ``_apply_kernel``, same grid: each program first folds the partials of its
-   image, in a fixed order (no float atomics: every program of an image gets
-   the same statistics bit for bit, run after run), reduces channels to
-   groups with a one-hot group map (a group's channels are strided in
-   NHWC), and turns mean and inverse std into per-channel ``mul`` / ``add``;
-   then it streams its slab once more and writes ``silu(x * mul + add)``.
-   When a backward will follow, the first program of each image also stores
-   the image's ``[G]`` mean and inverse std (two launches either way).
-3. ``_bwd_reduce_kernel``, same grid: recomputes ``xhat`` and ``dn`` from
-   ``x``, ``g`` and the saved statistics and writes per-channel f32 partials
-   of ``r1`` and ``r2``, ``[B, n_blk, 2, C]``.
-4. ``_bwd_dx_kernel``, same grid: folds its image's partials in a fixed
-   order, does the ``[B, G]`` group fold (``A_g``, ``B_g``) itself through the
-   one-hot map, then streams its slab once more and writes ``dx``, rounded
-   once to ``x``'s dtype. ``dgamma`` and ``dbeta`` are one ``torch.sum`` of
-   the partials over (B, n_blk), outside the kernels, as the JAX package
-   leaves that sum to XLA. No float atomics anywhere: ``dx``, ``dgamma`` and
-   ``dbeta`` are bit-identical run to run.
-
-So a backward call is two Triton launches plus one small ``torch.sum``, and
-reads ``x`` and ``g`` twice. Fusing the second read away (a slab kept in
-registers across a grid-wide barrier) is later work.
+Design (the TPU kernels ran one grid step per image, the whole image in
+VMEM; on this card a block holds at most 227 KB and 8 images would fill 8
+of 132 SMs): an image's channels are cut into slices of whole groups
+(``gn_plan``), each (image, slice) is one thread-block cluster of up to 16
+blocks that split its rows, stage them in shared memory while summing, fold
+the sums through distributed shared memory in a fixed order, and write the
+output from the staged copy, so ``x`` (and ``g``) cross HBM once per call.
+Where no cluster holds a slice within room for two blocks per SM (the 256²
+images of the flagship path), nothing is staged: both passes stream, the
+second mostly from L2, with slices widened to at most 16 clusters, which
+the card holds at once (measured faster than staging part of each slice,
+``tools/check_gn_kernels.py --ablate``). No float atomics: every output is
+bit-identical run to run. The sources describe the kernels.
 
 Semantics of the backward: it is the analytic derivative of
 ``silu((x - mean) * inv * gamma + beta)`` with ``inv = rsqrt(var + eps)``.
@@ -66,25 +50,37 @@ forward only for a group whose values are all equal.
 ``groupnorm_silu`` launches the kernels for CUDA tensors (or raises) and runs
 the plain versions, forward and backward formula, for CPU tensors; nothing
 falls back from one to the other. ``groupnorm_silu.launches`` counts forward
-calls that launched the kernels, ``groupnorm_silu.bwd_reduce_launches`` and
-``groupnorm_silu.bwd_dx_launches`` count launches of the two backward kernels.
+launches, ``groupnorm_silu.bwd_launches`` backward launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "groupnorm_silu_bwd_plain", "launch_grid"]
+__all__ = ["groupnorm_silu", "groupnorm_silu_plain", "groupnorm_silu_bwd_plain", "GnPlan",
+           "gn_plan", "gn_smem_bytes", "SOURCES"]
 
-# Bound at build time by _triton_kernels(): this module must import without
-# triton, which only the GPU host has.
-tl = None
+_FWD_SOURCE = "groupnorm_silu_fwd.cu"
+_BWD_SOURCE = "groupnorm_silu_bwd.cu"
+SOURCES = (_FWD_SOURCE, _BWD_SOURCE)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_TARGET_PROGRAMS = 4 * 132  # four programs per H100 SM
-_MAX_BLOCKS_PER_IMAGE = 64
-_TILE_ELEMENTS = 4096  # elements of one [BLOCK_R, BLOCK_C] tile
+SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
+SM_SMEM = 233_472  # shared memory of one SM, of which each resident block takes 1 KB more
+STAGE_BLOCKS_PER_SM = 2  # a block stages a slice only within room for two blocks per SM
+MAX_THREADS = 256  # threads per block (the kernels' __launch_bounds__)
+MAX_CLUSTER = 16  # blocks per cluster (above 8 only as a non-portable size)
+TARGET_BLOCKS = 256  # about two blocks per SM of an H100
+MIN_SEGMENT_BYTES = 32  # a slice's part of one pixel row: at least one sector
+MIN_ROWS_PER_THREAD = 2  # a cluster grows for more blocks only while each thread keeps this many rows
+STREAM_CLUSTERS = 16  # a call that cannot stage its slices is cut into at most this many clusters
+# clusters of 16 blocks an H100 holds for each block it can place on every SM
+# (cudaOccupancyMaxActiveClusters: 7, 14, 21, 28 at 1 to 4 blocks per SM)
+CLUSTERS_OF_16_PER_SLOT = 7
 
 
 def _plain_forward(
@@ -142,185 +138,200 @@ def groupnorm_silu_bwd_plain(
     return dx.reshape(x.shape).to(x.dtype), r2.sum(dim=0), r1.sum(dim=0)
 
 
-def _stats_kernel(x_ptr, part_ptr, HW, C, rows_per_blk, n_blk,
-                  BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-    b = tl.program_id(0)
-    blk = tl.program_id(1)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    row_start = blk * rows_per_blk
-    row_end = tl.minimum(row_start + rows_per_blk, HW)
-    x_img = x_ptr + b.to(tl.int64) * HW * C
-    acc1 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-    acc2 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-    for r0 in range(row_start, row_end, BLOCK_R):
-        rows = r0 + tl.arange(0, BLOCK_R)
-        mask = (rows < row_end)[:, None] & cmask[None, :]
-        xv = tl.load(x_img + rows[:, None] * C + cols[None, :], mask=mask, other=0.0).to(tl.float32)
-        acc1 += xv
-        acc2 += xv * xv
-    out = part_ptr + (b * n_blk + blk) * 2 * C
-    tl.store(out + cols, tl.sum(acc1, axis=0), mask=cmask)
-    tl.store(out + C + cols, tl.sum(acc2, axis=0), mask=cmask)
+class GnPlan(NamedTuple):
+    """How one call is cut (the kernels' arguments).
+
+    ``slice_channels`` (SC): channels of one slice, whole groups; a cluster of
+    ``cluster_size`` blocks owns one (image, slice), block rank ``r`` its rows
+    ``[r * rows_per_block, (r + 1) * rows_per_block)``; the first
+    ``staged_rows`` of a block's rows of each tensor named in ``staged``
+    (``"x"``, ``"g"``, ``"xg"`` or ``""``) are staged in shared memory;
+    ``vec`` channels per thread and access (one 16-byte vector, or 1 for
+    tensors not 16-byte aligned), ``threads`` per block, ``smem_bytes`` of
+    dynamic shared memory per block."""
+
+    slice_channels: int
+    cluster_size: int
+    rows_per_block: int
+    staged_rows: int
+    smem_bytes: int
+    vec: int
+    threads: int
+    staged: str
 
 
-def _apply_kernel(x_ptr, y_ptr, part_ptr, scale_ptr, bias_ptr, mean_ptr, inv_ptr,
-                  HW, C, CG, G, rows_per_blk, n_blk, count, eps,
-                  BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-                  BLOCK_G: tl.constexpr, BLOCK_N: tl.constexpr, SAVE_STATS: tl.constexpr):
-    b = tl.program_id(0)
-    blk = tl.program_id(1)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < C
-
-    # fold this image's partials: a fixed-shape reduction, identical in every program
-    blks = tl.arange(0, BLOCK_N)
-    pmask = (blks < n_blk)[:, None] & cmask[None, :]
-    parts = part_ptr + b * n_blk * 2 * C + blks[:, None] * 2 * C + cols[None, :]
-    s1 = tl.sum(tl.load(parts, mask=pmask, other=0.0), axis=0)
-    s2 = tl.sum(tl.load(parts + C, mask=pmask, other=0.0), axis=0)
-
-    # channels -> groups -> channels through the one-hot map [BLOCK_G, BLOCK_C]
-    groups = tl.arange(0, BLOCK_G)
-    onehot = ((cols[None, :] // CG) == groups[:, None]) & cmask[None, :]
-    mean = tl.sum(tl.where(onehot, s1[None, :], 0.0), axis=1) / count
-    var = tl.sum(tl.where(onehot, s2[None, :], 0.0), axis=1) / count - mean * mean
-    inv = 1.0 / tl.sqrt(tl.maximum(var, 0.0) + eps)
-    if SAVE_STATS:
-        # every program of an image holds the same values; the first stores them
-        smask = (groups < G) & (blk == 0)
-        tl.store(mean_ptr + b * G + groups, mean, mask=smask)
-        tl.store(inv_ptr + b * G + groups, inv, mask=smask)
-    mean_c = tl.sum(tl.where(onehot, mean[:, None], 0.0), axis=0)
-    inv_c = tl.sum(tl.where(onehot, inv[:, None], 0.0), axis=0)
-    gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    mul = inv_c * gamma
-    add = beta - mean_c * mul
-
-    row_start = blk * rows_per_blk
-    row_end = tl.minimum(row_start + rows_per_blk, HW)
-    img = b.to(tl.int64) * HW * C
-    for r0 in range(row_start, row_end, BLOCK_R):
-        rows = r0 + tl.arange(0, BLOCK_R)
-        mask = (rows < row_end)[:, None] & cmask[None, :]
-        offs = img + rows[:, None] * C + cols[None, :]
-        xv = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        yv = xv * mul[None, :] + add[None, :]
-        yv = yv / (1.0 + tl.exp(-yv))
-        tl.store(y_ptr + offs, yv.to(y_ptr.dtype.element_ty), mask=mask)
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
-def _bwd_reduce_kernel(x_ptr, g_ptr, mean_ptr, inv_ptr, scale_ptr, bias_ptr, part_ptr,
-                       HW, C, CG, G, rows_per_blk, n_blk,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-    b = tl.program_id(0)
-    blk = tl.program_id(1)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    group = cols // CG
-    mean_c = tl.load(mean_ptr + b * G + group, mask=cmask, other=0.0)
-    inv_c = tl.load(inv_ptr + b * G + group, mask=cmask, other=0.0)
-    gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-
-    row_start = blk * rows_per_blk
-    row_end = tl.minimum(row_start + rows_per_blk, HW)
-    img = b.to(tl.int64) * HW * C
-    acc1 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-    acc2 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-    for r0 in range(row_start, row_end, BLOCK_R):
-        rows = r0 + tl.arange(0, BLOCK_R)
-        mask = (rows < row_end)[:, None] & cmask[None, :]
-        offs = img + rows[:, None] * C + cols[None, :]
-        xv = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        gv = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)  # 0 past the edge: dn = 0
-        xhat = (xv - mean_c[None, :]) * inv_c[None, :]
-        n = xhat * gamma[None, :] + beta[None, :]
-        sig = 1.0 / (1.0 + tl.exp(-n))
-        dn = gv * sig * (1.0 + n * (1.0 - sig))
-        acc1 += dn
-        acc2 += dn * xhat
-    out = part_ptr + (b * n_blk + blk) * 2 * C
-    tl.store(out + cols, tl.sum(acc1, axis=0), mask=cmask)
-    tl.store(out + C + cols, tl.sum(acc2, axis=0), mask=cmask)
+def gn_smem_bytes(slice_channels: int, cluster_size: int, threads: int, vec: int, staged_x: int,
+                  staged_g: int, esize: int) -> int:
+    """Dynamic shared memory of one block (``layout`` in ``csrc/groupnorm_silu.cuh``):
+    the staged rows of x and of g, the block's published partials (2*SC f32),
+    the cluster's partials gathered (CS*2*SC f32), the per-warp (or per
+    thread-row) partials (2*P*SC f32) and the per-channel coefficients
+    (2*SC f32), each rounded up to 16 bytes."""
+    sc = slice_channels
+    nv = sc // vec
+    rows = threads // 32 if 32 % nv == 0 else threads // nv
+    return (_round16(staged_x * sc * esize) + _round16(staged_g * sc * esize) + _round16(8 * sc)
+            + _round16(cluster_size * 8 * sc) + _round16(8 * rows * sc) + _round16(8 * sc))
 
 
-def _bwd_dx_kernel(x_ptr, g_ptr, dx_ptr, mean_ptr, inv_ptr, scale_ptr, bias_ptr, part_ptr,
-                   HW, C, CG, G, rows_per_blk, n_blk, count,
-                   BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-                   BLOCK_G: tl.constexpr, BLOCK_N: tl.constexpr):
-    b = tl.program_id(0)
-    blk = tl.program_id(1)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    group = cols // CG
-    mean_c = tl.load(mean_ptr + b * G + group, mask=cmask, other=0.0)
-    inv_c = tl.load(inv_ptr + b * G + group, mask=cmask, other=0.0)
-    gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+def _blocks_per_sm(backward: bool, dtype: torch.dtype) -> int:
+    """Blocks of 256 threads an SM holds by the kernels' register caps
+    (``__launch_bounds__``: 64 registers a thread forward, 128 backward in
+    bf16, 85 backward in f32)."""
+    if not backward:
+        return 4
+    return 2 if dtype == torch.bfloat16 else 3
 
-    # fold this image's r1 / r2 partials in a fixed order, then channels ->
-    # groups -> channels through the one-hot map: A_g / m and B_g / m per channel
-    blks = tl.arange(0, BLOCK_N)
-    pmask = (blks < n_blk)[:, None] & cmask[None, :]
-    parts = part_ptr + b * n_blk * 2 * C + blks[:, None] * 2 * C + cols[None, :]
-    r1 = tl.sum(tl.load(parts, mask=pmask, other=0.0), axis=0)
-    r2 = tl.sum(tl.load(parts + C, mask=pmask, other=0.0), axis=0)
-    groups = tl.arange(0, BLOCK_G)
-    onehot = ((cols[None, :] // CG) == groups[:, None]) & cmask[None, :]
-    a_g = tl.sum(tl.where(onehot, (r1 * gamma)[None, :], 0.0), axis=1) / count
-    b_g = tl.sum(tl.where(onehot, (r2 * gamma)[None, :], 0.0), axis=1) / count
-    a_c = tl.sum(tl.where(onehot, a_g[:, None], 0.0), axis=0)
-    b_c = tl.sum(tl.where(onehot, b_g[:, None], 0.0), axis=0)
 
-    row_start = blk * rows_per_blk
-    row_end = tl.minimum(row_start + rows_per_blk, HW)
-    img = b.to(tl.int64) * HW * C
-    for r0 in range(row_start, row_end, BLOCK_R):
-        rows = r0 + tl.arange(0, BLOCK_R)
-        mask = (rows < row_end)[:, None] & cmask[None, :]
-        offs = img + rows[:, None] * C + cols[None, :]
-        xv = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        gv = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        xhat = (xv - mean_c[None, :]) * inv_c[None, :]
-        n = xhat * gamma[None, :] + beta[None, :]
-        sig = 1.0 / (1.0 + tl.exp(-n))
-        dn = gv * sig * (1.0 + n * (1.0 - sig))
-        dxv = inv_c[None, :] * (dn * gamma[None, :] - a_c[None, :] - xhat * b_c[None, :])
-        tl.store(dx_ptr + offs, dxv.to(dx_ptr.dtype.element_ty), mask=mask)
+def gn_plan(b: int, h: int, w: int, c: int, num_groups: int, dtype: torch.dtype,
+            backward: bool = False, aligned: bool = True, *, staged: str | None = None,
+            cluster_size: int | None = None, min_segment: int = MIN_SEGMENT_BYTES) -> GnPlan:
+    """The cut of one GroupNorm+SiLU call on a [b, h, w, c] tensor (a pure function).
+
+    - Slice: the fewest whole groups whose part of a pixel row is at least
+      ``min_segment`` bytes (one 32-byte sector) and, on the vector route, a
+      multiple of 16 bytes; all channels if none is.
+    - Vector route (``vec`` = 16 bytes of channels) when ``aligned`` (the
+      caller's tensors start 16-byte aligned) and rows and slices are whole
+      16-byte vectors; else one channel per access and nothing staged.
+    - Threads: ``SC / vec`` columns times as many rows of threads as fit in
+      ``MAX_THREADS``.
+    - Staging: the forward stages x, the backward x and g, when some cluster
+      of at most ``MAX_CLUSTER`` blocks holds the whole slice within room for
+      ``STAGE_BLOCKS_PER_SM`` blocks per SM. Cluster: the fewest blocks that do, then
+      twice as many while the grid has fewer than ``TARGET_BLOCKS`` blocks and
+      every thread keeps ``MIN_ROWS_PER_THREAD`` rows.
+    - Otherwise (256² and larger images) nothing is staged and both passes
+      stream: slices widen (by whole groups, doubling the segment) until the
+      call has at most ``STREAM_CLUSTERS`` clusters, of 16 blocks where the
+      card holds them all at once by the kernel's register cap, else of 8.
+
+    ``staged`` ("x", "g", "xg" or "") and ``cluster_size`` force a cut (for
+    measurements): the fewest fitting blocks as above, and the rows that do
+    not fit are read from global memory twice (``staged_rows <
+    rows_per_block``)."""
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"groupnorm_silu takes float32 or bfloat16, got {dtype}")
+    if staged not in (None, "x", "g", "xg", ""):
+        raise ValueError(f"staged must be 'x', 'g', 'xg' or '', got {staged!r}")
+    esize = 4 if dtype == torch.float32 else 2
+    vector = aligned and c * esize % 16 == 0
+    slices = [k * (c // num_groups) for k in range(1, num_groups + 1) if num_groups % k == 0]
+
+    def slice_of(segment: int) -> int:
+        return next((s for s in slices if s * esize >= segment
+                     and (not vector or s * esize % 16 == 0)), c)
+
+    def cut(sc: int, mode: str, cs: int | None) -> GnPlan:
+        return _cut(b, h * w, c, sc, esize, vector, mode, cs)
+
+    if staged is not None:
+        return cut(slice_of(min_segment), staged, cluster_size)
+    plan = cut(slice_of(min_segment), "xg" if backward else "x", cluster_size)
+    if plan.staged_rows == plan.rows_per_block or plan.vec == 1:
+        return plan
+    segment = min_segment
+    while b * (c // slice_of(segment)) > STREAM_CLUSTERS and slice_of(segment) < c:
+        segment *= 2
+    sc = slice_of(segment)
+    resident = CLUSTERS_OF_16_PER_SLOT * _blocks_per_sm(backward, dtype)
+    return cut(sc, "", cluster_size or (MAX_CLUSTER if b * (c // sc) <= resident else MAX_CLUSTER // 2))
+
+
+def _cut(b: int, hw: int, c: int, sc: int, esize: int, vector: bool, staged: str,
+         cluster_size: int | None) -> GnPlan:
+    """``gn_plan``'s cut for one slice width and staging mode."""
+    vec = 16 // esize if vector and sc * esize % 16 == 0 else 1
+    nv = sc // vec
+    if nv > MAX_THREADS:
+        raise ValueError(f"a slice of {sc} channels needs {nv} threads a row (at most {MAX_THREADS})")
+    threads = nv * (MAX_THREADS // nv)
+    rit = threads // nv
+    n_staged = len(staged) if vec > 1 else 0
+    row_bytes = sc * esize
+    budget = min(SMEM_LIMIT, SM_SMEM // STAGE_BLOCKS_PER_SM - 1024)
+
+    def rows(cs: int) -> int:
+        return -(-hw // cs)
+
+    def fits(cs: int) -> bool:
+        return (gn_smem_bytes(sc, cs, threads, vec, 0, 0, esize)
+                + n_staged * _round16(rows(cs) * row_bytes)) <= budget
+
+    cs = 1
+    while cs < MAX_CLUSTER and not fits(cs):
+        cs *= 2
+    while (cs < MAX_CLUSTER and b * (c // sc) * cs < TARGET_BLOCKS
+           and rows(2 * cs) >= MIN_ROWS_PER_THREAD * rit):
+        cs *= 2
+    if cluster_size is not None:
+        cs = cluster_size
+    rows_per_block = rows(cs)
+    staged_rows = 0
+    if n_staged:
+        room = budget - gn_smem_bytes(sc, cs, threads, vec, 0, 0, esize)
+        staged_rows = max(0, min(rows_per_block, room // (n_staged * row_bytes)))
+    sx = staged_rows if "x" in staged and n_staged else 0
+    sg = staged_rows if "g" in staged and n_staged else 0
+    return GnPlan(sc, cs, rows_per_block, staged_rows, gn_smem_bytes(sc, cs, threads, vec, sx, sg, esize),
+                  vec, threads, staged if n_staged else "")
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, h: int, w: int, c: int, num_groups: int, dtype: torch.dtype, backward: bool,
+          aligned: bool) -> GnPlan:
+    """``gn_plan`` once per shape: the wrappers need it at every launch, on a
+    path the host already holds back."""
+    return gn_plan(b, h, w, c, num_groups, dtype, backward, aligned)
 
 
 @functools.cache
-def _triton_kernels():
-    """(stats, apply, backward reduce, backward dx) as Triton JIT functions."""
-    import triton
-    import triton.language
+def _library(source: str) -> ctypes.CDLL:
+    from ._build import load
 
-    globals()["tl"] = triton.language
-    return (triton.jit(_stats_kernel), triton.jit(_apply_kernel),
-            triton.jit(_bwd_reduce_kernel), triton.jit(_bwd_dx_kernel))
+    lib = load(source)
+    if source == _FWD_SOURCE:
+        lib.groupnorm_silu_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+                                           + [ctypes.c_float, ctypes.c_void_p])
+        lib.groupnorm_silu_fwd.restype = ctypes.c_int
+    else:
+        lib.groupnorm_silu_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        lib.groupnorm_silu_bwd.restype = ctypes.c_int
+    prefix = "groupnorm_silu_fwd" if source == _FWD_SOURCE else "groupnorm_silu_bwd"
+    fn = getattr(lib, f"{prefix}_clusters")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
-
-
-def launch_grid(batch: int, hw: int, channels: int) -> tuple[int, int, int, int]:
-    """(BLOCK_R, BLOCK_C, rows per program, programs per image) for one shape."""
-    block_c = _next_pow2(channels)
-    block_r = max(1, _TILE_ELEMENTS // block_c)
-    want = -(-_TARGET_PROGRAMS // batch)
-    rows = max(-(-hw // want), -(-hw // _MAX_BLOCKS_PER_IMAGE), block_r)
-    rows = -(-rows // block_r) * block_r
-    return block_r, block_c, rows, -(-hw // rows)
+@functools.cache
+def max_active_clusters(source: str, dtype_code: int, vec: int, cluster_size: int, threads: int,
+                        smem_bytes: int) -> int:
+    """Clusters of one plan the card holds at once (``cudaOccupancyMaxActiveClusters``);
+    raises if the plan cannot be scheduled at all. Asked once per plan and process."""
+    lib = _library(source)
+    prefix = "groupnorm_silu_fwd" if source == _FWD_SOURCE else "groupnorm_silu_bwd"
+    out = ctypes.c_int(0)
+    err = getattr(lib, f"{prefix}_clusters")(dtype_code, vec, cluster_size, threads, smem_bytes,
+                                              ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"{prefix}: a cluster of {cluster_size} blocks x {threads} threads x "
+                           f"{smem_bytes} bytes cannot be scheduled (CUDA error {err}, "
+                           f"{out.value} clusters)")
+    return out.value
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int) -> None:
     c = x.shape[-1]
     if x.dim() != 4 or c % num_groups:
         raise ValueError(f"expected NHWC with C divisible by {num_groups}, got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"groupnorm_silu takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("groupnorm_silu takes a contiguous NHWC tensor")
@@ -328,72 +339,81 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups:
         raise ValueError("scale and bias must be [C] tensors on x's device")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch_forward(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float,
-    save_stats: bool,
+    save_stats: bool, plan: GnPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
-    """The two forward launches on a CUDA tensor: (y, mean_g, inv_g); the
-    statistics are ``None`` unless ``save_stats``."""
+    """One forward launch on a CUDA tensor: (y, mean_g, inv_g); the statistics
+    are ``None`` unless ``save_stats``. ``plan`` overrides ``gn_plan`` (for
+    measurements of other cuts)."""
     _check(x, scale, bias, num_groups)
-    b, hw, c = x.shape[0], x.shape[1] * x.shape[2], x.shape[-1]
+    b, h, w, c = x.shape
     y = torch.empty_like(x)
     mean_g = inv_g = None
     if save_stats:
         mean_g, inv_g = torch.empty((2, b, num_groups), device=x.device, dtype=torch.float32)
     if x.numel() == 0:
         return y, mean_g, inv_g
-    block_r, block_c, rows, n_blk = launch_grid(b, hw, c)
-    cg = c // num_groups
-    stats_kernel, apply_kernel, _, _ = _triton_kernels()
-    parts = torch.empty((b, n_blk, 2, c), device=x.device, dtype=torch.float32)
-    scale, bias = scale.contiguous(), bias.contiguous()
+    if plan is None:
+        plan = _plan(b, h, w, c, num_groups, x.dtype, False, _aligned(x, y))
+    code = _DTYPE_CODES[x.dtype]
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
     with torch.cuda.device(x.device):
-        stats_kernel[(b, n_blk)](x, parts, hw, c, rows, n_blk, BLOCK_R=block_r, BLOCK_C=block_c)
-        apply_kernel[(b, n_blk)](
-            x, y, parts, scale, bias,
-            mean_g if save_stats else parts, inv_g if save_stats else parts,  # unread when not saving
-            hw, c, cg, num_groups, rows, n_blk, float(hw * cg), float(eps),
-            BLOCK_R=block_r, BLOCK_C=block_c, BLOCK_G=_next_pow2(num_groups),
-            BLOCK_N=_next_pow2(n_blk), SAVE_STATS=save_stats,
-        )
+        max_active_clusters(_FWD_SOURCE, code, plan.vec, plan.cluster_size, plan.threads,
+                            plan.smem_bytes)
+        err = _library(_FWD_SOURCE).groupnorm_silu_fwd(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean_g.data_ptr() if save_stats else None, inv_g.data_ptr() if save_stats else None,
+            b, h * w, c, c // num_groups, plan.slice_channels, plan.cluster_size,
+            plan.rows_per_block, plan.staged_rows if "x" in plan.staged else 0, plan.vec,
+            plan.threads, plan.smem_bytes, code, float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_silu forward launch failed: CUDA error {err} ({plan})")
     groupnorm_silu.launches += 1
     return y, mean_g, inv_g
 
 
 def _launch_backward(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean_g: torch.Tensor,
-    inv_g: torch.Tensor, g: torch.Tensor, num_groups: int,
+    inv_g: torch.Tensor, g: torch.Tensor, num_groups: int, plan: GnPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two backward launches on CUDA tensors: (dx, dscale f32, dbias f32)."""
+    """One backward launch on CUDA tensors, then the sum over images of its
+    ``[B, 2, C]`` output: (dx, dscale f32, dbias f32). ``plan`` overrides
+    ``gn_plan`` (for measurements of other cuts)."""
     _check(x, scale, bias, num_groups)
-    if g.shape != x.shape or g.device != x.device or g.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"upstream gradient {tuple(g.shape)} {g.dtype} does not match x")
-    g = g.contiguous()  # autograd often hands over a strided view
-    b, hw, c = x.shape[0], x.shape[1] * x.shape[2], x.shape[-1]
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"upstream gradient {tuple(g.shape)} on {g.device} does not match x")
+    g = g.to(x.dtype).contiguous()  # autograd often hands over a strided view
+    b, h, w, c = x.shape
     dx = torch.empty_like(x)
     if x.numel() == 0:
         zeros = torch.zeros(c, device=x.device, dtype=torch.float32)
         return dx, zeros, zeros.clone()
-    block_r, block_c, rows, n_blk = launch_grid(b, hw, c)
-    cg = c // num_groups
-    _, _, reduce_kernel, dx_kernel = _triton_kernels()
-    parts = torch.empty((b, n_blk, 2, c), device=x.device, dtype=torch.float32)
-    scale, bias = scale.contiguous(), bias.contiguous()
-    mean_g, inv_g = mean_g.contiguous(), inv_g.contiguous()
+    if plan is None:
+        plan = _plan(b, h, w, c, num_groups, x.dtype, True, _aligned(x, g, dx))
+    code = _DTYPE_CODES[x.dtype]
+    r = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    mean_g, inv_g = mean_g.float().contiguous(), inv_g.float().contiguous()
     with torch.cuda.device(x.device):
-        reduce_kernel[(b, n_blk)](
-            x, g, mean_g, inv_g, scale, bias, parts, hw, c, cg, num_groups, rows, n_blk,
-            BLOCK_R=block_r, BLOCK_C=block_c,
-        )
-        groupnorm_silu.bwd_reduce_launches += 1
-        dx_kernel[(b, n_blk)](
-            x, g, dx, mean_g, inv_g, scale, bias, parts, hw, c, cg, num_groups, rows, n_blk,
-            float(hw * cg),
-            BLOCK_R=block_r, BLOCK_C=block_c, BLOCK_G=_next_pow2(num_groups),
-            BLOCK_N=_next_pow2(n_blk),
-        )
-        groupnorm_silu.bwd_dx_launches += 1
-    r = parts.sum(dim=(0, 1))  # [2, C]: dbeta = sum_b r1, dgamma = sum_b r2
+        max_active_clusters(_BWD_SOURCE, code, plan.vec, plan.cluster_size, plan.threads,
+                            plan.smem_bytes)
+        err = _library(_BWD_SOURCE).groupnorm_silu_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean_g.data_ptr(), inv_g.data_ptr(), r.data_ptr(),
+            b, h * w, c, c // num_groups, plan.slice_channels, plan.cluster_size,
+            plan.rows_per_block, plan.staged_rows if "x" in plan.staged else 0,
+            plan.staged_rows if "g" in plan.staged else 0, plan.vec, plan.threads,
+            plan.smem_bytes, code, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_silu backward launch failed: CUDA error {err} ({plan})")
+    groupnorm_silu.bwd_launches += 1
+    r = r.sum(dim=0)  # [2, C]: dbeta = sum_b r1, dgamma = sum_b r2
     return dx, r[1], r[0]
 
 
@@ -422,7 +442,7 @@ def groupnorm_silu(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
 ) -> torch.Tensor:
     """``silu(group_norm(x))`` of an NHWC [B, H, W, C] tensor, differentiable
-    in ``x``, ``scale`` and ``bias``: the Triton kernels for CUDA tensors, the
+    in ``x``, ``scale`` and ``bias``: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors. With no gradient wanted nothing is saved."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"groupnorm_silu runs on cuda or cpu, got {x.device}")
@@ -436,5 +456,4 @@ def groupnorm_silu(
 
 
 groupnorm_silu.launches = 0
-groupnorm_silu.bwd_reduce_launches = 0
-groupnorm_silu.bwd_dx_launches = 0
+groupnorm_silu.bwd_launches = 0

@@ -29,7 +29,8 @@ def test_port_has_modules():
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
-                   "flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu", "hopper_mma.cuh"):
+                   "flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu", "hopper_mma.cuh",
+                   "groupnorm_silu_fwd.cu", "groupnorm_silu_bwd.cu", "groupnorm_silu.cuh"):
         assert (PORT / "csrc" / source).exists()
 
 

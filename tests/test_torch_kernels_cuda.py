@@ -25,6 +25,8 @@ products they feed, under the same bar. The tensor-core filter gradient
 sums exact products in f32 and keeps the ``dW`` bar.
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -44,7 +46,7 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import _launch_wgrad, wgrad_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import backward_kernel
-from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward
+from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
 # every head dim at a whole and a ragged number of tiles, and the two older shapes
 FLASH_SHAPES = [(2, 1, 1024, 128), (2, 2, 1000, 64), (1, 3, 77, 32), (1, 1, 5, 16),
@@ -110,8 +112,7 @@ def test_groupnorm_silu_backward_kernels_match_plain(cuda, dtype):
         y = groupnorm_silu(x, scale, bias, groups, 1e-6)
         dx, dscale, dbias = torch.autograd.grad(y, (x, scale, bias), g)
         counts = launch_counts()
-        assert (counts["groupnorm_silu"], counts["groupnorm_silu_bwd_reduce"],
-                counts["groupnorm_silu_bwd_dx"]) == (1, 1, 1)
+        assert (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) == (1, 1)
         _, mean_g, inv_g = _plain_forward(x.detach().float(), scale.detach(), bias.detach(),
                                           groups, 1e-6)
         want = groupnorm_silu_bwd_plain(x.detach().float(), scale.detach(), bias.detach(),
@@ -124,6 +125,61 @@ def test_groupnorm_silu_backward_kernels_match_plain(cuda, dtype):
                                     (x, scale, bias), g)
         for first, second in zip((dx, dscale, dbias), again):
             assert torch.equal(first, second)
+
+
+# the eight GroupNorm+SiLU shapes of a flagship pass at 256², batch 8, then
+# ragged ones (4 groups), a batch of 3 and the b32 shape of the largest slices
+GN_SHAPES = [(8, 256, 256, 32), (8, 256, 256, 64), (8, 128, 128, 128), (8, 128, 128, 64),
+             (8, 128, 128, 32), (8, 64, 64, 128), (8, 64, 64, 64), (8, 32, 32, 128),
+             (1, 7, 9, 24), (3, 17, 9, 48), (3, 256, 256, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_cluster_kernels_at_path_shapes(cuda, dtype, monkeypatch):
+    """Forward and backward of the cluster kernels at every path shape, ragged
+    shapes, b32 (bf16) and a view off 16 bytes: one launch each, on the cut
+    ``gn_plan`` gives (16-byte vectors when aligned, one channel per access
+    when not), within the bars, the same bits twice."""
+    gn = importlib.import_module("pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu")
+    plans = []
+    monkeypatch.setattr(gn, "gn_plan", lambda *a, **k: plans.append(gn_plan(*a, **k)) or plans[-1])
+    gn._plan.cache_clear()  # the wrappers keep one plan per shape
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    shapes = GN_SHAPES + ([(32, 256, 256, 64)] if dtype == torch.bfloat16 else [])
+    for shape, aligned in [(s, True) for s in shapes] + [((2, 64, 64, 32), False)]:
+        b, h, w, c = shape
+        groups = 16 if c % 16 == 0 else 4
+        flat = torch.randn(b * h * w * c + 1, device=cuda, generator=gen).to(dtype)
+        x = (flat[:-1] if aligned else flat[1:]).view(shape).requires_grad_()
+        scale = (1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        plans.clear()
+        reset_launch_counts()
+        y = groupnorm_silu(x, scale, bias, groups, 1e-6)
+        got = torch.autograd.grad(y, (x, scale, bias), g)
+        counts = launch_counts()
+        assert (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) == (1, 1), shape
+        vec = 16 // x.element_size() if aligned else 1
+        assert [p.vec for p in plans] == [vec, vec], (shape, plans)
+        assert plans == [gn_plan(b, h, w, c, groups, dtype, bwd, aligned) for bwd in (False, True)]
+        xf, sf, bf = x.detach().float(), scale.detach(), bias.detach()
+        want_y, mean_g, inv_g = _plain_forward(xf, sf, bf, groups, 1e-6)
+        want = groupnorm_silu_bwd_plain(xf, sf, bf, mean_g, inv_g, g.float(), groups)
+        msg = lambda m: f"{shape} {dtype}: {m}"  # noqa: E731
+        torch.testing.assert_close(y.detach().float(), want_y, **_tol(dtype), msg=msg)
+        torch.testing.assert_close(got[0].float(), want[0], **_tol(dtype), msg=msg)
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)
+        torch.testing.assert_close(got[1], want[1], **sum_tol, msg=msg)
+        torch.testing.assert_close(got[2], want[2], **sum_tol, msg=msg)
+        y2 = groupnorm_silu(x, scale, bias, groups, 1e-6)
+        assert torch.equal(y, y2)
+        again = torch.autograd.grad(y2, (x, scale, bias), g)
+        for first, second in zip(got, again):
+            assert torch.equal(first, second)
+        del x, flat, g, y, y2, got, again, want
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

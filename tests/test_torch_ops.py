@@ -27,7 +27,6 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
     groupnorm_silu_plain,
     reset_launch_counts,
 )
-from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import launch_grid
 from pti_ldm_vae_tpu_torch.ops.norm import group_norm, group_norm_silu
 from pti_ldm_vae_tpu_torch.ops.resize import upsample_nearest_2x
 
@@ -129,16 +128,3 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(NotImplementedError):  # no two-pass kernel off the CPU
         group_norm_silu(x, torch.ones(8), torch.zeros(8), num_groups=2, stats="two_pass")
 
-
-# the eight GroupNorm+SiLU shapes of a flagship reconstruct at 256², batch 8
-PATH_SHAPES = [(8, 256, 256, 32), (8, 256, 256, 64), (8, 128, 128, 32), (8, 128, 128, 64),
-               (8, 128, 128, 128), (8, 64, 64, 64), (8, 64, 64, 128), (8, 32, 32, 128)]
-
-
-@pytest.mark.parametrize("shape", PATH_SHAPES + [(1, 7, 9, 24), (3, 256, 256, 32)])
-def test_launch_grid_covers_every_row(shape):
-    b, h, w, c = shape
-    block_r, block_c, rows, n_blk = launch_grid(b, h * w, c)
-    assert block_c >= c and rows % block_r == 0
-    assert (n_blk - 1) * rows < h * w <= n_blk * rows
-    assert n_blk <= 64
