@@ -22,6 +22,10 @@ result line):
    clusters, in bf16; flash attention:
    [8,1,1024,128], a ragged [2,2,1000,64] and [2,1,S,D] for D in 16, 32, 64,
    128 and S in 1024, 200, the backward from the logsumexp the forward wrote;
+   the 17 distinct shapes of the 45 calls of a diffusion UNet pass of
+   ``config/ldm_dente.json`` at b8 (32 groups, 1 to 16 channels per group,
+   32² down to 4²), with the cut ``gn_plan`` gives each in phase 2;
+   flash attention also at the UNet's [8,2,256,32], [8,4,64,32], [8,8,16,32];
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
    flagship pass, as forward, input gradient and filter gradient, a ragged
    [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
@@ -78,6 +82,21 @@ result line):
    every gradient tensor that passes through the discriminator from the two
    sides' own reconstructions within 2e-2 (LeakyReLU kinks: see
    ``adv_train_reference_check``);
+6c. latent-diffusion training path: ``cli.train_diffusion`` on a temporary
+   config whose ``diffusion_def`` is ``config/ldm_dente.json``'s, with the
+   seeded flagship VAE of phase 4 (256² images, 32²x4 latents), 3 epochs of
+   2 steps at b8, in bf16 and with ``--f32``; launch counts per step 21 + 45
+   GroupNorm+SiLU forward (VAE encode, UNet), 45 backward, 1 + 16 flash
+   forward, 16 backward; finite epsilon-MSE; every UNet and projector tensor
+   finite and moved (but the 17 whose gradient is 0 in exact arithmetic, see
+   ``zero_gradient_tensors``); ``diffusion_last.pth`` written;
+6d. sampling path: ``cli.sample_diffusion`` from the bf16 run's checkpoint,
+   8 images conditioned on 8 of phase 4's TIFs, 50 DDIM steps, in bf16 and
+   ``--f32``: 8 finite TIFs and PNGs, launches 21 + 50*45 + 21
+   GroupNorm+SiLU and 1 + 50*16 + 1 flash per batch;
+6e. diffusion reference: one UNet forward, one diffusion loss and its
+   gradients and a 5-step DDIM run in f32 on the card against the CPU plain
+   path, same weights and noise (bars in ``ldm_reference_check``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -89,9 +108,15 @@ result line):
    written, backward x and g read and dx written. The convolution
    kernels' library call is ``F.conv2d`` on channels-last tensors with TF32
    off, and its backward for one operand. To stay inside the time limit the
-   per-kernel timings take 10 iterations and the reconstruct 6;
+   per-kernel timings take 10 iterations and the reconstruct 6. Then the
+   GroupNorm+SiLU and flash kernels at the UNet's shapes (bound, plain,
+   ``F.group_norm`` + ``F.silu``, SDPA), and at b8 with the trained weights
+   the UNet forward, the 50-step DDIM loop (steps/s) and one diffusion train
+   step as the CLI runs it, in bf16 and f32;
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
-   sites), the card line, and the result line
+   sites; launches by path, the diffusion CLIs' included, and the four
+   GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
+   step under ``ldm_unet``), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -152,6 +177,26 @@ KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd", "flash_attention", "flas
 GN_EXTRA_SHAPES = (((1, 7, 9, 24), 4), ((3, 17, 9, 48), 4))
 GN_B32_SHAPE = (32, 256, 256, 64)  # checked in bf16 only
 
+# latent diffusion: config/ldm_dente.json (UNet on the 32²x4 latents of the
+# flagship VAE's 256² images, 32 groups, head dim 32, cross-attention dim 512)
+LDM_CONFIG = ROOT / "config" / "ldm_dente.json"
+LDM_GROUPS = 32
+# GroupNorm+SiLU launches per UNet pass (16 down, 4 middle, 24 up, the head's
+# norm) and flash-attention launches (6 down, 1 middle, 9 up); a VAE encode or
+# decode is half a flagship pass (21 and 1)
+GN_PER_UNET = 45
+FLASH_PER_UNET = 16
+GN_PER_CODER = GN_PER_RECONSTRUCT // 2
+FLASH_PER_CODER = FLASH_PER_RECONSTRUCT // 2
+LDM_TRAIN_IMAGES = 16  # 2 steps of 8 per epoch
+LDM_TRAIN_EPOCHS = 3
+LDM_SAMPLE_IMAGES = 8
+LDM_SAMPLE_STEPS = 50
+LDM_REFERENCE_STEPS = 5  # DDIM steps of the card-vs-CPU check
+LDM_EPS_BAR = 1e-3  # UNet output, card f32 vs CPU f32, of its largest entry
+LDM_DDIM_BAR = 1e-3  # final DDIM latents, of their largest entry (ldm_reference_check)
+LDM_ZERO_GRAD_BAR = 1e-6  # gradients 0 in exact arithmetic, of the largest gradient entry
+
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) -> dict[str, int]:
     """Launch counts of a run of ``train_steps`` train steps and
@@ -165,6 +210,24 @@ def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) ->
         "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
         "conv3x3": conv,
         "conv3x3_wgrad": CONV_PER_RECONSTRUCT * train_steps if conv_kernel else 0,
+    }
+
+
+def expected_ldm_launches(train_steps: int, sample_batches: int) -> dict[str, int]:
+    """Launch counts of ``train_steps`` diffusion train steps (a VAE encode,
+    then the UNet forward and backward) and ``sample_batches`` sampled
+    batches (a VAE encode of the conditions, ``LDM_SAMPLE_STEPS`` UNet passes,
+    a VAE decode)."""
+    sample_steps = LDM_SAMPLE_STEPS
+    return {
+        "groupnorm_silu": (GN_PER_CODER + GN_PER_UNET) * train_steps
+        + (2 * GN_PER_CODER + sample_steps * GN_PER_UNET) * sample_batches,
+        "groupnorm_silu_bwd": GN_PER_UNET * train_steps,
+        "flash_attention": (FLASH_PER_CODER + FLASH_PER_UNET) * train_steps
+        + (2 * FLASH_PER_CODER + sample_steps * FLASH_PER_UNET) * sample_batches,
+        "flash_attention_bwd": FLASH_PER_UNET * train_steps,
+        "conv3x3": 0,
+        "conv3x3_wgrad": 0,
     }
 
 
@@ -431,8 +494,8 @@ def wgmma_occupancy(torch, shapes) -> dict:
     return out
 
 
-def gn_plans(torch, shapes) -> dict:
-    """The cut ``gn_plan`` gives each GroupNorm+SiLU shape (16 groups), forward
+def gn_plans(torch, cases) -> dict:
+    """The cut ``gn_plan`` gives each GroupNorm+SiLU (shape, groups), forward
     and backward, in both types, with the clusters of that cut the card holds
     at once (``cudaOccupancyMaxActiveClusters``) and the blocks of one call."""
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import (
@@ -444,12 +507,12 @@ def gn_plans(torch, shapes) -> dict:
     )
 
     out = {}
-    for shape in shapes:
+    for shape, groups in cases:
         b, h, w, c = shape
         for dtype in (torch.bfloat16, torch.float32):
             for kind, source in (("fwd", _FWD_SOURCE), ("bwd", _BWD_SOURCE)):
-                plan = gn_plan(b, h, w, c, 16, dtype, kind == "bwd")
-                out[f"{kind} {list(shape)} {dtype_key(dtype)}"] = {
+                plan = gn_plan(b, h, w, c, groups, dtype, kind == "bwd")
+                out[f"{kind} {list(shape)} g{groups} {dtype_key(dtype)}"] = {
                     **plan._asdict(), "blocks": b * (c // plan.slice_channels) * plan.cluster_size,
                     "clusters_resident": max_active_clusters(
                         source, _DTYPE_CODES[dtype], plan.vec, plan.cluster_size, plan.threads,
@@ -491,7 +554,11 @@ def conv_inputs(torch, shape, gen):
     return x, wmat, g
 
 
-def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]:
+def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod) -> dict[str, dict]:
+    """Every kernel against its plain version (phase 3): GroupNorm+SiLU at
+    ``gn_cases`` [(shape, groups, dtypes)], flash attention at
+    ``flash_shapes``, the convolution at ``conv_shapes`` and the two ragged
+    ones; returns the largest error per kernel and type."""
     from pti_ldm_vae_tpu_torch.ops.kernels import (
         conv3x3_bwd_plain,
         conv3x3_plain,
@@ -518,9 +585,6 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
     def note(name, key, err):
         errs[name][key] = max(errs[name][key], err)
 
-    gn_cases = ([(s, 16, (torch.float32, torch.bfloat16)) for s, _ in gn_shapes]
-                + [(s, n, (torch.float32, torch.bfloat16)) for s, n in GN_EXTRA_SHAPES]
-                + [(GN_B32_SHAPE, 16, (torch.bfloat16,))])
     for shape, groups, dtypes in gn_cases:
         b, h, w, c = shape
         x = torch.randn(shape, device="cuda", generator=gen)
@@ -564,7 +628,7 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
             del grads, dx, want_dx, leaves, xd, gd
         del x, g
     torch.cuda.empty_cache()
-    for shape in FLASH_CHECK_SHAPES:
+    for shape in flash_shapes:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
@@ -636,7 +700,7 @@ def check_kernels(torch, gn_shapes, conv_shapes, kernels_mod) -> dict[str, dict]
     emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
          forward_bit_identical=True, kernel_routes=routes,
          gn_shapes=[[list(s), n] for s, n, _ in gn_cases],
-         flash_shapes=[list(s) for s in FLASH_CHECK_SHAPES],
+         flash_shapes=[list(s) for s in flash_shapes],
          conv_shapes=[[list(s), n] for s, n in conv_shapes]
          + [[list(RAGGED_CONV), 0], [list(RAGGED_CONV_WGMMA), 0]],
          tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
@@ -1021,6 +1085,330 @@ def adv_train_reference_check(torch, np, kernels_mod, ae_def: dict, data_dir: Pa
                                f"path by {w['err_of_tensor_max']} of its largest entry (bar {w['bar']})")
 
 
+def ldm_path_shapes(torch) -> tuple[list, list]:
+    """[(NHWC shape at batch 8, launches per pass)] of every GroupNorm+SiLU and
+    [([B, heads, S, head_dim] at batch 8, launches per pass)] of every
+    self-attention of one UNet pass of ``config/ldm_dente.json`` on the 32²
+    latents of 256² images, recorded with forward hooks during one CPU pass of
+    a single latent (plain versions, no launch)."""
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import GroupNormOp
+    from pti_ldm_vae_tpu_torch.models.unet import TransformerBlock, diffusion_unet_from_config
+
+    dd = load_config(LDM_CONFIG)["diffusion_def"]
+    unet = diffusion_unet_from_config(dd)
+    gn: dict[tuple[int, ...], int] = {}
+    flash: dict[tuple[int, ...], int] = {}
+
+    def gn_hook(module, args):
+        if module.silu:
+            shape = (BATCH, *args[0].shape[1:])
+            gn[shape] = gn.get(shape, 0) + 1
+
+    def attn_hook(module, args):
+        _, seq, c = args[0].shape
+        shape = (BATCH, module.num_heads, seq, c // module.num_heads)
+        flash[shape] = flash.get(shape, 0) + 1
+
+    handles = [m.register_forward_pre_hook(gn_hook) for m in unet.modules()
+               if isinstance(m, GroupNormOp)]
+    handles += [m.register_forward_pre_hook(attn_hook) for m in unet.modules()
+                if isinstance(m, TransformerBlock)]
+    try:
+        with torch.inference_mode():
+            unet(torch.zeros(1, 32, 32, dd["in_channels"]), torch.zeros(1, dtype=torch.long),
+                 torch.zeros(1, 32 * 32, dd["cross_attention_dim"]))
+    finally:
+        for h in handles:
+            h.remove()
+    if sum(gn.values()) != GN_PER_UNET or sum(flash.values()) != FLASH_PER_UNET:
+        raise RuntimeError(f"UNet pass: GroupNorm+SiLU {gn}, flash {flash}, expected "
+                           f"{GN_PER_UNET} and {FLASH_PER_UNET} launches")
+    by_size = sorted(gn.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3])
+    return by_size, sorted(flash.items(), key=lambda kv: -kv[0][2])
+
+
+def write_ldm_config(vae_ckpt: Path, run_dir: Path) -> Path:
+    """``config/ldm_dente.json`` with its ``diffusion_def`` as it is, the
+    flagship VAE config with the seeded weights ``vae_ckpt``, and ``run_dir``."""
+    cfg = json.loads(LDM_CONFIG.read_text())
+    cfg["vae"] = {"config_file": str(CONFIG), "checkpoint": str(vae_ckpt)}
+    cfg["run_dir"], cfg["wandb"] = str(run_dir), {"enabled": False}
+    path = run_dir.parent / f"{run_dir.name}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_ldm_train_cli(torch, np, kernels_mod, cfg_path: Path, data_dir: Path,
+                      extra: list[str]) -> dict:
+    """``cli.train_diffusion`` for ``LDM_TRAIN_EPOCHS`` epochs of 2 steps at b8
+    (256² images, frozen VAE, full-width UNet): launch counts, finite
+    epsilon-MSE, every UNet and projector tensor finite and moved from its
+    seeded init (but those of ``zero_gradient_tensors``), the checkpoint
+    written."""
+    from pti_ldm_vae_tpu_torch.cli.train_diffusion import main as train_main
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_ldm_models
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--input-dir", str(data_dir), "--num-samples",
+                         str(LDM_TRAIN_IMAGES), "--max-epochs", str(LDM_TRAIN_EPOCHS),
+                         "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    steps = LDM_TRAIN_EPOCHS * LDM_TRAIN_IMAGES // BATCH
+    want = expected_ldm_launches(steps, 0)
+    if result["total_step"] != steps or launches != want:
+        raise RuntimeError(f"diffusion training path: {result}, launches {launches}, expected {want}")
+    cfg = load_config(cfg_path)
+    lines = (Path(cfg["run_dir"]) / "metrics.jsonl").read_text().splitlines()
+    losses = [json.loads(line)["train/eps_mse"] for line in lines]
+    if len(losses) != LDM_TRAIN_EPOCHS or not np.isfinite(losses).all():
+        raise RuntimeError(f"diffusion training: epsilon-MSE per epoch {losses}")
+    saved = torch.load(result["checkpoint"], map_location="cpu", weights_only=True)
+    torch.manual_seed(TRAIN_SEED)  # the CLI's seeding before it builds the models
+    init = load_ldm_models(cfg, device=torch.device("cpu"))
+    # a tensor whose gradient is 0 in exact arithmetic moves by rounding noise, or not at all
+    zero = zero_gradient_tensors(init.unet)
+    stuck = []
+    for name, module in (("unet", init.unet), ("projector", init.projector)):
+        ref = module.state_dict()
+        if set(saved[name]) != set(ref):
+            raise RuntimeError(f"{name} checkpoint keys differ from the model's")
+        stuck += [f"{name}.{k}" for k, v in saved[name].items() if not torch.isfinite(v).all()
+                  or (torch.equal(v, ref[k]) and f"{name}.{k}" not in zero)]
+    if stuck:
+        raise RuntimeError(f"parameters not finite or not moved from their init: {stuck[:5]}")
+    return {"wall_s": wall, "launches": launches, "total_step": result["total_step"],
+            "eps_mse_per_epoch": losses, "checkpoint": result["checkpoint"],
+            "tensors_checked": sum(len(v) for v in saved.values() if v is not None),
+            "zero_gradient_tensors": len(zero)}
+
+
+def run_ldm_sample_cli(torch, np, kernels_mod, cfg_path: Path, checkpoint: str, cond_dir: Path,
+                       out: Path, extra: list[str]) -> dict:
+    """``cli.sample_diffusion`` from ``checkpoint``: 8 images conditioned on the
+    first 8 of ``cond_dir``, 50 DDIM steps; launch counts and 8 finite TIFs
+    and PNGs."""
+    from pti_ldm_vae_tpu_torch.cli.sample_diffusion import main as sample_main
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    sample_main(["-c", str(cfg_path), "--checkpoint", checkpoint, "--output-dir", str(out),
+                 "--num-images", str(LDM_SAMPLE_IMAGES), "--condition-dir", str(cond_dir),
+                 "--num-inference-steps", str(LDM_SAMPLE_STEPS), "--num-workers", "4",
+                 "--seed", str(TRAIN_SEED), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    want = expected_ldm_launches(0, 1)
+    if launches != want:
+        raise RuntimeError(f"sampling path: launches {launches}, expected {want}")
+    tifs, pngs = sorted(out.glob("sample_*.tif")), sorted(out.glob("sample_*.png"))
+    if len(tifs) != LDM_SAMPLE_IMAGES or len(pngs) != LDM_SAMPLE_IMAGES:
+        raise RuntimeError(f"expected {LDM_SAMPLE_IMAGES} TIFs and PNGs, got {len(tifs)}, {len(pngs)}")
+    images = [read_image(str(p)) for p in tifs]
+    for p, img in zip(tifs, images):
+        if img.shape != (256, 256) or not np.isfinite(img).all():
+            raise RuntimeError(f"{p.name}: bad sample {img.shape}")
+    return {"wall_s": wall, "launches": launches, "images": len(tifs),
+            "sample_std": [float(img.std()) for img in images]}
+
+
+def ldm_reference_check(torch, np, kernels_mod, cfg_path: Path) -> None:
+    """The UNet of ``config/ldm_dente.json`` in f32 on the card against the
+    CPU plain path, same seeded weights (every 1-D parameter perturbed, so
+    that the norms' affines matter), inputs, timesteps and noise, batch 2 at
+    the 32²x4 latent with a 1024-token context: one forward (launches of one
+    UNet pass asserted), one diffusion loss with its gradients (the launches
+    of one forward and backward asserted) and a DDIM run of
+    ``LDM_REFERENCE_STEPS`` steps.
+
+    Bars. The UNet output: 1e-3 of its largest entry. Loss: 1e-4 relative;
+    every gradient tensor: 2e-3 of its largest entry (``GRAD_BAR``), except
+    the tensors of ``zero_gradient_tensors``, whose gradient is 0 in exact
+    arithmetic, so that both sides hold rounding noise (1e-10 to 4e-9 on the
+    CPU, against 8e-2 for the model's largest entry): their error is held to
+    1e-6 of the model's largest gradient entry. DDIM: the
+    final latents within 1e-3 of their largest entry: each step maps the
+    UNet's error into ``x`` with a coefficient of at most 1
+    (``sqrt(1 - a_prev) - sqrt(a_prev (1 - a_t) / a_t)``) and scales ``x`` and
+    its error alike (by ``sqrt(a_prev / a_t)``), so the error relative to
+    ``x`` stays of the order of the UNet's relative error, 1e-6 to 1e-5 in f32."""
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.unet import (
+        ConditionProjector,
+        diffusion_unet_from_config,
+        project_latent_condition,
+    )
+    from pti_ldm_vae_tpu_torch.train.diffusion import NoiseSchedule, ddim_sample, diffusion_loss
+
+    cfg = load_config(cfg_path)  # f32 with TF32 off: main() turned TF32 off
+    dd = cfg["diffusion_def"]
+    torch.manual_seed(21)
+    cpu_unet = diffusion_unet_from_config(dd)
+    cpu_proj = ConditionProjector(dd["in_channels"], dd["cross_attention_dim"])
+    gen = torch.Generator().manual_seed(22)
+    with torch.no_grad():
+        for p in cpu_unet.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    gpu_unet = copy.deepcopy(cpu_unet).to(device="cuda", memory_format=torch.channels_last)
+    gpu_proj = copy.deepcopy(cpu_proj).cuda()
+    c = dd["in_channels"]
+    x, cond, noise, x_t = (torch.randn(2, 32, 32, c, generator=gen) for _ in range(4))
+    t = torch.tensor([17, 941])
+    schedule = NoiseSchedule.linear_beta(int(cfg["diffusion_train"]["num_train_timesteps"]))
+
+    def forward(unet, proj, device):
+        with torch.no_grad():
+            ctx = project_latent_condition(proj, cond.to(device))
+            return unet(x.to(device), t.to(device), ctx).cpu()
+
+    def loss_and_grads(unet, proj, device):
+        params = [(f"unet.{k}", p) for k, p in unet.named_parameters()]
+        params += [(f"projector.{k}", p) for k, p in proj.named_parameters()]
+        ctx = project_latent_condition(proj, cond.to(device))
+        loss = diffusion_loss(unet, schedule.to(device), x.to(device), t.to(device),
+                              noise.to(device), ctx)
+        grads = torch.autograd.grad(loss, [p for _, p in params])
+        return float(loss.detach()), {k: g.cpu() for (k, _), g in zip(params, grads)}
+
+    def ddim(unet, proj, device):
+        with torch.no_grad():
+            ctx = project_latent_condition(proj, cond.to(device))
+            return ddim_sample(unet, schedule.to(device), x_t.to(device),
+                               num_inference_steps=LDM_REFERENCE_STEPS, context=ctx).cpu()
+
+    kernels_mod.reset_launch_counts()
+    eps_card = forward(gpu_unet, gpu_proj, "cuda")
+    per_pass = kernels_mod.launch_counts()
+    kernels_mod.reset_launch_counts()
+    loss_card, grads_card = loss_and_grads(gpu_unet, gpu_proj, "cuda")
+    torch.cuda.synchronize()
+    per_step = kernels_mod.launch_counts()
+    lat_card = ddim(gpu_unet, gpu_proj, "cuda")
+    want_pass = {**expected_ldm_launches(0, 0), "groupnorm_silu": GN_PER_UNET,
+                 "flash_attention": FLASH_PER_UNET}
+    want_step = {**want_pass, "groupnorm_silu_bwd": GN_PER_UNET, "flash_attention_bwd": FLASH_PER_UNET}
+    if per_pass != want_pass or per_step != want_step:
+        raise RuntimeError(f"one UNet pass launched {per_pass} (expected {want_pass}), one "
+                           f"forward and backward {per_step} (expected {want_step})")
+    eps_cpu = forward(cpu_unet, cpu_proj, "cpu")
+    loss_cpu, grads_cpu = loss_and_grads(cpu_unet, cpu_proj, "cpu")
+    lat_cpu = ddim(cpu_unet, cpu_proj, "cpu")
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    zero = zero_gradient_tensors(cpu_unet)
+    grad_max = max(float(g.abs().max()) for g in grads_cpu.values())
+    grad_err = {k: rel(grads_card[k], ref) for k, ref in grads_cpu.items() if k not in zero}
+    worst = max(grad_err, key=grad_err.get)
+    zero_err = max(float((grads_card[k] - grads_cpu[k]).abs().max()) for k in zero) / grad_max
+    result = {"eps_err_of_max": rel(eps_card, eps_cpu), "eps_bar": LDM_EPS_BAR,
+              "eps_max": float(eps_cpu.abs().max()),
+              "loss_card": loss_card, "loss_cpu": loss_cpu,
+              "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu), "loss_bar": 1e-4,
+              "max_grad_err_of_tensor_max": grad_err[worst], "worst_tensor": worst,
+              "grad_bar": GRAD_BAR, "gradient_tensors": len(grad_err),
+              "zero_gradient_tensors": len(zero), "zero_gradient_err_of_model_max": zero_err,
+              "zero_gradient_bar": LDM_ZERO_GRAD_BAR,
+              "ddim_steps": LDM_REFERENCE_STEPS, "ddim_err_of_max": rel(lat_card, lat_cpu),
+              "ddim_max": float(lat_cpu.abs().max()), "ddim_bar": LDM_DDIM_BAR,
+              "launches_per_unet_pass": per_pass, "launches_per_train_step": per_step}
+    emit("ldm_reference", batch=2, **result)
+    if not (result["eps_err_of_max"] <= LDM_EPS_BAR and result["loss_rel_err"] <= 1e-4
+            and grad_err[worst] <= GRAD_BAR and zero_err <= LDM_ZERO_GRAD_BAR
+            and result["ddim_err_of_max"] <= LDM_DDIM_BAR):
+        raise RuntimeError(f"f32 CUDA UNet differs from the CPU plain path: {result}")
+
+
+def zero_gradient_tensors(unet) -> set[str]:
+    """Parameter names (``unet.`` prefix) whose gradient is 0 in exact
+    arithmetic: a per-channel constant that reaches nothing but a GroupNorm of
+    one channel per group, which subtracts it again. In a ResBlock whose
+    second norm has one channel per group (the 32-channel level of
+    ``config/ldm_dente.json``, 32 groups) those are the time projection and
+    the first convolution's bias; before a head norm of one channel per group,
+    the last ResBlock's second convolution's and skip's biases."""
+    from pti_ldm_vae_tpu_torch.models.unet import TimeResBlock
+
+    out = set()
+    for name, module in unet.named_modules():
+        if isinstance(module, TimeResBlock) and module.norm2.weight.numel() == module.norm2.num_groups:
+            out |= {f"unet.{name}.{p}" for p in ("time_emb_proj.weight", "time_emb_proj.bias",
+                                                  "conv1.conv.bias")}
+    head, last = unet.out[0], unet.up_blocks[-1]
+    if head.weight.numel() == head.num_groups and last.attentions is None:
+        index = len(last.resnets) - 1
+        prefix = f"unet.up_blocks.{len(unet.up_blocks) - 1}.resnets.{index}"
+        out |= {f"{prefix}.conv2.conv.bias", f"{prefix}.skip_connection.conv.bias"}
+    return out
+
+
+def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict:
+    """b8 on the card, with the trained weights: the UNet forward, the 50-step
+    DDIM loop (steps/s) and one diffusion train step as ``train_diffusion``
+    runs it (VAE encode, UNet forward and backward, Adam): event ms, device
+    ms, idle share and device ms by kind of kernel of each."""
+    from pti_ldm_vae_tpu_torch.checkpoint.unet_convert import load_diffusion_checkpoint
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.unet import project_latent_condition
+    from pti_ldm_vae_tpu_torch.train.diffusion import ddim_sample, make_diffusion_train_step
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_ldm_models
+
+    torch.cuda.reset_peak_memory_stats()
+    m = load_ldm_models(load_config(cfg_path), device=torch.device("cuda"), exact=exact)
+    unet_sd, projector_sd = load_diffusion_checkpoint(checkpoint)
+    m.unet.load_state_dict(unet_sd, strict=True)
+    m.projector.load_state_dict(projector_sd, strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    h, w, c = m.latent_shape
+    x = torch.randn(BATCH, h, w, c, device="cuda", generator=gen)
+    cond = torch.randn(BATCH, h, w, c, device="cuda", generator=gen)
+    t = torch.randint(0, m.schedule.num_train_timesteps, (BATCH,), device="cuda", generator=gen)
+    images = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
+    mask = torch.ones(BATCH, device="cuda")
+
+    def unet_forward():
+        with torch.no_grad():
+            return m.unet(x, t, project_latent_condition(m.projector, cond))
+
+    def sample():
+        with torch.no_grad():
+            return ddim_sample(m.unet, m.schedule, x, num_inference_steps=LDM_SAMPLE_STEPS,
+                               context=project_latent_condition(m.projector, cond))
+
+    trainable = torch.nn.ModuleDict({"unet": m.unet, "projector": m.projector})
+    step = make_diffusion_train_step(m.unet, m.schedule, create_train_state(trainable, lr=1e-5),
+                                     projector=m.projector)
+
+    def train_step():  # as train_diffusion runs one batch
+        with torch.no_grad():
+            z_mu, z_sigma = m.vae.encode(images)
+            latents = m.vae.sampling(z_mu, z_sigma, generator=gen)
+        return step(latents, z_mu, mask, generator=gen)
+
+    out = {"dtype": "float32" if exact else "bfloat16"}
+    for name, fn, iters, warmup in (("unet_forward", unet_forward, 10, 3), ("ddim", sample, 2, 1),
+                                    ("train_step", train_step, 6, 3)):
+        r = time_ms(fn, flush, iters=iters, warmup=warmup)
+        out[name] = {"event_ms": r["event_ms"], "device_ms": r["device_ms"],
+                     "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
+                     "device_ms_by_kind": device_ms_by_kind(r["by_name"])}
+    out["ddim"]["steps"] = LDM_SAMPLE_STEPS
+    out["ddim"]["steps_per_s"] = LDM_SAMPLE_STEPS * 1e3 / out["ddim"]["event_ms"]
+    out["ddim"]["device_ms_per_step"] = out["ddim"]["device_ms"] / LDM_SAMPLE_STEPS
+    out["train_step"]["imgs_per_s"] = BATCH * 1e3 / out["train_step"]["event_ms"]
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
                     adv_active: bool = False) -> dict:
     """Event ms, device ms and the device ms by kind of one b8 train step at
@@ -1089,9 +1477,8 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
         wgrad_kernel,
     )
 
-    def timed(prefix: str, fn) -> dict[str, float]:
-        t = time_ms(fn, flush)
-        return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
+    def timed(prefix, fn):
+        return _timed(flush, prefix, fn)
 
     for dtype in (torch.bfloat16, torch.float32):
         key = dtype_key(dtype)
@@ -1147,6 +1534,140 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
             emit("time_conv3x3_wgrad", **row)
             del x, wmat, g, wflip, x_lib, w_lib, g_lib, y_lib
         torch.cuda.empty_cache()
+
+
+def _timed(flush, prefix: str, fn) -> dict[str, float]:
+    t = time_ms(fn, flush)
+    return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
+
+
+def time_groupnorm_silu(torch, cases, flush, gen, rows: dict[str, list], path: str) -> None:
+    """Per GroupNorm+SiLU (shape, calls per pass, groups) and dtype: the forward
+    kernel and the fused backward, each beside its bound, its plain version
+    and ``F.group_norm`` + ``F.silu`` (and its autograd backward). ``path``
+    names the model whose pass the shapes come from."""
+    import torch.nn.functional as F
+
+    from pti_ldm_vae_tpu_torch.ops.kernels import (
+        groupnorm_silu,
+        groupnorm_silu_bwd_plain,
+        groupnorm_silu_plain,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_backward as gn_backward
+    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_forward as gn_forward
+
+    def timed(prefix, fn):
+        return _timed(flush, prefix, fn)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        key = dtype_key(dtype)
+        for shape, n, groups in cases:
+            c = shape[-1]
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            scale = torch.ones(c, device="cuda")
+            bias = torch.zeros(c, device="cuda")
+            nbytes = x.numel() * x.element_size()
+            head = {"path": path, "shape": list(shape), "groups": groups, "dtype": key, "per_pass": n}
+            # forward: ~8 f32 operations per element (two for the sums, one
+            # multiply-add, the SiLU's exp, add and divide); x read, y written
+            x_nchw = x.permute(0, 3, 1, 2)
+            bound_ms, bound_by = bound(8 * x.numel(), "float32", 2 * nbytes)
+            row = {
+                **head,
+                **timed("", lambda: groupnorm_silu(x, scale, bias, groups, 1e-6)),
+                **timed("plain_", lambda: groupnorm_silu_plain(x, scale, bias, groups, 1e-6)),
+                **timed("library_", lambda: F.silu(F.group_norm(
+                    x_nchw, groups, scale.to(dtype), bias.to(dtype), 1e-6))),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            rows["groupnorm_silu"].append(row)
+            emit("time_groupnorm_silu", **row)
+
+            # backward: one launch of the fused kernel plus one small torch.sum
+            # over the images (both in ms; kernel_only_ms leaves the sum out)
+            _, mean_g, inv_g = gn_forward(x, scale, bias, groups, 1e-6, save_stats=True)
+            ours = time_ms(lambda: gn_backward(x, scale, bias, mean_g, inv_g, g, groups), flush)
+            plain = timed("plain_", lambda: groupnorm_silu_bwd_plain(
+                x, scale, bias, mean_g, inv_g, g, groups))
+            leaves = (x_nchw.detach().requires_grad_(), scale.to(dtype).requires_grad_(),
+                      bias.to(dtype).requires_grad_())
+            y_lib = F.silu(F.group_norm(leaves[0], groups, leaves[1], leaves[2], 1e-6))
+            g_nchw = g.permute(0, 3, 1, 2)
+            library = timed("library_", lambda: torch.autograd.grad(
+                y_lib, leaves, g_nchw, retain_graph=True))
+            del y_lib, leaves
+            # ~20 f32 operations per element (xhat, n, the sigmoid's exp and
+            # divide, dn, the products and sums); x and g read, dx written
+            bound_ms, bound_by = bound(20 * x.numel(), "float32", 3 * nbytes)
+            row = {**head, "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+                   "kernel_only_ms": named_ms(ours["by_name"], "groupnorm_silu_bwd_kernel"),
+                   **plain, **library, "bound_ms": bound_ms, "bound_by": bound_by}
+            rows["groupnorm_silu_bwd"].append(row)
+            emit("time_groupnorm_silu_bwd", **row)
+
+
+def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: str) -> None:
+    """Per flash-attention (shape [B, H, S, D], calls per pass) and dtype: the
+    forward and the backward kernels, each beside its bound, its plain version
+    and ``F.scaled_dot_product_attention`` (and its autograd backward)."""
+    import torch.nn.functional as F
+
+    from pti_ldm_vae_tpu_torch.ops.kernels import (
+        flash_attention,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_backward as flash_backward
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_forward as flash_forward
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        backward_kernel as flash_backward_kernel,
+    )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        forward_kernel as flash_forward_kernel,
+    )
+
+    def timed(prefix, fn):
+        return _timed(flush, prefix, fn)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        key = dtype_key(dtype)
+        for shape, n in cases:
+            q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            nbytes = q.numel() * q.element_size()
+            head = {"path": path, "shape": list(shape), "dtype": key, "per_pass": n}
+            products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
+            bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
+            row = {
+                **head, "kernel": flash_forward_kernel(dtype, shape[-1]),
+                **timed("", lambda: flash_attention(q, k, v)),
+                **timed("plain_", lambda: flash_attention_plain(q, k, v)),
+                **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            rows["flash_attention"].append(row)
+            emit("time_flash_attention", **row)
+
+            out, lse = flash_forward(q, k, v, save_lse=True)
+            leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+            out_lib = F.scaled_dot_product_attention(*leaves)
+            # five products; reads q, k, v, out, dO, writes dq, dk, dv
+            bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
+            ours = time_ms(lambda: flash_backward(q, k, v, out, lse, g), flush)
+            row = {
+                **head, "kernel": flash_backward_kernel(dtype, shape[-1]),
+                "ms": ours["device_ms"], "event_ms": ours["event_ms"],
+                "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
+                                 ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                                  "flash_bwd_dq_kernel", "flash_bwd_wgmma_kernel")},
+                **timed("plain_", lambda: flash_attention_bwd_plain(q, k, v, g)),
+                **timed("library_", lambda: torch.autograd.grad(out_lib, leaves, g,
+                                                                retain_graph=True)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            del out_lib, leaves
+            rows["flash_attention_bwd"].append(row)
+            emit("time_flash_attention_bwd", **row)
 
 
 def main() -> int:
@@ -1206,8 +1727,18 @@ def main() -> int:
     both_ways = sorted({s for s, _ in conv_shapes} | {(*s[:3], s[4], s[3]) for s, _ in conv_shapes})
     emit("wgmma_kernels", occupancy=wgmma_occupancy(torch, both_ways),
          sass=sass_report([_build.library_path(src) for src in WGMMA_SOURCES]))
-    emit("gn_kernels", plans=gn_plans(torch, [s for s, _ in gn_shapes] + [GN_B32_SHAPE]))
-    errs = check_kernels(torch, gn_shapes, conv_shapes, kernels_mod)
+    ldm_gn_shapes, ldm_flash_shapes = ldm_path_shapes(torch)
+    emit("ldm_shapes", groupnorm_silu=[[list(s), n] for s, n in ldm_gn_shapes],
+         flash_attention=[[list(s), n] for s, n in ldm_flash_shapes])
+    emit("gn_kernels", plans=gn_plans(
+        torch, [(s, 16) for s, _ in gn_shapes] + [(GN_B32_SHAPE, 16)]
+        + [(s, LDM_GROUPS) for s, _ in ldm_gn_shapes]))
+    both = (torch.float32, torch.bfloat16)
+    gn_cases = ([(s, 16, both) for s, _ in gn_shapes] + [(s, n, both) for s, n in GN_EXTRA_SHAPES]
+                + [(GN_B32_SHAPE, 16, (torch.bfloat16,))]
+                + [(s, LDM_GROUPS, both) for s, _ in ldm_gn_shapes])
+    errs = check_kernels(torch, gn_cases, FLASH_CHECK_SHAPES + tuple(s for s, _ in ldm_flash_shapes),
+                         conv_shapes, kernels_mod)
     torch.cuda.empty_cache()
 
     # 4. inference main path through the CLI
@@ -1275,118 +1806,34 @@ def main() -> int:
     adv_train_reference_check(torch, np, kernels_mod, ae_def, train_data / "dente", ckpt)
     torch.cuda.empty_cache()
 
-    # 7. timing
-    import torch.nn.functional as F
+    # 6c. latent diffusion: training, then sampling from its checkpoint, through the CLIs
+    ldm_train, ldm_sample = {}, {}
+    for key, extra in (("bfloat16", []), ("float32", ["--f32"])):
+        cfg_path = write_ldm_config(ckpt, WORK / f"run_ldm_{key}")
+        ldm_train[key] = run_ldm_train_cli(torch, np, kernels_mod, cfg_path, train_data, extra)
+        emit("ldm_train_path", dtype=key, batch=BATCH, epochs=LDM_TRAIN_EPOCHS,
+             steps_per_epoch=LDM_TRAIN_IMAGES // BATCH, **ldm_train[key])
+        # 6d. 50 DDIM steps from the checkpoint the bf16 run wrote
+        ldm_sample[key] = run_ldm_sample_cli(
+            torch, np, kernels_mod, cfg_path, ldm_train["bfloat16"]["checkpoint"], WORK / "data",
+            WORK / f"samples_{key}", extra)
+        emit("ldm_sample_path", dtype=key, batch=LDM_SAMPLE_IMAGES, steps=LDM_SAMPLE_STEPS,
+             **ldm_sample[key])
+        torch.cuda.empty_cache()
+    # 6e. the UNet, a diffusion step and a short DDIM run in f32 against the CPU plain path
+    ldm_reference_check(torch, np, kernels_mod, cfg_path)
+    torch.cuda.empty_cache()
 
-    from pti_ldm_vae_tpu_torch.ops.kernels import (
-        flash_attention_bwd_plain,
-        flash_attention_plain,
-        groupnorm_silu_bwd_plain,
-        groupnorm_silu_plain,
-    )
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_backward as flash_backward
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _launch_forward as flash_forward
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
-        backward_kernel as flash_backward_kernel,
-    )
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
-        forward_kernel as flash_forward_kernel,
-    )
-    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_backward as gn_backward
-    from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _launch_forward as gn_forward
+    # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
     flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows: dict[str, list] = {name: [] for name in KERNEL_NAMES}
 
-    def timed(prefix: str, fn) -> dict[str, float]:
-        t = time_ms(fn, flush)
-        return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
-
-    for dtype in (torch.bfloat16, torch.float32):
-        key = dtype_key(dtype)
-        for shape, n in gn_shapes:
-            c = shape[-1]
-            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-            scale = torch.ones(c, device="cuda")
-            bias = torch.zeros(c, device="cuda")
-            nbytes = x.numel() * x.element_size()
-            head = {"shape": list(shape), "dtype": key, "per_pass": n}
-            # forward: ~8 f32 operations per element (two for the sums, one
-            # multiply-add, the SiLU's exp, add and divide); x read, y written
-            x_nchw = x.permute(0, 3, 1, 2)
-            bound_ms, bound_by = bound(8 * x.numel(), "float32", 2 * nbytes)
-            row = {
-                **head,
-                **timed("", lambda: kernels_mod.groupnorm_silu(x, scale, bias, 16, 1e-6)),
-                **timed("plain_", lambda: groupnorm_silu_plain(x, scale, bias, 16, 1e-6)),
-                **timed("library_", lambda: F.silu(F.group_norm(
-                    x_nchw, 16, scale.to(dtype), bias.to(dtype), 1e-6))),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-            }
-            rows["groupnorm_silu"].append(row)
-            emit("time_groupnorm_silu", **row)
-
-            # backward: one launch of the fused kernel plus one small torch.sum
-            # over the images (both in ms; kernel_only_ms leaves the sum out)
-            _, mean_g, inv_g = gn_forward(x, scale, bias, 16, 1e-6, save_stats=True)
-            ours = time_ms(lambda: gn_backward(x, scale, bias, mean_g, inv_g, g, 16), flush)
-            plain = timed("plain_", lambda: groupnorm_silu_bwd_plain(
-                x, scale, bias, mean_g, inv_g, g, 16))
-            leaves = (x_nchw.detach().requires_grad_(), scale.to(dtype).requires_grad_(),
-                      bias.to(dtype).requires_grad_())
-            y_lib = F.silu(F.group_norm(leaves[0], 16, leaves[1], leaves[2], 1e-6))
-            g_nchw = g.permute(0, 3, 1, 2)
-            library = timed("library_", lambda: torch.autograd.grad(
-                y_lib, leaves, g_nchw, retain_graph=True))
-            del y_lib, leaves
-            # ~20 f32 operations per element (xhat, n, the sigmoid's exp and
-            # divide, dn, the products and sums); x and g read, dx written
-            bound_ms, bound_by = bound(20 * x.numel(), "float32", 3 * nbytes)
-            row = {**head, "ms": ours["device_ms"], "event_ms": ours["event_ms"],
-                   "kernel_only_ms": named_ms(ours["by_name"], "groupnorm_silu_bwd_kernel"),
-                   **plain, **library, "bound_ms": bound_ms, "bound_by": bound_by}
-            rows["groupnorm_silu_bwd"].append(row)
-            emit("time_groupnorm_silu_bwd", **row)
-
-        shape = (BATCH, 1, 1024, 128)
-        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
-        nbytes = q.numel() * q.element_size()
-        head = {"shape": list(shape), "dtype": key, "per_pass": FLASH_PER_RECONSTRUCT}
-        products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
-        bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
-        row = {
-            **head, "kernel": flash_forward_kernel(dtype, shape[-1]),
-            **timed("", lambda: kernels_mod.flash_attention(q, k, v)),
-            **timed("plain_", lambda: flash_attention_plain(q, k, v)),
-            **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        rows["flash_attention"].append(row)
-        emit("time_flash_attention", **row)
-
-        out, lse = flash_forward(q, k, v, save_lse=True)
-        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
-        out_lib = F.scaled_dot_product_attention(*leaves)
-        # five products; reads q, k, v, out, dO, writes dq, dk, dv
-        bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
-        ours = time_ms(lambda: flash_backward(q, k, v, out, lse, g), flush)
-        row = {
-            **head, "kernel": flash_backward_kernel(dtype, shape[-1]),
-            "ms": ours["device_ms"], "event_ms": ours["event_ms"],
-            "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
-                             ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                              "flash_bwd_wgmma_kernel")},
-            **timed("plain_", lambda: flash_attention_bwd_plain(q, k, v, g)),
-            **timed("library_", lambda: torch.autograd.grad(out_lib, leaves, g, retain_graph=True)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        del out_lib, leaves
-        rows["flash_attention_bwd"].append(row)
-        emit("time_flash_attention_bwd", **row)
-
+    time_groupnorm_silu(torch, [(s, n, 16) for s, n in gn_shapes], flush, gen, rows, "vae")
+    time_flash_attention(torch, [((BATCH, 1, 1024, 128), FLASH_PER_RECONSTRUCT)], flush, gen,
+                         rows, "vae")
     time_conv3x3(torch, conv_shapes, flush, gen, rows)
 
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
@@ -1410,10 +1857,17 @@ def main() -> int:
                                            (True, True, True)):
         emit("train_step_b8", **time_train_step(torch, ae_def, flush, exact, conv_kernel, adv_active))
         torch.cuda.empty_cache()
+    # the kernels at the UNet's shapes, then the UNet pass, the DDIM loop and the diffusion step
+    time_groupnorm_silu(torch, [(s, n, LDM_GROUPS) for s, n in ldm_gn_shapes], flush, gen, rows,
+                        "ldm")
+    time_flash_attention(torch, ldm_flash_shapes, flush, gen, rows, "ldm")
+    for exact in (False, True):
+        emit("ldm_b8", **time_ldm(torch, cfg_path, ldm_train["bfloat16"]["checkpoint"], flush, exact))
+        torch.cuda.empty_cache()
 
     # 8. kernels line, card line, result line
-    def totals(name: str) -> dict:
-        bf = [r for r in rows[name] if r["dtype"] == "bfloat16"]
+    def totals(name: str, path: str = "vae") -> dict:
+        bf = [r for r in rows[name] if r["dtype"] == "bfloat16" and r.get("path", "vae") == path]
         return {k: sum(r[k] * r["per_pass"] for r in bf)
                 for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
 
@@ -1454,6 +1908,11 @@ def main() -> int:
                           "conv_kernel=True, the torch.sum of the partial sums included; "
                           "library_ms: F.conv2d's filter gradient"),
     }
+    # the same sums (bf16) over one UNet pass of config/ldm_dente.json at b8
+    ldm_scope = {"groupnorm_silu": "device ms summed over the 45 launches of one UNet pass",
+                 "groupnorm_silu_bwd": "device ms summed over the 45 calls of one diffusion step",
+                 "flash_attention": "device ms summed over the 16 launches of one UNet pass",
+                 "flash_attention_bwd": "device ms summed over the 16 calls of one diffusion step"}
     f32_sources = {"flash_attention": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
                    "flash_attention_bwd": "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
                    "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
@@ -1468,9 +1927,13 @@ def main() -> int:
             "launches_by_path": {"inference_vae": bf16["launches"][name],
                                  "inference_vae_conv_kernel": conv_f32["launches"][name],
                                  "train_vae": train["bfloat16"]["launches"][name],
-                                 "train_vae_adversarial_conv_kernel": adv["launches"][name]},
+                                 "train_vae_adversarial_conv_kernel": adv["launches"][name],
+                                 "train_diffusion": ldm_train["bfloat16"]["launches"][name],
+                                 "sample_diffusion": ldm_sample["bfloat16"]["launches"][name]},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
+            **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}
+               if name in ldm_scope else {}),
         })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)

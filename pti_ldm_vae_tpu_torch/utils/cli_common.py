@@ -8,6 +8,7 @@ device and no explicit ``cpu`` they raise rather than run on the CPU.
 from __future__ import annotations
 
 import argparse
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
 
@@ -15,6 +16,9 @@ import torch
 
 from ..data.factory import create_vae_inference_dataloader
 from ..models.autoencoder_kl import AutoencoderKL
+from ..models.unet import ConditionProjector, DiffusionUNet, diffusion_unet_from_config
+from ..ops.norm import DEFAULT_NORM_STATS
+from ..train.diffusion import NoiseSchedule
 from .determinism import set_determinism
 from .vae_loader import load_vae_config, load_vae_model
 
@@ -24,6 +28,8 @@ __all__ = [
     "init_device_and_seed",
     "enable_parity_numerics",
     "load_config_and_model",
+    "LdmModels",
+    "load_ldm_models",
     "build_inference_dataloader",
     "resolve_inference_output_dirs",
     "resolve_eval_output_dir",
@@ -93,6 +99,57 @@ def load_config_and_model(
         s2d_stem=False if exact else None, conv_kernel=conv_kernel,
     )
     return config, model
+
+
+@dataclass
+class LdmModels:
+    """What both diffusion CLIs build from an LDM config: the frozen VAE, the
+    UNet and (with conditioning) the projector on the device, the schedule
+    (on the device) and the latent shape of one image."""
+
+    vae_config: Any
+    vae: AutoencoderKL
+    unet: DiffusionUNet
+    projector: ConditionProjector | None
+    schedule: NoiseSchedule
+    latent_shape: tuple[int, int, int]
+
+
+def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
+                    remat: bool = False) -> LdmModels:
+    """The frozen VAE of ``cfg["vae"]`` (``load_config_and_model``) and a
+    freshly initialized UNet and projector of ``cfg["diffusion_def"]`` in the
+    same compute dtype (bf16 on CUDA, f32 on the CPU or with ``exact``, which
+    also turns TF32 off). Top-level ``remat`` / ``norm_stats`` keys win over
+    the ``diffusion_def`` ones, as in the JAX package's CLIs; ``remat`` raises
+    (not ported)."""
+    vae_config, vae = load_config_and_model(cfg["vae"]["config_file"], cfg["vae"]["checkpoint"],
+                                            device=device, exact=exact)
+    ae_def = vae_config.autoencoder_def
+    if ae_def.get("spatial_dims", 2) != 2:
+        raise NotImplementedError(
+            f"the diffusion CLIs support spatial_dims=2 VAEs only (got {ae_def['spatial_dims']})")
+    dd = cfg["diffusion_def"]
+    remat = remat or bool(cfg.get("remat", dd.get("remat", False)))
+    norm_stats = str(cfg.get("norm_stats", dd.get("norm_stats", DEFAULT_NORM_STATS)))
+    unet = diffusion_unet_from_config(dd, compute_dtype=vae.compute_dtype, remat=remat,
+                                      norm_stats=norm_stats)
+    projector = None
+    if dd.get("with_conditioning", True):
+        projector = ConditionProjector(dd["in_channels"], dd.get("cross_attention_dim", 512))
+        projector = projector.to(device)
+    train_cfg = cfg["diffusion_train"]
+    schedule = NoiseSchedule.linear_beta(
+        int(train_cfg.get("num_train_timesteps", 1000)),
+        float(train_cfg.get("beta_start", 1e-4)),
+        float(train_cfg.get("beta_end", 2e-2)),
+    ).to(device)
+    # each of the VAE's downsamples, (0, 1) pad + 3x3 stride 2, halves a side (rounding down)
+    h, w = vae_config.autoencoder_train["patch_size"]
+    for _ in range(len(ae_def["channels"]) - 1):
+        h, w = h // 2, w // 2
+    return LdmModels(vae_config, vae, unet.to(device=device, memory_format=torch.channels_last),
+                     projector, schedule, (h, w, int(ae_def["latent_channels"])))
 
 
 def build_inference_dataloader(

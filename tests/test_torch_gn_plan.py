@@ -6,7 +6,8 @@ a call into (image, slice) clusters of blocks, and the CUDA kernels
 hold the plan to its rules (every (image, pixel, channel) covered exactly
 once, slices of whole groups, shared memory within one block's 232,448 bytes,
 row segments of at least one 32-byte sector) at the eight shapes of a
-flagship pass in both types, at ragged shapes and at b32; and they run a
+flagship pass in both types, at the seventeen shapes of a diffusion UNet pass
+(32 groups), at ragged shapes and at b32; and they run a
 numpy model of the kernels that sums in the kernels' order (each thread's
 rows, the unstaged ones first; the butterfly across a warp's lanes; the
 warps' rows; the cluster's ranks in order 0..n-1; a group's channels)
@@ -49,8 +50,16 @@ PATH_SHAPES = [(8, 256, 256, 32), (8, 256, 256, 64), (8, 128, 128, 128), (8, 128
 OTHER_SHAPES = [((1, 7, 9, 24), 4), ((3, 256, 256, 32), 16), ((32, 256, 256, 64), 16),
                 ((3, 17, 9, 48), 4), ((2, 5, 3, 6), 3)]
 DTYPES = [torch.float32, torch.bfloat16]
+# the 17 GroupNorm+SiLU shapes of a UNet pass of config/ldm_dente.json on 32²
+# latents, batch 8, 32 groups: 1 to 16 channels per group, down to 4² images
+UNET_SHAPES = [(8, 32, 32, 96), (8, 32, 32, 64), (8, 16, 16, 192), (8, 32, 32, 32),
+               (8, 16, 16, 128), (8, 8, 8, 384), (8, 16, 16, 96), (8, 16, 16, 64), (8, 8, 8, 256),
+               (8, 8, 8, 192), (8, 16, 16, 32), (8, 8, 8, 128), (8, 4, 4, 512), (8, 4, 4, 384),
+               (8, 8, 8, 64), (8, 4, 4, 256), (8, 4, 4, 128)]
+UNET_GROUPS = 32
 ALL = ([(s, 16, d, bwd) for s in PATH_SHAPES for d in DTYPES for bwd in (False, True)]
-       + [(s, g, d, False) for s, g in OTHER_SHAPES for d in DTYPES])
+       + [(s, g, d, False) for s, g in OTHER_SHAPES for d in DTYPES]
+       + [(s, UNET_GROUPS, d, bwd) for s in UNET_SHAPES for d in DTYPES for bwd in (False, True)])
 
 
 def _esize(dtype):
@@ -156,6 +165,34 @@ def test_flagship_plans_stage_whole_slices_or_stream(shape, dtype, backward):
         assert plan.staged == "" and plan.staged_rows == 0
         assert b * (c // plan.slice_channels) <= STREAM_CLUSTERS
         assert plan.cluster_size in (8, 16)
+
+
+@pytest.mark.parametrize("shape", UNET_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d).split(".")[1])
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_unet_plans_stage_whole_slices(shape, dtype, backward):
+    """Every UNet shape is small enough to stage its slices whole on the
+    16-byte route. With 3, 6 or 12 channels per group (C = 96, 192, 384) the
+    fewest whole groups of 16-byte rows is 24 bf16 / 12 f32 channels: three
+    vector columns, so 85 rows of threads and 255 threads, a partial last
+    warp (the kernels' shuffle path for ``32 % nv != 0``); at 4² an image has
+    16 rows, fewer than the rows of threads, so most threads own no row."""
+    b, h, w, c = shape
+    esize, cg = _esize(dtype), c // UNET_GROUPS
+    plan = gn_plan(b, h, w, c, UNET_GROUPS, dtype, backward)
+    nv = plan.slice_channels // plan.vec
+    assert plan.vec * esize == 16 and plan.threads <= 256 and plan.threads % nv == 0
+    assert plan.slice_channels % cg == 0 and plan.smem_bytes <= SMEM_LIMIT
+    assert plan.staged == ("xg" if backward else "x")
+    assert plan.staged_rows == plan.rows_per_block
+    # the fewest whole groups whose row segment is whole 16-byte vectors, 32 bytes at least
+    want_sc = next(k * cg for k in (1, 2, 4, 8, 16, 32)
+                   if k * cg * esize >= 32 and k * cg * esize % 16 == 0)
+    assert plan.slice_channels == want_sc and plan.threads == nv * (256 // nv)
+    if cg % 3 == 0:
+        assert plan.slice_channels * esize == 48 and nv == 3 and plan.threads == 255
+    if h * w < plan.threads // nv:
+        assert plan.cluster_size == 1 and plan.rows_per_block == h * w
 
 
 def test_plan_off_alignment_takes_one_channel_and_stages_nothing():
@@ -326,7 +363,10 @@ def _small_plan(shape, groups, staged, smem_limit, max_cluster, aligned=True):
 MODEL_CASES = [((2, 16, 16, 16), 4, "x", 10**6, 16, True), ((2, 16, 16, 16), 4, "x", 1400, 4, True),
                ((1, 9, 13, 32), 16, "xg", 1500, 8, True), ((2, 7, 9, 24), 4, "g", 9000, 2, True),
                ((2, 8, 8, 12), 4, "", 10**6, 16, True), ((1, 31, 3, 8), 2, "x", 1800, 16, True),
-               ((2, 8, 8, 16), 4, "x", 10**6, 4, False)]
+               ((2, 8, 8, 16), 4, "x", 10**6, 4, False),
+               # UNet cuts: 3 channels per group (3 columns, 255 threads) on a 4² image
+               # whose 16 rows leave most threads idle, and one channel per group
+               ((2, 4, 4, 96), 32, "x", 10**6, 16, True), ((2, 4, 4, 32), 32, "x", 10**6, 16, True)]
 
 
 @pytest.mark.parametrize("shape,groups,staged,limit,cap,aligned", MODEL_CASES,

@@ -25,7 +25,9 @@ def test_port_has_modules():
                      "train/loop.py", "checkpoint/manager.py", "data/factory.py",
                      "ops/conv.py", "ops/kernels/conv3x3.py", "models/discriminator.py",
                      "losses/adversarial.py", "checkpoint/reference_resume.py",
-                     "utils/eval_metrics.py", "cli/evaluate_vae.py"):
+                     "utils/eval_metrics.py", "cli/evaluate_vae.py", "models/unet.py",
+                     "checkpoint/unet_convert.py", "train/diffusion.py",
+                     "cli/sample_diffusion.py", "cli/train_diffusion.py"):
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",

@@ -363,3 +363,86 @@ def test_unaligned_bf16_backward_takes_the_fma_kernels(cuda):
     got = _launch_wgrad(x, g)
     _, want = conv3x3_bwd_plain(x.float(), torch.zeros(144, 8, device=cuda), g.float())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * 512 ** 0.5)
+
+
+# the 17 GroupNorm+SiLU shapes of a UNet pass of config/ldm_dente.json (32²
+# latents, batch 8, 32 groups: 1 to 16 channels per group, 3 vector columns at
+# C = 96, 192, 384, images of 16 rows at 4²) and its three attention shapes
+UNET_GN_SHAPES = [(8, 32, 32, 96), (8, 32, 32, 64), (8, 16, 16, 192), (8, 32, 32, 32),
+                  (8, 16, 16, 128), (8, 8, 8, 384), (8, 16, 16, 96), (8, 16, 16, 64),
+                  (8, 8, 8, 256), (8, 8, 8, 192), (8, 16, 16, 32), (8, 8, 8, 128),
+                  (8, 4, 4, 512), (8, 4, 4, 384), (8, 8, 8, 64), (8, 4, 4, 256), (8, 4, 4, 128)]
+UNET_FLASH_SHAPES = [(8, 2, 256, 32), (8, 4, 64, 32), (8, 8, 16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_kernels_at_unet_shapes(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for shape in UNET_GN_SHAPES:
+        b, h, w, c = shape
+        x = torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+        scale = (1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        reset_launch_counts()
+        y = groupnorm_silu(x, scale, bias, 32, 1e-6)
+        got = torch.autograd.grad(y, (x, scale, bias), g)
+        counts = launch_counts()
+        assert (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) == (1, 1), shape
+        xf, sf, bf = x.detach().float(), scale.detach(), bias.detach()
+        want_y, mean_g, inv_g = _plain_forward(xf, sf, bf, 32, 1e-6)
+        want = groupnorm_silu_bwd_plain(xf, sf, bf, mean_g, inv_g, g.float(), 32)
+        msg = lambda m: f"{shape} {dtype}: {m}"  # noqa: E731
+        torch.testing.assert_close(y.detach().float(), want_y, **_tol(dtype), msg=msg)
+        torch.testing.assert_close(got[0].float(), want[0], **_tol(dtype), msg=msg)
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)
+        torch.testing.assert_close(got[1], want[1], **sum_tol, msg=msg)
+        torch.testing.assert_close(got[2], want[2], **sum_tol, msg=msg)
+        again = torch.autograd.grad(groupnorm_silu(x, scale, bias, 32, 1e-6), (x, scale, bias), g)
+        for first, second in zip(got, again):
+            assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_at_unet_shapes(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for shape in UNET_FLASH_SHAPES:
+        q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        out = flash_attention(q, k, v)
+        torch.testing.assert_close(out.detach().float(), flash_attention_plain(
+            q.detach().float(), k.detach().float(), v.detach().float()), **_tol(dtype))
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want = flash_attention_bwd_plain(q.detach().float(), k.detach().float(),
+                                         v.detach().float(), g.float())
+        for ours, theirs in zip(got, want):
+            torch.testing.assert_close(ours.float(), theirs, **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_diffusion_unet_on_the_card_matches_the_cpu(cuda):
+    """A toy-width UNet (head dim 16, 4 groups) in f32 on the card against
+    the CPU plain path, forward (1e-4 of the largest entry) with the launch
+    counts of one pass."""
+    from pti_ldm_vae_tpu_torch.models.unet import diffusion_unet_from_config
+
+    cfg = dict(spatial_dims=2, in_channels=4, out_channels=4, channels=[16, 32],
+               attention_levels=[False, True], num_head_channels=[0, 16], num_res_blocks=1,
+               with_conditioning=True, cross_attention_dim=24, norm_num_groups=4)
+    torch.manual_seed(0)
+    cpu = diffusion_unet_from_config(cfg).eval()
+    card = diffusion_unet_from_config(cfg).to(cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x, ctx = torch.randn(2, 16, 16, 4, generator=gen), torch.randn(2, 9, 24, generator=gen)
+    t = torch.tensor([3, 900])
+    with torch.no_grad():
+        want = cpu(x, t, ctx)
+        reset_launch_counts()
+        got = card(x.to(cuda), t.to(cuda), ctx.to(cuda)).cpu()
+    counts = launch_counts()
+    assert (counts["groupnorm_silu"], counts["flash_attention"]) == (17, 4)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
