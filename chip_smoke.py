@@ -24,12 +24,20 @@ result line):
    128 and S in 1024, 200, the backward from the logsumexp the forward wrote;
    the 17 distinct shapes of the 45 calls of a diffusion UNet pass of
    ``config/ldm_dente.json`` at b8 (32 groups, 1 to 16 channels per group,
-   32² down to 4²), with the cut ``gn_plan`` gives each in phase 2;
-   flash attention also at the UNet's [8,2,256,32], [8,4,64,32], [8,8,16,32];
+   32² down to 4²), with the cut ``gn_plan`` gives each in phase 2; the 7
+   shapes of a ``config/ar_vae_dente_kl1e3.json`` pass (64-128-256, 32
+   groups) at b8 and the flagship's 8 at b1 (PTI's fine-tune);
+   flash attention also at the UNet's [8,2,256,32], [8,4,64,32], [8,8,16,32]
+   and at head dim 256, [8,1,4096,256] and [1,1,4096,256] (the kl1e3 mid
+   blocks; the f32-FMA kernels in both types, whose backward's tile rows and
+   shared memory are read from the library);
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
    flagship pass, as forward, input gradient and filter gradient, a ragged
    [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
-   [2,37,70,24->40] (which must go to the tensor-core kernel); its filter
+   [2,37,70,24->40] (which must go to the tensor-core kernel), the AR
+   models' new shapes (Cin 10 of the 10-channel latent and Cin 256 of the
+   kl1e3 model, which take the f32-FMA forward in bf16 too) and the
+   flagship's at b1; its filter
    gradient ``dW`` is held like ``dscale``; bf16 inputs take the tensor-core
    kernels wherever the wrappers' rules send them there, f32 inputs the FMA
    kernels, forward and backward, and the routes are asserted against the
@@ -97,6 +105,28 @@ result line):
 6e. diffusion reference: one UNet forward, one diffusion loss and its
    gradients and a 5-step DDIM run in f32 on the card against the CPU plain
    path, same weights and noise (bars in ``ldm_reference_check``);
+6f. AR-VAE training path: ``cli.train_vae`` on ``config/ar_vae_dente.json``
+   (the flagship architecture, 10-channel latent, six attributes, divisor
+   256) at 256², b8, bf16, on phase 5's 72 TIFs with an attributes JSON the
+   script writes, 2 epochs of 8 steps: launch counts, finite
+   ``train/ar_loss_*`` on every step and ``val/ar_loss_*`` on every
+   validation; ``cli.evaluate_vae`` on its best checkpoint (16 images);
+   one f32 AR step (4 images, all 12 ordered pairs) against the CPU plain
+   path (terms 1e-4 relative, gradients 2e-3 of each tensor's largest);
+6g. kl1e3 path: ``cli.train_vae --conv-kernel`` on
+   ``config/ar_vae_dente_kl1e3.json`` at its width (64-128-256, 32 groups,
+   flash at head dim 256) with ``adv_warmup_epochs: 0``, bf16, 36 of the
+   TIFs (2 epochs of 4 steps at b8); the same checks and the discriminator
+   on from epoch 1; one f32 AR step with the convolution kernels at b2
+   against the CPU plain path;
+6h. PTI path: ``cli.run_pti`` on phase 4's seeded flagship checkpoint at
+   256², steps cut from 200 / 100 to 30 / 20: ``--batch-size 8`` (8
+   images) in bf16, ``--f32`` and ``--conv-kernel``, ``--batch-size 1`` (2
+   images) with ``--save-tuned``, whose autoencoder serves through
+   ``inference_vae``; launch counts (encode, stage 1 per batch, stage 2 per
+   tuned row, one decode per written image), every output, latent and tune
+   losses that fall; then 3 steps of both stages batched over 2 images in
+   f32 against the CPU plain path (bars in ``pti_reference_check``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -112,11 +142,16 @@ result line):
    GroupNorm+SiLU and flash kernels at the UNet's shapes (bound, plain,
    ``F.group_norm`` + ``F.silu``, SDPA), and at b8 with the trained weights
    the UNet forward, the 50-step DDIM loop (steps/s) and one diffusion train
-   step as the CLI runs it, in bf16 and f32;
+   step as the CLI runs it, in bf16 and f32; the AR step of both AR configs
+   at b8 bf16 (kl1e3 as its config trains it: adversarial, convolution
+   kernels), flash at [8,1,4096,256] against SDPA, PTI's two stages (latent
+   steps/s at b8, tune steps/s at b1) in bf16 and f32;
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites; launches by path, the diffusion CLIs' included, and the four
    GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
-   step under ``ldm_unet``), the card line, and the result line
+   step under ``ldm_unet``; the AR, evaluate, kl1e3 and PTI runs' launches;
+   flash per call at head dim 256 under ``kl1e3_d256``), the card line, and
+   the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -197,19 +232,76 @@ LDM_EPS_BAR = 1e-3  # UNet output, card f32 vs CPU f32, of its largest entry
 LDM_DDIM_BAR = 1e-3  # final DDIM latents, of their largest entry (ldm_reference_check)
 LDM_ZERO_GRAD_BAR = 1e-6  # gradients 0 in exact arithmetic, of the largest gradient entry
 
+# kernel launches per pass (encode + decode) of a model: GroupNorm+SiLU, flash
+# attention, 3x3 convolutions and their input gradients in a train step (all but
+# the encoder's stem)
+FLAGSHIP_PASS = {"gn": GN_PER_RECONSTRUCT, "flash": FLASH_PER_RECONSTRUCT,
+                 "conv": CONV_PER_RECONSTRUCT, "dgrad": CONV_DGRAD_PER_STEP}
+# AR-VAE: config/ar_vae_dente.json is the flagship architecture with a 10-channel
+# latent (six attributes on channels 0-5); config/ar_vae_dente_kl1e3.json the
+# 64-128-256 KL-sweep point with 32 groups, whose mid blocks attend over 64²
+# tokens with one head of 256 channels (flash at head dim 256)
+AR_CONFIG = ROOT / "config" / "ar_vae_dente.json"
+KL1E3_CONFIG = ROOT / "config" / "ar_vae_dente_kl1e3.json"
+AR_ATTRIBUTES = ("height_0", "width_0", "width_1", "width_2", "width_3", "width_4")
+KL1E3_PASS = {"gn": 34, "flash": 2, "conv": 38, "dgrad": 37}
+KL1E3_GROUPS = 32
+KL1E3_SUBSET = 36  # images: 32 train (4 steps of 8) and 4 validation (1 step)
+KL1E3_STEPS_PER_EPOCH = 4
+AR_REFERENCE_IMAGES = 4  # the f32 AR step against the CPU: 12 ordered pairs
+KL1E3_REFERENCE_IMAGES = 2  # the same for the kl1e3 model, at 256², full width
+FLASH_D256_SHAPES = ((BATCH, 1, 4096, 256), (1, 1, 4096, 256))
+# PTI on the seeded flagship checkpoint: steps cut from the CLI's 200 / 100
+PTI_LATENT_STEPS = 30
+PTI_TUNE_STEPS = 20
+PTI_B1_IMAGES = 2
+PTI_REFERENCE_STEPS = 3  # of both stages, card f32 against the CPU
+PTI_TIMED_STEPS = 10
+PTI_PIVOT_BAR = 1e-3  # of the pivots' largest entry
+PTI_TUNED_BAR = 2e-3  # of each tuned tensor's largest change
+IMAGE = 256  # the configs' patch size, the side of every image of the AR and PTI phases
+# one encoder and one decoder half of a flagship pass (conv: with conv_kernel)
+ENCODER_PASS = {"gn": GN_PER_CODER, "flash": FLASH_PER_CODER, "conv": 22}
+DECODER_PASS = {"gn": GN_PER_CODER, "flash": FLASH_PER_CODER, "conv": 25}
 
-def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool) -> dict[str, int]:
+
+def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
+                      per_pass: dict[str, int] = FLAGSHIP_PASS) -> dict[str, int]:
     """Launch counts of a run of ``train_steps`` train steps and
-    ``forward_only`` forward passes (eval steps, triplet panels, reconstructs)."""
+    ``forward_only`` forward passes (eval steps, triplet panels, reconstructs)
+    of a model with ``per_pass`` launches a pass (the flagship's by default)."""
     passes = train_steps + forward_only
-    conv = CONV_PER_RECONSTRUCT * passes + CONV_DGRAD_PER_STEP * train_steps if conv_kernel else 0
+    conv = per_pass["conv"] * passes + per_pass["dgrad"] * train_steps if conv_kernel else 0
     return {
-        "groupnorm_silu": GN_PER_RECONSTRUCT * passes,
-        "groupnorm_silu_bwd": GN_PER_RECONSTRUCT * train_steps,
-        "flash_attention": FLASH_PER_RECONSTRUCT * passes,
-        "flash_attention_bwd": FLASH_PER_RECONSTRUCT * train_steps,
+        "groupnorm_silu": per_pass["gn"] * passes,
+        "groupnorm_silu_bwd": per_pass["gn"] * train_steps,
+        "flash_attention": per_pass["flash"] * passes,
+        "flash_attention_bwd": per_pass["flash"] * train_steps,
         "conv3x3": conv,
-        "conv3x3_wgrad": CONV_PER_RECONSTRUCT * train_steps if conv_kernel else 0,
+        "conv3x3_wgrad": per_pass["conv"] * train_steps if conv_kernel else 0,
+    }
+
+
+def expected_pti_launches(encodes: int, latent_steps: int, tune_steps: int, written: int,
+                          conv_kernel: bool) -> dict[str, int]:
+    """Launch counts of PTI on the flagship: ``encodes`` encoder passes (the
+    initial latents of each batch), ``latent_steps`` decoder passes with the
+    input gradient (stage 1, summed over batches), ``tune_steps`` decoder
+    passes with both gradients (stage 2, summed over the tuned rows), and one
+    decoder pass per ``written`` image. Every decoder convolution needs its
+    input gradient in both stages (z, then ``post_quant_conv``'s output,
+    require it); only stage 2 takes filter gradients."""
+    backward = latent_steps + tune_steps
+    decodes = backward + written
+    conv = (ENCODER_PASS["conv"] * encodes + DECODER_PASS["conv"] * (decodes + backward)
+            if conv_kernel else 0)
+    return {
+        "groupnorm_silu": ENCODER_PASS["gn"] * encodes + DECODER_PASS["gn"] * decodes,
+        "groupnorm_silu_bwd": DECODER_PASS["gn"] * backward,
+        "flash_attention": ENCODER_PASS["flash"] * encodes + DECODER_PASS["flash"] * decodes,
+        "flash_attention_bwd": DECODER_PASS["flash"] * backward,
+        "conv3x3": conv,
+        "conv3x3_wgrad": DECODER_PASS["conv"] * tune_steps if conv_kernel else 0,
     }
 
 
@@ -231,8 +323,13 @@ def expected_ldm_launches(train_steps: int, sample_batches: int) -> dict[str, in
     }
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, separators=(",", ":")), flush=True)
+    """One compact JSON line per phase; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 1), **fields},
+                     separators=(",", ":")), flush=True)
 
 
 def card_line() -> str:
@@ -278,7 +375,7 @@ def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    for _ in range(3):  # a trace now and then comes back without its device events: take it again
+    for _ in range(5):  # a trace now and then comes back without its device events: take it again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 flush.zero_()
@@ -288,7 +385,7 @@ def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
         if by_name:
             break
     else:
-        raise RuntimeError("torch.profiler recorded no device kernel in three traces")
+        raise RuntimeError("torch.profiler recorded no device kernel in five traces")
     return {"device_ms": sum(by_name.values()), "event_ms": total / iters, "by_name": by_name}
 
 
@@ -418,7 +515,11 @@ def ptxas_report(log: Path) -> dict:
             # the instantiations the main paths run in bf16: head dim 128
             "d128_bf16": [{"kernel": short(k["kernel"]),
                            "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
-                          for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]]}
+                          for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]],
+            # head dim 256 (the kl1e3 mid blocks), both types, on the f32-FMA flash kernels
+            "d256": [{"kernel": short(k["kernel"]),
+                      "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
+                     for k in kernels if "Li256E" in k["kernel"]]}
 
 
 def wgmma_occupancy(torch, shapes) -> dict:
@@ -494,6 +595,26 @@ def wgmma_occupancy(torch, shapes) -> dict:
     return out
 
 
+def flash_fma_bwd_smem() -> dict:
+    """Tile rows and shared memory (bytes) of the f32-FMA flash backward's dk/dv
+    and dq kernels at every head dim, as the library reports them, held to the
+    wrapper's formula (``bwd_fma_smem_bytes``) and to a block's 232,448 bytes."""
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        SUPPORTED_HEAD_DIMS,
+        bwd_fma_smem_bytes,
+        bwd_fma_smem_of_library,
+        bwd_fma_tile,
+    )
+
+    out = {}
+    for d in SUPPORTED_HEAD_DIMS:
+        got = bwd_fma_smem_of_library(d)
+        if got != (bwd_fma_tile(d), *bwd_fma_smem_bytes(d)) or max(got[1:]) > 232_448:
+            raise RuntimeError(f"flash_attention_bwd_smem({d}): {got}")
+        out[f"d{d}"] = {"tile_rows": got[0], "dkdv_smem_bytes": got[1], "dq_smem_bytes": got[2]}
+    return out
+
+
 def gn_plans(torch, cases) -> dict:
     """The cut ``gn_plan`` gives each GroupNorm+SiLU (shape, groups), forward
     and backward, in both types, with the clusters of that cut the card holds
@@ -543,22 +664,42 @@ def sass_report(libs: list[Path]) -> dict:
     return out
 
 
-def conv_inputs(torch, shape, gen):
+def conv_inputs(torch, shape, gen, balanced: bool = False):
     """f32 ``x``, weight matrix and upstream gradient of a convolution shape,
     scaled so that outputs and input gradients are of size ~1: the matrix by
-    (9*Cin)^-0.5 as an initializer would, the gradient by (Cin/Cout)^0.5."""
+    (9*Cin)^-0.5 as an initializer would, the gradient by (Cin/Cout)^0.5.
+
+    That holds on average over channels. An input-gradient channel sums only
+    9*Cout weights, so with Cout 1 one channel's variance can reach ~3 and
+    its largest values ~9, where one bf16 rounding of the output (2^-5) is
+    above the bf16 bar. ``balanced`` (the AR and PTI paths' shapes) rescales
+    the squared matrix alternately by rows and columns (Sinkhorn) until every
+    output channel of the forward and of the input gradient has variance 1;
+    ``check_kernels`` then also checks the filter gradient from the upstream
+    gradient scaled back to variance 1, since dW's bar counts terms of size
+    ~1 (with Cin > Cout the input gradient's scaling makes them larger)."""
     b, h, w, cin, cout = shape
     x = torch.randn(b, h, w, cin, device="cuda", generator=gen)
     wmat = torch.randn(9 * cin, cout, device="cuda", generator=gen) * (9 * cin) ** -0.5
     g = torch.randn(b, h, w, cout, device="cuda", generator=gen) * (cin / cout) ** 0.5
+    if balanced:
+        w3 = wmat.reshape(9, cin, cout)
+        for _ in range(50):  # forward channel o: sum of w^2 is 1; dgrad channel c: cout / cin
+            w3 = w3 * w3.square().sum(dim=(0, 1), keepdim=True).rsqrt()
+            w3 = w3 * (w3.square().sum(dim=(0, 2), keepdim=True) * cin / cout).rsqrt()
+        wmat = w3.reshape(9 * cin, cout).contiguous()
     return x, wmat, g
 
 
-def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod) -> dict[str, dict]:
+def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, seed: int = 0,
+                  ragged: bool = True, balanced: bool = False,
+                  phase: str = "kernel_checks") -> dict[str, dict]:
     """Every kernel against its plain version (phase 3): GroupNorm+SiLU at
     ``gn_cases`` [(shape, groups, dtypes)], flash attention at
-    ``flash_shapes``, the convolution at ``conv_shapes`` and the two ragged
-    ones; returns the largest error per kernel and type."""
+    ``flash_shapes``, the convolution at ``conv_shapes`` and, with
+    ``ragged``, the two ragged ones; inputs drawn in that order from a
+    generator seeded with ``seed`` (``balanced``: see ``conv_inputs``);
+    returns the largest error per kernel and type."""
     from pti_ldm_vae_tpu_torch.ops.kernels import (
         conv3x3_bwd_plain,
         conv3x3_plain,
@@ -577,7 +718,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod) -> di
     )
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     errs = {name: {"float32": 0.0, "bfloat16": 0.0} for name in KERNEL_NAMES}
     routes: dict[str, dict] = {"groupnorm_silu": {}, "flash_attention": {},
                                "flash_attention_bwd": {}, "conv3x3": {}, "conv3x3_wgrad": {}}
@@ -651,8 +792,9 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod) -> di
             for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want):
                 note("flash_attention_bwd", key,
                      check_close(f"flash_attention {name} {tag}", ours, theirs, tol))
-    for shape in [s for s, _ in conv_shapes] + [RAGGED_CONV, RAGGED_CONV_WGMMA]:
-        x, wmat, g = conv_inputs(torch, shape, gen)
+    ragged_conv = [RAGGED_CONV, RAGGED_CONV_WGMMA] if ragged else []
+    for shape in [s for s, _ in conv_shapes] + ragged_conv:
+        x, wmat, g = conv_inputs(torch, shape, gen, balanced)
         sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
@@ -677,32 +819,38 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod) -> di
             dx, dw = grads[0]
             want_dx, want_dw = conv3x3_bwd_plain(xd.float(), wd, gd.float())
             note("conv3x3", key, max(err_fwd, check_close(f"conv3x3 dgrad {tag}", dx, want_dx, tol)))
+            if balanced:  # dW's bar counts terms x*g of size ~1: a unit-size upstream gradient
+                gd = (g * (shape[4] / shape[3]) ** 0.5).to(dtype)
+                dw = torch.autograd.grad(kernels_mod.conv3x3(*leaves), leaves[1], gd)[0]
+                want_dw = conv3x3_bwd_plain(xd.float(), wd, gd.float())[1]
             note("conv3x3_wgrad", key, check_close(f"conv3x3 wgrad {tag}", dw, want_dw, sum_tol))
             del grads, dx, dw, want_dx, want_dw, leaves
         del x, wmat, g
     torch.cuda.empty_cache()
     by_rule = {f"{RAGGED_CONV} bfloat16": ["fma", "fma"],
                f"{RAGGED_CONV_WGMMA} bfloat16": ["wgmma", "wgmma"],
-               f"{RAGGED_CONV_WGMMA} float32": ["fma", "fma"]}
+               f"{RAGGED_CONV_WGMMA} float32": ["fma", "fma"]} if ragged else {}
     for tag, want_route in by_rule.items():
         if routes["conv3x3"][tag] != want_route:
             raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
-    for name in ("flash_attention", "flash_attention_bwd"):  # every head dim, any S: bf16 on wgmma
-        if any(r != ("wgmma" if "bfloat16" in tag else "fma") for tag, r in routes[name].items()):
+    # any S: bf16 on wgmma up to head dim 128; head dim 256 and f32 on the FMA kernels
+    for name in ("flash_attention", "flash_attention_bwd"):
+        want_route = {tag: "wgmma" if "bfloat16" in tag and int(tag.split(")")[0].split(",")[-1]) <= 128
+                      else "fma" for tag in routes[name]}
+        if routes[name] != want_route:
             raise RuntimeError(f"{name} routes: {routes[name]}")
-    if routes["flash_attention_bwd"][f"{(2, 2, 1000, 64)} bfloat16"] != "wgmma":
+    if ragged and routes["flash_attention_bwd"][f"{(2, 2, 1000, 64)} bfloat16"] != "wgmma":
         raise RuntimeError("the ragged flash backward did not take the tensor-core kernel")
     # filter gradient: every bf16 shape on wgmma (the thin ones, the four of the path and
     # RAGGED_CONV, through zero channels up to 8), every f32 one on the FMA kernel
     for tag, route in routes["conv3x3_wgrad"].items():
         if route != ("wgmma" if "bfloat16" in tag else "fma"):
             raise RuntimeError(f"conv3x3_wgrad {tag} went to {route}")
-    emit("kernel_checks", ok=True, max_abs_err=errs, backward_bit_identical=True,
-         forward_bit_identical=True, kernel_routes=routes,
+    emit(phase, ok=True, max_abs_err=errs, backward_bit_identical=True,
+         forward_bit_identical=True, kernel_routes=routes, seed=seed,
          gn_shapes=[[list(s), n] for s, n, _ in gn_cases],
          flash_shapes=[list(s) for s in flash_shapes],
-         conv_shapes=[[list(s), n] for s, n in conv_shapes]
-         + [[list(RAGGED_CONV), 0], [list(RAGGED_CONV_WGMMA), 0]],
+         conv_shapes=[[list(s), n] for s, n in conv_shapes] + [[list(s), 0] for s in ragged_conv],
          tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
                     "dscale_dbias_dW": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
     return errs
@@ -1395,7 +1543,9 @@ def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict
         return step(latents, z_mu, mask, generator=gen)
 
     out = {"dtype": "float32" if exact else "bfloat16"}
-    for name, fn, iters, warmup in (("unet_forward", unet_forward, 10, 3), ("ddim", sample, 2, 1),
+    # one timed and one traced 50-step loop (2 each up to PR 7): the trace of a
+    # loop holds ~35,000 kernels, whose reading takes most of this phase
+    for name, fn, iters, warmup in (("unet_forward", unet_forward, 10, 3), ("ddim", sample, 1, 1),
                                     ("train_step", train_step, 6, 3)):
         r = time_ms(fn, flush, iters=iters, warmup=warmup)
         out[name] = {"event_ms": r["event_ms"], "device_ms": r["device_ms"],
@@ -1409,12 +1559,354 @@ def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict
     return out
 
 
+def write_attributes(np, data_dir: Path, path: Path) -> Path:
+    """A seeded attributes JSON for every TIF of ``data_dir``: the six
+    attributes of the AR configs, values of a few hundred pixels (the
+    flagship AR config divides them by 256)."""
+    rng = np.random.default_rng(5)
+    attrs = {p.name: {name: float(rng.uniform(50.0, 400.0)) for name in AR_ATTRIBUTES}
+             for p in sorted(data_dir.glob("*.tif"))}
+    path.write_text(json.dumps(attrs))
+    return path
+
+
+def ar_config_file(base: Path, data_dir: Path, run_dir: Path, attributes: Path, **train) -> Path:
+    """``base`` (an AR config of ``config/``) as it is, pointed at ``data_dir``,
+    ``run_dir`` and the attributes file, with ``train`` overrides."""
+    cfg = json.loads(base.read_text())
+    cfg["data_base_dir"], cfg["run_dir"] = str(data_dir), str(run_dir)
+    cfg["regularized_attributes"]["attribute_file"] = str(attributes)
+    cfg["autoencoder_train"].update(train)
+    path = run_dir.parent / f"{run_dir.name}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_ar_train_cli(torch, np, kernels_mod, cfg_path: Path, run_dir: Path, extra: list[str], *,
+                     epochs: int, steps_per_epoch: int, per_pass: dict[str, int],
+                     conv_kernel: bool, adversarial: bool) -> dict:
+    """``train_vae`` on an AR config: launch counts of ``epochs`` x
+    ``steps_per_epoch`` train steps and one eval step and one triplet panel
+    per epoch; finite ``train/ar_loss_*`` on every step and ``val/ar_loss_*``
+    on every validation; with ``adversarial`` (``adv_warmup_epochs: 0``) the
+    discriminator's loss 0 in epoch 0 and > 0 afterwards; checkpoints."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--max-epochs", str(epochs), "--no-wandb",
+                         "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    train_steps = epochs * steps_per_epoch
+    want = expected_launches(train_steps, epochs * (EVAL_STEPS_PER_EPOCH + 1), conv_kernel, per_pass)
+    if result["total_step"] != train_steps or launches != want:
+        raise RuntimeError(f"AR training path {cfg_path.name}: {result}, launches {launches}, "
+                           f"expected {want}")
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss_total" in r]
+    val_rows = [r for r in rows if "val/loss_total" in r]
+    if len(train_rows) != train_steps or len(val_rows) != epochs:
+        raise RuntimeError(f"metrics.jsonl: {len(train_rows)} train rows, {len(val_rows)} val rows")
+    for prefix, group in (("train", train_rows), ("val", val_rows)):
+        keys = [f"{prefix}/ar_loss_total"] + [f"{prefix}/ar_loss_{a}" for a in AR_ATTRIBUTES]
+        for r in group:
+            missing = [k for k in keys if k not in r]
+            bad = [k for k, v in r.items() if k.startswith(prefix + "/") and not np.isfinite(v)]
+            if missing or bad or not r[keys[0]] > 0:
+                raise RuntimeError(f"AR metrics missing {missing} or not finite {bad} in {r}")
+    if adversarial:
+        warm, active = train_rows[:steps_per_epoch], train_rows[steps_per_epoch:]
+        if any(r["train/adv_disc_loss"] != 0.0 for r in warm) or not all(
+                r["train/adv_disc_loss"] > 0.0 for r in active):
+            raise RuntimeError("the adversarial branch did not switch on after the warm-up epoch")
+    weights = run_dir / "trained_weights"
+    best = sorted(weights.glob("autoencoder_epoch*.pth"))
+    if len(best) != 1 or not (weights / "autoencoder_last.pth").exists():
+        raise RuntimeError(f"checkpoints: {sorted(p.name for p in weights.iterdir())}")
+    ar_keys = ("train/ar_loss_total", "train/loss_total", "train/adv_disc_loss")
+    return {"wall_s": wall, "launches": launches, "total_step": result["total_step"],
+            "best_val_loss": result["best_val_loss"],
+            "first_train": {k: train_rows[0][k] for k in ar_keys},
+            "last_train": {k: train_rows[-1][k] for k in ar_keys},
+            "val_ar_loss_total": [r["val/ar_loss_total"] for r in val_rows],
+            "best_checkpoint": str(best[0])}
+
+
+def run_evaluate_cli(torch, np, kernels_mod, cfg_path: Path, checkpoint: str, input_dir: Path,
+                     out: Path, n_images: int) -> dict:
+    """``evaluate_vae`` on a checkpoint: one stochastic pass per batch, a
+    finite ``metrics.json``."""
+    from pti_ldm_vae_tpu_torch.cli.evaluate_vae import main as evaluate_main
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = evaluate_main(["-c", str(cfg_path), "--checkpoint", checkpoint, "--input-dir",
+                             str(input_dir), "--output-dir", str(out), "--batch-size", str(BATCH),
+                             "--num-workers", "4", "--num-samples", str(n_images)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    want = expected_launches(0, -(-n_images // BATCH), False)
+    written = json.loads((out / "metrics.json").read_text())
+    if launches != want or len(written["files"]) != n_images or not all(
+            np.isfinite(v) for v in summary.values()):
+        raise RuntimeError(f"evaluate_vae: launches {launches} (expected {want}), {summary}")
+    return {"wall_s": wall, "launches": launches,
+            "metrics": {k: summary[k] for k in ("psnr_mean", "ssim_mean", "loss_total_mean")}}
+
+
+def ar_step_reference_check(torch, np, kernels_mod, ae_def: dict, spec, data_dir: Path,
+                            attributes: Path, normalize: dict, n_images: int, *, conv_kernel: bool,
+                            per_pass: dict[str, int], phase: str) -> None:
+    """One f32 generator step with the AR term (all ordered pairs of
+    ``n_images``) on the card against the CPU plain path, same weights, batch,
+    attributes and eps: loss terms (the AR total and each attribute's term
+    too) within 1e-4 relative, every gradient tensor within 2e-3 of its largest
+    entry; the launch counts of exactly one train step."""
+    from pti_ldm_vae_tpu_torch.data.datasets import normalize_attributes
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _generator_losses
+
+    torch.manual_seed(7)
+    cpu_model = autoencoder_from_config(ae_def, conv_kernel=conv_kernel)
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", memory_format=torch.channels_last)
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, perceptual_weight=1.0, ar_gamma=0.5,
+                      ar_vae_enabled=True, ar_spec=spec)
+    paths = sorted(data_dir.glob("*.tif"))[:n_images]
+    images = torch.from_numpy(np.stack([preprocess_image_np(read_image(str(p)), (IMAGE, IMAGE))
+                                        for p in paths]))
+    table = json.loads(attributes.read_text())
+    rows = [normalize_attributes(table[p.name], normalize) for p in paths]
+    attrs = {name: torch.tensor([r[name] for r in rows]) for name in AR_ATTRIBUTES}
+    mask = torch.ones(n_images)
+    side = IMAGE // 2 ** (len(ae_def["channels"]) - 1)
+    eps = torch.randn(n_images, side, side, ae_def["latent_channels"],
+                      generator=torch.Generator().manual_seed(8))
+
+    def one(model, device):
+        lp = init_lpips_params(0, device)
+        total, aux = _generator_losses(model, lcfg, lp, images.to(device), mask.to(device),
+                                       eps.to(device), None, None,
+                                       {k: v.to(device) for k, v in attrs.items()})
+        total.backward()
+        terms = {k: float(aux[k].detach()) for k in ("recon_loss", "kl_loss", "perceptual_loss",
+                                                     "ar_loss")}
+        terms.update({f"ar_loss_{k}": float(v.detach()) for k, v in aux["ar_per_attr"].items()})
+        terms["loss_total"] = float(total.detach())
+        return terms, {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    kernels_mod.reset_launch_counts()
+    got_terms, got_grads = one(gpu_model, "cuda")
+    torch.cuda.synchronize()
+    per_step = kernels_mod.launch_counts()
+    want = expected_launches(1, 0, conv_kernel, per_pass)
+    if per_step != want:
+        raise RuntimeError(f"{phase}: one train step launched {per_step}, expected {want}")
+    want_terms, want_grads = one(cpu_model, "cpu")
+    term_err = {k: abs(got_terms[k] - v) / abs(v) for k, v in want_terms.items()}
+    grad_err = {}
+    for key, ref in want_grads.items():
+        err = float((got_grads[key] - ref).abs().max())
+        # a key projection's bias has gradient 0 in exact arithmetic: rounding noise on both sides
+        grad_err[key] = err if key.endswith("to_k.bias") else err / float(ref.abs().max())
+    worst = max(grad_err, key=grad_err.get)
+    emit(phase, batch=n_images, conv_kernel=conv_kernel, terms_card=got_terms,
+         terms_cpu=want_terms, max_term_rel_err=max(term_err.values()), term_bar=1e-4,
+         max_grad_err_of_tensor_max=grad_err[worst], worst_tensor=worst, grad_bar=GRAD_BAR,
+         launches_per_train_step=per_step)
+    if not max(term_err.values()) <= 1e-4:
+        raise RuntimeError(f"{phase}: f32 CUDA loss terms differ from the CPU plain path: {term_err}")
+    if not grad_err[worst] <= GRAD_BAR:
+        raise RuntimeError(f"{phase}: f32 CUDA gradient {worst} differs from the CPU plain path by "
+                           f"{grad_err[worst]} of its largest entry")
+
+
+def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: int, batch: int,
+                conv_kernel: bool) -> dict:
+    """``run_pti`` on ``n_images`` at ``batch``: launch counts (every padded row
+    of a batch is tuned too, none is written), the outputs of every image,
+    latent and tune losses that fall."""
+    from pti_ldm_vae_tpu_torch.cli.run_pti import main as pti_main
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    pti_main(args + ["--output-dir", str(out), "--batch-size", str(batch), "--num-samples",
+                     str(n_images), "--latent-steps", str(PTI_LATENT_STEPS), "--tune-steps",
+                     str(PTI_TUNE_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    batches = -(-n_images // batch)
+    tuned_rows = batches * batch if batch > 1 else n_images
+    want = expected_pti_launches(batches, batches * PTI_LATENT_STEPS, tuned_rows * PTI_TUNE_STEPS,
+                                 n_images, conv_kernel)
+    if launches != want:
+        raise RuntimeError(f"run_pti: launches {launches}, expected {want}")
+    pivots = sorted(out.glob("*_pivot.npz"))
+    if len(pivots) != n_images or len(list(out.glob("*_pti.tif"))) != n_images or len(
+            list(out.glob("*_pti.png"))) != n_images:
+        raise RuntimeError(f"run_pti outputs: {sorted(p.name for p in out.iterdir())}")
+    falls = {"latent": [], "tune": []}
+    for path in pivots:
+        npz = np.load(path)
+        recon = read_image(str(path).replace("_pivot.npz", "_pti.tif"))
+        if (npz["latent"].shape != (1, IMAGE // 8, IMAGE // 8, 4) or npz["latent_loss"].shape != (PTI_LATENT_STEPS,)
+                or npz["tune_loss"].shape != (PTI_TUNE_STEPS,) or recon.shape != (IMAGE, IMAGE)
+                or not all(np.isfinite(a).all() for a in (*npz.values(), recon))):
+            raise RuntimeError(f"{path.name}: bad outputs")
+        for key in falls:
+            loss = npz[f"{key}_loss"]
+            falls[key].append([float(loss[0]), float(loss[-1])])
+            if not loss[-1] < loss[0]:
+                raise RuntimeError(f"{path.name}: {key} loss does not fall: {loss[0]} -> {loss[-1]}")
+    return {"wall_s": wall, "launches": launches, "images": n_images, "batch": batch,
+            "latent_loss_first_last": falls["latent"], "tune_loss_first_last": falls["tune"]}
+
+
+def pti_reference_check(torch, np, kernels_mod, ckpt: Path, data_dir: Path) -> None:
+    """``PTI_REFERENCE_STEPS`` steps of both PTI stages, batched over two
+    images at 256², f32 on the card against the CPU plain path from the same
+    weights and initial latents.
+
+    Bars. Per-step losses: 1e-4 relative. Adam's first update of an entry is
+    ``lr * sign(g)``, so where an entry's first gradient is within the
+    rounding the gradient bar allows (2e-3 of its tensor's largest entry) the
+    two sides may step opposite ways: such entries are held to Adam's own
+    bound, 2 lr per step; every other entry to ``PTI_PIVOT_BAR`` of the
+    pivots' largest entry (stage 1, the gradient with respect to z) and to
+    ``PTI_TUNED_BAR`` of each tuned tensor's largest change (stage 2, the
+    first tune step's gradient of each image). The key projection's bias has
+    gradient 0 in exact arithmetic and is held to the Adam bound alone."""
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.train.diffusion import (
+        decoder_parameters,
+        make_pivotal_tuning_inversion_batched,
+    )
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
+
+    steps, latent_lr, tune_lr = PTI_REFERENCE_STEPS, 1e-1, 1e-4
+    cpu_model = load_vae_model(load_vae_config(str(CONFIG)), str(ckpt), device="cpu", s2d_stem=False)
+    _, gpu_model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
+                                         exact=True)
+    images = torch.from_numpy(np.stack([preprocess_image_np(read_image(str(p)), (IMAGE, IMAGE))
+                                        for p in sorted(data_dir.glob("*.tif"))[:2]]))
+    with torch.no_grad():
+        z0 = cpu_model.encode_deterministic(images)
+    start = {k: v.detach().clone() for k, v in decoder_parameters(cpu_model).items()}
+
+    def run(model, device):
+        program = make_pivotal_tuning_inversion_batched(
+            model, latent_steps=steps, latent_lr=latent_lr, tune_steps=steps, tune_lr=tune_lr)
+        pivots, tuned, losses = program(images.to(device), z0.to(device))
+        return (pivots.cpu(), {k: v.cpu() for k, v in tuned.items()},
+                {k: v.cpu() for k, v in losses.items()})
+
+    kernels_mod.reset_launch_counts()
+    got = run(gpu_model, "cuda")
+    torch.cuda.synchronize()
+    launches = kernels_mod.launch_counts()
+    want_launches = expected_pti_launches(0, steps, 2 * steps, 0, False)
+    if launches != want_launches:
+        raise RuntimeError(f"PTI program launched {launches}, expected {want_launches}")
+    want = run(cpu_model, "cpu")
+
+    # the first gradients on the CPU side: of z (stage 1), of each image's decoder (stage 2)
+    z = z0.clone().requires_grad_()
+    err = (cpu_model.decode(z) - images).square()
+    g_z = torch.autograd.grad(err.mean(dim=(1, 2, 3)).sum(), z)[0]
+    params = decoder_parameters(cpu_model)
+    for p in params.values():  # the loader freezes an inference model
+        p.requires_grad_(True)
+    g_tune = []
+    for i in range(2):
+        loss = (cpu_model.decode(want[0][i:i + 1]) - images[i:i + 1]).square().mean()
+        g_tune.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+
+    def firm(g: torch.Tensor) -> torch.Tensor:
+        return g.abs() > GRAD_BAR * g.abs().max()
+
+    loss_err = max(float(((got[2][k] - want[2][k]).abs() / want[2][k].abs()).max()) for k in want[2])
+    pivot_diff = (got[0] - want[0]).abs()
+    pivot_firm = firm(g_z)
+    pivot_err = float(pivot_diff[pivot_firm].max()) / float(want[0].abs().max())
+    adam_err = {"pivot": float(pivot_diff.max()) / (2 * latent_lr * steps)}
+    tuned_err, n_firm, n_all = {}, 0, 0
+    for i in range(2):
+        for key, ref in want[1].items():
+            diff = (got[1][key][i] - ref[i]).abs()
+            adam_err[key] = max(adam_err.get(key, 0.0), float(diff.max()) / (2 * tune_lr * steps))
+            if key.endswith("to_k.bias"):
+                continue
+            mask = firm(g_tune[i][key])
+            n_firm, n_all = n_firm + int(mask.sum()), n_all + mask.numel()
+            change = float((ref[i] - start[key]).abs().max())
+            if mask.any():
+                tuned_err[key] = max(tuned_err.get(key, 0.0), float(diff[mask].max()) / change)
+    worst = max(tuned_err, key=tuned_err.get)
+    worst_adam = max(adam_err, key=adam_err.get)
+    emit("pti_reference", images=2, steps=steps, max_loss_rel_err=loss_err, loss_bar=1e-4,
+         pivot_err_of_max=pivot_err, pivot_bar=PTI_PIVOT_BAR,
+         pivot_firm_share=float(pivot_firm.float().mean()),
+         pivot_err_of_max_all_entries=float(pivot_diff.max()) / float(want[0].abs().max()),
+         tuned_err_of_change=tuned_err[worst], worst_tensor=worst, tuned_bar=PTI_TUNED_BAR,
+         tuned_firm_share=n_firm / n_all, worst_of_adam_bound=adam_err[worst_adam],
+         worst_of_adam_bound_tensor=worst_adam, launches=launches)
+    if not loss_err <= 1e-4:
+        raise RuntimeError(f"PTI losses: card f32 differs from the CPU by {loss_err} relative")
+    if not (pivot_err <= PTI_PIVOT_BAR and tuned_err[worst] <= PTI_TUNED_BAR
+            and adam_err[worst_adam] <= 1.0):
+        raise RuntimeError(f"PTI pivots {pivot_err} of their max, tuned {worst} {tuned_err[worst]} "
+                           f"of its change, {worst_adam} {adam_err[worst_adam]} of the Adam bound")
+
+
+def time_pti(torch, ckpt: Path, flush, exact: bool) -> dict:
+    """PTI's two stages at 256² on the flagship checkpoint: stage 1
+    (``PTI_TIMED_STEPS`` steps batched over 8 images) and stage 2 (the same
+    steps at batch 1): event ms, device ms, idle share and device ms by kind
+    per step, latent steps/s at b8 and tune steps/s at b1."""
+    from pti_ldm_vae_tpu_torch.train.diffusion import _invert, _tune, decoder_parameters
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
+
+    torch.cuda.reset_peak_memory_stats()
+    _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
+                                     exact=exact)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.rand(BATCH, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    with torch.no_grad():
+        z0 = model.encode_deterministic(x)
+    start = {k: v.detach().clone() for k, v in decoder_parameters(model).items()}
+    n = PTI_TIMED_STEPS
+    out = {"dtype": "float32" if exact else "bfloat16", "steps_per_call": n}
+    for name, fn, batch in (
+            ("latent", lambda: _invert(model, x, z0, n, 1e-1, per_image=True), BATCH),
+            ("tune", lambda: _tune(model, x[:1], z0[:1], start, n, 1e-4), 1)):
+        r = time_ms(fn, flush, iters=3, warmup=1)
+        out[name] = {"batch": batch, "event_ms_per_step": r["event_ms"] / n,
+                     "device_ms_per_step": r["device_ms"] / n,
+                     "steps_per_s": n * 1e3 / r["event_ms"],
+                     "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
+                     "device_ms_by_kind": device_ms_by_kind(
+                         {k: v / n for k, v in r["by_name"].items()})}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
-                    adv_active: bool = False) -> dict:
+                    adv_active: bool = False, ar_spec=None, adv_weight: float = 3.0) -> dict:
     """Event ms, device ms and the device ms by kind of one b8 train step at
     256²; the LPIPS share is the device ms a step without the perceptual term
     saves. ``conv_kernel``: the 3x3 convolutions through the convolution
-    kernels; ``adv_active``: the adversarial step (PatchGAN, adv_weight 3.0)."""
+    kernels; ``adv_active``: the adversarial step (PatchGAN at
+    ``adv_weight``); ``ar_spec``: with the AR-VAE term (gamma 0.5) on random
+    attributes."""
     from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
     from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
@@ -1437,17 +1929,21 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
     mask = torch.ones(BATCH, device="cuda")
+    attrs = None if ar_spec is None else {
+        name: torch.rand(BATCH, device="cuda", generator=gen) for name in ar_spec.names}
     lp = init_lpips_params(0, "cuda")
+    ar = dict(ar_vae_enabled=ar_spec is not None, ar_spec=ar_spec, ar_gamma=0.5)
     out = {}
-    for name, lcfg in (("full", LossConfig(adv_weight=3.0)),
-                       ("no_lpips", LossConfig(adv_weight=3.0, use_perceptual=False))):
+    for name, lcfg in (("full", LossConfig(adv_weight=adv_weight, **ar)),
+                       ("no_lpips", LossConfig(adv_weight=adv_weight, use_perceptual=False, **ar))):
         step = make_train_step(model, disc, lcfg, adv_active=adv_active)
-        out[name] = time_ms(lambda: step(state, x, mask, None, lp, generator=gen), flush,
+        out[name] = time_ms(lambda: step(state, x, mask, attrs, lp, generator=gen), flush,
                             iters=6, warmup=3)
     full = out["full"]
     kinds = device_ms_by_kind(full["by_name"])
     kinds["lpips_by_difference"] = full["device_ms"] - out["no_lpips"]["device_ms"]
     return {"dtype": dtype_key(dtype), "conv_kernel": conv_kernel, "adv_active": adv_active,
+            "ar_vae": ar_spec is not None, "channels": list(ae_def["channels"]),
             "event_ms": full["event_ms"], "device_ms": full["device_ms"],
             "imgs_per_s": BATCH * 1e3 / full["event_ms"],
             "device_idle_share": 1.0 - full["device_ms"] / full["event_ms"],
@@ -1724,21 +2220,57 @@ def main() -> int:
         raise RuntimeError(f"3x3 convolution shapes {conv_shapes} do not add up to "
                            f"{CONV_PER_RECONSTRUCT}")
     del probe
-    both_ways = sorted({s for s, _ in conv_shapes} | {(*s[:3], s[4], s[3]) for s, _ in conv_shapes})
+    # AR-VAE: the 10-channel latent's convolutions, the kl1e3 model's shapes (32
+    # groups; Cin 256 and 10 take the f32-FMA forward in bf16 too), and the
+    # flagship's at batch 1 (PTI's decoder fine-tune)
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
+
+    ar_def = load_config(AR_CONFIG)["autoencoder_def"]
+    kl_def = load_config(KL1E3_CONFIG)["autoencoder_def"]
+    kl_probe = autoencoder_from_config(kl_def, conv_kernel=True)
+    kl_gn_shapes, kl_conv_shapes = gn_path_shapes(kl_probe, torch), conv_path_shapes(kl_probe, torch)
+    ar_conv_shapes = conv_path_shapes(autoencoder_from_config(ar_def, conv_kernel=True), torch)
+    del kl_probe
+    if (sum(n for _, n in kl_gn_shapes), sum(n for _, n in kl_conv_shapes)) != (
+            KL1E3_PASS["gn"], KL1E3_PASS["conv"]):
+        raise RuntimeError(f"kl1e3 shapes {kl_gn_shapes}, {kl_conv_shapes} do not add up to "
+                           f"{KL1E3_PASS}")
+    if any(conv_forward_kernel(torch.bfloat16, cin) != "fma" for cin in (10, 256)):
+        raise RuntimeError("Cin 10 and 256 must take the f32-FMA convolution forward in bf16")
+    flagship_conv = {s for s, _ in conv_shapes}
+    new_conv = sorted({s for s, _ in ar_conv_shapes + kl_conv_shapes} - flagship_conv
+                      | {(1, *s[1:]) for s in flagship_conv})
+    emit("ar_shapes", kl1e3_groupnorm_silu=[[list(s), n] for s, n in kl_gn_shapes],
+         kl1e3_conv3x3=[[list(s), n] for s, n in kl_conv_shapes],
+         ar_conv3x3=[[list(s), n] for s, n in ar_conv_shapes],
+         flash_d256=[list(s) for s in FLASH_D256_SHAPES])
+    all_conv = [s for s, _ in conv_shapes] + new_conv
+    both_ways = sorted({s for s in all_conv} | {(*s[:3], s[4], s[3]) for s in all_conv})
     emit("wgmma_kernels", occupancy=wgmma_occupancy(torch, both_ways),
          sass=sass_report([_build.library_path(src) for src in WGMMA_SOURCES]))
     ldm_gn_shapes, ldm_flash_shapes = ldm_path_shapes(torch)
     emit("ldm_shapes", groupnorm_silu=[[list(s), n] for s, n in ldm_gn_shapes],
          flash_attention=[[list(s), n] for s, n in ldm_flash_shapes])
+    gn_b1 = [((1, *s[1:]), 16) for s, _ in gn_shapes]
     emit("gn_kernels", plans=gn_plans(
         torch, [(s, 16) for s, _ in gn_shapes] + [(GN_B32_SHAPE, 16)]
-        + [(s, LDM_GROUPS) for s, _ in ldm_gn_shapes]))
+        + [(s, LDM_GROUPS) for s, _ in ldm_gn_shapes]
+        + [(s, KL1E3_GROUPS) for s, _ in kl_gn_shapes] + gn_b1))
+    emit("flash_fma_bwd", smem=flash_fma_bwd_smem())
     both = (torch.float32, torch.bfloat16)
     gn_cases = ([(s, 16, both) for s, _ in gn_shapes] + [(s, n, both) for s, n in GN_EXTRA_SHAPES]
                 + [(GN_B32_SHAPE, 16, (torch.bfloat16,))]
                 + [(s, LDM_GROUPS, both) for s, _ in ldm_gn_shapes])
     errs = check_kernels(torch, gn_cases, FLASH_CHECK_SHAPES + tuple(s for s, _ in ldm_flash_shapes),
                          conv_shapes, kernels_mod)
+    # the AR and PTI paths' new shapes, on inputs of their own (the cases above
+    # keep the inputs they had before these were added)
+    new_errs = check_kernels(
+        torch, [(s, KL1E3_GROUPS, both) for s, _ in kl_gn_shapes] + [(s, g, both) for s, g in gn_b1],
+        FLASH_D256_SHAPES, [(s, 0) for s in new_conv], kernels_mod, seed=1, ragged=False,
+        balanced=True, phase="kernel_checks_ar_pti")
+    errs = {name: {k: max(v, new_errs[name][k]) for k, v in by_type.items()}
+            for name, by_type in errs.items()}
     torch.cuda.empty_cache()
 
     # 4. inference main path through the CLI
@@ -1824,6 +2356,74 @@ def main() -> int:
     ldm_reference_check(torch, np, kernels_mod, cfg_path)
     torch.cuda.empty_cache()
 
+    # 6f. AR-VAE training on config/ar_vae_dente.json, evaluate_vae on its best
+    # checkpoint, one f32 AR step against the CPU plain path
+    from pti_ldm_vae_tpu_torch.train.loop import build_ar_spec, resolve_ar_settings
+
+    attributes = write_attributes(np, train_data / "dente", WORK / "attributes_dente.json")
+    ar_cfg = ar_config_file(AR_CONFIG, train_data, WORK / "run_ar", attributes)
+    ar = run_ar_train_cli(torch, np, kernels_mod, ar_cfg, WORK / "run_ar", [], epochs=TRAIN_EPOCHS,
+                          steps_per_epoch=TRAIN_STEPS_PER_EPOCH, per_pass=FLAGSHIP_PASS,
+                          conv_kernel=False, adversarial=False)
+    emit("ar_train_path", config=AR_CONFIG.name, dtype="bfloat16", batch=BATCH,
+         epochs=TRAIN_EPOCHS, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, **ar)
+    ar_eval = run_evaluate_cli(torch, np, kernels_mod, ar_cfg, ar["best_checkpoint"], WORK / "data",
+                               WORK / "eval_ar", N_IMAGES)
+    emit("ar_evaluate_path", config=AR_CONFIG.name, dtype="bfloat16", images=N_IMAGES, **ar_eval)
+    ar_full = load_config(ar_cfg)
+    ar_spec = build_ar_spec(ar_full, resolve_ar_settings(ar_full))
+    ar_step_reference_check(torch, np, kernels_mod, ar_def, ar_spec, train_data / "dente",
+                            attributes, ar_full["regularized_attributes"]["normalize_attributes"],
+                            AR_REFERENCE_IMAGES, conv_kernel=False, per_pass=FLAGSHIP_PASS,
+                            phase="ar_train_reference")
+    torch.cuda.empty_cache()
+
+    # 6g. the kl1e3 model (64-128-256, 32 groups, flash at head dim 256) with its
+    # adversarial branch from epoch 1 and the convolution kernels, then one f32
+    # AR step with the convolution kernels against the CPU plain path
+    kl_cfg = ar_config_file(KL1E3_CONFIG, train_data, WORK / "run_kl1e3", attributes,
+                            adv_warmup_epochs=0)
+    kl = run_ar_train_cli(torch, np, kernels_mod, kl_cfg, WORK / "run_kl1e3",
+                          ["--conv-kernel", "--subset-size", str(KL1E3_SUBSET)], epochs=TRAIN_EPOCHS,
+                          steps_per_epoch=KL1E3_STEPS_PER_EPOCH, per_pass=KL1E3_PASS,
+                          conv_kernel=True, adversarial=True)
+    emit("kl1e3_train_path", config=KL1E3_CONFIG.name, dtype="bfloat16", batch=BATCH,
+         conv_kernel=True, epochs=TRAIN_EPOCHS, steps_per_epoch=KL1E3_STEPS_PER_EPOCH,
+         adv_warmup_epochs=0, **kl)
+    kl_full = load_config(kl_cfg)
+    kl_spec = build_ar_spec(kl_full, resolve_ar_settings(kl_full))
+    ar_step_reference_check(torch, np, kernels_mod, kl_def, kl_spec, train_data / "dente",
+                            attributes, kl_full["regularized_attributes"]["normalize_attributes"],
+                            KL1E3_REFERENCE_IMAGES, conv_kernel=True, per_pass=KL1E3_PASS,
+                            phase="kl1e3_train_reference")
+    torch.cuda.empty_cache()
+
+    # 6h. PTI on the seeded flagship checkpoint: batched (b8) in bf16, f32 and with
+    # the convolution kernels, sequential (b1) with --save-tuned, whose
+    # autoencoder then serves through inference_vae; f32 against the CPU
+    pti_cli = ["-c", str(CONFIG), "--checkpoint", str(ckpt), "--input-dir", str(WORK / "data"),
+               "--num-workers", "4"]
+    pti = {}
+    for key, extra, batch, n, conv in (("b8", [], BATCH, BATCH, False),
+                                       ("b8_f32", ["--f32"], BATCH, BATCH, False),
+                                       ("b8_conv_kernel", ["--conv-kernel"], BATCH, BATCH, True),
+                                       ("b1", ["--save-tuned"], 1, PTI_B1_IMAGES, False)):
+        pti[key] = run_pti_cli(torch, np, kernels_mod, pti_cli + extra, WORK / f"pti_{key}", n,
+                               batch, conv)
+        emit("pti_path", run=key, latent_steps=PTI_LATENT_STEPS, tune_steps=PTI_TUNE_STEPS,
+             **pti[key])
+        torch.cuda.empty_cache()
+    tuned_ckpt = sorted((WORK / "pti_b1").glob("*_decoder.pth"))
+    if len(tuned_ckpt) != PTI_B1_IMAGES:
+        raise RuntimeError(f"--save-tuned wrote {[p.name for p in tuned_ckpt]}")
+    reload = run_cli(torch, np, kernels_mod,
+                     ["-c", str(CONFIG), "--checkpoint", str(tuned_ckpt[0]), "--input-dir",
+                      str(WORK / "data"), "--batch-size", str(BATCH), "--num-workers", "4",
+                      "--num-samples", "8"], WORK / "out_pti_tuned", n_images=8)
+    emit("pti_tuned_reload", checkpoint=tuned_ckpt[0].name, images=8, launches=reload["launches"])
+    pti_reference_check(torch, np, kernels_mod, ckpt, WORK / "data" / "dente")
+    torch.cuda.empty_cache()
+
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
@@ -1834,6 +2434,10 @@ def main() -> int:
     time_groupnorm_silu(torch, [(s, n, 16) for s, n in gn_shapes], flush, gen, rows, "vae")
     time_flash_attention(torch, [((BATCH, 1, 1024, 128), FLASH_PER_RECONSTRUCT)], flush, gen,
                          rows, "vae")
+    # head dim 256 (the kl1e3 mid blocks, the f32-FMA kernels in both types)
+    time_flash_attention(torch, [(FLASH_D256_SHAPES[0], KL1E3_PASS["flash"])], flush, gen, rows,
+                         "kl1e3")
+    torch.cuda.empty_cache()
     time_conv3x3(torch, conv_shapes, flush, gen, rows)
 
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
@@ -1857,6 +2461,18 @@ def main() -> int:
                                            (True, True, True)):
         emit("train_step_b8", **time_train_step(torch, ae_def, flush, exact, conv_kernel, adv_active))
         torch.cuda.empty_cache()
+    # the AR steps (flagship AR on cuDNN; kl1e3 as its config trains: adversarial,
+    # adv_weight 0.5, with the convolution kernels) and PTI's stages
+    emit("ar_step_b8", config=AR_CONFIG.name,
+         **time_train_step(torch, ar_def, flush, False, ar_spec=ar_spec))
+    torch.cuda.empty_cache()
+    emit("ar_step_b8", config=KL1E3_CONFIG.name,
+         **time_train_step(torch, kl_def, flush, False, conv_kernel=True, adv_active=True,
+                           ar_spec=kl_spec, adv_weight=0.5))
+    torch.cuda.empty_cache()
+    for exact in (False, True):
+        emit("pti_b8", **time_pti(torch, ckpt, flush, exact))
+        torch.cuda.empty_cache()
     # the kernels at the UNet's shapes, then the UNet pass, the DDIM loop and the diffusion step
     time_groupnorm_silu(torch, [(s, n, LDM_GROUPS) for s, n in ldm_gn_shapes], flush, gen, rows,
                         "ldm")
@@ -1870,6 +2486,11 @@ def main() -> int:
         bf = [r for r in rows[name] if r["dtype"] == "bfloat16" and r.get("path", "vae") == path]
         return {k: sum(r[k] * r["per_pass"] for r in bf)
                 for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
+
+    def d256(name: str) -> dict:
+        """Per call at [8, 1, 4096, 256] (the kl1e3 mid blocks, f32-FMA kernel), both types."""
+        keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return {r["dtype"]: {k: r[k] for k in keys} for r in rows[name] if r["path"] == "kl1e3"}
 
     gn_pallas = "pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py"
     fa_pallas = "pti_ldm_vae_tpu/ops/pallas/flash_attention.py"
@@ -1929,11 +2550,17 @@ def main() -> int:
                                  "train_vae": train["bfloat16"]["launches"][name],
                                  "train_vae_adversarial_conv_kernel": adv["launches"][name],
                                  "train_diffusion": ldm_train["bfloat16"]["launches"][name],
-                                 "sample_diffusion": ldm_sample["bfloat16"]["launches"][name]},
+                                 "sample_diffusion": ldm_sample["bfloat16"]["launches"][name],
+                                 "train_vae_ar": ar["launches"][name],
+                                 "evaluate_vae_ar": ar_eval["launches"][name],
+                                 "train_vae_ar_kl1e3_conv_kernel": kl["launches"][name],
+                                 **{f"run_pti_{key}": r["launches"][name] for key, r in pti.items()}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
             **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}
                if name in ldm_scope else {}),
+            **({"kl1e3_d256": d256(name)} if name in ("flash_attention", "flash_attention_bwd")
+               else {}),
         })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)

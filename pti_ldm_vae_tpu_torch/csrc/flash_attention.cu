@@ -26,6 +26,11 @@
 // memory is ~113 KB at D=128 in f32 tiles, above the 48 KB static limit, so
 // the launcher raises the kernel's dynamic shared-memory limit first.
 //
+// Head dims 16, 32, 64, 128 and 256. D = 256 (one head over the 256 channels
+// of a 64-128-256 VAE's mid block) takes this kernel in both types, since the
+// tensor-core kernel stops at 128: 214,272 bytes of shared memory, one block
+// per SM, 16 output columns of f32 accumulators a thread.
+//
 // C interface (loaded with ctypes): flash_attention_fwd returns
 // cudaGetLastError() after the launch; any other value than 0 is a failure.
 
@@ -221,6 +226,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, flo
     case 32: return launch<T, 32>(q, k, v, out, lse, bh, s, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, lse, bh, s, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, lse, bh, s, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, lse, bh, s, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,10 +8,12 @@ native fused TIFF decoder is not ported):
   fraction of the dataset is cached),
 * DistributedSampler-style index schedule (``shard_indices``): per-epoch
   seeded shuffle, pad by wrapping, ``rank::world`` interleave,
-* batches are numpy dicts ``{"image": [B,H,W,1] f32, "mask": [B] f32}``: the
-  final partial batch is zero-padded to ``batch_size`` with a per-sample
-  validity mask (or dropped with ``drop_last``), exactly as the JAX loader
-  does, and a background thread keeps two batches prefetched.
+* batches are numpy dicts ``{"image": [B,H,W,1] f32, "mask": [B] f32,
+  "attributes": {name: [B] f32}}`` (``attributes`` only when the loader was
+  given per-image attributes aligned with ``paths``): the final partial batch
+  is zero-padded to ``batch_size`` with a per-sample validity mask and
+  attribute values of 0.0 (or dropped with ``drop_last``), exactly as the JAX
+  loader does, and a background thread keeps two batches prefetched.
 
 Device placement is the caller's job.
 """
@@ -52,13 +54,17 @@ class ShardedDataLoader:
     """Iterable over preprocessed, statically-shaped batches."""
 
     def __init__(self, paths: list[str], patch_size: tuple[int, int], batch_size: int, *,
+                 attributes: list[dict[str, float]] | None = None,
                  shuffle: bool = False, seed: int | None = 42, rank: int = 0, world: int = 1,
                  cache_rate: float = 0.0, num_workers: int = 8, drop_last: bool = False):
+        if attributes is not None and len(attributes) != len(paths):
+            raise ValueError("attributes must align with paths")
         if not 0.0 <= cache_rate <= 1.0:
             raise ValueError(f"cache_rate must be in [0, 1], got {cache_rate}")
         self.paths = list(paths)
         self.patch_size = tuple(patch_size)
         self.batch_size = int(batch_size)
+        self.attributes = attributes
         self.shuffle = shuffle
         self.seed = seed if seed is not None else 0
         self.rank = rank
@@ -98,7 +104,15 @@ class ShardedDataLoader:
         for i, img in enumerate(images):
             batch[i] = img
             mask[i] = 1.0
-        return {"image": batch, "mask": mask}
+        out: dict[str, Any] = {"image": batch, "mask": mask}
+        if self.attributes is not None:
+            pad = [0.0] * (self.batch_size - len(images))
+            out["attributes"] = {
+                key: np.array([float(self.attributes[int(i)][key]) for i in idx_chunk] + pad,
+                              dtype=np.float32)
+                for key in self.attributes[0]
+            }
+        return out
 
     def _batches(self) -> Iterator[dict[str, Any]]:
         idx = shard_indices(len(self.paths), rank=self.rank, world=self.world,

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_bwd_plain", "flip_transpose", "forward_kernel",
            "pad_channels", "pad_columns", "unpad_wgrad", "wgmma_smem_bytes", "wgmma_tile",
-           "wgrad_kernel", "wgrad_slabs",
+           "wgrad_kernel", "wgrad_slabs", "WGRAD_FMA_SLAB_PIXELS",
            "wgrad_warpgroups", "wgrad_wgmma_slabs", "wgrad_wgmma_smem_bytes", "SOURCES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,6 +69,12 @@ SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _WGRAD_WGMMA_SOURCE, _WGRAD_SOURCE)
 _TILE_H, _TILE_W, _WGRAD_CI = 4, 32, 16
 _WGRAD_BLOCKS_PER_SM = 4
 _WGRAD_PARTIALS_BYTES = 16 * 2**20
+# the f32-FMA filter gradient adds a slab's pixels one after another in f32, so
+# its rounding grows with the slab: at 8 x 128² x 256 -> 256 the memory budget
+# alone left 7 slabs of 18,724 pixels, and the worst dW error reached 1.9x the
+# bar chip_smoke.py holds it to (an H100); slabs of at most this many pixels
+# take precedence over the budget
+WGRAD_FMA_SLAB_PIXELS = 4096
 
 
 def flip_transpose(wmat: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
@@ -257,14 +263,18 @@ def _ceil_div(a: int, b: int) -> int:
 
 def wgrad_slabs(x_shape: tuple[int, ...], cout: int, n_sm: int) -> int:
     """How many pixel slabs the f32-FMA filter gradient is cut into: enough
-    blocks to fill the card a few times over, partial sums within a few MiB."""
+    blocks to fill the card a few times over, partial sums within a few MiB,
+    but no slab above ``WGRAD_FMA_SLAB_PIXELS`` pixels (the accuracy of its
+    f32 chains) even where the partial sums then take more (75 MB at 8 x 128²
+    x 256 -> 256)."""
     b, h, w, cin = x_shape
     n_tiles = b * _ceil_div(h, _TILE_H) * _ceil_div(w, _TILE_W)
     tile_c = 64 if cout > 32 else 32 if cout > 16 else 16
     groups = _ceil_div(cin, _WGRAD_CI) * _ceil_div(cout, tile_c)
     want = _ceil_div(_WGRAD_BLOCKS_PER_SM * n_sm, groups)
     cap = max(1, _WGRAD_PARTIALS_BYTES // (9 * cin * cout * 4))
-    n_slab = max(1, min(n_tiles, want, cap))
+    short = _ceil_div(b * h * w, WGRAD_FMA_SLAB_PIXELS)
+    n_slab = max(1, min(n_tiles, max(min(want, cap), short)))
     return _ceil_div(n_tiles, _ceil_div(n_tiles, n_slab))  # no slab without a tile
 
 

@@ -30,7 +30,11 @@ All are built with nvcc for ``sm_90a`` into shared libraries and called
 through ctypes (see the sources for the designs). On the VAE's main path
 attention runs twice per step (encoder and decoder mid blocks) at ``[B, 1,
 1024, 128]``: 4.3 GFLOP forward and 10.7 GFLOP backward per call at B=8,
-hundreds of FLOP per input byte, so the bound on an H100 is arithmetic.
+hundreds of FLOP per input byte, so the bound on an H100 is arithmetic. The
+64-128-256 AR-VAE (``config/ar_vae_dente_kl1e3.json``) has one head of 256
+over 64² tokens, ``[B, 1, 4096, 256]``: 137.4 GFLOP forward and 343.6
+backward at B=8, on the f32-FMA kernels in both types (the tensor-core ones
+stop at head dim 128; the backward's tiles shrink to 32 rows there).
 
 ``flash_attention`` launches the kernels for CUDA tensors (or raises) and
 runs the plain versions, forward and backward formula, for CPU tensors;
@@ -47,10 +51,14 @@ import functools
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
-           "forward_kernel", "backward_kernel", "bwd_wgmma_smem_bytes", "SUPPORTED_HEAD_DIMS",
-           "SOURCES"]
+           "forward_kernel", "backward_kernel", "bwd_wgmma_smem_bytes", "bwd_fma_tile",
+           "bwd_fma_smem_bytes", "bwd_fma_smem_of_library", "SUPPORTED_HEAD_DIMS",
+           "WGMMA_HEAD_DIMS", "SOURCES"]
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the tensor-core kernels' head dims; D = 256 (one head over a 256-channel mid
+# block) takes the f32-FMA kernels in both types
+WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "flash_attention.cu"
 _WGMMA_SOURCE = "flash_attention_wgmma.cu"
@@ -61,26 +69,45 @@ SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _BWD_WGMMA_SOURCE, _BWD_SOURCE)
 
 def forward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
     """Which kernel computes the forward: ``"wgmma"`` (the tensor-core kernel,
-    ``csrc/flash_attention_wgmma.cu``) for bf16 inputs of a supported head dim
-    (all are multiples of 16, one ``wgmma`` depth step) at 16-byte aligned
+    ``csrc/flash_attention_wgmma.cu``) for bf16 inputs of a head dim up to
+    128 (all are multiples of 16, one ``wgmma`` depth step) at 16-byte aligned
     base addresses, any sequence length; else ``"fma"``
-    (``csrc/flash_attention.cu``)."""
-    if dtype == torch.bfloat16 and head_dim in SUPPORTED_HEAD_DIMS and aligned:
+    (``csrc/flash_attention.cu``): f32, unaligned bf16, and head dim 256 in
+    both types."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
         return "wgmma"
     return "fma"
 
 
 def backward_kernel(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
     """Which kernel computes the backward: ``"wgmma"`` (the tensor-core
-    kernel, ``csrc/flash_attention_bwd_wgmma.cu``) for bf16 inputs of a
-    supported head dim whose tensors (q, k, v, out, the upstream gradient and
-    the three gradients) start 16-byte aligned, any sequence length (ragged
-    tiles are masked); else ``"fma"`` (``csrc/flash_attention_bwd.cu``): f32
-    inputs, which keep f32 ``p`` and ``ds``, and unaligned bf16 views, which
-    16-byte copies cannot read."""
-    if dtype == torch.bfloat16 and head_dim in SUPPORTED_HEAD_DIMS and aligned:
+    kernel, ``csrc/flash_attention_bwd_wgmma.cu``) for bf16 inputs of a head
+    dim up to 128 whose tensors (q, k, v, out, the upstream gradient and the
+    three gradients) start 16-byte aligned, any sequence length (ragged tiles
+    are masked); else ``"fma"`` (``csrc/flash_attention_bwd.cu``): f32
+    inputs, which keep f32 ``p`` and ``ds``, unaligned bf16 views, which
+    16-byte copies cannot read, and head dim 256 in both types."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
         return "wgmma"
     return "fma"
+
+
+def bwd_fma_tile(head_dim: int) -> int:
+    """Rows of a q tile and of a kv tile in the f32-FMA backward
+    (``tile_rows`` of ``csrc/flash_attention_bwd.cu``): 64 up to head dim
+    128, 32 at 256, where four staged 64-row f32 tiles would not fit a block's
+    shared memory."""
+    return 64 if head_dim <= 128 else 32
+
+
+def bwd_fma_smem_bytes(head_dim: int) -> tuple[int, int]:
+    """Shared memory per block (bytes) of the f32-FMA backward's dk/dv and dq
+    kernels (``dkdv_smem_floats`` / ``dq_smem_floats``): four [tile][D+1] f32
+    tiles (k, v, q, dO), the [tile][tile+1] p and ds tiles (dq: ds only) and
+    the rows' lse and delta."""
+    t = bwd_fma_tile(head_dim)
+    tiles = 4 * t * (head_dim + 1) + 2 * t
+    return 4 * (tiles + 2 * t * (t + 1)), 4 * (tiles + t * (t + 1))
 
 
 def bwd_wgmma_smem_bytes(head_dim: int) -> int:
@@ -166,7 +193,22 @@ def _backward_library() -> ctypes.CDLL:
     fn = lib.flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.flash_attention_bwd_smem.restype = ctypes.c_int
     return lib
+
+
+def bwd_fma_smem_of_library(head_dim: int) -> tuple[int, int, int]:
+    """(tile rows, dk/dv bytes, dq bytes) of the f32-FMA backward at
+    ``head_dim`` as the built library reports them (``flash_attention_bwd_smem``);
+    raises for a head dim it does not instantiate. Needs nvcc: the card's side
+    of ``bwd_fma_tile`` / ``bwd_fma_smem_bytes``."""
+    tile, dkdv, dq = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _backward_library().flash_attention_bwd_smem(
+        head_dim, ctypes.byref(tile), ctypes.byref(dkdv), ctypes.byref(dq))
+    if err != 0:
+        raise ValueError(f"the FMA backward has no head dim {head_dim} (CUDA error {err})")
+    return tile.value, dkdv.value, dq.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

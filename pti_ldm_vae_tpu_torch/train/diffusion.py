@@ -1,5 +1,6 @@
-"""Latent diffusion: noise schedule, DDIM sampling, epsilon-MSE train step
-(counterpart of ``pti_ldm_vae_tpu/train/diffusion.py:39-152``).
+"""Latent diffusion: noise schedule, DDIM sampling, epsilon-MSE train step,
+pivotal-tuning inversion (counterpart of
+``pti_ldm_vae_tpu/train/diffusion.py:39-393``).
 
 * ``NoiseSchedule.linear_beta``: the DDPM linear-beta schedule (MONAI
   scheduler defaults: 1000 train steps, beta 1e-4 .. 2e-2) built in f32, as
@@ -13,7 +14,12 @@
   cast to f32;
 * ``make_diffusion_train_step``: the masked mean of the per-sample epsilon
   MSE (``cli/train_diffusion.py:128-134`` of the JAX package), backward,
-  then one Adam update of the UNet and projector parameters.
+  then one Adam update of the UNet and projector parameters;
+* ``pivotal_tuning_inversion`` and its batched form: stage 1 optimizes a
+  latent per image through the frozen decoder (Adam on z), stage 2
+  fine-tunes a fresh copy of the decoder around each pivot (Adam on the
+  ``post_quant_conv`` and ``decoder`` parameters). Each step's loss is kept
+  before its update, as ``value_and_grad`` inside the JAX scan records it.
 
 Randomness: JAX's PRNG streams cannot be reproduced, so every draw takes an
 explicit ``torch.Generator`` and can be passed in instead (initial noise,
@@ -22,8 +28,9 @@ the eta > 0 noise of each DDIM step, the train step's timesteps and noise).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +46,11 @@ __all__ = [
     "ddim_timesteps",
     "diffusion_loss",
     "make_diffusion_train_step",
+    "decoder_parameters",
+    "swapped_decoder",
+    "pivotal_tuning_inversion",
+    "make_pivotal_tuning_inversion_batched",
+    "pivotal_tuning_inversion_batched",
 ]
 
 
@@ -166,3 +178,182 @@ def make_diffusion_train_step(unet: nn.Module, schedule: NoiseSchedule, state: G
         return loss.detach()
 
     return step
+
+
+# ---- pivotal-tuning inversion ------------------------------------------------------------
+
+def decoder_parameters(model: nn.Module) -> dict[str, nn.Parameter]:
+    """The parameters stage 2 tunes, by state-dict key: ``post_quant_conv.*``
+    and ``decoder.*`` of an ``AutoencoderKL``. (The JAX package tunes the whole
+    variables tree, but the encoder's gradient there is 0, so is its Adam
+    update: tuning the decoder alone is the same result.)"""
+    return {name: p for name, p in model.named_parameters()
+            if name.startswith(("post_quant_conv.", "decoder."))}
+
+
+@contextmanager
+def _frozen(model: nn.Module, trainable: Sequence[nn.Parameter] = ()) -> Iterator[None]:
+    """Every parameter of ``model`` but ``trainable`` at ``requires_grad=False``
+    (the convolution kernels' backward then skips the filter gradient), the
+    flags restored on exit."""
+    flags = {p: p.requires_grad for p in model.parameters()}
+    keep = {id(p) for p in trainable}
+    try:
+        for p in model.parameters():
+            p.requires_grad_(id(p) in keep)
+        yield
+    finally:
+        for p, flag in flags.items():
+            p.requires_grad_(flag)
+
+
+@contextmanager
+def swapped_decoder(model: nn.Module, tuned: dict[str, torch.Tensor]) -> Iterator[nn.Module]:
+    """``model`` with ``tuned`` (a ``decoder_parameters`` key -> tensor map)
+    copied into its parameters in place, the original values back on exit."""
+    params = decoder_parameters(model)
+    saved = {name: params[name].detach().clone() for name in tuned}
+    try:
+        with torch.no_grad():
+            for name, value in tuned.items():
+                params[name].copy_(value)
+        yield model
+    finally:
+        with torch.no_grad():
+            for name, value in saved.items():
+                params[name].copy_(value)
+
+
+def _adam(params: Sequence[torch.Tensor], lr: float) -> torch.optim.Adam:
+    """optax ``adam`` semantics: b1 0.9, b2 0.999, eps 1e-8 outside the square
+    root (eps_root 0); PyTorch's fused update on CUDA."""
+    fused = all(p.device.type == "cuda" for p in params)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=fused)
+
+
+def _invert(model: nn.Module, targets: torch.Tensor, latent_init: torch.Tensor, steps: int,
+            lr: float, per_image: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1: Adam on z through the frozen decoder. ``per_image``: the loss
+    is the sum over images of each image's mean squared error, so each
+    latent's gradient is that of its own image alone (the JAX ``vmap`` over
+    images; a batch mean would scale every gradient by 1/B, which Adam's eps
+    does not forgive); else one mean over the whole batch. Returns (pivot,
+    losses [B, steps] or [steps])."""
+    z = latent_init.detach().clone().float().requires_grad_(True)
+    opt = _adam([z], lr)
+    losses = []
+    with _frozen(model):
+        for _ in range(steps):
+            err = (model.decode(z) - targets).square()
+            loss = err.mean(dim=tuple(range(1, err.dim()))) if per_image else err.mean()
+            (loss.sum() if per_image else loss).backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(loss.detach())
+    return z.detach(), torch.stack(losses, dim=-1)
+
+
+def _tune(model: nn.Module, target: torch.Tensor, pivot: torch.Tensor,
+          start: dict[str, torch.Tensor], steps: int, lr: float
+          ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """Stage 2: from ``start``, a fresh Adam on the decoder's parameters
+    around the fixed pivot; returns (tuned copies, losses [steps]). The model
+    is left holding the tuned values."""
+    params = decoder_parameters(model)
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(start[name])
+    opt = _adam(list(params.values()), lr)
+    losses = []
+    with _frozen(model, list(params.values())):
+        for _ in range(steps):
+            loss = (model.decode(pivot) - target).square().mean()
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(loss.detach())
+    return {name: p.detach().clone() for name, p in params.items()}, torch.stack(losses)
+
+
+def pivotal_tuning_inversion(
+    model: nn.Module, target: torch.Tensor, latent_init: torch.Tensor, *,
+    latent_steps: int = 200, latent_lr: float = 1e-1, tune_steps: int = 100,
+    tune_lr: float = 1e-4,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Two-stage PTI of ``target`` (NHWC) from ``latent_init`` through
+    ``model.decode`` (JAX ``pivotal_tuning_inversion``): stage 1 inverts a
+    pivot latent, stage 2 fine-tunes the decoder around it, both on the mean
+    squared error over the whole target. Returns (pivot, tuned decoder
+    parameters by state-dict key, ``{"latent": [latent_steps], "tune":
+    [tune_steps]}``). The model's own parameters are unchanged afterwards."""
+    pivot, latent_losses = _invert(model, target, latent_init, latent_steps, latent_lr,
+                                   per_image=False)
+    start = {name: p.detach().clone() for name, p in decoder_parameters(model).items()}
+    try:
+        tuned, tune_losses = _tune(model, target, pivot, start, tune_steps, tune_lr)
+    finally:
+        with torch.no_grad():
+            for name, p in decoder_parameters(model).items():
+                p.copy_(start[name])
+    return pivot, tuned, {"latent": latent_losses, "tune": tune_losses}
+
+
+def make_pivotal_tuning_inversion_batched(
+    model: nn.Module, *, latent_steps: int = 200, latent_lr: float = 1e-1, tune_steps: int = 100,
+    tune_lr: float = 1e-4, tune_formulation: str = "scan",
+) -> Callable[[torch.Tensor, torch.Tensor],
+              tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]]:
+    """The batched PTI program (JAX ``make_pivotal_tuning_inversion_batched``
+    with its default ``tune_formulation="scan"``), built once and called per
+    batch: ``program(targets [B, H, W, C], latent_inits [B, ...]) -> (pivots
+    [B, ...], tuned {key: [B, ...]}, {"latent": [B, latent_steps], "tune":
+    [B, tune_steps]})``, starting from the model's current decoder.
+
+    Stage 1 inverts all B latents in one batched pass (per-image losses
+    summed: see ``_invert``); decoder GroupNorm and attention are per sample
+    and Adam per element, so each image's pivot is the one it would get alone.
+    Stage 2 tunes one image at a time, each from the same decoder with a fresh
+    Adam: one copy of the decoder's parameters and Adam state live at a time.
+
+    ``tune_formulation="vmap"`` (per-image decoder copies as grouped
+    convolutions, the JAX package's legacy A/B layout) is not ported:
+    ROADMAP A.7. The mesh / ``shard_map`` form is ROADMAP A.8."""
+    if tune_formulation == "vmap":
+        raise NotImplementedError(
+            "tune_formulation='vmap' (per-image decoder copies as grouped convolutions) is not "
+            "ported to PyTorch; it is left in ROADMAP A.7 — use 'scan'")
+    if tune_formulation != "scan":
+        raise ValueError(f"tune_formulation must be 'scan' or 'vmap', got {tune_formulation!r}")
+
+    def program(targets: torch.Tensor, latent_inits: torch.Tensor):
+        pivots, latent_losses = _invert(model, targets, latent_inits, latent_steps, latent_lr,
+                                        per_image=True)
+        start = {name: p.detach().clone() for name, p in decoder_parameters(model).items()}
+        tuned: dict[str, list[torch.Tensor]] = {name: [] for name in start}
+        tune_losses = []
+        try:
+            for i in range(targets.shape[0]):
+                one, losses = _tune(model, targets[i:i + 1], pivots[i:i + 1], start, tune_steps,
+                                    tune_lr)
+                for name, value in one.items():
+                    tuned[name].append(value)
+                tune_losses.append(losses)
+        finally:
+            with torch.no_grad():
+                for name, p in decoder_parameters(model).items():
+                    p.copy_(start[name])
+        return (pivots, {name: torch.stack(v) for name, v in tuned.items()},
+                {"latent": latent_losses, "tune": torch.stack(tune_losses)})
+
+    return program
+
+
+def pivotal_tuning_inversion_batched(
+    model: nn.Module, targets: torch.Tensor, latent_inits: torch.Tensor, *,
+    latent_steps: int = 200, latent_lr: float = 1e-1, tune_steps: int = 100,
+    tune_lr: float = 1e-4, tune_formulation: str = "scan",
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """One call of ``make_pivotal_tuning_inversion_batched``'s program."""
+    return make_pivotal_tuning_inversion_batched(
+        model, latent_steps=latent_steps, latent_lr=latent_lr, tune_steps=tune_steps,
+        tune_lr=tune_lr, tune_formulation=tune_formulation)(targets, latent_inits)

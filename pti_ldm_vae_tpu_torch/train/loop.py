@@ -17,9 +17,14 @@ adv_warmup_epochs`` (default 5: the reference hardcodes ``epoch > 5``,
   read per step would stall the launch queue;
 * the host loader's prefetch overlaps IO with device compute.
 
-Not ported yet, and raising when configured: AR-VAE, ``parallelism``,
-``remat``, the space-to-depth stem (``s2d_stem`` other than false / "auto",
-which takes the standard path), profiler tracing.
+With AR-VAE on (``regularized_attributes.enabled`` or
+``autoencoder_train.ar_vae_enabled``) the loaders carry each image's
+attributes and the steps add the attribute term at ``gamma``; its totals and
+per-attribute terms are logged as ``train/ar_loss_*`` and ``val/ar_loss_*``.
+
+Not ported yet, and raising when configured: ``parallelism``, ``remat``, the
+space-to-depth stem (``s2d_stem`` other than false / "auto", which takes the
+standard path), profiler tracing.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ import torch
 
 from ..checkpoint.manager import CheckpointManager
 from ..checkpoint.reference_resume import load_reference_checkpoint
-from ..config import resolve_bool
+from ..config import filter_comment_keys, resolve_bool
 from ..data.factory import create_vae_dataloaders
 from ..data.io import write_tif
+from ..losses.ar_vae import ARVaeSpec, make_ar_vae_spec
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import autoencoder_from_config
 from ..models.discriminator import PatchDiscriminator
@@ -48,7 +54,7 @@ from ..utils.visualization import normalize_batch_for_display
 from .state import create_train_state
 from .steps import LossConfig, make_eval_step, make_inference_fn, make_train_step
 
-__all__ = ["VAETrainer", "resolve_ar_settings"]
+__all__ = ["VAETrainer", "build_ar_spec", "resolve_ar_settings"]
 
 
 def resolve_ar_settings(cfg: dict[str, Any]) -> dict[str, Any]:
@@ -73,6 +79,20 @@ def resolve_ar_settings(cfg: dict[str, Any]) -> dict[str, Any]:
         "subset_pairs": reg.get("subset_pairs"),
         "block": reg,
     }
+
+
+def build_ar_spec(cfg: dict[str, Any], ar: dict[str, Any]) -> ARVaeSpec | None:
+    """The AR-VAE spec of a config (JAX ``train/loop.py:262-270``), or None
+    when the term is off; an enabled term without an attribute mapping raises."""
+    if not ar["enabled"]:
+        return None
+    mapping = filter_comment_keys(ar["block"].get("attribute_latent_mapping", {}))
+    if not mapping:
+        raise ValueError("attribute_latent_mapping must be provided when AR-VAE is enabled.")
+    return make_ar_vae_spec(
+        mapping, pairwise_mode=ar["pairwise"], subset_pairs=ar["subset_pairs"],
+        delta_global=ar["block"].get("delta_global"),
+        latent_dim=cfg["autoencoder_def"]["latent_channels"])
 
 
 def _not_ported(what: str, later: str) -> NotImplementedError:
@@ -122,9 +142,7 @@ class VAETrainer:
         if self.adv_enabled and int(cfg.get("spatial_dims", 2)) != 2:
             raise _not_ported("the adversarial branch for spatial_dims other than 2 (a 1-D or "
                               "3-D PatchGAN discriminator)", "the 1-D / 3-D model slice")
-        if self.ar["enabled"]:
-            raise _not_ported("AR-VAE (ar_vae_enabled / regularized_attributes.enabled)",
-                              "losses/ar_vae.py and attribute loading")
+        ar_spec = build_ar_spec(cfg, self.ar)
         if cfg.get("parallelism"):
             raise _not_ported("the 'parallelism' config block", "the multi-device slice")
         if resolve_bool(cfg.get("remat", False)):
@@ -164,6 +182,8 @@ class VAETrainer:
             subset_size=subset_size,
             val_dir=cfg.get("val_dir"),
             cache_rate=cache_rate,
+            ar_vae_enabled=self.ar["enabled"],
+            regularized_attributes=self.ar["block"] or None,
         )
         split_payload = {
             "seed": seed,
@@ -201,6 +221,8 @@ class VAETrainer:
             perceptual_weight=float(train_cfg["perceptual_weight"]),
             adv_weight=float(train_cfg.get("adv_weight", 0.5)),
             ar_gamma=self.ar["gamma"],
+            ar_vae_enabled=self.ar["enabled"],
+            ar_spec=ar_spec,
             kl_mode=cfg.get("kl_mode", "reference"),
         )
         self.lpips_params = load_lpips_params(device=self.device)
@@ -250,10 +272,15 @@ class VAETrainer:
                                    run_config=run_config)
 
     # -- helpers --------------------------------------------------------------
-    def _device_batch(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def _device_batch(self, batch) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+        """Images, mask and (AR-VAE) attributes of a host batch on the device."""
         images = torch.from_numpy(batch["image"]).to(self.device, non_blocking=True)
         mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
-        return images, mask
+        attributes = None
+        if "attributes" in batch:
+            attributes = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                          for k, v in batch["attributes"].items()}
+        return images, mask, attributes
 
     def _adv_active(self, epoch: int) -> bool:
         return bool(self.adv_enabled and epoch > self.adv_warmup_epochs)
@@ -275,8 +302,8 @@ class VAETrainer:
         buffered: list[tuple[int, dict]] = []
         batch0: tuple[dict, torch.Tensor] | None = None
         for step, batch in enumerate(self.train_loader):
-            images, mask = self._device_batch(batch)
-            _, metrics = step_fn(self.state, images, mask, None, self.lpips_params,
+            images, mask, attributes = self._device_batch(batch)
+            _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
                                  generator=self.generator)
             self.total_step += 1
             if step % self.log_every == 0:
@@ -329,8 +356,8 @@ class VAETrainer:
 
         dumps: list[tuple[int, torch.Tensor, torch.Tensor]] = []
         for step, batch in enumerate(self.val_loader):
-            images, mask = self._device_batch(batch)
-            metrics, recon = eval_fn(self.state, images, mask, None, self.lpips_params,
+            images, mask, attributes = self._device_batch(batch)
+            metrics, recon = eval_fn(self.state, images, mask, attributes, self.lpips_params,
                                      generator=self.generator)
             # sums accumulate on the device; one host read after the loop
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
@@ -359,7 +386,7 @@ class VAETrainer:
             ar_gamma=self.lcfg.ar_gamma,
             ar_vae_enabled=self.lcfg.ar_vae_enabled,
         )
-        self.logger.log({
+        payload = {
             "val/recon_loss": means.get("recon_loss", 0.0),
             "val/kl_loss": means.get("kl_loss", 0.0),
             "val/perceptual_loss": means.get("perceptual_loss", 0.0),
@@ -369,7 +396,11 @@ class VAETrainer:
             if self.adv_enabled else 0.0,
             "val/loss_total": float(val_total),
             "epoch": epoch,
-        })
+        }
+        if self.lcfg.ar_vae_enabled:
+            payload["val/ar_loss_total"] = means.get("ar_loss", 0.0)
+            payload.update({f"val/{k}": v for k, v in means.items() if k.startswith("ar_loss_")})
+        self.logger.log(payload)
         return means.get("recon_loss", 0.0)
 
     # -- main loop -------------------------------------------------------------

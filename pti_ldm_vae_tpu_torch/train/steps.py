@@ -17,8 +17,10 @@ hand-written kernels of ``ops/kernels`` on CUDA tensors, and so do the 3x3
 convolutions of a model built with ``conv_kernel=True``, forward, input
 gradient and filter gradient.
 
-Not ported yet, and raising when asked for: the AR-VAE term
-(``ar_vae_enabled``).
+With ``ar_vae_enabled`` and a spec, the attribute-regularization term of
+``losses/ar_vae.py`` on ``z_mu`` joins the total at ``ar_gamma``; the batch's
+``attributes`` ({name: [B] f32}) and its mask feed it, and "subset" pairs
+are drawn from the step's generator unless ``pair_indices`` are given.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..losses.ar_vae import compute_ar_vae_loss
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import AutoencoderKL
 from ..models.lpips import lpips_distance_per_sample
@@ -90,23 +93,22 @@ def _discriminator_loss(disc, recon: torch.Tensor, images: torch.Tensor,
     return 0.5 * (fake + real)
 
 
-def _check_ported(disc, lcfg: LossConfig, adv_active: bool) -> None:
+def _check_branches(disc, lcfg: LossConfig, adv_active: bool) -> None:
     if adv_active and disc is None:
         raise ValueError("adv_active=True needs a discriminator (got disc=None)")
-    if lcfg.ar_vae_enabled:
-        raise NotImplementedError(
-            "the AR-VAE term (ar_vae_enabled=True) is not ported yet: it comes with "
-            "losses/ar_vae.py and attribute loading")
+    if lcfg.ar_vae_enabled and lcfg.ar_spec is None:
+        raise ValueError("ar_vae_enabled=True needs an ar_spec (losses/ar_vae.py:make_ar_vae_spec)")
 
 
 def _generator_losses(
     model: AutoencoderKL, lcfg: LossConfig, lpips_params, images: torch.Tensor,
     mask: torch.Tensor, eps: torch.Tensor | None, generator: torch.Generator | None,
-    disc=None,
+    disc=None, attributes: dict[str, torch.Tensor] | None = None,
+    pair_indices: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """All generator-side loss terms; shared by the train and eval paths.
     With a discriminator the LSGAN generator term (fake -> 1 through ``disc``)
-    joins the total."""
+    joins the total, with an AR-VAE spec the attribute term on ``z_mu``."""
     recon, z_mu, z_sigma = model(images, eps, generator)
 
     recons_loss = _masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask)
@@ -128,8 +130,16 @@ def _generator_losses(
     else:
         adv_gen = zero
 
+    ar_loss, ar_per_attr = zero, {}
+    if lcfg.ar_vae_enabled:
+        if attributes is None:
+            raise ValueError("the AR-VAE term needs the batch's attributes")
+        ar_loss, ar_per_attr, _ = compute_ar_vae_loss(
+            z_mu, attributes, lcfg.ar_spec, generator=generator, pair_indices=pair_indices,
+            sample_mask=mask)
+
     total = compute_total_loss(
-        recons_loss, kl_loss, p_loss, adv_gen, zero,
+        recons_loss, kl_loss, p_loss, adv_gen, ar_loss,
         kl_weight=lcfg.kl_weight,
         perceptual_weight=lcfg.perceptual_weight,
         adv_weight=lcfg.adv_weight,
@@ -139,7 +149,7 @@ def _generator_losses(
     aux = {
         "recon": recon, "z_mu": z_mu, "z_sigma": z_sigma,
         "recon_loss": recons_loss, "kl_loss": kl_loss, "perceptual_loss": p_loss,
-        "adv_gen_loss": adv_gen, "ar_loss": zero,
+        "adv_gen_loss": adv_gen, "ar_loss": ar_loss, "ar_per_attr": ar_per_attr,
     }
     return total, aux
 
@@ -148,7 +158,7 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
     """Build the train step. Signature of the returned function:
 
         state, metrics = step(state, images, mask, attributes, lpips_params,
-                              eps=None, generator=None)
+                              eps=None, generator=None, pair_indices=None)
 
     ``adv_active`` is the static warm-up gate (``epoch > 5`` in the
     reference); build one step per phase. When it is on, the generator's
@@ -160,16 +170,18 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
 
     ``state`` is updated in place and handed back. The posterior noise is
     ``eps`` when given, else drawn from ``generator`` (a ``torch.Generator``
-    on the model's device). ``metrics`` are 0-dim tensors on the device: read
-    them after the epoch, not per step."""
-    _check_ported(disc, lcfg, adv_active)
+    on the model's device). ``attributes`` ({name: [B] f32}) feed the AR-VAE
+    term, whose "subset" pairs come from ``generator`` unless
+    ``pair_indices`` are given. ``metrics`` are 0-dim tensors on the device:
+    read them after the epoch, not per step."""
+    _check_branches(disc, lcfg, adv_active)
     params_g = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: GanTrainState, images, mask, attributes, lpips_params,
-             eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
-        del attributes  # only the AR-VAE term reads them
+             eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
+             pair_indices: torch.Tensor | None = None):
         loss_g, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
-                                        disc if adv_active else None)
+                                        disc if adv_active else None, attributes, pair_indices)
         # gradients for the generator's parameters only: none lands on the
         # discriminator, whose own pass below starts from clean slots
         loss_g.backward(inputs=params_g)
@@ -187,6 +199,9 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
             "train/adv_gen_loss": lcfg.adv_weight * aux["adv_gen_loss"],
             "train/adv_disc_loss": lcfg.adv_weight * disc_loss,
             "train/loss_total": loss_g,
+            **({"train/ar_loss_total": aux["ar_loss"],
+                **{f"train/ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()}}
+               if lcfg.ar_vae_enabled else {}),
             # debug stats (reference ``train_vae.py:432-442``), cheap scalars
             "debug/z_mu_mean": aux["z_mu"].mean(),
             "debug/z_sigma_mean": aux["z_sigma"].mean(),
@@ -201,14 +216,16 @@ def make_eval_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: 
     loss terms, plus the discriminator loss when the adversarial branch is
     active (unscaled, like ``adv_gen_loss``), no gradient. Returns ``(metrics,
     reconstruction)`` so the caller can dump triplets."""
-    _check_ported(disc, lcfg, adv_active)
+    _check_branches(disc, lcfg, adv_active)
 
     def step(state: GanTrainState, images, mask, attributes, lpips_params,
-             eps: torch.Tensor | None = None, generator: torch.Generator | None = None):
-        del state, attributes
+             eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
+             pair_indices: torch.Tensor | None = None):
+        del state
         with torch.no_grad():
             total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
-                                           disc if adv_active else None)
+                                           disc if adv_active else None, attributes,
+                                           pair_indices)
             disc_loss = (_discriminator_loss(disc, aux["recon"], images, mask) if adv_active
                          else torch.zeros_like(total))
         metrics = {
@@ -219,6 +236,7 @@ def make_eval_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: 
             "adv_disc_loss": disc_loss,
             "ar_loss": aux["ar_loss"],
             "loss_total": total,
+            **{f"ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()},
         }
         return metrics, aux["recon"]
 

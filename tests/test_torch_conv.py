@@ -26,6 +26,7 @@ from pti_ldm_vae_tpu_torch.models.autoencoder_kl import Convolution, autoencoder
 from pti_ldm_vae_tpu_torch.ops import kernels
 from pti_ldm_vae_tpu_torch.ops.conv import conv3x3, conv3x3_supported, pack_weight
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+    WGRAD_FMA_SLAB_PIXELS,
     conv3x3_bwd_plain,
     conv3x3_plain,
     flip_transpose,
@@ -178,6 +179,23 @@ def test_wgrad_slabs_fill_the_card_within_the_partials_budget(x_shape, cout):
     assert n_slab * 9 * cin * cout * 4 <= 16 * 2**20
     per = -(-n_tiles // n_slab)
     assert (n_slab - 1) * per < n_tiles <= n_slab * per  # every slab holds a tile
+
+
+@pytest.mark.parametrize("x_shape,cout", [
+    ((8, 128, 128, 256), 256), ((8, 64, 64, 256), 256), ((8, 256, 256, 128), 128),
+    ((8, 256, 256, 64), 64), ((8, 128, 128, 128), 128), ((8, 64, 64, 10), 256),
+    ((1, 256, 256, 64), 64),
+])
+def test_wgrad_slabs_keep_f32_chains_within_the_pixel_cap(x_shape, cout):
+    """The f32-FMA filter gradient sums a slab's pixels one after another: at
+    the 64-128-256 AR model's shapes (and the flagship's) no slab holds more
+    than WGRAD_FMA_SLAB_PIXELS pixels, whatever the partial sums then take."""
+    b, h, w, cin = x_shape
+    n_slab = wgrad_slabs(x_shape, cout, 132)
+    n_tiles = b * -(-h // 4) * -(-w // 32)
+    per_slab = -(-n_tiles // n_slab) * 4 * 32  # whole 4 x 32 tiles a slab
+    assert per_slab <= WGRAD_FMA_SLAB_PIXELS or n_slab == n_tiles
+    assert n_slab <= n_tiles
 
 
 # ------------------------------------------------------------------ the model

@@ -7,7 +7,9 @@ hold the plan to its rules (every (image, pixel, channel) covered exactly
 once, slices of whole groups, shared memory within one block's 232,448 bytes,
 row segments of at least one 32-byte sector) at the eight shapes of a
 flagship pass in both types, at the seventeen shapes of a diffusion UNet pass
-(32 groups), at ragged shapes and at b32; and they run a
+(32 groups), at the seven of a ``config/ar_vae_dente_kl1e3.json`` pass (32
+groups) at b8 and b1, at the flagship's at b1 (PTI's decoder fine-tune), at
+ragged shapes and at b32; and they run a
 numpy model of the kernels that sums in the kernels' order (each thread's
 rows, the unstaged ones first; the butterfly across a warp's lanes; the
 warps' rows; the cluster's ranks in order 0..n-1; a group's channels)
@@ -57,9 +59,20 @@ UNET_SHAPES = [(8, 32, 32, 96), (8, 32, 32, 64), (8, 16, 16, 192), (8, 32, 32, 3
                (8, 8, 8, 192), (8, 16, 16, 32), (8, 8, 8, 128), (8, 4, 4, 512), (8, 4, 4, 384),
                (8, 8, 8, 64), (8, 4, 4, 256), (8, 4, 4, 128)]
 UNET_GROUPS = 32
+# the 7 GroupNorm+SiLU shapes of a pass of config/ar_vae_dente_kl1e3.json at 256²
+# (channels 64-128-256, 32 groups: 2 to 8 channels per group), batch 8 (training)
+KL1E3_SHAPES = [(8, 256, 256, 64), (8, 256, 256, 128), (8, 128, 128, 64), (8, 128, 128, 128),
+                (8, 128, 128, 256), (8, 64, 64, 128), (8, 64, 64, 256)]
+KL1E3_GROUPS = 32
+# batch 1: the kl1e3 shapes, and the flagship's, which PTI's decoder fine-tune runs at
+B1_SHAPES = ([((1, *s[1:]), KL1E3_GROUPS) for s in KL1E3_SHAPES]
+             + [((1, *s[1:]), 16) for s in PATH_SHAPES])
 ALL = ([(s, 16, d, bwd) for s in PATH_SHAPES for d in DTYPES for bwd in (False, True)]
        + [(s, g, d, False) for s, g in OTHER_SHAPES for d in DTYPES]
-       + [(s, UNET_GROUPS, d, bwd) for s in UNET_SHAPES for d in DTYPES for bwd in (False, True)])
+       + [(s, UNET_GROUPS, d, bwd) for s in UNET_SHAPES for d in DTYPES for bwd in (False, True)]
+       + [(s, KL1E3_GROUPS, d, bwd) for s in KL1E3_SHAPES for d in DTYPES
+          for bwd in (False, True)]
+       + [(s, g, d, bwd) for s, g in B1_SHAPES for d in DTYPES for bwd in (False, True)])
 
 
 def _esize(dtype):
@@ -108,11 +121,11 @@ def test_plan_covers_every_element_once(case):
         row0 = rank * plan.rows_per_block
         nrows = max(0, min(plan.rows_per_block, hw - row0))
         staged = min(plan.staged_rows, nrows)
-        for tr, rows in enumerate(_thread_rows(plan, nrows, staged)):
-            for r in rows:
-                for j in range(nv):
-                    ch = sl * sc + j * plan.vec
-                    count[row0 + r, ch:ch + plan.vec] += 1
+        # every thread row's rows, each read as nv vectors of vec channels:
+        # the slice's channels sl*sc .. sl*sc + nv*vec (np.add.at counts repeats)
+        rows = [r for thread_rows in _thread_rows(plan, nrows, staged) for r in thread_rows]
+        cols = sl * sc + np.arange(nv * plan.vec)
+        np.add.at(count, (row0 + np.asarray(rows, dtype=np.int64)[:, None], cols[None, :]), 1)
     assert seen_clusters == {(i, s) for i in range(b) for s in range(c // sc)}
     assert (count == 1).all()
 

@@ -27,7 +27,8 @@ def test_port_has_modules():
                      "losses/adversarial.py", "checkpoint/reference_resume.py",
                      "utils/eval_metrics.py", "cli/evaluate_vae.py", "models/unet.py",
                      "checkpoint/unet_convert.py", "train/diffusion.py",
-                     "cli/sample_diffusion.py", "cli/train_diffusion.py"):
+                     "cli/sample_diffusion.py", "cli/train_diffusion.py", "losses/ar_vae.py",
+                     "cli/run_pti.py"):
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",

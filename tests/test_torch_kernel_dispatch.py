@@ -28,6 +28,10 @@ from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
 from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     SOURCES as FLASH_SOURCES,
     SUPPORTED_HEAD_DIMS,
+    _check as flash_check,
+    backward_kernel as flash_backward_kernel,
+    bwd_fma_smem_bytes,
+    bwd_fma_tile,
     forward_kernel as flash_forward_kernel,
 )
 
@@ -192,9 +196,54 @@ def test_kernel_layout_model_matches_plain(shape, mt, tn):
 
 @pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
 def test_flash_forward_kernel_rule(head_dim):
-    assert flash_forward_kernel(torch.bfloat16, head_dim) == "wgmma"
+    # the tensor-core kernel stops at head dim 128; 256 takes the FMA kernel in both types
+    assert flash_forward_kernel(torch.bfloat16, head_dim) == ("wgmma" if head_dim <= 128 else "fma")
     assert flash_forward_kernel(torch.float32, head_dim) == "fma"
     assert flash_forward_kernel(torch.bfloat16, head_dim, aligned=False) == "fma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_256_takes_the_fma_kernels(dtype):
+    """One head over the 256 channels of config/ar_vae_dente_kl1e3.json's mid
+    blocks ([B, 1, 4096, 256]): both directions on the f32-FMA kernels."""
+    assert flash_forward_kernel(dtype, 256) == "fma"
+    assert flash_backward_kernel(dtype, 256) == "fma"
+
+
+@pytest.mark.parametrize("head_dim", [256, 48, 8, 512])
+def test_flash_check_accepts_256_and_rejects_other_head_dims(head_dim):
+    q = torch.zeros(1, 1, 4, head_dim)
+    if head_dim in SUPPORTED_HEAD_DIMS:
+        flash_check(q, q, q)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            flash_check(q, q, q)
+
+
+@pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
+def test_flash_fma_backward_tile_fits_shared_memory(head_dim):
+    """The FMA backward's staged tiles at every head dim: 64 rows up to 128,
+    32 at 256, where 64 rows would need 296,960 (dk/dv) and 280,320 (dq)
+    bytes, over the 232,448 a block may have on sm_90."""
+    tile = bwd_fma_tile(head_dim)
+    dkdv, dq = bwd_fma_smem_bytes(head_dim)
+    assert tile == (64 if head_dim <= 128 else 32) and tile % 16 == 0
+    assert max(dkdv, dq) <= 232_448
+    # the formula of csrc/flash_attention_bwd.cu: four [tile][D+1] f32 tiles,
+    # [tile][tile+1] p and ds (dq: ds only), lse and delta of the tile's rows
+    assert dkdv == 4 * (4 * tile * (head_dim + 1) + 2 * tile * (tile + 1) + 2 * tile)
+    assert dq == dkdv - 4 * tile * (tile + 1)
+    if head_dim == 256:
+        assert (dkdv, dq) == (140_288, 136_064)
+        rows64 = 4 * (4 * 64 * 257 + 2 * 64 * 65 + 2 * 64)
+        assert rows64 == 296_960 > 232_448
+
+
+def test_flash_forward_smem_at_head_dim_256():
+    """``smem_floats<256>`` of csrc/flash_attention.cu: q [64][D], k [64][D+1],
+    v [64][D], p [64][65] and three row vectors, 214,272 bytes."""
+    d = 256
+    assert 4 * (64 * d + 64 * (d + 1) + 64 * d + 64 * 65 + 3 * 64) == 214_272 <= 232_448
 
 
 def test_new_sources_are_built_with_the_rest():

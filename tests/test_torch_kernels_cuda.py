@@ -45,7 +45,13 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
 )
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import _launch_wgrad, wgrad_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
-from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import backward_kernel
+from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+    SUPPORTED_HEAD_DIMS,
+    backward_kernel,
+    bwd_fma_smem_bytes,
+    bwd_fma_smem_of_library,
+    bwd_fma_tile,
+)
 from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
 # every head dim at a whole and a ragged number of tiles, and the two older shapes
@@ -202,6 +208,44 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype):
         again = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), g)
         for first, second in zip(got, again):
             assert torch.equal(first, second)
+
+
+# one head over a 256-channel mid block (config/ar_vae_dente_kl1e3.json at 256²:
+# 64² tokens) at batch 1, and a ragged length with two heads; both types take
+# the f32-FMA kernels (32-row tiles in the backward)
+FLASH_D256_SHAPES = [(1, 1, 4096, 256), (1, 2, 300, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_256_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    for shape in FLASH_D256_SHAPES:
+        q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        reset_launch_counts()
+        out = flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        counts = launch_counts()
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
+        msg = lambda m: f"{shape} {dtype}: {m}"  # noqa: E731
+        qf, kf, vf = q.detach().float(), k.detach().float(), v.detach().float()
+        torch.testing.assert_close(out.detach().float(), flash_attention_plain(qf, kf, vf),
+                                   **_tol(dtype), msg=msg)
+        for ours, theirs in zip(got, flash_attention_bwd_plain(qf, kf, vf, g.float())):
+            torch.testing.assert_close(ours.float(), theirs, **_tol(dtype), msg=msg)
+        again = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), g)
+        for first, second in zip(got, again):
+            assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_flash_fma_backward_smem_matches_the_library(cuda):
+    for d in SUPPORTED_HEAD_DIMS:
+        assert bwd_fma_smem_of_library(d) == (bwd_fma_tile(d), *bwd_fma_smem_bytes(d))
+    with pytest.raises(ValueError, match="head dim 48"):
+        bwd_fma_smem_of_library(48)
 
 
 @pytest.mark.cuda

@@ -173,22 +173,27 @@ def test_resume_without_checkpoint_raises(workspace, tmp_path):
         VAETrainer(cfg, device="cpu", use_wandb=False)
 
 
-@pytest.mark.parametrize("patch,match", [
+# AR-VAE is ported: switched on without an attribute mapping it is refused
+# (ValueError) as early as the features that are not ported yet
+_NO_MAPPING = "attribute_latent_mapping must be provided"
+
+
+@pytest.mark.parametrize("patch,error,match", [
     (lambda c: (c["autoencoder_train"].update(adv_enabled=True), c.update(spatial_dims=3)),
-     "adversarial"),
-    (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), "AR-VAE"),
-    (lambda c: c.update(regularized_attributes={"enabled": True}), "AR-VAE"),
-    (lambda c: c.update(parallelism={"spatial": 2}), "parallelism"),
-    (lambda c: c.update(remat=True), "remat"),
-    (lambda c: c.update(s2d_stem="encoder"), "s2d_stem"),
-    (lambda c: c.update(s2d_stem=True), "s2d_stem"),
+     NotImplementedError, "adversarial"),
+    (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), ValueError, _NO_MAPPING),
+    (lambda c: c.update(regularized_attributes={"enabled": True}), ValueError, _NO_MAPPING),
+    (lambda c: c.update(parallelism={"spatial": 2}), NotImplementedError, "parallelism"),
+    (lambda c: c.update(remat=True), NotImplementedError, "remat"),
+    (lambda c: c.update(s2d_stem="encoder"), NotImplementedError, "s2d_stem"),
+    (lambda c: c.update(s2d_stem=True), NotImplementedError, "s2d_stem"),
 ], ids=["adv", "ar_train", "ar_block", "parallelism", "remat", "s2d_encoder", "s2d_true"])
-def test_unported_features_raise(workspace, tmp_path, patch, match):
+def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     root, _ = workspace
     cfg = resolve_refs(_config(root))
     cfg["run_dir"] = str(tmp_path / "run")
     patch(cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         VAETrainer(cfg, device="cpu", use_wandb=False)
     assert not (tmp_path / "run").exists()  # refused before anything is written
 

@@ -216,7 +216,8 @@ def test_step_draws_eps_from_generator(world):
 @pytest.mark.parametrize("kwargs,lcfg,error,match", [
     # the adversarial branch is ported; without a discriminator it has nothing to run
     (dict(adv_active=True), LossConfig(), ValueError, "needs a discriminator"),
-    (dict(adv_active=False), LossConfig(ar_vae_enabled=True), NotImplementedError, "not ported yet"),
+    # the AR-VAE term is ported; switched on without a spec it has no attributes to regularize
+    (dict(adv_active=False), LossConfig(ar_vae_enabled=True), ValueError, "needs an ar_spec"),
 ], ids=["adversarial", "ar_vae"])
 def test_unported_branches_raise(kwargs, lcfg, error, match):
     model = autoencoder_from_config(TOY)
