@@ -127,6 +127,21 @@ result line):
    tuned row, one decode per written image), every output, latent and tune
    losses that fall; then 3 steps of both stages batched over 2 images in
    f32 against the CPU plain path (bars in ``pti_reference_check``);
+6i. latent-regression path: seeded mask pairs for phase 5's 72 TIFs,
+   ``cli.compute_mask_metrics`` on them, then ``cli.train_regression`` (2
+   epochs of 8 steps and 1 validation step, cut from 100),
+   ``cli.evaluate_regression`` and ``cli.inference_regression`` (phase 4's
+   16 TIFs) on ``config/reg_edente_from_dente.json`` and
+   ``config/nreg_edente_from_both.json`` at their width (the frozen flagship
+   encoder at 256², f32, the 4096 -> 256 -> 32 -> 6 head, b8; the seeded
+   flagship ``.pth`` serves both VAE configs), and a third pass of the first
+   with ``--conv-kernel``: launch counts of the encoder passes alone
+   (``expected_regression_launches``; no backward kernel), the VAE's weights
+   bit for bit unchanged, ``head_last.pth`` loads, ``target_norm_stats.json``
+   for the ``nreg`` config alone, one finite prediction per image;
+6j. regression reference: one f32 head train step (b8, one padded row,
+   dropout off, every kernel on) and one eval step against the CPU plain
+   path (bars in ``regression_reference_check``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -145,12 +160,17 @@ result line):
    step as the CLI runs it, in bf16 and f32; the AR step of both AR configs
    at b8 bf16 (kl1e3 as its config trains it: adversarial, convolution
    kernels), flash at [8,1,4096,256] against SDPA, PTI's two stages (latent
-   steps/s at b8, tune steps/s at b1) in bf16 and f32;
+   steps/s at b8, tune steps/s at b1) in bf16 and f32; the regression head's
+   train step and predict at b8 in f32 and bf16, cuDNN and convolution
+   kernels (phase ``regression_b8``); the convolution kernels at the kl1e3
+   model's shapes in bf16 (5 timed calls each);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites; launches by path, the diffusion CLIs' included, and the four
    GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
-   step under ``ldm_unet``; the AR, evaluate, kl1e3 and PTI runs' launches;
-   flash per call at head dim 256 under ``kl1e3_d256``), the card line, and
+   step under ``ldm_unet``; the AR, evaluate, kl1e3, PTI and regression
+   runs' launches; flash per call at head dim 256 under ``kl1e3_d256``; the
+   convolution kernels' sums over one kl1e3 train step under ``kl1e3``), the
+   card line, and
    the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -263,6 +283,18 @@ IMAGE = 256  # the configs' patch size, the side of every image of the AR and PT
 # one encoder and one decoder half of a flagship pass (conv: with conv_kernel)
 ENCODER_PASS = {"gn": GN_PER_CODER, "flash": FLASH_PER_CODER, "conv": 22}
 DECODER_PASS = {"gn": GN_PER_CODER, "flash": FLASH_PER_CODER, "conv": 25}
+# latent regression: config/reg_edente_from_dente.json (raw targets) and
+# config/nreg_edente_from_both.json (standard-normalized), the frozen flagship
+# encoder at 256² (the seeded checkpoint serves both VAE configs, which share
+# its architecture) and the configs' head, 4096 -> 256 -> 32 -> 6, at b8; the
+# CLIs encode in f32. Training on phase 5's 72 TIFs: 64 train (8 steps) and 8
+# validation images (1 step) an epoch; evaluation and inference on phase 4's 16
+REG_CONFIGS = ("reg_edente_from_dente", "nreg_edente_from_both")
+REG_TARGETS = AR_ATTRIBUTES
+REG_EPOCHS = 2  # cut from the configs' 100
+REG_FLAT = 4096
+REG_LR = 1e-4
+REG_PRED_BAR = 1e-3  # eval predictions, card f32 vs CPU f32, of their largest entry
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -319,6 +351,20 @@ def expected_ldm_launches(train_steps: int, sample_batches: int) -> dict[str, in
         + (2 * FLASH_PER_CODER + sample_steps * FLASH_PER_UNET) * sample_batches,
         "flash_attention_bwd": FLASH_PER_UNET * train_steps,
         "conv3x3": 0,
+        "conv3x3_wgrad": 0,
+    }
+
+
+def expected_regression_launches(encodes: int, conv_kernel: bool) -> dict[str, int]:
+    """Launch counts of ``encodes`` frozen encoder passes (train, validation,
+    evaluation and inference batches): forward kernels only, since the head's
+    gradient stops at the latent."""
+    return {
+        "groupnorm_silu": ENCODER_PASS["gn"] * encodes,
+        "groupnorm_silu_bwd": 0,
+        "flash_attention": ENCODER_PASS["flash"] * encodes,
+        "flash_attention_bwd": 0,
+        "conv3x3": ENCODER_PASS["conv"] * encodes if conv_kernel else 0,
         "conv3x3_wgrad": 0,
     }
 
@@ -1899,6 +1945,268 @@ def time_pti(torch, ckpt: Path, flush, exact: bool) -> dict:
     return out
 
 
+def write_masks(np, stems: list[str], mask_dir: Path) -> None:
+    """A seeded binary mask pair (``edente/``, ``dente/``) of 300x300 per
+    stem: rows of foreground between a random top and bottom, each one run
+    centred on the middle column with a random half-width."""
+    from pti_ldm_vae_tpu_torch.data.io import write_tif
+
+    rng = np.random.default_rng(6)
+    cols = np.abs(np.arange(300) - 150)
+    for sub in ("edente", "dente"):
+        (mask_dir / sub).mkdir(parents=True)
+    for stem in stems:
+        for sub in ("edente", "dente"):
+            top, bottom = int(rng.integers(20, 100)), int(rng.integers(270, 300))
+            half = rng.integers(20, 120, size=(bottom - top, 1))
+            mask = np.zeros((300, 300), np.float32)
+            mask[top:bottom] = (cols < half).astype(np.float32)
+            write_tif(str(mask_dir / sub / f"{stem}.tif"), mask)
+
+
+def run_mask_metrics(np, mask_dir: Path, out_dir: Path, n: int) -> Path:
+    """``compute_mask_metrics`` on the mask pairs: an entry with the six
+    targets, whole pixel counts, for each of the ``n`` stems in both files."""
+    from pti_ldm_vae_tpu_torch.cli.compute_mask_metrics import main as mask_main
+
+    t0 = time.perf_counter()
+    summary = mask_main(["--edente-dir", str(mask_dir / "edente"), "--dente-dir",
+                         str(mask_dir / "dente"), "--output-edente",
+                         str(out_dir / "attributes_edente.json"), "--output-dente",
+                         str(out_dir / "attributes_dente.json")])
+    wall = time.perf_counter() - t0
+    for name in ("attributes_edente.json", "attributes_dente.json"):
+        attrs = json.loads((out_dir / name).read_text())
+        if len(attrs) != n or any(list(v) != list(REG_TARGETS) or not all(
+                isinstance(x, int) and 0 <= x <= 300 for x in v.values()) for v in attrs.values()):
+            raise RuntimeError(f"compute_mask_metrics: {name} has {len(attrs)} entries, "
+                               f"e.g. {next(iter(attrs.values()), None)}")
+    emit("mask_metrics", wall_s=wall, entries=summary["edente_entries"],
+         first=json.loads((out_dir / "attributes_edente.json").read_text())["dente_000.tif"])
+    return out_dir / "attributes_edente.json"
+
+
+def regression_config_file(name: str, data_dir: Path, eval_dir: Path, attributes: Path,
+                           ckpt: Path, run_dir: Path) -> Path:
+    """``config/<name>.json`` as it is but for its paths: training and
+    evaluation data, the attributes file, the run directory, the VAE's config
+    (made absolute) and checkpoint (the seeded flagship ``.pth``)."""
+    cfg = json.loads((ROOT / "config" / f"{name}.json").read_text())
+    cfg["run_dir"] = str(run_dir)
+    cfg["data"].update(data_base_dir=str(data_dir), attributes_path=str(attributes))
+    cfg["evaluation"].update(data_base_dir=str(eval_dir), attributes_path=str(attributes))
+    cfg["vae"].update(config_file=str(ROOT / cfg["vae"]["config_file"]), checkpoint=str(ckpt))
+    path = run_dir.parent / f"{run_dir.name}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_regression_pipeline(torch, np, kernels_mod, cfg_path: Path, ckpt: Path, input_dir: Path,
+                            conv_kernel: bool) -> dict:
+    """``train_regression`` (``REG_EPOCHS`` epochs), ``evaluate_regression``
+    and ``inference_regression`` on one config, each with its launch counts
+    (encoder forwards only, no backward kernel); finite metrics every epoch;
+    the VAE's weights bit for bit those of its ``.pth`` after training and
+    the file unchanged; ``head_last.pth`` loads into the head;
+    ``target_norm_stats.json`` exactly for a ``"standard"`` config; one finite
+    prediction row per image."""
+    import hashlib
+
+    from pti_ldm_vae_tpu_torch.cli.evaluate_regression import main as evaluate_main
+    from pti_ldm_vae_tpu_torch.cli.inference_regression import main as inference_main
+    from pti_ldm_vae_tpu_torch.cli.train_regression import main as train_main
+    from pti_ldm_vae_tpu_torch.utils.regression_utils import load_regression_checkpoint
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_autoencoder_state_dict
+
+    cfg = json.loads(cfg_path.read_text())
+    run_dir, weights = Path(cfg["run_dir"]), Path(cfg["run_dir"]) / "trained_weights"
+    extra = ["--conv-kernel"] if conv_kernel else []
+    digest = hashlib.sha256(ckpt.read_bytes()).hexdigest()
+    out: dict = {"wall_s": {}, "launches": {}}
+
+    def counted(key: str, fn, encodes: int):
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["wall_s"][key] = time.perf_counter() - t0
+        out["launches"][key] = kernels_mod.launch_counts()
+        want = expected_regression_launches(encodes, conv_kernel)
+        if out["launches"][key] != want:
+            raise RuntimeError(f"{key} on {cfg_path.name}: launches {out['launches'][key]}, "
+                               f"expected {want}")
+        return result
+
+    result = counted("train", lambda: train_main(
+        ["-c", str(cfg_path), "--max-epochs", str(REG_EPOCHS), "--num-workers", "4", *extra]),
+        REG_EPOCHS * (TRAIN_STEPS_PER_EPOCH + EVAL_STEPS_PER_EPOCH))
+    model = result["model"]
+    on_file = load_autoencoder_state_dict(str(ckpt))
+    changed = [k for k, v in model.vae.state_dict().items() if not torch.equal(v.cpu(), on_file[k])]
+    if changed or hashlib.sha256(ckpt.read_bytes()).hexdigest() != digest:
+        raise RuntimeError(f"the VAE's weights changed in training: {changed[:5]}")
+    state, meta = load_regression_checkpoint(weights / "head_last.pth", list(REG_TARGETS))
+    model.regressor.load_state_dict(state, strict=True)
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    bad = [r for r in rows if not all(np.isfinite(v) for k, v in r.items() if "/" in k)]
+    if len(rows) != REG_EPOCHS or bad or meta["epoch"] != REG_EPOCHS:
+        raise RuntimeError(f"metrics.jsonl {rows}, head_last epoch {meta['epoch']}")
+    standard = cfg["regression_train"]["target_norm"] == "standard"
+    if (weights / "target_norm_stats.json").exists() != standard:
+        raise RuntimeError(f"target_norm_stats.json written: {not standard}, config {cfg_path.name}")
+
+    head = str(weights / "head_best.pth")
+    metrics = counted("evaluate", lambda: evaluate_main(
+        ["-c", str(cfg_path), "--checkpoint", head, "--num-workers", "4", *extra]),
+        -(-N_IMAGES // BATCH))
+    written = json.loads((run_dir / "eval" / "metrics.json").read_text())
+    if len(written["files"]) != N_IMAGES or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"evaluate_regression: {written}")
+    payload = counted("inference", lambda: inference_main(
+        ["-c", str(cfg_path), "--checkpoint", head, "--input-dir", str(input_dir),
+         "--num-workers", "4", *extra]), -(-N_IMAGES // BATCH))
+    preds = np.array([[row[t] for t in REG_TARGETS] for row in payload["predictions"]])
+    written = json.loads((run_dir / "inference" / "predictions.json").read_text())
+    if preds.shape != (N_IMAGES, len(REG_TARGETS)) or not np.isfinite(preds).all() or len(
+            written["predictions"]) != N_IMAGES:
+        raise RuntimeError(f"inference_regression: predictions of shape {preds.shape}")
+    return {**out, "target_norm": cfg["regression_train"]["target_norm"],
+            "val_loss_mse": [r["val/loss_mse"] for r in rows],
+            "train_loss_mse": [r["train/loss_mse"] for r in rows],
+            "eval": {k: metrics[k] for k in ("val_loss", "mae", "mse")},
+            "first_prediction": payload["predictions"][0]}
+
+
+def regression_reference_check(torch, np, kernels_mod, ckpt: Path, data_dir: Path,
+                               attributes: Path) -> None:
+    """One eval step and one f32 train step of the regression head (b8, the
+    last row padding, dropout off) on the card with every kernel on (the
+    convolution kernels too) against the CPU plain path, same VAE and head
+    weights and batch. Bars: losses 1e-4 relative; eval predictions of the
+    real rows within ``REG_PRED_BAR`` of their largest entry (the padded
+    row, an all-zero image, is reported: its masked loss and gradient are 0
+    and every caller drops its prediction); head gradients within
+    ``GRAD_BAR`` of each tensor's largest entry; updated parameters within
+    ``GRAD_BAR`` of each tensor's largest entry where the gradient is above
+    the gradient bar's rounding, and within Adam's 2 lr elsewhere. Adam's
+    first step is ``lr * sign(g)``: such an entry may step the other way,
+    and where a hidden unit's whole backward signal is that small its row of
+    4096 weights steps together, so the predictions after the step are
+    reported (with the entries, and rows, that stepped the other way) and
+    not held. Launch counts: three encoder passes, no backward kernel."""
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.models.regressor import LatentRegressor, VAELatentRegressor
+    from pti_ldm_vae_tpu_torch.utils.regression_utils import build_optimizer, make_regression_steps
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
+
+    config = load_vae_config(str(CONFIG))
+    head = LatentRegressor(REG_FLAT, (256, 32), len(REG_TARGETS),
+                           generator=torch.Generator().manual_seed(11))
+    paths = sorted(data_dir.glob("*.tif"))[:BATCH - 1]
+    images = np.zeros((BATCH, IMAGE, IMAGE, 1), np.float32)
+    images[:len(paths)] = [preprocess_image_np(read_image(str(p)), (IMAGE, IMAGE)) for p in paths]
+    table = json.loads(attributes.read_text())
+    targets = np.zeros((BATCH, len(REG_TARGETS)), np.float32)
+    targets[:len(paths)] = [[table[p.name][t] for t in REG_TARGETS] for p in paths]
+    mask = (np.arange(BATCH) < len(paths)).astype(np.float32)
+
+    def run(device, conv_kernel):
+        vae = load_vae_model(config, str(ckpt), device=device, conv_kernel=conv_kernel)
+        model = VAELatentRegressor(vae, copy.deepcopy(head).to(device), latent_dim=REG_FLAT)
+        opt = build_optimizer(model.regressor.parameters(), REG_LR)
+        train_step, eval_step = make_regression_steps(model, "mse", opt, None)
+        batch = [torch.from_numpy(a).to(device) for a in (images, targets, mask)]
+        eval_loss, preds = eval_step(*batch)
+        loss = float(train_step(*batch, None))
+        grads = {k: p.grad.detach().cpu() for k, p in model.regressor.named_parameters()}
+        params = {k: p.detach().cpu() for k, p in model.regressor.named_parameters()}
+        after = eval_step(*batch)[1]
+        return ({"loss": loss, "eval_loss": float(eval_loss)}, grads, params, preds.cpu(),
+                after.cpu())
+
+    kernels_mod.reset_launch_counts()
+    got = run(torch.device("cuda"), True)
+    torch.cuda.synchronize()
+    launches = kernels_mod.launch_counts()
+    want_launches = expected_regression_launches(3, True)
+    if launches != want_launches:
+        raise RuntimeError(f"regression eval + train + eval steps launched {launches}, "
+                           f"expected {want_launches}")
+    want = run("cpu", False)
+    loss_err = {k: abs(got[0][k] - v) / abs(v) for k, v in want[0].items()}
+    grad_err, param_err, adam_err, firm_share, flipped = {}, {}, {}, {}, {}
+    start = head.state_dict()
+    for key, g in want[1].items():
+        grad_err[key] = float((got[1][key] - g).abs().max()) / float(g.abs().max())
+        diff = (got[2][key] - want[2][key]).abs()
+        firm = g.abs() > GRAD_BAR * g.abs().max()
+        firm_share[key] = float(firm.float().mean())
+        param_err[key] = float(diff[firm].max()) / float(want[2][key].abs().max())
+        adam_err[key] = float(diff.max()) / (2 * REG_LR)
+        steps = [torch.sign(side[2][key] - start[key]) for side in (got, want)]
+        flips = steps[0] != steps[1]
+        flipped[key] = [int(flips.sum())] + ([int(flips.any(dim=1).sum())] if flips.ndim == 2 else [])
+    real = len(paths)  # the padded row's prediction is cut off by every caller
+    after_err = float((got[4] - want[4])[:real].abs().max()) / float(want[4][:real].abs().max())
+    pred_err = float((got[3] - want[3])[:real].abs().max()) / float(want[3][:real].abs().max())
+    padded_err = float((got[3] - want[3])[real:].abs().max()) / float(want[3][:real].abs().max())
+    worst_g, worst_p = max(grad_err, key=grad_err.get), max(param_err, key=param_err.get)
+    emit("regression_reference", batch=BATCH, real_rows=len(paths), conv_kernel=True,
+         losses_card=got[0], losses_cpu=want[0], max_loss_rel_err=max(loss_err.values()),
+         loss_bar=1e-4, grad_err_of_tensor_max=grad_err[worst_g], worst_grad_tensor=worst_g,
+         param_err_of_tensor_max=param_err[worst_p], worst_param_tensor=worst_p,
+         grad_bar=GRAD_BAR, firm_share=firm_share, worst_of_adam_bound=max(adam_err.values()),
+         pred_err_of_max=pred_err, pred_bar=REG_PRED_BAR,
+         padded_row_pred_err_of_max_not_held=padded_err,
+         entries_stepped_the_other_way_and_rows=flipped,
+         pred_after_step_err_of_max_not_held=after_err, launches=launches)
+    if not max(loss_err.values()) <= 1e-4:
+        raise RuntimeError(f"regression losses: card f32 differs from the CPU: {loss_err}")
+    if not (grad_err[worst_g] <= GRAD_BAR and param_err[worst_p] <= GRAD_BAR
+            and max(adam_err.values()) <= 1.0 and pred_err <= REG_PRED_BAR):
+        raise RuntimeError(f"regression step: gradient {worst_g} {grad_err[worst_g]}, parameter "
+                           f"{worst_p} {param_err[worst_p]}, Adam bound {max(adam_err.values())}, "
+                           f"predictions {pred_err}")
+
+
+def time_regression(torch, ckpt: Path, flush, exact: bool, conv_kernel: bool) -> dict:
+    """One regression train step (frozen encode, the configs' head with
+    dropout 0.1, MSE, Adam) and one predict (encode + head, eval mode) at b8,
+    256², in f32 (the CLIs' type) or bf16 (``compute_dtype``): event ms,
+    device ms, idle share, imgs/s and device ms by kind."""
+    from pti_ldm_vae_tpu_torch.models.regressor import LatentRegressor, VAELatentRegressor
+    from pti_ldm_vae_tpu_torch.utils.regression_utils import build_optimizer, make_regression_steps
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
+
+    dtype = torch.float32 if exact else torch.bfloat16
+    vae = load_vae_model(load_vae_config(str(CONFIG)), str(ckpt), device="cuda",
+                         compute_dtype=dtype, conv_kernel=conv_kernel)
+    head = LatentRegressor(REG_FLAT, (256, 32), len(REG_TARGETS), dropout=0.1,
+                           generator=torch.Generator().manual_seed(12))
+    model = VAELatentRegressor(vae, head.cuda(), latent_dim=REG_FLAT)
+    train_step, eval_step = make_regression_steps(
+        model, "mse", build_optimizer(model.regressor.parameters(), REG_LR), None)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand(BATCH, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    t = 300.0 * torch.rand(BATCH, len(REG_TARGETS), device="cuda", generator=gen)
+    m = torch.ones(BATCH, device="cuda")
+
+    def predict():
+        with torch.no_grad():
+            return model(x)
+
+    out = {"dtype": dtype_key(dtype), "conv_kernel": conv_kernel}
+    for name, fn in (("train_step", lambda: train_step(x, t, m, gen)), ("predict", predict)):
+        model.train(name == "train_step")
+        r = time_ms(fn, flush, iters=6)
+        out[name] = {"event_ms": r["event_ms"], "device_ms": r["device_ms"],
+                     "imgs_per_s": BATCH * 1e3 / r["event_ms"],
+                     "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
+                     "device_ms_by_kind": device_ms_by_kind(r["by_name"])}
+    return out
+
+
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
                     adv_active: bool = False, ar_spec=None, adv_weight: float = 3.0) -> dict:
     """Event ms, device ms and the device ms by kind of one b8 train step at
@@ -1952,15 +2260,18 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
             "device_ms_by_kind": kinds}
 
 
-def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
-    """Per distinct convolution shape of the flagship pass and dtype: the
+def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: str = "vae",
+                 dtypes=None, iters: int = 10) -> None:
+    """Per distinct convolution shape of a pass of the model ``path`` names
+    (the flagship's by default) and dtype: the
     forward kernel as forward and as input gradient, and the filter-gradient
     kernel, each beside its bound, its plain version and the library call
     (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
     one operand). ``kernel`` names the kernel the wrapper's rule picks for the
     call (``wgmma``: a tensor-core kernel, ``fma``: an f32-FMA one). The filter
     gradient's time (``ms``) includes the fold of its partial sums (one
-    ``torch.sum``); ``kernel_only_ms`` leaves it out."""
+    ``torch.sum``); ``kernel_only_ms`` leaves it out. ``iters``: timed calls
+    per measurement."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
@@ -1974,9 +2285,9 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
     )
 
     def timed(prefix, fn):
-        return _timed(flush, prefix, fn)
+        return _timed(flush, prefix, fn, iters)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         key = dtype_key(dtype)
         for shape, n in conv_shapes:
             b, h, w, cin, cout = shape
@@ -1987,7 +2298,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
             # only the encoder's stem reads the 1-channel image, whose gradient
             # nobody wants: its dgrad is not on the path
             n_dgrad = 0 if cin == 1 else n
-            head = {"shape": list(shape), "dtype": key}
+            head = {"path": path, "shape": list(shape), "dtype": key}
 
             # the library call: NCHW views of the channels-last memory, OIHW channels-last weight
             x_lib = x.permute(0, 3, 1, 2).detach().requires_grad_()
@@ -2016,7 +2327,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
 
             bound_ms, bound_by = bound(flops, key,
                                        (x.numel() + g.numel()) * size + wmat.numel() * 4)
-            ours = time_ms(lambda: _launch_wgrad(x, g), flush)
+            ours = time_ms(lambda: _launch_wgrad(x, g), flush, iters)
             row = {**head, "role": "wgrad", "per_pass": n, "kernel": wgrad_kernel(dtype, cin, cout),
                    "ms": ours["device_ms"], "event_ms": ours["event_ms"],
                    "kernel_only_ms": named_ms(ours["by_name"], "conv3x3_wgrad_kernel",
@@ -2032,8 +2343,8 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list]) -> None:
         torch.cuda.empty_cache()
 
 
-def _timed(flush, prefix: str, fn) -> dict[str, float]:
-    t = time_ms(fn, flush)
+def _timed(flush, prefix: str, fn, iters: int = 10) -> dict[str, float]:
+    t = time_ms(fn, flush, iters)
     return {f"{prefix}ms": t["device_ms"], f"{prefix}event_ms": t["event_ms"]}
 
 
@@ -2424,6 +2735,27 @@ def main() -> int:
     pti_reference_check(torch, np, kernels_mod, ckpt, WORK / "data" / "dente")
     torch.cuda.empty_cache()
 
+    # 6i. latent regression: mask attributes for phase 5's TIFs, then
+    # train_regression -> evaluate_regression -> inference_regression on both
+    # regression configs with the seeded flagship checkpoint (f32 encode), and a
+    # third pass with the convolution kernels
+    stems = [p.stem for p in sorted((train_data / "dente").glob("*.tif"))]
+    write_masks(np, stems, WORK / "masks")
+    reg_attributes = run_mask_metrics(np, WORK / "masks", WORK / "metrics", len(stems))
+    reg = {}
+    for key, name, conv in (("reg", REG_CONFIGS[0], False), ("nreg", REG_CONFIGS[1], False),
+                            ("reg_conv_kernel", REG_CONFIGS[0], True)):
+        reg_cfg = regression_config_file(name, train_data, WORK / "data", reg_attributes, ckpt,
+                                         WORK / f"run_{key}")
+        reg[key] = run_regression_pipeline(torch, np, kernels_mod, reg_cfg, ckpt,
+                                           WORK / "data" / "dente", conv)
+        emit("regression_path", run=key, config=f"{name}.json", conv_kernel=conv, batch=BATCH,
+             epochs=REG_EPOCHS, **reg[key])
+        torch.cuda.empty_cache()
+    # 6j. one f32 head train step and eval step, every kernel on, against the CPU
+    regression_reference_check(torch, np, kernels_mod, ckpt, train_data / "dente", reg_attributes)
+    torch.cuda.empty_cache()
+
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
@@ -2439,6 +2771,10 @@ def main() -> int:
                          "kl1e3")
     torch.cuda.empty_cache()
     time_conv3x3(torch, conv_shapes, flush, gen, rows)
+    # the kl1e3 model's convolutions, in bf16 as its config trains (Cin 10 and 256: FMA kernel)
+    time_conv3x3(torch, kl_conv_shapes, flush, gen, rows, path="kl1e3", dtypes=(torch.bfloat16,),
+                 iters=5)
+    torch.cuda.empty_cache()
 
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
 
@@ -2472,6 +2808,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     for exact in (False, True):
         emit("pti_b8", **time_pti(torch, ckpt, flush, exact))
+        torch.cuda.empty_cache()
+    # the regression head's train step and predict: f32 (the CLIs') and bf16, cuDNN and kernels
+    for exact, conv_kernel in ((True, False), (False, False), (True, True), (False, True)):
+        emit("regression_b8", **time_regression(torch, ckpt, flush, exact, conv_kernel))
         torch.cuda.empty_cache()
     # the kernels at the UNet's shapes, then the UNet pass, the DDIM loop and the diffusion step
     time_groupnorm_silu(torch, [(s, n, LDM_GROUPS) for s, n in ldm_gn_shapes], flush, gen, rows,
@@ -2534,6 +2874,12 @@ def main() -> int:
                  "groupnorm_silu_bwd": "device ms summed over the 45 calls of one diffusion step",
                  "flash_attention": "device ms summed over the 16 launches of one UNet pass",
                  "flash_attention_bwd": "device ms summed over the 16 calls of one diffusion step"}
+    # the same sums (bf16) over one b8 train step of config/ar_vae_dente_kl1e3.json
+    kl_scope = {"conv3x3": f"device ms summed over the {KL1E3_PASS['conv']} forward and "
+                           f"{KL1E3_PASS['dgrad']} input-gradient launches of one b8 kl1e3 "
+                           "train step",
+                "conv3x3_wgrad": f"device ms summed over the {KL1E3_PASS['conv']} launches of "
+                                 "one b8 kl1e3 train step"}
     f32_sources = {"flash_attention": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
                    "flash_attention_bwd": "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
                    "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
@@ -2554,13 +2900,18 @@ def main() -> int:
                                  "train_vae_ar": ar["launches"][name],
                                  "evaluate_vae_ar": ar_eval["launches"][name],
                                  "train_vae_ar_kl1e3_conv_kernel": kl["launches"][name],
-                                 **{f"run_pti_{key}": r["launches"][name] for key, r in pti.items()}},
+                                 **{f"run_pti_{key}": r["launches"][name] for key, r in pti.items()},
+                                 **{f"{cli}_regression_{key}": r["launches"][cli][name]
+                                    for key, r in reg.items()
+                                    for cli in ("train", "evaluate", "inference")}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
             **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}
                if name in ldm_scope else {}),
             **({"kl1e3_d256": d256(name)} if name in ("flash_attention", "flash_attention_bwd")
                else {}),
+            **({"kl1e3": {**totals(name, "kl1e3"), "scope": kl_scope[name]}}
+               if name in kl_scope else {}),
         })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)

@@ -8,6 +8,7 @@ device and no explicit ``cpu`` they raise rather than run on the CPU.
 from __future__ import annotations
 
 import argparse
+import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
@@ -33,6 +34,8 @@ __all__ = [
     "build_inference_dataloader",
     "resolve_inference_output_dirs",
     "resolve_eval_output_dir",
+    "load_json_config",
+    "resolve_run_dir",
     "serialize_args",
 ]
 
@@ -180,6 +183,24 @@ def resolve_eval_output_dir(config_file: str, output_dir: str | None) -> Path:
     out = Path(output_dir) if output_dir is not None else Path("evals") / Path(config_file).stem
     out.mkdir(parents=True, exist_ok=True)
     return out
+
+
+def load_json_config(config_file: str) -> dict[str, Any]:
+    """Plain JSON load, no @refs (regression configs, reference ``cli_common.py:137-147``)."""
+    with open(config_file, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def resolve_run_dir(config: dict[str, Any], config_file: str) -> Path:
+    """``runs/<config_stem>`` unless ``run_dir`` is set (reference
+    ``cli_common.py:150-166``); created."""
+    if config.get("run_dir"):
+        run_dir = Path(config["run_dir"])
+    else:
+        run_dir = Path("runs") / Path(config_file).stem
+        config["run_dir"] = str(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    return run_dir
 
 
 def serialize_args(args: Any) -> dict[str, Any]:

@@ -28,7 +28,10 @@ def test_port_has_modules():
                      "utils/eval_metrics.py", "cli/evaluate_vae.py", "models/unet.py",
                      "checkpoint/unet_convert.py", "train/diffusion.py",
                      "cli/sample_diffusion.py", "cli/train_diffusion.py", "losses/ar_vae.py",
-                     "cli/run_pti.py"):
+                     "cli/run_pti.py", "models/regressor.py", "utils/regression_utils.py",
+                     "utils/metrics.py", "checkpoint/regressor_convert.py",
+                     "cli/train_regression.py", "cli/evaluate_regression.py",
+                     "cli/inference_regression.py", "cli/compute_mask_metrics.py"):
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
