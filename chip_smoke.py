@@ -136,12 +136,29 @@ result line):
    encoder at 256², f32, the 4096 -> 256 -> 32 -> 6 head, b8; the seeded
    flagship ``.pth`` serves both VAE configs), and a third pass of the first
    with ``--conv-kernel``: launch counts of the encoder passes alone
-   (``expected_regression_launches``; no backward kernel), the VAE's weights
+   (``expected_encoder_launches``; no backward kernel), the VAE's weights
    bit for bit unchanged, ``head_last.pth`` loads, ``target_norm_stats.json``
    for the ``nreg`` config alone, one finite prediction per image;
 6j. regression reference: one f32 head train step (b8, one padded row,
    dropout off, every kernel on) and one eval step against the CPU plain
    path (bars in ``regression_reference_check``);
+6k. latent-space analysis path: 128 seeded 300² TIFs in each of ``edente/``
+   and ``dente/`` (``ID_HA_YEAR_MONTH_PATIENT.tif``, 16 patients shared),
+   ``cli.analyze_static --method tsne --color-by-patient`` on both with phase
+   4's seeded flagship checkpoint (f32, 256², b8) and a cache under the work
+   directory: 21 GroupNorm+SiLU and 1 flash launch per encode batch (32
+   batches), no backward, a finite [256, 2] projection, the plot a PNG of the
+   stated size, the three text files written; the same with ``--conv-kernel``
+   on a fresh cache (22 convolution-kernel launches per batch more); the
+   first command again (every latent a cache hit, 0 launches, the same bytes
+   and projection); ``cli.analyze_interactive --export --method tsne`` on that
+   cache (256 points, ids and paths in input order, 0 launches);
+   ``cli.analyze_ar_channels --export`` on phase 6f's AR config and checkpoint
+   (42 GroupNorm+SiLU and 2 flash launches, a 10-channel grid PNG); ``--method
+   umap`` raising the JAX package's ImportError;
+6l. analysis reference: the card's f32 stages against the CPU plain path on
+   the same inputs (bars in ``analysis_reference_check``), the card's t-SNE
+   run twice to the same bits;
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -163,12 +180,16 @@ result line):
    steps/s at b8, tune steps/s at b1) in bf16 and f32; the regression head's
    train step and predict at b8 in f32 and bf16, cuDNN and convolution
    kernels (phase ``regression_b8``); the convolution kernels at the kl1e3
-   model's shapes in bf16 (5 timed calls each);
+   model's shapes in bf16 (5 timed calls each); the flagship encode at b8 in
+   f32 and bf16, cuDNN and kernels, on a device-resident batch and as
+   ``analyze_static`` runs it (host TIFF read and resize included), and the
+   projection's PCA-50, kNN + P and 1000 t-SNE iterations on seeded
+   [N, 4096] latents at N = 2000 and 6000 with peak memory (``analysis_b8``);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites; launches by path, the diffusion CLIs' included, and the four
    GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
-   step under ``ldm_unet``; the AR, evaluate, kl1e3, PTI and regression
-   runs' launches; flash per call at head dim 256 under ``kl1e3_d256``; the
+   step under ``ldm_unet``; the AR, evaluate, kl1e3, PTI, regression and
+   analysis runs' launches; flash per call at head dim 256 under ``kl1e3_d256``; the
    convolution kernels' sums over one kl1e3 train step under ``kl1e3``), the
    card line, and
    the result line
@@ -295,6 +316,18 @@ REG_EPOCHS = 2  # cut from the configs' 100
 REG_FLAT = 4096
 REG_LR = 1e-4
 REG_PRED_BAR = 1e-3  # eval predictions, card f32 vs CPU f32, of their largest entry
+# latent-space analysis: two groups (edente, dente) of seeded 300² TIFs named
+# ID_HA_YEAR_MONTH_PATIENT.tif, 16 patients shared by both; the analysis CLIs
+# encode with the frozen flagship encoder at 256² in f32, b8 (32 batches a run)
+ANALYSIS_IMAGES = 128  # per group
+ANALYSIS_PATIENTS = 16
+ANALYSIS_PERPLEXITY = 30  # the CLIs' default
+ANALYSIS_LATENT_BAR = 1e-4  # card f32 vs CPU f32, of the largest entry
+ANALYSIS_PCA_BAR = 1e-4
+ANALYSIS_P_BAR = 1e-5
+ANALYSIS_KL_BAR = 0.01  # KL(P || Q) of the card's embedding, relative to the CPU's
+ANALYSIS_TRUST_BAR = 0.01  # trustworthiness (5 neighbours), absolute
+PROJECTION_SIZES = (2000, 6000)  # analyze_static's and analyze_interactive's 2 x --max-images
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -355,10 +388,11 @@ def expected_ldm_launches(train_steps: int, sample_batches: int) -> dict[str, in
     }
 
 
-def expected_regression_launches(encodes: int, conv_kernel: bool) -> dict[str, int]:
-    """Launch counts of ``encodes`` frozen encoder passes (train, validation,
-    evaluation and inference batches): forward kernels only, since the head's
-    gradient stops at the latent."""
+def expected_encoder_launches(encodes: int, conv_kernel: bool) -> dict[str, int]:
+    """Launch counts of ``encodes`` frozen encoder passes (the regression
+    CLIs' train, validation, evaluation and inference batches, the analysis
+    CLIs' encode batches): forward kernels only, since the head's gradient
+    stops at the latent and the analysis encodes under inference mode."""
     return {
         "groupnorm_silu": ENCODER_PASS["gn"] * encodes,
         "groupnorm_silu_bwd": 0,
@@ -2031,7 +2065,7 @@ def run_regression_pipeline(torch, np, kernels_mod, cfg_path: Path, ckpt: Path, 
         torch.cuda.synchronize()
         out["wall_s"][key] = time.perf_counter() - t0
         out["launches"][key] = kernels_mod.launch_counts()
-        want = expected_regression_launches(encodes, conv_kernel)
+        want = expected_encoder_launches(encodes, conv_kernel)
         if out["launches"][key] != want:
             raise RuntimeError(f"{key} on {cfg_path.name}: launches {out['launches'][key]}, "
                                f"expected {want}")
@@ -2129,7 +2163,7 @@ def regression_reference_check(torch, np, kernels_mod, ckpt: Path, data_dir: Pat
     got = run(torch.device("cuda"), True)
     torch.cuda.synchronize()
     launches = kernels_mod.launch_counts()
-    want_launches = expected_regression_launches(3, True)
+    want_launches = expected_encoder_launches(3, True)
     if launches != want_launches:
         raise RuntimeError(f"regression eval + train + eval steps launched {launches}, "
                            f"expected {want_launches}")
@@ -2205,6 +2239,282 @@ def time_regression(torch, ckpt: Path, flush, exact: bool, conv_kernel: bool) ->
                      "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
                      "device_ms_by_kind": device_ms_by_kind(r["by_name"])}
     return out
+
+
+def write_analysis_inputs(np, root: Path) -> tuple[Path, Path]:
+    """``edente/`` and ``dente/``, ``ANALYSIS_IMAGES`` seeded 300² TIFs each,
+    named ``ID_HA_YEAR_MONTH_PATIENT.tif`` with ``ANALYSIS_PATIENTS`` patients
+    shared by both groups: a patient's images share their pattern, a dente
+    image adds bright blobs."""
+    from pti_ldm_vae_tpu_torch.data.io import write_tif
+
+    rng = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:300, 0:300]
+    folders = []
+    for g, group in enumerate(("edente", "dente")):
+        folder = root / group
+        folder.mkdir(parents=True)
+        for i in range(ANALYSIS_IMAGES):
+            patient = i % ANALYSIS_PATIENTS
+            img = (np.sin(xx / (7.0 + patient)) * np.cos(yy / (11.0 + 0.5 * patient)) + 1.5
+                   + 0.2 * rng.normal(size=(300, 300)))
+            if group == "dente":
+                for cx in range(40, 300, 50):
+                    img += 1.5 * np.exp(-((xx - cx) ** 2 + (yy - 200) ** 2) / 300.0)
+            img[: 20 + (i * 7) % 30] = 0.0  # background
+            name = f"{1000 + 200 * g + i}_HA_{2019 + i % 3}_{1 + i % 12:02d}_P{patient:02d}.tif"
+            write_tif(str(folder / name), img.astype(np.float32))
+        folders.append(folder)
+    return folders[0], folders[1]
+
+
+def run_analysis_cli(torch, kernels_mod, main, args: list[str], want: dict) -> tuple:
+    """One analysis CLI run with its launch counts (set to 0 just before,
+    read just after, held to ``want``): (result, stdout, launches, wall s)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    if launches != want:
+        raise RuntimeError(f"{main.__module__} {args[-6:]}: launches {launches}, expected {want}")
+    return result, buf.getvalue(), launches, wall
+
+
+def analysis_path(torch, np, kernels_mod, ckpt: Path, folders: tuple[Path, Path],
+                  ar_cfg: Path, ar_ckpt: str) -> dict:
+    """Phase 6k: ``analyze_static --method tsne`` on both folders (the
+    flagship encoder in f32 at 256², b8, phase 4's seeded checkpoint, a cache
+    under ``WORK``), with ``--conv-kernel`` on a fresh cache, the first command
+    again on its filled cache (every latent a hit, no launch, the three text
+    files the same bytes), ``analyze_interactive --export`` on that cache,
+    ``analyze_ar_channels --export`` on the AR config and checkpoint of phase
+    6f, and ``--method umap``, which must raise the JAX package's ImportError."""
+    import re
+
+    from pti_ldm_vae_tpu_torch.cli.analyze_ar_channels import main as ar_main
+    from pti_ldm_vae_tpu_torch.cli.analyze_interactive import main as interactive_main
+    from pti_ldm_vae_tpu_torch.cli.analyze_static import main as static_main
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.utils.visualization import SCATTER_SHAPE, channel_grid_shape
+
+    edente, dente = folders
+    texts = ("color_legend.txt", "distance_metrics.txt", "exams_sorted_by_distance.txt")
+    batches = 2 * -(-ANALYSIS_IMAGES // BATCH)
+
+    def static_args(out: str, cache: str, *extra: str) -> list[str]:
+        return ["--vae-weights", str(ckpt), "--config-file", str(CONFIG), "--folder-edente",
+                str(edente), "--folder-dente", str(dente), "--output-dir", str(WORK / out),
+                "--method", "tsne", "--color-by-patient", "--cache-dir", str(WORK / cache),
+                *extra]
+
+    out: dict = {"wall_s": {}, "launches": {}}
+    runs = {}
+    for key, cache, extra, encodes in (
+            ("analyze_static", "analysis_cache", [], batches),
+            ("analyze_static_conv_kernel", "analysis_cache_conv", ["--conv-kernel"], batches),
+            ("analyze_static_cached", "analysis_cache", [], 0)):
+        conv = bool(extra)
+        result, stdout, launches, wall = run_analysis_cli(
+            torch, kernels_mod, static_main, static_args(f"analysis_{key}", cache, *extra),
+            expected_encoder_launches(encodes, conv))
+        new = [int(n) for n in re.findall(r"(\d+) newly encoded", stdout)]
+        if new != [ANALYSIS_IMAGES if encodes else 0] * 2:
+            raise RuntimeError(f"{key}: newly encoded {new}")
+        proj = np.concatenate([result["projections"]["edente"], result["projections"]["dente"]])
+        if proj.shape != (2 * ANALYSIS_IMAGES, 2) or not np.isfinite(proj).all():
+            raise RuntimeError(f"{key}: projection of shape {proj.shape}, finite "
+                               f"{np.isfinite(proj).all()}")
+        png = read_image(str(result["plot"]))
+        if png.shape != (*SCATTER_SHAPE, 3):
+            raise RuntimeError(f"{key}: plot {png.shape}, stated {SCATTER_SHAPE}")
+        files = {name: (WORK / f"analysis_{key}" / name).read_bytes() for name in texts}
+        runs[key] = (proj, files)
+        out["wall_s"][key], out["launches"][key] = wall, launches
+    first, again = runs["analyze_static"], runs["analyze_static_cached"]
+    if first[1] != again[1] or not np.array_equal(first[0], again[0]):
+        raise RuntimeError("analyze_static on its own cache: other statistics or projection")
+
+    result, stdout, launches, wall = run_analysis_cli(
+        torch, kernels_mod, interactive_main,
+        ["--vae-weights", str(ckpt), "--config-file", str(CONFIG), "--folder-edente", str(edente),
+         "--folder-dente", str(dente), "--method", "tsne", "--output-dir",
+         str(WORK / "analysis_interactive"), "--export", "--cache-dir",
+         str(WORK / "analysis_cache")], expected_encoder_launches(0, False))
+    payload = json.loads(Path(result).read_text())
+    paths = [sorted(str(p) for p in f.glob("*.tif")) for f in folders]
+    ids = [[p.rsplit("_", 1)[1][:-4] for p in group] for group in paths]
+    if ([g["paths"] for g in payload["groups"]] != paths
+            or [g["ids"] for g in payload["groups"]] != ids
+            or sum(len(g["projection"]) for g in payload["groups"]) != 2 * ANALYSIS_IMAGES
+            or not np.isfinite(np.concatenate([g["projection"] for g in payload["groups"]])).all()):
+        raise RuntimeError("analyze_interactive: projection_data.json out of input order")
+    out["wall_s"]["analyze_interactive"], out["launches"]["analyze_interactive"] = wall, launches
+
+    grid = WORK / "analysis_ar_channels.png"
+    want = {**expected_encoder_launches(0, False), "groupnorm_silu": 2 * GN_PER_CODER,
+            "flash_attention": 2 * FLASH_PER_CODER}
+    _, stdout, launches, wall = run_analysis_cli(
+        torch, kernels_mod, ar_main,
+        ["-c", str(ar_cfg), "--checkpoint", ar_ckpt, "--image-path", paths[1][0], "--export",
+         "--output", str(grid)], want)
+    if read_image(str(grid)).shape != (*channel_grid_shape(10), 3) or stdout.count("(AR)") != 6:
+        raise RuntimeError(f"analyze_ar_channels: grid {read_image(str(grid)).shape}, "
+                           f"{stdout.count('(AR)')} AR channels named")
+    out["wall_s"]["analyze_ar_channels"], out["launches"]["analyze_ar_channels"] = wall, launches
+
+    # no umap-learn on the card's machine: the JAX package's ImportError, after validation
+    umap_args = static_args("analysis_umap", "analysis_cache")
+    umap_args[umap_args.index("tsne")] = "umap"
+    try:
+        run_analysis_cli(torch, kernels_mod, static_main, umap_args,
+                         expected_encoder_launches(0, False))
+    except ImportError as exc:
+        if str(exc) != "Please install umap-learn: pip install umap-learn":
+            raise
+        out["umap_error"] = str(exc)
+    else:
+        raise RuntimeError("analyze_static --method umap ran: umap-learn is installed")
+    out["projection_extent"] = float(np.abs(first[0]).max())
+    return out
+
+
+def analysis_reference_check(torch, np, ckpt: Path, folders: tuple[Path, Path]) -> None:
+    """Phase 6l: the analysis path in f32 on the card against the CPU plain
+    path on the same inputs, stage by stage: the latents of 8 images (within
+    ``ANALYSIS_LATENT_BAR`` of their largest entry), PCA-50 of the 256
+    latents of phase 6k's cache (``ANALYSIS_PCA_BAR``, the same signs), the
+    affinities P of the CPU's PCA-50 (``ANALYSIS_P_BAR``), the t-SNE embedding
+    from the CPU's P and PCA-50 (KL(P || Q) within ``ANALYSIS_KL_BAR``
+    relative, trustworthiness within ``ANALYSIS_TRUST_BAR``, both computed on
+    the CPU by ``analysis.projection``), and two card runs of the t-SNE
+    giving the same bits."""
+    from pti_ldm_vae_tpu_torch.analysis import LatentCache, LatentSpaceAnalyzer
+    from pti_ldm_vae_tpu_torch.analysis.common import create_transforms, load_vae_model
+    from pti_ldm_vae_tpu_torch.analysis.projection import (
+        PCA,
+        TSNE,
+        joint_probabilities,
+        kl_divergence,
+        trustworthiness,
+    )
+
+    paths = sorted(str(p) for p in folders[0].glob("*.tif"))
+    transform = create_transforms((IMAGE, IMAGE))
+    lat = {}
+    for dev in ("cuda", "cpu"):
+        model = load_vae_model(str(CONFIG), str(ckpt), device=torch.device(dev))
+        lat[dev] = LatentSpaceAnalyzer(model, transform, device=dev).encode_images(paths[:BATCH])[0]
+        del model
+    latent_err = float(np.abs(lat["cuda"] - lat["cpu"]).max() / np.abs(lat["cpu"]).max())
+
+    def refuse(p):
+        raise RuntimeError(f"phase 6k's cache misses {len(p)} images")
+
+    cache = LatentCache(WORK / "analysis_cache")
+    x = np.concatenate([cache.get_or_encode_batch(
+        sorted(str(p) for p in f.glob("*.tif")), refuse, str(ckpt), (IMAGE, IMAGE), f.name)[0]
+        for f in folders])
+    pcas = {dev: PCA(50, device=dev).fit(x) for dev in ("cuda", "cpu")}
+    xp = {dev: pca.transform(x).cpu().numpy() for dev, pca in pcas.items()}
+    pca_err = float(np.abs(xp["cuda"] - xp["cpu"]).max() / np.abs(xp["cpu"]).max())
+    same_signs = bool((np.einsum("ij,ij->j", xp["cuda"], xp["cpu"]) > 0).all())
+    p = {dev: joint_probabilities(xp["cpu"], ANALYSIS_PERPLEXITY, device=dev) for dev in
+         ("cuda", "cpu")}
+    p_err = float((p["cuda"].cpu() - p["cpu"]).abs().max() / p["cpu"].abs().max())
+    emb = {}
+    for dev, run in (("cuda", 0), ("cuda", 1), ("cpu", 0)):
+        tsne = TSNE(perplexity=ANALYSIS_PERPLEXITY, device=dev)
+        emb[dev, run] = tsne.embed(p[dev], xp["cpu"]).cpu().numpy()
+    bit_identical = bool(np.array_equal(emb["cuda", 0], emb["cuda", 1]))
+    kl = {dev: kl_divergence(p["cpu"], emb[dev, 0], device="cpu") for dev in ("cuda", "cpu")}
+    trust = {dev: trustworthiness(x, emb[dev, 0], n_neighbors=5, device="cpu")
+             for dev in ("cuda", "cpu")}
+    kl_rel = abs(kl["cuda"] - kl["cpu"]) / kl["cpu"]
+    emit("analysis_reference", images=BATCH, points=len(x), latent_err_of_max=latent_err,
+         latent_bar=ANALYSIS_LATENT_BAR, pca50_err_of_max=pca_err, pca_bar=ANALYSIS_PCA_BAR,
+         pca_same_signs=same_signs, p_err_of_max=p_err, p_bar=ANALYSIS_P_BAR, kl=kl,
+         kl_rel_diff=kl_rel, kl_bar=ANALYSIS_KL_BAR, trustworthiness=trust,
+         trust_bar=ANALYSIS_TRUST_BAR, tsne_bit_identical=bit_identical)
+    if not (latent_err <= ANALYSIS_LATENT_BAR and pca_err <= ANALYSIS_PCA_BAR and same_signs
+            and p_err <= ANALYSIS_P_BAR and kl_rel <= ANALYSIS_KL_BAR
+            and abs(trust["cuda"] - trust["cpu"]) <= ANALYSIS_TRUST_BAR and bit_identical):
+        raise RuntimeError(f"analysis: card f32 differs from the CPU: latents {latent_err}, "
+                           f"PCA {pca_err} (signs {same_signs}), P {p_err}, KL {kl}, "
+                           f"trustworthiness {trust}, t-SNE bit-identical {bit_identical}")
+
+
+def time_analysis(torch, np, ckpt: Path, flush, folders: tuple[Path, Path]) -> None:
+    """Phase 7's ``analysis_b8`` rows: the flagship encode at b8 (encode and
+    channel-major flatten) on a device-resident batch in f32 and bf16, cuDNN
+    and convolution kernels; the encode as ``analyze_static`` runs it (8 TIFs
+    read, resized and normalized on the host, the latents back on the host);
+    the projection at the CLIs' default sizes on seeded clustered ``[N, 4096]``
+    latents, N = 2000 and 6000: PCA-50, kNN + P and the 1000 iterations of
+    the t-SNE, each in seconds with its peak device memory."""
+    from pti_ldm_vae_tpu_torch.analysis import LatentSpaceAnalyzer
+    from pti_ldm_vae_tpu_torch.analysis.common import create_transforms
+    from pti_ldm_vae_tpu_torch.analysis.projection import PCA, TSNE, joint_probabilities
+    from pti_ldm_vae_tpu_torch.models.regressor import flatten_latent
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
+
+    def row(r: dict, **extra) -> dict:
+        return {**extra, "event_ms": r["event_ms"], "device_ms": r["device_ms"],
+                "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
+                "device_ms_by_kind": device_ms_by_kind(r["by_name"])}
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(BATCH, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    for exact, conv_kernel in ((True, False), (False, False), (True, True), (False, True)):
+        _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
+                                         exact=exact, conv_kernel=conv_kernel)
+
+        def encode():
+            with torch.inference_mode():
+                return flatten_latent(model.encode_deterministic(x))
+
+        r = time_ms(encode, flush, iters=6)
+        emit("analysis_b8", path="encode_device_resident",
+             **row(r, dtype="float32" if exact else "bfloat16", conv_kernel=conv_kernel,
+                   imgs_per_s=BATCH * 1e3 / r["event_ms"]))
+        del model
+    _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"),
+                                     exact=True)
+    analyzer = LatentSpaceAnalyzer(model, create_transforms((IMAGE, IMAGE)), device="cuda")
+    paths = sorted(str(p) for p in folders[0].glob("*.tif"))[:BATCH]
+    r = time_ms(lambda: analyzer.encode_images(paths), flush, iters=4)
+    emit("analysis_b8", path="encode_as_analyze_static",
+         **row(r, dtype="float32", conv_kernel=False, imgs_per_s=BATCH * 1e3 / r["event_ms"]))
+    del model, analyzer
+    torch.cuda.empty_cache()
+
+    for n in PROJECTION_SIZES:
+        centres = 3.0 * torch.randn(ANALYSIS_PATIENTS, 4096, device="cuda", generator=gen)
+        pick = torch.randint(0, ANALYSIS_PATIENTS, (n,), device="cuda", generator=gen)
+        latents = centres[pick] + torch.randn(n, 4096, device="cuda", generator=gen)
+        xp = PCA(50).fit_transform(latents)
+        p = joint_probabilities(xp, ANALYSIS_PERPLEXITY)
+        stages = {"pca50": lambda: PCA(50).fit_transform(latents),
+                  "knn_and_p": lambda: joint_probabilities(xp, ANALYSIS_PERPLEXITY),
+                  "tsne_1000_iterations": lambda: TSNE(perplexity=ANALYSIS_PERPLEXITY).embed(p, xp)}
+        for stage, fn in stages.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            r = time_ms(fn, flush, iters=1, warmup=1)
+            peak = torch.cuda.max_memory_allocated()
+            emit("analysis_b8", path="projection", points=n, dims=4096, stage=stage,
+                 seconds=r["event_ms"] / 1e3, peak_gb=peak / 1e9,
+                 peak_gb_above_inputs=(peak - base) / 1e9,
+                 **row(r, dtype="float64" if stage != "tsne_1000_iterations" else "float32"))
+        del latents, xp, p
+        torch.cuda.empty_cache()
 
 
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
@@ -2756,6 +3066,17 @@ def main() -> int:
     regression_reference_check(torch, np, kernels_mod, ckpt, train_data / "dente", reg_attributes)
     torch.cuda.empty_cache()
 
+    # 6k. latent-space analysis through the three CLIs (seeded flagship checkpoint,
+    # f32 encode, t-SNE on the card; the AR model of phase 6f for the channel grid)
+    analysis_folders = write_analysis_inputs(np, WORK / "analysis_data")
+    analysis = analysis_path(torch, np, kernels_mod, ckpt, analysis_folders, ar_cfg,
+                             ar["best_checkpoint"])
+    emit("analysis_path", images_per_group=ANALYSIS_IMAGES, patients=ANALYSIS_PATIENTS,
+         batch=BATCH, dtype="float32", perplexity=ANALYSIS_PERPLEXITY, **analysis)
+    # 6l. the same stages in f32 against the CPU plain path
+    analysis_reference_check(torch, np, ckpt, analysis_folders)
+    torch.cuda.empty_cache()
+
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
@@ -2813,6 +3134,9 @@ def main() -> int:
     for exact, conv_kernel in ((True, False), (False, False), (True, True), (False, True)):
         emit("regression_b8", **time_regression(torch, ckpt, flush, exact, conv_kernel))
         torch.cuda.empty_cache()
+    # the analysis encode (device-resident and as analyze_static reads it) and the
+    # projection at the CLIs' default sizes
+    time_analysis(torch, np, ckpt, flush, analysis_folders)
     # the kernels at the UNet's shapes, then the UNet pass, the DDIM loop and the diffusion step
     time_groupnorm_silu(torch, [(s, n, LDM_GROUPS) for s, n in ldm_gn_shapes], flush, gen, rows,
                         "ldm")
@@ -2903,7 +3227,8 @@ def main() -> int:
                                  **{f"run_pti_{key}": r["launches"][name] for key, r in pti.items()},
                                  **{f"{cli}_regression_{key}": r["launches"][cli][name]
                                     for key, r in reg.items()
-                                    for cli in ("train", "evaluate", "inference")}},
+                                    for cli in ("train", "evaluate", "inference")},
+                                 **{key: n[name] for key, n in analysis["launches"].items()}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
             **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}

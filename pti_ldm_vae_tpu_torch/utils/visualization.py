@@ -1,15 +1,20 @@
 """Display normalization for dumps (counterpart of
-``pti_ldm_vae_tpu/utils/visualization.py:normalize_batch_for_display``).
+``pti_ldm_vae_tpu/utils/visualization.py:normalize_batch_for_display``), and
+the analysis CLIs' plots drawn with numpy.
 
 Reference ``src/pti_ldm_vae/utils/visualization.py:6-40``: percentile [2, 98]
 mask-aware display normalization (background stays black, sub-1e-3 values
-suppressed). Host-side numpy."""
+suppressed). The projection scatter and the AR-channel grid stand in for the
+JAX package's matplotlib fallbacks (``analysis/latent_space.py:277-304``,
+``cli/analyze_ar_channels.py:84-118``): the same markers and filled-vs-open
+rule, drawn into RGB arrays. Host-side numpy."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["normalize_batch_for_display"]
+__all__ = ["normalize_batch_for_display", "draw_scatter", "draw_channel_grid",
+           "channel_grid_shape", "normalize_unit", "hex_to_rgb", "SCATTER_SHAPE"]
 
 
 def normalize_batch_for_display(
@@ -34,3 +39,156 @@ def normalize_batch_for_display(
             normed[normed < 1e-3] = 0.0  # suppress background noise
             out[b, :, :, c] = normed
     return out
+
+
+# -- plots drawn with numpy (no matplotlib on the card's machine) ------------------
+# A projection scatter and the AR-channel grid are drawn into uint8 RGB arrays
+# and written with ``data.io.write_png``. They carry no text: the CLIs print
+# titles and labels, and the patient colours go to ``color_legend.txt``.
+
+SCATTER_SHAPE = (800, 1000)  # (height, width) of a projection plot, pixels
+SCATTER_MARGIN = 50
+MARKER_RADIUS = 6
+MARKER_ALPHA = 0.7
+GRID_PANEL = 256  # side of one panel of the channel grid
+GRID_GAP = 8
+GRID_COLUMNS = 4
+AR_BORDER = 4  # red frame around the panels of AR-regularized channels
+# colours of the groups when points are not coloured by patient (matplotlib's first two)
+GROUP_COLORS = ("#1f77b4", "#ff7f0e", "#2ca02c", "#d62728")
+# viridis at 10 evenly spaced points, interpolated linearly
+_VIRIDIS = np.array([
+    (68, 1, 84), (72, 40, 120), (62, 73, 137), (49, 104, 142), (38, 130, 142),
+    (31, 158, 137), (53, 183, 121), (110, 206, 88), (181, 222, 43), (253, 231, 37),
+], np.float32)
+
+
+def hex_to_rgb(color: str) -> np.ndarray:
+    """``"#RRGGBB"`` -> float32 ``[3]`` in 0-255."""
+    color = color.lstrip("#")
+    return np.array([int(color[i:i + 2], 16) for i in (0, 2, 4)], np.float32)
+
+
+def _marker_mask(marker: str, radius: int) -> np.ndarray:
+    """Boolean stamp ``[2r + 1, 2r + 1]`` of a marker: ``"o"`` circle,
+    ``"^"`` triangle, ``"s"`` square, ``"d"`` diamond (any other: circle)."""
+    dy, dx = np.mgrid[-radius:radius + 1, -radius:radius + 1].astype(np.float32)
+    if marker == "^":
+        return (dy >= -radius) & (np.abs(dx) <= (dy + radius) / 2.0 + 0.5)
+    if marker == "s":
+        return np.maximum(np.abs(dx), np.abs(dy)) <= 0.85 * radius
+    if marker == "d":
+        return np.abs(dx) + np.abs(dy) <= radius
+    return dx * dx + dy * dy <= radius * radius
+
+
+def _stamps(marker: str, filled: bool, radius: int = MARKER_RADIUS):
+    """(colour mask, white-edge mask) of one marker: a filled marker with a
+    one-pixel white edge, or an open one drawn as a two-pixel ring."""
+    outer = _marker_mask(marker, radius)
+    inner = np.pad(_marker_mask(marker, radius - 1), 1)
+    if filled:
+        return inner, outer & ~inner
+    return outer & ~np.pad(_marker_mask(marker, radius - 2), 2), np.zeros_like(outer)
+
+
+def _blend(canvas: np.ndarray, mask: np.ndarray, top: int, left: int, rgb: np.ndarray,
+           alpha: float) -> None:
+    """Alpha-blend ``rgb`` into ``canvas`` (float32) where ``mask`` (placed at
+    ``top``, ``left``) is set, clipped to the canvas."""
+    h, w = canvas.shape[:2]
+    r = mask.shape[0]
+    t0, l0 = max(top, 0), max(left, 0)
+    t1, l1 = min(top + r, h), min(left + r, w)
+    if t0 >= t1 or l0 >= l1:
+        return
+    m = mask[t0 - top:t1 - top, l0 - left:l1 - left]
+    region = canvas[t0:t1, l0:l1]
+    region[m] = (1.0 - alpha) * region[m] + alpha * rgb
+
+
+def draw_scatter(groups) -> np.ndarray:
+    """A 2-D scatter as a uint8 RGB image ``[H, W, 3]``: white background, a
+    black frame around the plot area, one marker per point. ``groups`` is a
+    list of ``(points [n, 2], colors, marker, filled)`` with ``colors`` one
+    ``"#RRGGBB"`` per point or a single one; the data range of all groups,
+    padded by 5%, fills the plot area (y grows upwards); ``SCATTER_SHAPE``."""
+    h, w = SCATTER_SHAPE
+    canvas = np.full((h, w, 3), 255.0, np.float32)
+    m = SCATTER_MARGIN
+    canvas[m - 1, m - 1:w - m + 1] = canvas[h - m, m - 1:w - m + 1] = 0.0
+    canvas[m - 1:h - m + 1, m - 1] = canvas[m - 1:h - m + 1, w - m] = 0.0
+    points = [np.asarray(p, np.float64).reshape(-1, 2) for p, *_ in groups]
+    every = np.concatenate(points) if points else np.zeros((0, 2))
+    lo, hi = (every.min(0), every.max(0)) if len(every) else (np.zeros(2), np.ones(2))
+    span = np.where(hi > lo, hi - lo, 1.0)
+    lo, span = lo - 0.05 * span, 1.1 * span
+    inner = np.array([w - 2 * m - 1, h - 2 * m - 1], np.float64)
+    r = MARKER_RADIUS
+    white = np.full(3, 255.0, np.float32)
+    for pts, (_, colors, marker, filled) in zip(points, groups):
+        body, edge = _stamps(marker, filled)
+        cols = np.round(m + (pts[:, 0] - lo[0]) / span[0] * inner[0]).astype(int)
+        rows = np.round(h - m - 1 - (pts[:, 1] - lo[1]) / span[1] * inner[1]).astype(int)
+        per_point = not isinstance(colors, str)
+        rgb = hex_to_rgb(colors) if not per_point else None
+        for i, (y, x) in enumerate(zip(rows, cols)):
+            color = hex_to_rgb(colors[i]) if per_point else rgb
+            _blend(canvas, body, y - r, x - r, color, MARKER_ALPHA)
+            _blend(canvas, edge, y - r, x - r, white, MARKER_ALPHA)
+    return np.clip(np.round(canvas), 0, 255).astype(np.uint8)
+
+
+def normalize_unit(data: np.ndarray) -> np.ndarray:
+    """Min-max to [0, 1]; a constant map gives zeros."""
+    lo, hi = float(data.min()), float(data.max())
+    if hi <= lo:
+        return np.zeros_like(data)
+    return (data - lo) / (hi - lo)
+
+
+def _panel(data: np.ndarray, colormap: str, side: int) -> np.ndarray:
+    """One ``[side, side, 3]`` float32 panel of a 2-D map: min-max
+    normalized, nearest-neighbour resized, gray or viridis."""
+    unit = normalize_unit(np.asarray(data, np.float32))
+    rows = (np.arange(side) * unit.shape[0]) // side
+    cols = (np.arange(side) * unit.shape[1]) // side
+    unit = unit[rows][:, cols]
+    if colormap == "gray":
+        return np.repeat(unit[..., None] * 255.0, 3, axis=-1)
+    pos = unit * (len(_VIRIDIS) - 1)
+    low = np.clip(np.floor(pos).astype(int), 0, len(_VIRIDIS) - 2)
+    frac = (pos - low)[..., None]
+    return (1.0 - frac) * _VIRIDIS[low] + frac * _VIRIDIS[low + 1]
+
+
+def channel_grid_shape(n_channels: int) -> tuple[int, int]:
+    """(height, width) of ``draw_channel_grid``'s image for ``n_channels``."""
+    rows = 1 + -(-n_channels // GRID_COLUMNS)
+    return (rows * GRID_PANEL + (rows + 1) * GRID_GAP,
+            GRID_COLUMNS * GRID_PANEL + (GRID_COLUMNS + 1) * GRID_GAP)
+
+
+def draw_channel_grid(original: np.ndarray, reconstruction: np.ndarray, latents: np.ndarray,
+                      framed: set[int] | frozenset[int] = frozenset()) -> np.ndarray:
+    """Original | reconstruction (gray) in the first row, then one viridis
+    heatmap per latent channel (``latents`` ``[C, h, w]``), ``GRID_COLUMNS``
+    a row, the channels in ``framed`` (the AR-regularized ones) in a red
+    frame; uint8 RGB of ``channel_grid_shape(C)``."""
+    canvas = np.full((*channel_grid_shape(latents.shape[0]), 3), 255.0, np.float32)
+    p, g = GRID_PANEL, GRID_GAP
+
+    def place(slot: int, image: np.ndarray, frame: bool = False) -> None:
+        top, left = g + (slot // GRID_COLUMNS) * (p + g), g + (slot % GRID_COLUMNS) * (p + g)
+        canvas[top:top + p, left:left + p] = image
+        if frame:
+            b = AR_BORDER
+            red = np.array([214.0, 39.0, 40.0], np.float32)
+            canvas[top:top + b, left:left + p] = canvas[top + p - b:top + p, left:left + p] = red
+            canvas[top:top + p, left:left + b] = canvas[top:top + p, left + p - b:left + p] = red
+
+    place(0, _panel(original, "gray", p))
+    place(1, _panel(reconstruction, "gray", p))
+    for c in range(latents.shape[0]):
+        place(GRID_COLUMNS + c, _panel(latents[c], "viridis", p), c in framed)
+    return np.clip(np.round(canvas), 0, 255).astype(np.uint8)

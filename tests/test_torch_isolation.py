@@ -31,7 +31,12 @@ def test_port_has_modules():
                      "cli/run_pti.py", "models/regressor.py", "utils/regression_utils.py",
                      "utils/metrics.py", "checkpoint/regressor_convert.py",
                      "cli/train_regression.py", "cli/evaluate_regression.py",
-                     "cli/inference_regression.py", "cli/compute_mask_metrics.py"):
+                     "cli/inference_regression.py", "cli/compute_mask_metrics.py",
+                     "analysis/__init__.py", "analysis/latent_distance.py",
+                     "analysis/latent_cache.py", "analysis/projection.py",
+                     "utils/visualization.py", "analysis/latent_space.py",
+                     "analysis/common.py", "cli/analyze_static.py",
+                     "cli/analyze_interactive.py", "cli/analyze_ar_channels.py"):
         assert expected in names
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
@@ -69,6 +74,32 @@ def test_port_imports_with_jax_blocked():
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"assert 'triton' not in sys.modules\n"
             f"print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_analysis_imports_without_the_optional_host_packages():
+    """The card's machine has none of scikit-learn, matplotlib, plotly, dash,
+    umap-learn and OpenCV: the analysis package and its three CLIs import
+    with them blocked, and import none of them."""
+    blocked = ("sklearn", "matplotlib", "plotly", "dash", "umap", "cv2")
+    code = (
+        "import sys\n"
+        f"BLOCKED = {blocked!r}\n"
+        "class Blocker:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ModuleNotFoundError(f'No module named {name!r}')\n"
+        "sys.meta_path.insert(0, Blocker())\n"
+        "import importlib\n"
+        "for m in ('pti_ldm_vae_tpu_torch.analysis', 'pti_ldm_vae_tpu_torch.cli.analyze_static',\n"
+        "          'pti_ldm_vae_tpu_torch.cli.analyze_interactive',\n"
+        "          'pti_ldm_vae_tpu_torch.cli.analyze_ar_channels'):\n"
+        "    importlib.import_module(m)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
