@@ -8,7 +8,8 @@ result line):
 
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
 2. build: the ten CUDA C++ sources of ``pti_ldm_vae_tpu_torch/csrc`` with
-   nvcc (one process per source, started together; ``ptxas`` registers and
+   nvcc (one process per source, started together, and beside them the
+   native TIFF library ``native/ptidata.cpp`` with g++; ``ptxas`` registers and
    spills reported, and none allowed in the two GroupNorm+SiLU libraries; for
    the four tensor-core sources also the shared memory per block and the
    resident blocks per SM of every instantiation the path takes, and whether
@@ -29,8 +30,12 @@ result line):
    groups) at b8 and the flagship's 8 at b1 (PTI's fine-tune);
    flash attention also at the UNet's [8,2,256,32], [8,4,64,32], [8,8,16,32]
    and at head dim 256, [8,1,4096,256] and [1,1,4096,256] (the kl1e3 mid
-   blocks; the f32-FMA kernels in both types, whose backward's tile rows and
-   shared memory are read from the library);
+   blocks; the f32-FMA kernels in both types, whose backward's and forward's
+   tile rows and shared memory are read from the libraries); then, phase
+   ``flash_head_dims``, at [8,1,1024,96] (zero-padded to 128 by the wrapper:
+   the tensor-core kernels in bf16, 12 padded launches) and [8,1,1024,512]
+   (a [128,256,512,512] VAE's mid block at 256²: the f32-FMA kernels with 32-row
+   forward and 16-row backward tiles), forward and backward in both types;
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
    flagship pass, as forward, input gradient and filter gradient, a ragged
    [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
@@ -159,6 +164,21 @@ result line):
 6l. analysis reference: the card's f32 stages against the CPU plain path on
    the same inputs (bars in ``analysis_reference_check``), the card's t-SNE
    run twice to the same bits;
+6m. chained configs (``chain_path``): verbatim copies of
+   ``config/vae_dente_no_adv.json``, ``config/reg_edente_from_dente.json``
+   and ``config/ldm_dente.json`` in a working directory whose ``data/`` holds
+   18 seeded TIFs and their attributes at the configs' relative paths;
+   ``train_vae`` (flagship, 256², b8, 1 epoch of 2 steps, ``--trace-at-step
+   2``), ``train_regression`` (1 epoch) and ``train_diffusion`` (1 epoch of 2
+   steps) on ``cuda`` with that directory as the working directory, the
+   shipped ``vae.checkpoint`` finding ``autoencoder_last.pth``: wall s and
+   launches per CLI, and the step-2 trace naming the port's GroupNorm+SiLU
+   and flash kernels, forward and backward;
+6n. ``loader_b8``: the data loader on 64 seeded 300² TIFs -> 256², b8, 4
+   workers, imgs/s with the native default (64 native decodes required) and
+   with the numpy path, in turns; two native runs the same bits; the largest
+   native-vs-numpy difference; ``preprocess_batch_device`` card vs CPU on
+   [8,300,300,1] f32 (1e-5);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -176,7 +196,7 @@ result line):
    the UNet forward, the 50-step DDIM loop (steps/s) and one diffusion train
    step as the CLI runs it, in bf16 and f32; the AR step of both AR configs
    at b8 bf16 (kl1e3 as its config trains it: adversarial, convolution
-   kernels), flash at [8,1,4096,256] against SDPA, PTI's two stages (latent
+   kernels), flash at [8,1,4096,256], [8,1,1024,96] and [8,1,1024,512] against SDPA, PTI's two stages (latent
    steps/s at b8, tune steps/s at b1) in bf16 and f32; the regression head's
    train step and predict at b8 in f32 and bf16, cuDNN and convolution
    kernels (phase ``regression_b8``); the convolution kernels at the kl1e3
@@ -189,7 +209,9 @@ result line):
    sites; launches by path, the diffusion CLIs' included, and the four
    GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
    step under ``ldm_unet``; the AR, evaluate, kl1e3, PTI, regression and
-   analysis runs' launches; flash per call at head dim 256 under ``kl1e3_d256``; the
+   analysis runs' launches, the chained CLIs' under ``chain_*``; flash per
+   call at head dim 256 under ``kl1e3_d256``, at [8,1,1024,96] and 512 under
+   ``d96`` / ``d512``; the
    convolution kernels' sums over one kl1e3 train step under ``kl1e3``), the
    card line, and
    the result line
@@ -205,6 +227,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -328,6 +351,17 @@ ANALYSIS_P_BAR = 1e-5
 ANALYSIS_KL_BAR = 0.01  # KL(P || Q) of the card's embedding, relative to the CPU's
 ANALYSIS_TRUST_BAR = 0.01  # trustworthiness (5 neighbours), absolute
 PROJECTION_SIZES = (2000, 6000)  # analyze_static's and analyze_interactive's 2 x --max-images
+# flash attention at head dims the kernels pad (96 -> 128, the tensor-core kernels in bf16)
+# or gained (512: a [128, 256, 512, 512] VAE's mid block at 256²)
+FLASH_HEAD_DIM_SHAPES = ((BATCH, 1, 1024, 96), (BATCH, 1, 1024, 512))
+# the shipped configs chained as they are: 16 train images (2 steps of b8) and 2 validation
+CHAIN_CONFIGS = ("vae_dente_no_adv", "reg_edente_from_dente", "ldm_dente")
+CHAIN_IMAGES = 18
+CHAIN_TRACE_KERNELS = ("groupnorm_silu_fwd_kernel", "groupnorm_silu_bwd_kernel",
+                       "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
+LOADER_IMAGES = 64
+LOADER_WORKERS = 4  # the CLIs' default --num-workers
+PREPROCESS_BAR = 1e-5  # preprocess_batch_device, card f32 vs CPU f32
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -677,13 +711,18 @@ def wgmma_occupancy(torch, shapes) -> dict:
 
 def flash_fma_bwd_smem() -> dict:
     """Tile rows and shared memory (bytes) of the f32-FMA flash backward's dk/dv
-    and dq kernels at every head dim, as the library reports them, held to the
-    wrapper's formula (``bwd_fma_smem_bytes``) and to a block's 232,448 bytes."""
+    and dq kernels and of the f32-FMA forward at every head dim, as the
+    libraries report them, held to the wrapper's formulas
+    (``bwd_fma_smem_bytes``, ``fwd_fma_smem_bytes``) and to a block's 232,448
+    bytes."""
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         SUPPORTED_HEAD_DIMS,
         bwd_fma_smem_bytes,
         bwd_fma_smem_of_library,
         bwd_fma_tile,
+        fwd_fma_smem_bytes,
+        fwd_fma_smem_of_library,
+        fwd_fma_tile,
     )
 
     out = {}
@@ -691,7 +730,11 @@ def flash_fma_bwd_smem() -> dict:
         got = bwd_fma_smem_of_library(d)
         if got != (bwd_fma_tile(d), *bwd_fma_smem_bytes(d)) or max(got[1:]) > 232_448:
             raise RuntimeError(f"flash_attention_bwd_smem({d}): {got}")
-        out[f"d{d}"] = {"tile_rows": got[0], "dkdv_smem_bytes": got[1], "dq_smem_bytes": got[2]}
+        fwd = fwd_fma_smem_of_library(d)
+        if fwd != (fwd_fma_tile(d), fwd_fma_smem_bytes(d)) or fwd[1] > 232_448:
+            raise RuntimeError(f"flash_attention_fwd_smem({d}): {fwd}")
+        out[f"d{d}"] = {"tile_rows": got[0], "dkdv_smem_bytes": got[1], "dq_smem_bytes": got[2],
+                        "fwd_tile_rows": fwd[0], "fwd_smem_bytes": fwd[1]}
     return out
 
 
@@ -796,6 +839,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         forward_kernel as flash_forward_kernel,
     )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import padded_head_dim
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -854,8 +898,10 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
-            routes["flash_attention"][tag] = flash_forward_kernel(dtype, shape[-1])
-            routes["flash_attention_bwd"][tag] = flash_backward_kernel(dtype, shape[-1])
+            # a head dim the kernels are not built for runs padded to the next one
+            routes["flash_attention"][tag] = flash_forward_kernel(dtype, padded_head_dim(shape[-1]))
+            routes["flash_attention_bwd"][tag] = flash_backward_kernel(dtype,
+                                                                       padded_head_dim(shape[-1]))
             got = kernels_mod.flash_attention(qd, kd, vd)
             if not torch.equal(got, kernels_mod.flash_attention(qd, kd, vd)):
                 raise RuntimeError(f"flash_attention forward {tag}: two runs differ")
@@ -913,7 +959,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     for tag, want_route in by_rule.items():
         if routes["conv3x3"][tag] != want_route:
             raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
-    # any S: bf16 on wgmma up to head dim 128; head dim 256 and f32 on the FMA kernels
+    # any S: bf16 on wgmma up to head dim 128; head dims 256, 512 and f32 on the FMA kernels
     for name in ("flash_attention", "flash_attention_bwd"):
         want_route = {tag: "wgmma" if "bfloat16" in tag and int(tag.split(")")[0].split(",")[-1]) <= 128
                       else "fma" for tag in routes[name]}
@@ -2743,6 +2789,7 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         forward_kernel as flash_forward_kernel,
     )
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import pad_head_dim, padded_head_dim
 
     def timed(prefix, fn):
         return _timed(flush, prefix, fn)
@@ -2752,11 +2799,13 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
         for shape, n in cases:
             q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
             nbytes = q.numel() * q.element_size()
-            head = {"path": path, "shape": list(shape), "dtype": key, "per_pass": n}
+            d, d_pad = shape[-1], padded_head_dim(shape[-1])
+            head = {"path": path, "shape": list(shape), "dtype": key, "per_pass": n,
+                    **({"padded_head_dim": d_pad} if d_pad != d else {})}
             products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
             bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
             row = {
-                **head, "kernel": flash_forward_kernel(dtype, shape[-1]),
+                **head, "kernel": flash_forward_kernel(dtype, d_pad),
                 **timed("", lambda: flash_attention(q, k, v)),
                 **timed("plain_", lambda: flash_attention_plain(q, k, v)),
                 **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -2765,14 +2814,18 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
             rows["flash_attention"].append(row)
             emit("time_flash_attention", **row)
 
-            out, lse = flash_forward(q, k, v, save_lse=True)
+            # the backward launches as the wrapper's autograd makes them: on the
+            # padded tensors (a head dim the kernels are not built for) at D^-0.5
+            padded = [pad_head_dim(t, d_pad) if d_pad != d else t for t in (q, k, v, g)]
+            out, lse = flash_forward(*padded[:3], True, d**-0.5, d_pad != d)
             leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
             out_lib = F.scaled_dot_product_attention(*leaves)
             # five products; reads q, k, v, out, dO, writes dq, dk, dv
             bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
-            ours = time_ms(lambda: flash_backward(q, k, v, out, lse, g), flush)
+            ours = time_ms(lambda: flash_backward(*padded[:3], out, lse, padded[3], d**-0.5,
+                                                   d_pad != d), flush)
             row = {
-                **head, "kernel": flash_backward_kernel(dtype, shape[-1]),
+                **head, "kernel": flash_backward_kernel(dtype, d_pad),
                 "ms": ours["device_ms"], "event_ms": ours["event_ms"],
                 "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
                                  ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
@@ -2782,9 +2835,147 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
                                                                 retain_graph=True)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
-            del out_lib, leaves
+            del out_lib, leaves, padded, out, lse
             rows["flash_attention_bwd"].append(row)
             emit("time_flash_attention_bwd", **row)
+
+
+def chain_path(torch, np, kernels_mod, work: Path) -> dict:
+    """The shipped configs chained as a user runs them: ``config/`` holds
+    verbatim copies of ``vae_dente_no_adv.json``, ``reg_edente_from_dente.json``
+    and ``ldm_dente.json``, ``data/train_val/`` 18 seeded 300² TIFs under
+    ``dente/`` and their attributes under ``metrics/``, all at the configs'
+    own relative paths, and the CLIs run with ``work`` as the working
+    directory; only the epochs are cut (``--max-epochs 1``) and the diffusion
+    run takes 16 images. ``train_vae`` (flagship, 256², b8: 2 steps and one
+    validation step, ``--trace-at-step 2``), then ``train_regression`` and
+    ``train_diffusion``, whose ``vae.checkpoint``
+    (``./runs/vae_dente_no_adv/trained_weights/autoencoder_last``) finds the
+    ``autoencoder_last.pth`` the first run wrote. Launch counts per CLI, and
+    the port's GroupNorm+SiLU and flash kernels, forward and backward, named
+    in the trace of step 2."""
+    import os
+
+    from pti_ldm_vae_tpu_torch.cli.train_diffusion import main as diffusion_main
+    from pti_ldm_vae_tpu_torch.cli.train_regression import main as regression_main
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as vae_main
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_autoencoder_state_dict
+
+    (work / "config").mkdir(parents=True)
+    for name in CHAIN_CONFIGS:
+        shutil.copy(ROOT / "config" / f"{name}.json", work / "config" / f"{name}.json")
+    data = work / "data" / "train_val"
+    write_inputs(np, data / "dente", CHAIN_IMAGES)
+    (data / "metrics").mkdir()
+    write_attributes(np, data / "dente", data / "metrics" / "attributes_edente.json")
+    vae_ckpt = {name: json.loads((work / "config" / f"{name}.json").read_text())["vae"]["checkpoint"]
+                for name in CHAIN_CONFIGS[1:]}
+    out: dict = {"wall_s": {}, "launches": {}, "vae_checkpoint": vae_ckpt}
+
+    def counted(key: str, fn, want: dict):
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["wall_s"][key] = time.perf_counter() - t0
+        out["launches"][key] = kernels_mod.launch_counts()
+        if out["launches"][key] != want:
+            raise RuntimeError(f"chain {key}: launches {out['launches'][key]}, expected {want}")
+        return result
+
+    cwd = os.getcwd()
+    os.chdir(work)  # the configs' ./config, ./data and ./runs resolve from here
+    try:
+        vae = counted("train_vae", lambda: vae_main(
+            ["-c", "config/vae_dente_no_adv.json", "--max-epochs", "1", "--no-wandb",
+             "--num-workers", str(LOADER_WORKERS), "--trace-at-step", "2"]),
+            expected_launches(2, 2, conv_kernel=False))  # 2 steps; 1 eval step, 1 triplet
+        reg = counted("train_regression", lambda: regression_main(
+            ["-c", "config/reg_edente_from_dente.json", "--max-epochs", "1", "--num-workers",
+             str(LOADER_WORKERS)]), expected_encoder_launches(3, conv_kernel=False))
+        ldm = counted("train_diffusion", lambda: diffusion_main(
+            ["-c", "config/ldm_dente.json", "--input-dir", "data/train_val/dente",
+             "--num-samples", str(LDM_TRAIN_IMAGES), "--max-epochs", "1", "--num-workers",
+             str(LOADER_WORKERS)]), expected_ldm_launches(2, 0))
+    finally:
+        os.chdir(cwd)
+    written = work / (vae_ckpt["reg_edente_from_dente"] + ".pth")
+    if vae["total_step"] != 2 or not written.is_file() or len(set(vae_ckpt.values())) != 1:
+        raise RuntimeError(f"chain train_vae: {vae}, {written} exists: {written.is_file()}")
+    on_file = load_autoencoder_state_dict(str(written))
+    if any(not torch.equal(v.cpu(), on_file[k]) for k, v in reg["model"].vae.state_dict().items()):
+        raise RuntimeError("chain train_regression did not load the VAE train_vae wrote")
+    if not np.isfinite(reg["best_val"]) or ldm["total_step"] != 2 or not np.isfinite(
+            ldm["final_loss"]):
+        raise RuntimeError(f"chain: regression best_val {reg['best_val']}, diffusion {ldm}")
+
+    traces = sorted((work / "runs" / "vae_dente_no_adv" / "traces").glob("*.pt.trace.json*"))
+    if len(traces) != 1:
+        raise RuntimeError(f"--trace-at-step 2 wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {name: sum(name in k for k in kernels) for name in CHAIN_TRACE_KERNELS}
+    if not all(named.values()):
+        raise RuntimeError(f"the step-2 trace names {named} of the port's kernels "
+                           f"({len(kernels)} kernel events)")
+    return {**out, "trace": {"file": traces[0].name, "bytes": traces[0].stat().st_size,
+                             "kernel_events": len(kernels), "named": named},
+            "best_val_loss_vae": vae["best_val_loss"], "best_val_regression": reg["best_val"],
+            "eps_mse_diffusion": ldm["final_loss"]}
+
+
+def loader_b8(torch, np, work: Path) -> dict:
+    """The data loader at b8 on 64 seeded 300² TIFs -> 256², ``LOADER_WORKERS``
+    threads: imgs/s with its default transform (the native fused decode;
+    ``native.decoded`` must count all 64, so a library that did not build
+    fails here) and with ``transform=`` the numpy path, in turns (native,
+    numpy, numpy, native); two native runs give the same bits; the largest
+    native-vs-numpy difference; then ``preprocess_batch_device`` on the card
+    against the CPU on the first 8 raw images [8, 300, 300, 1], f32."""
+    from pti_ldm_vae_tpu_torch import native
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.loader import ShardedDataLoader
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_batch_device, preprocess_image_np
+
+    write_inputs(np, work / "dente", LOADER_IMAGES)
+    paths = sorted(str(p) for p in (work / "dente").glob("*.tif"))
+
+    def numpy_path(path: str):
+        return preprocess_image_np(read_image(path), (IMAGE, IMAGE))
+
+    def run(transform):
+        native.reset_counts()
+        loader = ShardedDataLoader(paths, (IMAGE, IMAGE), BATCH, num_workers=LOADER_WORKERS,
+                                   transform=transform)
+        t0 = time.perf_counter()
+        images = np.concatenate([b["image"] for b in loader])
+        wall = time.perf_counter() - t0
+        loader.close()
+        return images, LOADER_IMAGES / wall, (native.decoded, native.python_path)
+
+    runs = [run(t) for t in (None, numpy_path, numpy_path, None)]
+    counts = [r[2] for r in runs]
+    if counts != [(LOADER_IMAGES, 0), (0, 0), (0, 0), (LOADER_IMAGES, 0)]:
+        raise RuntimeError(f"loader: (native, numpy) files per run {counts}")
+    if not (np.array_equal(runs[0][0], runs[3][0]) and np.array_equal(runs[1][0], runs[2][0])):
+        raise RuntimeError("loader: two runs of one transform gave other bits")
+    raw = np.stack([read_image(p) for p in paths[:BATCH]])[..., None]
+    cpu = preprocess_batch_device(torch.from_numpy(raw), (IMAGE, IMAGE)).numpy()
+    card = preprocess_batch_device(torch.from_numpy(raw).cuda(), (IMAGE, IMAGE))
+    flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
+    raw_card = torch.from_numpy(raw).cuda()
+    timing = time_ms(lambda: preprocess_batch_device(raw_card, (IMAGE, IMAGE)), flush)
+    err = float(np.abs(card.cpu().numpy() - cpu).max())
+    if not err <= PREPROCESS_BAR:
+        raise RuntimeError(f"preprocess_batch_device: card vs CPU {err} > {PREPROCESS_BAR}")
+    return {"images": LOADER_IMAGES, "batch": BATCH, "workers": LOADER_WORKERS,
+            "native_imgs_per_s": [runs[0][1], runs[3][1]],
+            "numpy_imgs_per_s": [runs[1][1], runs[2][1]],
+            "native_decoded": counts[0][0], "native_bit_identical": True,
+            "native_vs_numpy_max_abs": float(np.abs(runs[0][0] - runs[1][0]).max()),
+            "preprocess_batch_device": {"shape": list(raw.shape), "max_abs_err_vs_cpu": err,
+                                        "bar": PREPROCESS_BAR, "device_ms": timing["device_ms"],
+                                        "event_ms": timing["event_ms"]}}
 
 
 def main() -> int:
@@ -2817,12 +3008,19 @@ def main() -> int:
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import SOURCES as FLASH_SOURCES
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import SOURCES as GN_SOURCES
 
+    from pti_ldm_vae_tpu_torch import native
+
     t0 = time.perf_counter()
-    # one nvcc each, started together
-    libs = _build.build_all((*FLASH_SOURCES, *CONV_SOURCES, *GN_SOURCES))
+    # one nvcc each, started together, and g++ for the native TIFF library beside them
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_lib = pool.submit(native.build)
+        libs = _build.build_all((*FLASH_SOURCES, *CONV_SOURCES, *GN_SOURCES))
+        native_path = native_lib.result()
+    if native_path is None or not native.available():
+        raise RuntimeError("the native TIFF library did not build (g++ failed: see stderr)")
     ptxas = {p.name: ptxas_report(p.with_suffix(".log")) for p in libs}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=[p.name for p in libs],
-         ptxas=ptxas)
+         native=Path(native_path).name, ptxas=ptxas)
     for src in GN_SOURCES:
         if ptxas[_build.library_path(src).name]["spill_bytes"]:
             raise RuntimeError(f"{src} spills registers: {ptxas[_build.library_path(src).name]}")
@@ -2892,6 +3090,23 @@ def main() -> int:
         balanced=True, phase="kernel_checks_ar_pti")
     errs = {name: {k: max(v, new_errs[name][k]) for k, v in by_type.items()}
             for name, by_type in errs.items()}
+    # head dims 96 (padded to 128) and 512, one shape at a time for the kernels line
+    head_dim_errs = {}
+    for shape in FLASH_HEAD_DIM_SHAPES:
+        kernels_mod.reset_launch_counts()
+        head_dim_errs[shape[-1]] = check_kernels(torch, [], (shape,), [], kernels_mod, seed=2,
+                                                 ragged=False, phase="flash_head_dims")
+        counts, padded = kernels_mod.launch_counts(), kernels_mod.flash_attention.padded_launches
+        # per type: 2 plain forwards and 2 forwards + 2 backwards through autograd
+        want_padded = 12 if shape[-1] == 96 else 0
+        if (counts["flash_attention"], counts["flash_attention_bwd"], padded) != (8, 4, want_padded):
+            raise RuntimeError(f"flash {shape}: launches {counts}, padded {padded}")
+        emit("flash_head_dims", shape=list(shape), launches=counts["flash_attention"],
+             bwd_launches=counts["flash_attention_bwd"], padded_launches=padded,
+             max_abs_err={k: head_dim_errs[shape[-1]][k] for k in ("flash_attention",
+                                                                   "flash_attention_bwd")})
+        errs = {name: {k: max(v, head_dim_errs[shape[-1]][name][k]) for k, v in by_type.items()}
+                for name, by_type in errs.items()}
     torch.cuda.empty_cache()
 
     # 4. inference main path through the CLI
@@ -3077,6 +3292,15 @@ def main() -> int:
     analysis_reference_check(torch, np, ckpt, analysis_folders)
     torch.cuda.empty_cache()
 
+    # 6m. the shipped configs chained: train_vae -> train_regression / train_diffusion,
+    # vae.checkpoint as shipped, step 2 of train_vae traced
+    chain = chain_path(torch, np, kernels_mod, WORK / "chain")
+    emit("chain_path", configs=list(CHAIN_CONFIGS), images=CHAIN_IMAGES, batch=BATCH, epochs=1,
+         **chain)
+    torch.cuda.empty_cache()
+    # 6n. the loader's rate, native and numpy, and the device preprocessing on the card
+    emit("loader_b8", **loader_b8(torch, np, WORK / "loader"))
+
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
 
@@ -3090,6 +3314,10 @@ def main() -> int:
     # head dim 256 (the kl1e3 mid blocks, the f32-FMA kernels in both types)
     time_flash_attention(torch, [(FLASH_D256_SHAPES[0], KL1E3_PASS["flash"])], flush, gen, rows,
                          "kl1e3")
+    # head dims 96 (padded to 128) and 512, two calls a pass as in a VAE's mid blocks
+    for shape in FLASH_HEAD_DIM_SHAPES:
+        time_flash_attention(torch, [(shape, FLASH_PER_RECONSTRUCT)], flush, gen, rows,
+                             f"d{shape[-1]}")
     torch.cuda.empty_cache()
     time_conv3x3(torch, conv_shapes, flush, gen, rows)
     # the kl1e3 model's convolutions, in bf16 as its config trains (Cin 10 and 256: FMA kernel)
@@ -3151,10 +3379,20 @@ def main() -> int:
         return {k: sum(r[k] * r["per_pass"] for r in bf)
                 for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
 
-    def d256(name: str) -> dict:
-        """Per call at [8, 1, 4096, 256] (the kl1e3 mid blocks, f32-FMA kernel), both types."""
-        keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-        return {r["dtype"]: {k: r[k] for k in keys} for r in rows[name] if r["path"] == "kl1e3"}
+    def per_call(name: str, path: str) -> dict:
+        """Per call at one shape timed under ``path``, both types: [8, 1, 4096, 256]
+        (kl1e3, the f32-FMA kernel), [8, 1, 1024, 96] (padded to 128) and 512."""
+        keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel")
+        return {r["dtype"]: {k: r[k] for k in keys} for r in rows[name] if r["path"] == path}
+
+    def head_dims(name: str) -> dict:
+        """The d96 / d512 entries of rows 4-5: times, the check's error and launches."""
+        out = {}
+        for shape in FLASH_HEAD_DIM_SHAPES:
+            d = shape[-1]
+            out[f"d{d}"] = {"shape": list(shape), **per_call(name, f"d{d}"),
+                            "max_abs_err": head_dim_errs[d][name]}
+        return out
 
     gn_pallas = "pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py"
     fa_pallas = "pti_ldm_vae_tpu/ops/pallas/flash_attention.py"
@@ -3228,13 +3466,15 @@ def main() -> int:
                                  **{f"{cli}_regression_{key}": r["launches"][cli][name]
                                     for key, r in reg.items()
                                     for cli in ("train", "evaluate", "inference")},
-                                 **{key: n[name] for key, n in analysis["launches"].items()}},
+                                 **{key: n[name] for key, n in analysis["launches"].items()},
+                                 **{f"chain_{cli}": n[name]
+                                    for cli, n in chain["launches"].items()}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
             **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}
                if name in ldm_scope else {}),
-            **({"kl1e3_d256": d256(name)} if name in ("flash_attention", "flash_attention_bwd")
-               else {}),
+            **({"kl1e3_d256": per_call(name, "kl1e3"), **head_dims(name)}
+               if name in ("flash_attention", "flash_attention_bwd") else {}),
             **({"kl1e3": {**totals(name, "kl1e3"), "scope": kl_scope[name]}}
                if name in kl_scope else {}),
         })

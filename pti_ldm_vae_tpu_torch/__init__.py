@@ -10,7 +10,10 @@ Subpackages mirror the JAX package's layout, so each module has an obvious
 counterpart:
 
 - ``config``     JSON config loading with MONAI-compatible ``@ref`` resolution
-- ``data``       image IO (numpy TIFF/PNG), transforms, split, loader, factories
+- ``data``       image IO (numpy TIFF/PNG), host and device transforms, split,
+                 loader (native fused TIFF path by default), factories
+- ``native``     ctypes bindings of the C++ TIFF decode + resize + z-score
+                 (``ptidata.cpp``, built with g++ at first use into ``build/``)
 - ``ops``        norm / resize / attention ops; ``ops.kernels`` holds the
                  hand-written Hopper kernels (Triton GroupNorm+SiLU forward and
                  backward, CUDA flash-attention forward and backward), each
@@ -18,8 +21,10 @@ counterpart:
 - ``models``     AutoencoderKL with MONAI parameter names; LPIPS (SqueezeNet)
 - ``losses``     KL, reconstruction and total-loss composition
 - ``checkpoint`` Flax-tree / MONAI ``.pth`` -> state dict conversion;
-                 best/last checkpoint manager (reference ``.pth`` layout)
-- ``utils``      determinism, visualization, logging, model loading, CLI plumbing
+                 best/last checkpoint manager (reference ``.pth`` layout); the
+                 rule that resolves a checkpoint path (``paths.py``)
+- ``utils``      determinism, visualization, logging, model loading, CLI
+                 plumbing, profiling (``torch.profiler`` traces, step timing)
 - ``train``      train state, train / eval / inference steps, ``VAETrainer``
 - ``cli``        entry points (``inference_vae``, ``train_vae``)
 

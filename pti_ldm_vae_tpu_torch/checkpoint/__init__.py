@@ -1,4 +1,5 @@
 from .manager import CheckpointManager
+from .paths import resolve_checkpoint
 from .reference_resume import load_reference_checkpoint
 from .torch_convert import (
     disc_monai_layout,
@@ -19,5 +20,6 @@ __all__ = [
     "lpips_params_from_npz",
     "monai_layout",
     "monai_state_dict",
+    "resolve_checkpoint",
     "state_dict_from_flax",
 ]

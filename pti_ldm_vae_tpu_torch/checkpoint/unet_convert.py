@@ -15,7 +15,8 @@ the JAX package). ``models/unet.py`` names its submodules so that
   ``sample_diffusion`` reads it) is one ``.pth`` holding
   ``{"unet": MONAI-keyed state dict, "projector": state dict or None}``; the
   JAX package reads its ``"unet"`` entry through ``unet_from_torch_state_dict``.
-  Orbax directories need JAX to read and are refused.
+  Orbax directories need JAX to read: ``tools/export_jax_checkpoint.py
+  diffusion`` writes the ``.pth`` beside one.
 
 Supported: ``with_conditioning=True`` configs, as in the JAX package (MONAI
 uses other block classes without conditioning).
@@ -23,12 +24,12 @@ uses other block classes without conditioning).
 
 from __future__ import annotations
 
-import os
 from typing import Any
 
 import numpy as np
 import torch
 
+from .paths import resolve_checkpoint
 from .torch_convert import _oihw, _tensor
 
 __all__ = [
@@ -196,14 +197,10 @@ def projector_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
 
 def load_diffusion_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
     """(unet state dict with canonical keys, projector state dict or None)
-    from the port's ``.pth`` diffusion checkpoint."""
-    path = str(path)
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package?); the PyTorch "
-            "port reads its diffusion checkpoint as one .pth file holding a MONAI-keyed "
-            "'unet' state dict and a 'projector' state dict"
-        )
+    from the port's ``.pth`` diffusion checkpoint, found by
+    ``checkpoint/paths.py:resolve_checkpoint`` (the JAX package's
+    ``diffusion_last`` finds the ``diffusion_last.pth`` exported beside it)."""
+    path = resolve_checkpoint(path, "diffusion")
     payload: dict[str, Any] = torch.load(path, map_location="cpu", weights_only=True)
     if "unet" not in payload:
         raise KeyError(f"{path}: no 'unet' entry (keys {sorted(payload)[:5]})")

@@ -7,8 +7,9 @@ With conditioning, the first ``--num-images`` images of ``--condition-dir``
 ``z_mu`` by the frozen VAE and projected to the cross-attention context;
 otherwise sampling is unconditional. The initial noise comes from a
 ``torch.Generator`` seeded with ``--seed``. The UNet and projector weights
-are the ``.pth`` that ``train_diffusion`` writes (orbax directories of the JAX
-package are refused). Writes ``sample_XXX.tif`` (float) and
+are the ``.pth`` that ``train_diffusion`` writes, or that
+``tools/export_jax_checkpoint.py diffusion`` writes beside an orbax directory
+of the JAX package (``--checkpoint`` may name either path). Writes ``sample_XXX.tif`` (float) and
 ``sample_XXX.png`` (display-normalized).
 
     python -m pti_ldm_vae_tpu_torch.cli.sample_diffusion -c config/ldm_dente.json \\
@@ -40,7 +41,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Sample images with DDIM (PyTorch/CUDA).")
     parser.add_argument("-c", "--config-file", required=True, help="LDM config JSON")
     parser.add_argument("--checkpoint", required=True,
-                        help="Diffusion checkpoint (.pth written by train_diffusion)")
+                        help="Diffusion checkpoint (.pth written by train_diffusion, or "
+                             "PATH where PATH.pth exists)")
     parser.add_argument("--output-dir", default="ddim_samples")
     parser.add_argument("--num-images", type=int, default=8)
     parser.add_argument("--num-inference-steps", type=int, default=None)

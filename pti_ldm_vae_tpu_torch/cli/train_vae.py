@@ -60,10 +60,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "hand-written convolution kernels (forward, input and filter "
                              "gradient) instead of cuDNN")
     parser.add_argument("--profile-port", type=int, default=None,
-                        help="Profiler server port; not ported yet, raises")
+                        help="Profiler server port of the JAX CLI; raises here: torch has "
+                             "no live profiler endpoint (use --trace-at-step)")
     parser.add_argument("--trace-at-step", type=int, default=None,
-                        help="Capture one profiler trace at this global step; not "
-                             "ported yet, raises")
+                        help="Capture one torch.profiler trace of this global step into "
+                             "<run_dir>/traces (TensorBoard-readable)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; there is no silent CPU fallback")
     return parser.parse_args(argv)

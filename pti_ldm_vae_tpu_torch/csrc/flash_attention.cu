@@ -26,13 +26,21 @@
 // memory is ~113 KB at D=128 in f32 tiles, above the 48 KB static limit, so
 // the launcher raises the kernel's dynamic shared-memory limit first.
 //
-// Head dims 16, 32, 64, 128 and 256. D = 256 (one head over the 256 channels
-// of a 64-128-256 VAE's mid block) takes this kernel in both types, since the
-// tensor-core kernel stops at 128: 214,272 bytes of shared memory, one block
-// per SM, 16 output columns of f32 accumulators a thread.
+// Head dims 16, 32, 64, 128, 256 and 512 (ops/kernels/flash_attention.py
+// zero-pads any other head dim up to the next of these). D = 256 (one head
+// over the 256 channels of a 64-128-256 VAE's mid block) takes this kernel in
+// both types, since the tensor-core kernel stops at 128: 214,272 bytes of
+// shared memory, one block per SM, 16 output columns of f32 accumulators a
+// thread. D = 512 (a [128, 256, 512, 512] VAE's mid block) does the same with
+// q and kv tiles of 32 rows (block_rows): 64-row tiles would need 410,880
+// bytes, over the 232,448 a block may have; 32-row ones need 201,344. Each
+// thread then holds 2 rows x 32 columns of the output.
 //
 // C interface (loaded with ctypes): flash_attention_fwd returns
 // cudaGetLastError() after the launch; any other value than 0 is a failure.
+// flash_attention_fwd_smem reports the tile rows and the dynamic shared
+// memory at a head dim (ops/kernels/flash_attention.py: fwd_fma_smem_bytes is
+// the same formula).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,8 +48,6 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -57,20 +63,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// rows of a q tile and of a kv tile at a head dim
+template <int D>
+constexpr int block_rows() { return D <= 256 ? 64 : 32; }
+
 template <int D>
 constexpr int smem_floats() {
   // q [BQ][D] + k [BK][D+1] + v [BK][D] + p [BQ][BK+1] + m, l, correction [BQ]
+  constexpr int kBlockQ = block_rows<D>(), kBlockK = block_rows<D>();
   return kBlockQ * D + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1) + 3 * kBlockQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, int kBlockQ, int kBlockK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int s, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(kBlockQ % 16 == 0 && kBlockK % 32 == 0, "16 row groups, 32 lanes a row");
   constexpr int kPadK = D + 1;        // odd row stride: column reads hit distinct banks
   constexpr int kPadP = kBlockK + 1;
   constexpr int kCols = D / 16;       // output columns per thread
+  constexpr int kRows = kBlockQ / 16; // output and score rows per thread
+  constexpr int kSc = kBlockK / 16;   // score columns per thread
+  constexpr int kLane = kBlockK / 32; // score columns per lane in the softmax
 
   extern __shared__ float smem[];
   float* qs = smem;
@@ -83,7 +98,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;            // column group
-  const int ty = tid / 16;            // rows ty*4 .. ty*4+3
+  const int ty = tid / 16;            // rows ty*kRows .. ty*kRows+kRows-1
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int q0 = blockIdx.x * kBlockQ;
@@ -98,9 +113,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     row_l[tid] = 0.f;
   }
 
-  float acc[4][kCols];
+  float acc[kRows][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
@@ -115,50 +130,57 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    // scores: rows ty*4+i, columns tx+16*j
-    float sc[4][4];
+    // scores: rows ty*kRows+i, columns tx+16*j
+    float sc[kRows][kSc];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+      for (int j = 0; j < kSc; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      float qv[kRows], kv[kSc];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * D + d];
+      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty * kRows + i) * D + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * kPadK + d];
+      for (int j = 0; j < kSc; ++j) kv[j] = ks[(tx + 16 * j) * kPadK + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        for (int j = 0; j < kSc; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kSc; ++j) {
         const int col = tx + 16 * j;
-        ps[(ty * 4 + i) * kPadP + col] = (k0 + col < s) ? sc[i][j] : -CUDART_INF_F;
+        ps[(ty * kRows + i) * kPadP + col] = (k0 + col < s) ? sc[i][j] : -CUDART_INF_F;
       }
     __syncthreads();
 
-    // online softmax: warp w owns rows w*8 .. w*8+7, two columns per lane
+    // online softmax: warp w owns rows w*kBlockQ/8 .., kLane columns per lane
     for (int rr = 0; rr < kBlockQ / kWarps; ++rr) {
       const int row = warp * (kBlockQ / kWarps) + rr;
-      const float a = ps[row * kPadP + lane];
-      const float b = ps[row * kPadP + lane + 32];
-      float mx = fmaxf(a, b);
+      float pc[kLane];
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < kLane; ++c) {
+        pc[c] = ps[row * kPadP + lane + 32 * c];
+        mx = fmaxf(mx, pc[c]);
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = row_m[row];
       const float m_new = fmaxf(m_old, mx);  // finite: every tile has a live column
-      const float pa = expf(a - m_new);
-      const float pb = expf(b - m_new);
-      float sum = pa + pb;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kLane; ++c) {
+        pc[c] = expf(pc[c] - m_new);
+        sum += pc[c];
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[row * kPadP + lane] = pa;
-      ps[row * kPadP + lane + 32] = pb;
+#pragma unroll
+      for (int c = 0; c < kLane; ++c) ps[row * kPadP + lane + 32 * c] = pc[c];
       __syncwarp();
       if (lane == 0) {
         const float c = expf(m_old - m_new);
@@ -171,35 +193,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     // out = out * correction + p v
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = row_c[ty * 4 + i];
+    for (int i = 0; i < kRows; ++i) {
+      const float c = row_c[ty * kRows + i];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) acc[i][j] *= c;
     }
 #pragma unroll 4
     for (int kk = 0; kk < kBlockK; ++kk) {
-      float pv[4];
+      float pv[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * kPadP + kk];
+      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty * kRows + i) * kPadP + kk];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const float vv = vs[kk * D + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty * kRows + i;
     if (row < s) {
-      const float inv = 1.f / row_l[ty * 4 + i];
+      const float inv = 1.f / row_l[ty * kRows + i];
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         out[base + static_cast<size_t>(row) * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
       if (lse != nullptr && tx == 0)
-        lse[static_cast<size_t>(blockIdx.y) * s + row] = row_m[ty * 4 + i] + logf(row_l[ty * 4 + i]);
+        lse[static_cast<size_t>(blockIdx.y) * s + row] =
+            row_m[ty * kRows + i] + logf(row_l[ty * kRows + i]);
     }
   }
 }
@@ -207,12 +230,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                    int s, float scale, cudaStream_t stream) {
+  constexpr int kBlock = block_rows<D>();
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, kBlock, kBlock>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((s + kBlock - 1) / kBlock, bh);
+  flash_fwd_kernel<T, D, kBlock, kBlock><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, s, scale);
   return cudaGetLastError();
@@ -227,8 +251,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, flo
     case 64: return launch<T, 64>(q, k, v, out, lse, bh, s, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, lse, bh, s, scale, stream);
     case 256: return launch<T, 256>(q, k, v, out, lse, bh, s, scale, stream);
+    case 512: return launch<T, 512>(q, k, v, out, lse, bh, s, scale, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int D>
+void smem_of(int* rows, int* bytes) {
+  *rows = block_rows<D>();
+  *bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
 }
 
 }  // namespace
@@ -249,4 +280,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The tile rows and the dynamic shared memory (bytes) of the kernel at head dim
+// d; returns cudaErrorInvalidValue for a head dim it does not instantiate.
+extern "C" int flash_attention_fwd_smem(int d, int* rows, int* bytes) {
+  switch (d) {
+    case 16: smem_of<16>(rows, bytes); break;
+    case 32: smem_of<32>(rows, bytes); break;
+    case 64: smem_of<64>(rows, bytes); break;
+    case 128: smem_of<128>(rows, bytes); break;
+    case 256: smem_of<256>(rows, bytes); break;
+    case 512: smem_of<512>(rows, bytes); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }

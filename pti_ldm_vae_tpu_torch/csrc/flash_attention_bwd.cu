@@ -47,11 +47,14 @@
 // so the launcher raises each kernel's dynamic shared-memory limit first.
 //
 // Tile rows: the rows of a q tile and of a kv tile are a template parameter
-// TILE, 64 for D <= 128 and 32 for D = 256 (one head over the 256 channels of
-// a 64-128-256 VAE's mid block; the tensor-core kernel stops at 128, so this
-// kernel takes D = 256 in both types). Four staged [TILE][D+1] f32 tiles of
-// 64 rows would need 296,960 bytes (dk/dv) and 280,320 (dq) at D = 256, over
-// the 232,448 a block may have; with 32 rows they need 140,288 and 136,064.
+// TILE, 64 for D <= 128, 32 for D = 256 (one head over the 256 channels of a
+// 64-128-256 VAE's mid block; the tensor-core kernel stops at 128, so this
+// kernel takes D = 256 in both types) and 16 for D = 512 (a [128, 256, 512,
+// 512] VAE's mid block). Four staged [TILE][D+1] f32 tiles of 64 rows would
+// need 296,960 bytes (dk/dv) and 280,320 (dq) at D = 256, over the 232,448 a
+// block may have; with 32 rows they need 140,288 and 136,064. At D = 512, 32
+// rows would need 271,360 (dk/dv); 16 rows need 133,632 and 132,544. Any other
+// head dim is zero-padded up to one of 16 ... 512 by the wrapper.
 // The 16 x 16 threads keep their layout: each holds TILE/16 rows and TILE/16
 // columns of a p / ds tile and TILE/16 x D/16 of an accumulator. The delta
 // pre-pass does not depend on TILE. flash_attention_bwd_smem reports the
@@ -71,7 +74,7 @@ constexpr int kThreads = 256;      // 16 x 16: tx = column group, ty = row group
 
 // rows of a q tile and of a kv tile at a head dim
 template <int D>
-constexpr int tile_rows() { return D <= 128 ? 64 : 32; }
+constexpr int tile_rows() { return D <= 128 ? 64 : (D <= 256 ? 32 : 16); }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -418,6 +421,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* ou
       return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, scale, stream);
     case 256:
       return launch<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, scale, stream);
+    case 512:
+      return launch<T, 512>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -461,6 +466,7 @@ extern "C" int flash_attention_bwd_smem(int d, int* tile, int* dkdv_bytes, int* 
     case 64: smem_of<64>(tile, dkdv_bytes, dq_bytes); break;
     case 128: smem_of<128>(tile, dkdv_bytes, dq_bytes); break;
     case 256: smem_of<256>(tile, dkdv_bytes, dq_bytes); break;
+    case 512: smem_of<512>(tile, dkdv_bytes, dq_bytes); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;

@@ -9,7 +9,13 @@ from .factory import (
 )
 from .io import read_image, write_png, write_tif
 from .loader import ShardedDataLoader, shard_indices
-from .transforms import local_normalize_by_mask_np, preprocess_image_np, resize_area_np
+from .transforms import (
+    local_normalize_by_mask,
+    local_normalize_by_mask_np,
+    preprocess_batch_device,
+    preprocess_image_np,
+    resize_area_np,
+)
 
 __all__ = [
     "RegressionLoader",
@@ -20,7 +26,9 @@ __all__ = [
     "create_vae_dataloaders",
     "create_vae_inference_dataloader",
     "list_tif_paths",
+    "local_normalize_by_mask",
     "local_normalize_by_mask_np",
+    "preprocess_batch_device",
     "preprocess_image_np",
     "read_image",
     "resize_area_np",

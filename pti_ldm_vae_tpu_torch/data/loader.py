@@ -1,8 +1,14 @@
 """Host data pipeline: threaded decode/transform, RAM cache, sharding,
 static batch shapes, prefetch.
 
-Counterpart of ``pti_ldm_vae_tpu/data/loader.py`` (Python decode path; the
-native fused TIFF decoder is not ported):
+Counterpart of ``pti_ldm_vae_tpu/data/loader.py``:
+
+* the default transform is the JAX loader's: the native fused TIFF decode +
+  area resize + mask z-score (``native/``, the same C++ source and flags, so
+  the same bits) for the ``.tif/.tiff`` files the library parses, else the
+  numpy path ``preprocess_image_np(read_image(...))``; every file is counted
+  under ``native.decoded`` or ``native.python_path``. ``transform=`` replaces
+  it with any ``path -> [H, W, 1] f32`` function,
 
 * optional RAM cache of transformed samples (``cache_rate``: the first
   fraction of the dataset is cached),
@@ -23,10 +29,11 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
+from .. import native
 from .io import read_image
 from .transforms import preprocess_image_np
 
@@ -56,7 +63,8 @@ class ShardedDataLoader:
     def __init__(self, paths: list[str], patch_size: tuple[int, int], batch_size: int, *,
                  attributes: list[dict[str, float]] | None = None,
                  shuffle: bool = False, seed: int | None = 42, rank: int = 0, world: int = 1,
-                 cache_rate: float = 0.0, num_workers: int = 8, drop_last: bool = False):
+                 cache_rate: float = 0.0, num_workers: int = 8, drop_last: bool = False,
+                 transform: Callable[[str], np.ndarray] | None = None):
         if attributes is not None and len(attributes) != len(paths):
             raise ValueError("attributes must align with paths")
         if not 0.0 <= cache_rate <= 1.0:
@@ -71,6 +79,7 @@ class ShardedDataLoader:
         self.world = world
         self.drop_last = drop_last
         self.epoch = 0
+        self._transform = transform or self._default_transform
         self._cache: dict[int, np.ndarray] = {}
         self._cache_limit = int(cache_rate * len(self.paths))
         self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
@@ -78,6 +87,17 @@ class ShardedDataLoader:
     def close(self) -> None:
         """Stop the decode threads."""
         self._pool.shutdown(wait=True)
+
+    def _default_transform(self, path: str) -> np.ndarray:
+        """The JAX loader's preprocessing: the native fused path where the
+        library parses the file, else the numpy path; each file counted."""
+        if str(path).lower().endswith((".tif", ".tiff")):
+            result = native.preprocess_tiff(str(path), self.patch_size)
+            if result is not None:
+                native.count_path(True)
+                return result
+        native.count_path(False)
+        return preprocess_image_np(read_image(path), self.patch_size)
 
     def set_epoch(self, epoch: int) -> None:
         """Reference ``train_loader.sampler.set_epoch`` parity: the shuffle
@@ -91,7 +111,7 @@ class ShardedDataLoader:
     def _sample(self, idx: int) -> np.ndarray:
         if idx in self._cache:
             return self._cache[idx]
-        img = preprocess_image_np(read_image(self.paths[idx]), self.patch_size)
+        img = self._transform(self.paths[idx])
         if idx < self._cache_limit:
             self._cache[idx] = img
         return img

@@ -1,9 +1,12 @@
-"""Preprocessing transforms: mask-aware z-scoring + area resize (numpy host path).
+"""Preprocessing transforms: mask-aware z-scoring + area resize.
 
-Counterpart of the numpy functions of ``pti_ldm_vae_tpu/data/transforms.py``
-and bit-identical to them. Canonical pipeline (reference
-``dataloaders.py:319-329``): Load -> EnsureChannelFirst -> Resize(patch,
-mode=area) -> LocalNormalizeByMask -> float32.
+Counterpart of ``pti_ldm_vae_tpu/data/transforms.py``: the numpy host path
+(bit-identical to the JAX package's numpy functions) and the device path
+(``local_normalize_by_mask``, ``preprocess_batch_device``: torch on the
+tensor's device, for uniform-size raw batches already on the card).
+Canonical pipeline (reference ``dataloaders.py:319-329``): Load ->
+EnsureChannelFirst -> Resize(patch, mode=area) -> LocalNormalizeByMask ->
+float32.
 
 ``LocalNormalizeByMask`` semantics (reference ``transforms.py:8-32``):
 statistics over *non-zero* pixels only; background stays exactly 0; std floor:
@@ -13,10 +16,12 @@ if std <= 1e-5 use 1.0.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..ops.resize import _area_matrix_np
+from ..ops.resize import _area_matrix_np, resize_area
 
-__all__ = ["local_normalize_by_mask_np", "resize_area_np", "preprocess_image_np"]
+__all__ = ["local_normalize_by_mask_np", "local_normalize_by_mask", "resize_area_np",
+           "preprocess_image_np", "preprocess_batch_device"]
 
 
 def local_normalize_by_mask_np(img: np.ndarray) -> np.ndarray:
@@ -31,6 +36,28 @@ def local_normalize_by_mask_np(img: np.ndarray) -> np.ndarray:
     out = (img - mean) / std
     out[~mask] = 0.0
     return out.astype(np.float32)
+
+
+def local_normalize_by_mask(img: torch.Tensor) -> torch.Tensor:
+    """Torch LocalNormalizeByMask over the trailing spatial dims of one image,
+    or per image of a 4-D NHWC batch (JAX ``transforms.py:45-60``): f32
+    statistics over the non-zero pixels (mean, then the mean squared
+    deviation), std floored to 1.0 at or below 1e-5, background kept at 0."""
+    x = img.to(torch.float32)
+    axes = (1, 2, 3) if x.dim() == 4 else tuple(range(x.dim()))
+    mask = x != 0
+    count = mask.sum(dim=axes, keepdim=True).clamp_min(1).to(torch.float32)
+    mean = torch.where(mask, x, 0.0).sum(dim=axes, keepdim=True) / count
+    var = torch.where(mask, (x - mean).square(), 0.0).sum(dim=axes, keepdim=True) / count
+    std = var.sqrt()
+    std = torch.where(std > 1e-5, std, 1.0)
+    return torch.where(mask, (x - mean) / std, 0.0)
+
+
+def preprocess_batch_device(raw: torch.Tensor, patch_size: tuple[int, int]) -> torch.Tensor:
+    """Preprocessing of a uniform-size raw NHWC batch on its device: area
+    resize, then per-image mask normalization (JAX ``transforms.py:93``)."""
+    return local_normalize_by_mask(resize_area(raw, tuple(patch_size)))
 
 
 def resize_area_np(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:

@@ -59,6 +59,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, and the padded flash-attention
+    launches (``flash_attention.padded_launches``, a share of its two counts)."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    flash_attention.padded_launches = 0

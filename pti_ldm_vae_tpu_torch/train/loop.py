@@ -22,9 +22,13 @@ With AR-VAE on (``regularized_attributes.enabled`` or
 attributes and the steps add the attribute term at ``gamma``; its totals and
 per-attribute terms are logged as ``train/ar_loss_*`` and ``val/ar_loss_*``.
 
+``trace_at_step=N`` captures a ``torch.profiler`` trace of global step N
+into ``run_dir/traces`` (``utils/profiling.py:trace_if``; the device is
+synchronized inside the traced block, so the step's kernels end within it).
+
 Not ported yet, and raising when configured: ``parallelism``, ``remat``, the
 space-to-depth stem (``s2d_stem`` other than false / "auto", which takes the
-standard path), profiler tracing.
+standard path). ``profile_port`` raises: torch has no live profiler endpoint.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..models.lpips import load_lpips_params, lpips_is_pretrained
 from ..ops.norm import DEFAULT_NORM_STATS
 from ..utils.determinism import set_determinism
 from ..utils.logging import MetricLogger, init_wandb_config
+from ..utils.profiling import start_profiler_server, trace_if
 from ..utils.visualization import normalize_batch_for_display
 from .state import create_train_state
 from .steps import LossConfig, make_eval_step, make_inference_fn, make_train_step
@@ -122,9 +127,9 @@ class VAETrainer:
         self.rank = 0
         self.world = 1
         self.device = torch.device(device)
-        if profile_port or trace_at_step is not None:
-            raise _not_ported("profiler tracing (--profile-port / --trace-at-step)",
-                              "utils/profiling.py")
+        if profile_port:
+            start_profiler_server(profile_port)
+        self.trace_at_step = trace_at_step
 
         train_cfg = cfg["autoencoder_train"]
         self.batch_size = int(train_cfg["batch_size"])
@@ -303,8 +308,15 @@ class VAETrainer:
         batch0: tuple[dict, torch.Tensor] | None = None
         for step, batch in enumerate(self.train_loader):
             images, mask, attributes = self._device_batch(batch)
-            _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
-                                 generator=self.generator)
+            traced = self.trace_at_step is not None and self.total_step + 1 == self.trace_at_step
+            with trace_if(self.run_dir / "traces", enabled=traced):
+                _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
+                                     generator=self.generator)
+                if traced and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            if traced:
+                print(f"[INFO] profiler trace captured at step {self.total_step + 1} "
+                      f"-> {self.run_dir / 'traces'}")
             self.total_step += 1
             if step % self.log_every == 0:
                 buffered.append((self.total_step, metrics))

@@ -10,14 +10,15 @@ over the batch's real rows: the loader pads the last batch) and Adam, or
 AdamW with decoupled weight decay when ``weight_decay`` > 0, on the head's
 parameters alone. Head checkpoints are the reference's ``.pth``:
 ``{"regressor_state_dict", "targets", "epoch", "latent_dim"}``, which the
-JAX package's ``load_regression_checkpoint`` also reads; orbax directories
-are refused.
+JAX package's ``load_regression_checkpoint`` also reads. Every checkpoint
+path goes through ``checkpoint/paths.py:resolve_checkpoint``: ``head_best``
+finds ``head_best.pth``, and an orbax directory is refused unless
+``tools/export_jax_checkpoint.py`` wrote the ``.pth`` beside it.
 """
 
 from __future__ import annotations
 
 import json
-import os
 from pathlib import Path
 from typing import Any, Callable
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import save_atomic
+from ..checkpoint.paths import resolve_checkpoint
 from ..models.regressor import LatentRegressor, VAELatentRegressor, infer_flat_dim_from_patch
 from .metrics import compute_regression_metrics
 from .vae_loader import load_vae_config, load_vae_model
@@ -324,13 +326,7 @@ def load_regression_checkpoint(
 ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
     """(head state dict, metadata) of a ``.pth`` head checkpoint; validates
     the target order (reference ``:410-431``)."""
-    path = str(path)
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package?); the "
-            "PyTorch port loads .pth head checkpoints only"
-        )
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = torch.load(resolve_checkpoint(path, "head"), map_location="cpu", weights_only=True)
     stored = ckpt.get("targets")
     if stored and list(stored) != list(expected_targets):
         raise ValueError(f"Target mismatch: expected {expected_targets}, found {stored}.")
@@ -365,13 +361,10 @@ def build_regression_model_from_config(
     """Frozen VAE + head from config (reference ``:480-515``), on ``device``.
     The VAE encodes in ``compute_dtype`` (f32 unless asked, as the JAX CLIs
     load it); the head is f32, initialized from ``generator`` (a CPU
-    generator). ``vae.checkpoint`` must be a MONAI-keyed ``.pth`` file."""
-    vae_ckpt = str(config["vae"]["checkpoint"])
-    if not os.path.isfile(vae_ckpt):
-        raise ValueError(
-            f"vae.checkpoint {vae_ckpt!r} is not a file: the PyTorch port loads MONAI-keyed "
-            ".pth checkpoints only (an orbax directory of the JAX package needs exporting "
-            "to .pth first)")
+    generator). ``vae.checkpoint`` is found by ``resolve_checkpoint`` (first,
+    before the VAE's config is read): the shipped configs'
+    ``.../autoencoder_last`` loads ``autoencoder_last.pth``."""
+    vae_ckpt = resolve_checkpoint(config["vae"]["checkpoint"], "vae")
     vae = load_vae_model(load_vae_config(config["vae"]["config_file"]), vae_ckpt,
                          device=device, compute_dtype=compute_dtype, conv_kernel=conv_kernel)
     data_cfg = extract_regression_data_config(config)

@@ -1,18 +1,22 @@
 """Config + model loading (counterpart of ``pti_ldm_vae_tpu/utils/vae_loader.py``).
 
 Checkpoints are the reference's torch ``.pt/.pth`` files (raw MONAI state
-dict or ``{"autoencoder_state_dict": ...}``). Orbax checkpoint directories
-of the JAX package need JAX to read and are refused with a clear error.
+dict or ``{"autoencoder_state_dict": ...}``) and the MONAI-keyed ``.npz``
+that ``tools/convert_torch_checkpoint.py to-torch`` writes. The path goes
+through ``checkpoint/paths.py:resolve_checkpoint``: a config's
+``.../autoencoder_last`` finds ``autoencoder_last.pth``, and an orbax
+directory of the JAX package is refused unless exported beside it.
 """
 
 from __future__ import annotations
 
-import os
 from types import SimpleNamespace
 from typing import Any
 
+import numpy as np
 import torch
 
+from ..checkpoint.paths import resolve_checkpoint
 from ..checkpoint.torch_convert import monai_state_dict
 from ..config import load_config_namespace
 from ..models.autoencoder_kl import AutoencoderKL, autoencoder_from_config
@@ -27,15 +31,14 @@ def load_vae_config(config_file: str) -> SimpleNamespace:
 
 
 def load_autoencoder_state_dict(checkpoint_path: str) -> dict[str, torch.Tensor]:
-    """MONAI-keyed state dict from a torch ``.pth`` file."""
-    path = str(checkpoint_path)
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package?); the "
-            "PyTorch port loads torch .pth files only — export the weights to a "
-            "MONAI-keyed .pth first"
-        )
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    """MONAI-keyed state dict from a torch ``.pth`` file or a MONAI-keyed
+    ``.npz`` (read without pickles), found by ``resolve_checkpoint``."""
+    path = resolve_checkpoint(checkpoint_path, "vae")
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as raw:
+            payload = {key: torch.from_numpy(np.ascontiguousarray(raw[key])) for key in raw.files}
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
     return monai_state_dict(payload)
 
 

@@ -26,9 +26,7 @@ import torch
 
 from pti_ldm_vae_tpu.checkpoint.torch_convert import disc_to_torch_state_dict, to_torch_state_dict
 from pti_ldm_vae_tpu.data import datasets as jax_datasets
-from pti_ldm_vae_tpu.data import io as jax_io
 from pti_ldm_vae_tpu.data.factory import create_vae_dataloaders as jax_create_vae_dataloaders
-from pti_ldm_vae_tpu.data.transforms import preprocess_image_np as jax_preprocess
 from pti_ldm_vae_tpu.losses import ar_vae as jax_ar
 from pti_ldm_vae_tpu.models import lpips as jax_lpips
 from pti_ldm_vae_tpu.models.autoencoder_kl import autoencoder_from_config as jax_from_config
@@ -257,9 +255,7 @@ def test_loader_batches_match_the_jax_loader(tif_tree, val_dir):
     ours = create_vae_dataloaders(str(tif_tree), 5, (16, 16), **kw)
     theirs = jax_create_vae_dataloaders(str(tif_tree), 5, (16, 16), **kw)
     assert ours[2:] == theirs[2:]
-    py_decode = lambda p: jax_preprocess(jax_io.read_image(p), (16, 16))  # noqa: E731
-    for mine, jaxs in zip(ours[:2], theirs[:2]):
-        jaxs._transform = py_decode  # the native fused decoder is not ported
+    for mine, jaxs in zip(ours[:2], theirs[:2]):  # both on the native fused decoder
         for epoch in range(2):
             mine.set_epoch(epoch)
             jaxs.set_epoch(epoch)

@@ -73,9 +73,8 @@ def test_cli_outputs_match_jax(workspace):
         ours = read_image(str(root / "port" / "results_tif" / name))
         theirs = jax_read_image(str(root / "jax" / "results_tif" / name))
         assert ours.shape == theirs.shape == (32, 64)
-        # the preprocessed input: the JAX CLI decodes with its native fused
-        # path, which rounds differently from the Python path in the last bit
-        np.testing.assert_allclose(ours[:, :32], theirs[:, :32], rtol=0, atol=1e-5)
+        # the preprocessed input: both CLIs decode with the native fused path
+        np.testing.assert_array_equal(ours[:, :32], theirs[:, :32])
         assert np.abs(ours - theirs).max() <= 1e-3
 
 

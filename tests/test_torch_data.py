@@ -97,13 +97,11 @@ def test_list_tif_paths_errors(tmp_path):
 
 @pytest.mark.parametrize("batch_size,num_samples", [(4, None), (3, 7), (16, None)])
 def test_loader_batches_and_masks_equal(tif_dir, batch_size, num_samples):
-    """Against the JAX loader's Python decode path (its native fused decoder
-    is not ported and rounds differently in the last bit)."""
+    """Against the JAX loader, both on their default transform (the native
+    fused decoder, the same source and flags): the same bits."""
     ours, paths = create_vae_inference_dataloader(
         str(tif_dir), (32, 32), batch_size, num_samples=num_samples, num_workers=2)
-    theirs = JaxLoader(
-        paths, (32, 32), batch_size, shuffle=False, num_workers=2,
-        transform=lambda p: jax_preprocess(jax_io.read_image(p), (32, 32)))
+    theirs = JaxLoader(paths, (32, 32), batch_size, shuffle=False, num_workers=2)
     assert paths == jax_list_tif_paths(str(tif_dir), "both")[:num_samples]
     assert len(ours) == len(theirs)
     got, want = list(ours), list(theirs)
@@ -196,16 +194,14 @@ def test_split_dataset_identical(seed, train_split):
 def test_training_loaders_follow_the_jax_epoch_order(tif_dir, batch_size, drop_last):
     """Same split, same per-epoch shuffle (``default_rng(seed + epoch)``), same
     batches and masks as the JAX package's train and val loaders, for three
-    epochs; cached samples are served unchanged."""
-    py_decode = lambda p: jax_preprocess(jax_io.read_image(p), (32, 32))  # noqa: E731
+    epochs; cached samples are served unchanged. Both loaders take their
+    default transform, the native fused decoder: the batches are bit-equal."""
     kw = dict(data_source="both", train_split=0.7, num_workers=2, seed=5, cache_rate=0.5)
     ours_train, ours_val, train_paths, val_paths = create_vae_dataloaders(
         str(tif_dir), batch_size, (32, 32), **kw)
     theirs_train, theirs_val, jax_train_paths, jax_val_paths = jax_create_vae_dataloaders(
         str(tif_dir), batch_size, (32, 32), **kw)
     assert (train_paths, val_paths) == (jax_train_paths, jax_val_paths)
-    for loader in (theirs_train, theirs_val):
-        loader._transform = py_decode  # the native fused decoder is not ported
     for loader in (ours_train, theirs_train):
         loader.drop_last = drop_last
     assert len(ours_train) == len(theirs_train) and len(ours_val) == len(theirs_val)

@@ -36,8 +36,10 @@ def test_port_has_modules():
                      "analysis/latent_cache.py", "analysis/projection.py",
                      "utils/visualization.py", "analysis/latent_space.py",
                      "analysis/common.py", "cli/analyze_static.py",
-                     "cli/analyze_interactive.py", "cli/analyze_ar_channels.py"):
+                     "cli/analyze_interactive.py", "cli/analyze_ar_channels.py",
+                     "checkpoint/paths.py", "native/__init__.py", "utils/profiling.py"):
         assert expected in names
+    assert (PORT / "native" / "ptidata.cpp").exists()
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
                    "conv3x3_wgrad.cu", "conv3x3_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
                    "flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu", "hopper_mma.cuh",

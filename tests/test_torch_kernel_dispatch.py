@@ -33,6 +33,8 @@ from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     bwd_fma_smem_bytes,
     bwd_fma_tile,
     forward_kernel as flash_forward_kernel,
+    fwd_fma_smem_bytes,
+    fwd_fma_tile,
 )
 
 # (B, H, W, Cin, Cout) of the 47 3x3 convolutions of a flagship pass at 256², batch 8
@@ -224,10 +226,11 @@ def test_flash_check_accepts_256_and_rejects_other_head_dims(head_dim):
 def test_flash_fma_backward_tile_fits_shared_memory(head_dim):
     """The FMA backward's staged tiles at every head dim: 64 rows up to 128,
     32 at 256, where 64 rows would need 296,960 (dk/dv) and 280,320 (dq)
-    bytes, over the 232,448 a block may have on sm_90."""
+    bytes, over the 232,448 a block may have on sm_90, and 16 at 512, where
+    32 rows would need 271,360."""
     tile = bwd_fma_tile(head_dim)
     dkdv, dq = bwd_fma_smem_bytes(head_dim)
-    assert tile == (64 if head_dim <= 128 else 32) and tile % 16 == 0
+    assert tile == (64 if head_dim <= 128 else 32 if head_dim <= 256 else 16) and tile % 16 == 0
     assert max(dkdv, dq) <= 232_448
     # the formula of csrc/flash_attention_bwd.cu: four [tile][D+1] f32 tiles,
     # [tile][tile+1] p and ds (dq: ds only), lse and delta of the tile's rows
@@ -237,6 +240,10 @@ def test_flash_fma_backward_tile_fits_shared_memory(head_dim):
         assert (dkdv, dq) == (140_288, 136_064)
         rows64 = 4 * (4 * 64 * 257 + 2 * 64 * 65 + 2 * 64)
         assert rows64 == 296_960 > 232_448
+    if head_dim == 512:
+        assert (dkdv, dq) == (133_632, 132_544)
+        rows32 = 4 * (4 * 32 * 513 + 2 * 32 * 33 + 2 * 32)
+        assert rows32 == 271_360 > 232_448
 
 
 def test_flash_forward_smem_at_head_dim_256():
@@ -244,6 +251,18 @@ def test_flash_forward_smem_at_head_dim_256():
     v [64][D], p [64][65] and three row vectors, 214,272 bytes."""
     d = 256
     assert 4 * (64 * d + 64 * (d + 1) + 64 * d + 64 * 65 + 3 * 64) == 214_272 <= 232_448
+    assert (fwd_fma_tile(d), fwd_fma_smem_bytes(d)) == (64, 214_272)
+
+
+@pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
+def test_flash_forward_tile_fits_shared_memory(head_dim):
+    """The FMA forward's tiles: 64 rows up to head dim 256, 32 at 512, where
+    64 rows would need 410,880 bytes; 32 rows need 201,344."""
+    rows, nbytes = fwd_fma_tile(head_dim), fwd_fma_smem_bytes(head_dim)
+    assert rows == (64 if head_dim <= 256 else 32) and nbytes <= 232_448
+    if head_dim == 512:
+        assert nbytes == 201_344
+        assert 4 * (64 * 512 + 64 * 513 + 64 * 512 + 64 * 65 + 3 * 64) == 410_880 > 232_448
 
 
 def test_new_sources_are_built_with_the_rest():

@@ -51,6 +51,9 @@ from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     bwd_fma_smem_bytes,
     bwd_fma_smem_of_library,
     bwd_fma_tile,
+    fwd_fma_smem_bytes,
+    fwd_fma_smem_of_library,
+    fwd_fma_tile,
 )
 from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
@@ -240,12 +243,65 @@ def test_flash_attention_head_dim_256_matches_plain(cuda, dtype):
             assert torch.equal(first, second)
 
 
+# head dims the kernels are not built for: 96 pads to 128 (the tensor-core
+# kernels in bf16), 200 to 256; 512 (a [128, 256, 512, 512] VAE's mid block at
+# 256²) is built, on the f32-FMA kernels with 32-row forward and 16-row
+# backward tiles; unit-variance inputs
+FLASH_HEAD_DIM_SHAPES = [(2, 1, 1024, 96), (1, 2, 300, 200), (2, 1, 1024, 512), (1, 1, 77, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_other_head_dims_match_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for shape in FLASH_HEAD_DIM_SHAPES:
+        q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        reset_launch_counts()
+        out = flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        counts = launch_counts()
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
+        padded = shape[-1] not in SUPPORTED_HEAD_DIMS
+        assert flash_attention.padded_launches == (2 if padded else 0)
+        assert out.shape == shape and all(t.shape == shape for t in got)
+        msg = lambda m: f"{shape} {dtype}: {m}"  # noqa: E731
+        qf, kf, vf = q.detach().float(), k.detach().float(), v.detach().float()
+        torch.testing.assert_close(out.detach().float(), flash_attention_plain(qf, kf, vf),
+                                   **_tol(dtype), msg=msg)
+        for ours, theirs in zip(got, flash_attention_bwd_plain(qf, kf, vf, g.float())):
+            torch.testing.assert_close(ours.float(), theirs, **_tol(dtype), msg=msg)
+        again = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), g)
+        for first, second in zip(got, again):
+            assert torch.equal(first, second)
+    with pytest.raises(ValueError, match="head dim 520"):
+        flash_attention(*(torch.zeros(1, 1, 8, 520, device=cuda) for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_flash_attention_empty_padded_call_launches_nothing(cuda):
+    """A call with no elements launches no kernel, so it counts neither a
+    launch nor a padded launch, forward or backward."""
+    q, k, v = (torch.zeros(2, 1, 0, 96, device=cuda, requires_grad=True) for _ in range(3))
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    torch.autograd.grad(out, (q, k, v), torch.zeros_like(out))
+    counts = launch_counts()
+    assert out.shape == q.shape
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (0, 0)
+    assert flash_attention.padded_launches == 0
+
+
 @pytest.mark.cuda
 def test_flash_fma_backward_smem_matches_the_library(cuda):
     for d in SUPPORTED_HEAD_DIMS:
         assert bwd_fma_smem_of_library(d) == (bwd_fma_tile(d), *bwd_fma_smem_bytes(d))
+        assert fwd_fma_smem_of_library(d) == (fwd_fma_tile(d), fwd_fma_smem_bytes(d))
     with pytest.raises(ValueError, match="head dim 48"):
         bwd_fma_smem_of_library(48)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fwd_fma_smem_of_library(48)
 
 
 @pytest.mark.cuda

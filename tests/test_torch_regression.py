@@ -24,9 +24,7 @@ import pytest
 import torch
 
 from pti_ldm_vae_tpu.data import factory as jax_factory
-from pti_ldm_vae_tpu.data import io as jax_io
 from pti_ldm_vae_tpu.data.io import write_tif
-from pti_ldm_vae_tpu.data.transforms import preprocess_image_np as jax_preprocess
 from pti_ldm_vae_tpu.models import regressor as jax_reg
 from pti_ldm_vae_tpu.models.autoencoder_kl import autoencoder_from_config as jax_from_config
 from pti_ldm_vae_tpu.utils import regression_utils as jax_ru
@@ -315,14 +313,6 @@ def dataset(tmp_path_factory):
     return root
 
 
-def _python_decode(*jax_loaders):
-    """The JAX loaders on their Python decode path (their native fused
-    decoder is not ported and rounds differently in the last bit)."""
-    for loader in jax_loaders:
-        loader._transform = lambda p: jax_preprocess(jax_io.read_image(p), (32, 32))
-    return jax_loaders
-
-
 def _batches(loader, epochs):
     out = []
     for epoch in epochs:
@@ -347,7 +337,6 @@ def test_regression_loaders_match_jax(dataset, val_dir):
     args = (str(dataset / "data"), str(dataset / "attributes.json"), TARGETS, 3, (32, 32))
     ours = factory.create_regression_dataloaders(*args, **kwargs)
     theirs = jax_factory.create_regression_dataloaders(*args, **kwargs)
-    _python_decode(*theirs[:2])
     assert ours[2:] == theirs[2:]
     np.testing.assert_array_equal(ours[0].stacked_targets(), theirs[0].stacked_targets())
     for loader, jax_loader in zip(ours[:2], theirs[:2]):
@@ -365,14 +354,12 @@ def test_regression_eval_and_inference_loaders_match_jax(dataset):
     kwargs = dict(data_source="dente", num_samples=10, num_workers=2)
     ours, paths = factory.create_regression_eval_dataloader(*args, **kwargs)
     theirs, jax_paths = jax_factory.create_regression_eval_dataloader(*args, **kwargs)
-    _python_decode(theirs)
     assert paths == jax_paths and len(paths) == 10
     _assert_same_batches(list(ours), list(theirs))
     ours.close()
     ours, paths = factory.create_regression_inference_dataloader(str(dataset / "data"), (32, 32), 4)
     theirs, jax_paths = jax_factory.create_regression_inference_dataloader(
         str(dataset / "data"), (32, 32), 4)
-    _python_decode(theirs)
     assert paths == jax_paths
     _assert_same_batches(list(ours), list(theirs))
     ours.close()

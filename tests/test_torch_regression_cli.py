@@ -181,6 +181,11 @@ def test_cli_without_device_cpu_refuses_to_run_without_cuda(main, tmp_path):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_the_shipped_configs_orbax_vae_path_is_refused(name, tmp_path, monkeypatch):
+    """The configs' ``vae.checkpoint`` as the JAX trainer leaves it, an orbax
+    directory with no exported ``.pth`` beside it, is refused with the export
+    command (``.../autoencoder_last.pth`` would be loaded instead)."""
     monkeypatch.chdir(tmp_path)  # the CLI creates the config's relative run_dir
-    with pytest.raises(ValueError, match="orbax"):
+    cfg = json.loads((ROOT / "config" / f"{name}.json").read_text())
+    (tmp_path / cfg["vae"]["checkpoint"]).mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax.*export_jax_checkpoint.py vae"):
         train(["-c", str(ROOT / "config" / f"{name}.json"), "--device", "cpu"])

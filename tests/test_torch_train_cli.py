@@ -198,7 +198,7 @@ def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     assert not (tmp_path / "run").exists()  # refused before anything is written
 
 
-@pytest.mark.parametrize("flags", [["--profile-port", "9999"], ["--trace-at-step", "3"],
+@pytest.mark.parametrize("flags", [["--profile-port", "9999"], ["--s2d-stem", "encoder"],
                                     ["--remat"], ["--s2d-stem"], ["--s2d-stem", "decoder"]])
 def test_unported_flags_fail_loudly(workspace, tmp_path, flags):
     root, _ = workspace

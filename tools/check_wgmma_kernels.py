@@ -152,15 +152,16 @@ def main() -> int:
 
     for shape in FLASH_SHAPES:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).bfloat16() for _ in range(4))
-        out, lse = flash_mod._launch_forward(q, k, v, save_lse=True)
+        scale = shape[-1] ** -0.5
+        out, lse = flash_mod._launch_forward(q, k, v, True, scale)
         torch.cuda.synchronize()
         want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float())
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * shape[-1] ** -0.5
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         err = (out.float() - want).abs()
         lse_err = float((lse - torch.logsumexp(scores, dim=-1)).abs().max())
         assert flash_mod.backward_kernel(q.dtype, shape[-1]) == "wgmma"
-        grads = flash_mod._launch_backward(q, k, v, out, lse, g)
-        again = flash_mod._launch_backward(q, k, v, out, lse, g)
+        grads = flash_mod._launch_backward(q, k, v, out, lse, g, scale)
+        again = flash_mod._launch_backward(q, k, v, out, lse, g, scale)
         torch.cuda.synchronize()
         want_bwd = flash_mod.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
         bwd_errs = [(a.float() - b_).abs() for a, b_ in zip(grads, want_bwd)]
@@ -179,7 +180,7 @@ def main() -> int:
             bh, s, d = shape[0] * shape[1], shape[2], shape[3]
             o2 = torch.empty_like(q)
             stream = torch.cuda.current_stream().cuda_stream
-            row.update(ms=device_ms(torch, lambda: flash_mod._launch_forward(q, k, v, False)),
+            row.update(ms=device_ms(torch, lambda: flash_mod._launch_forward(q, k, v, False, scale)),
                        fma_ms=device_ms(torch, lambda: fma.flash_attention_fwd(
                            q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(), None, bh, s, d, 1,
                            d ** -0.5, stream)),
@@ -189,7 +190,8 @@ def main() -> int:
             g2 = [torch.empty_like(q) for _ in range(3)]
             leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
             out_lib = F.scaled_dot_product_attention(*leaves)
-            row.update(bwd_ms=device_ms(torch, lambda: flash_mod._launch_backward(q, k, v, out, lse, g)),
+            row.update(bwd_ms=device_ms(torch, lambda: flash_mod._launch_backward(
+                           q, k, v, out, lse, g, scale)),
                        bwd_fma_ms=device_ms(torch, lambda: bwd_fma.flash_attention_bwd(
                            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
                            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in g2), bh, s, d,
