@@ -7,11 +7,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device report (``nvidia-smi`` name and power limit, torch / CUDA versions);
-2. build: the ten CUDA C++ sources of ``pti_ldm_vae_tpu_torch/csrc`` with
+2. build: the twelve CUDA C++ sources of ``pti_ldm_vae_tpu_torch/csrc`` with
    nvcc (one process per source, started together, and beside them the
    native TIFF library ``native/ptidata.cpp`` with g++; ``ptxas`` registers and
-   spills reported, and none allowed in the two GroupNorm+SiLU libraries; for
-   the four tensor-core sources also the shared memory per block and the
+   spills reported, and none allowed in the two GroupNorm+SiLU libraries and
+   the two wide-head flash libraries; for
+   the six tensor-core sources also the shared memory per block and the
    resident blocks per SM of every instantiation the path takes, and whether
    their SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``), read
    with ``cuobjdump`` where the toolkit has it; for the GroupNorm+SiLU cluster
@@ -30,12 +31,16 @@ result line):
    groups) at b8 and the flagship's 8 at b1 (PTI's fine-tune);
    flash attention also at the UNet's [8,2,256,32], [8,4,64,32], [8,8,16,32]
    and at head dim 256, [8,1,4096,256] and [1,1,4096,256] (the kl1e3 mid
-   blocks; the f32-FMA kernels in both types, whose backward's and forward's
-   tile rows and shared memory are read from the libraries); then, phase
-   ``flash_head_dims``, at [8,1,1024,96] (zero-padded to 128 by the wrapper:
-   the tensor-core kernels in bf16, 12 padded launches) and [8,1,1024,512]
-   (a [128,256,512,512] VAE's mid block at 256²: the f32-FMA kernels with 32-row
-   forward and 16-row backward tiles), forward and backward in both types;
+   blocks; the wide tensor-core kernels in bf16, the f32-FMA kernels in f32,
+   whose backward's and forward's tile rows and shared memory are read from
+   the libraries, as are the wide kernels' shared memory and blocks per SM);
+   then, phase ``flash_head_dims``, at [8,1,1024,96] (zero-padded to 128 by
+   the wrapper: the tensor-core kernels in bf16, 12 padded launches),
+   [8,1,1024,512] (a [128,256,512,512] VAE's mid block at 256²: the wide
+   tensor-core kernels in bf16, the f32-FMA kernels with 32-row forward and
+   16-row backward tiles in f32), [2,1,1024,640] and [1,1,512,1024] (above
+   512: the wide kernels in bf16, the FMA split kernels in f32), forward and
+   backward in both types, with the launches of the wide kernels counted;
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
    flagship pass, as forward, input gradient and filter gradient, a ragged
    [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
@@ -49,7 +54,9 @@ result line):
    rules), every hand-written kernel
    against its plain PyTorch version on the card:
    forward kernels f32 (atol 1e-5, rtol 1e-4) and bf16 (against the plain f32
-   version on the same bf16-rounded inputs, atol 2e-2); backward kernels the
+   version on the same bf16-rounded inputs, atol 2e-2; flash attention also
+   the rms of its error within 1e-2 of the reference's rms, ``FLASH_REL_BAR``,
+   since its values shrink with S); backward kernels the
    same bars for ``dx``, ``dq``, ``dk``, ``dv``; ``dscale`` / ``dbias`` are
    f32 sums over B*H*W terms of size ~1 (up to 524 288 here), held to rtol
    1e-4 with atol 1e-5 * sqrt(B*H*W) (the rounding of a sum grows with the
@@ -196,7 +203,10 @@ result line):
    the UNet forward, the 50-step DDIM loop (steps/s) and one diffusion train
    step as the CLI runs it, in bf16 and f32; the AR step of both AR configs
    at b8 bf16 (kl1e3 as its config trains it: adversarial, convolution
-   kernels), flash at [8,1,4096,256], [8,1,1024,96] and [8,1,1024,512] against SDPA, PTI's two stages (latent
+   kernels), flash at [8,1,4096,256], [8,1,1024,96], [8,1,1024,512],
+   [2,1,1024,640] and [1,1,512,1024] against SDPA (and, where the wide
+   tensor-core kernels serve bf16, against the f32-FMA kernels they replaced,
+   called through their libraries, in turns), PTI's two stages (latent
    steps/s at b8, tune steps/s at b1) in bf16 and f32; the regression head's
    train step and predict at b8 in f32 and bf16, cuDNN and convolution
    kernels (phase ``regression_b8``); the convolution kernels at the kl1e3
@@ -206,12 +216,13 @@ result line):
    projection's PCA-50, kNN + P and 1000 t-SNE iterations on seeded
    [N, 4096] latents at N = 2000 and 6000 with peak memory (``analysis_b8``);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
-   sites; launches by path, the diffusion CLIs' included, and the four
+   sites, and the wide-head flash kernels as two more entries, launched on
+   the kl1e3 path; launches by path, the diffusion CLIs' included, and the four
    GroupNorm+SiLU and flash kernels' sums over one UNet pass or diffusion
    step under ``ldm_unet``; the AR, evaluate, kl1e3, PTI, regression and
    analysis runs' launches, the chained CLIs' under ``chain_*``; flash per
-   call at head dim 256 under ``kl1e3_d256``, at [8,1,1024,96] and 512 under
-   ``d96`` / ``d512``; the
+   call at head dim 256 under ``kl1e3_d256``, at [8,1,1024,96], 512, 640 and
+   1024 under ``d96`` / ``d512`` / ``d640`` / ``d1024``; the
    convolution kernels' sums over one kl1e3 train step under ``kl1e3``), the
    card line, and
    the result line
@@ -241,6 +252,12 @@ PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=0.0, atol=2e-2)
+# flash attention in bf16, beside BF16_TOL: rms of the error over rms of the plain f32
+# version. Its outputs and gradients shrink with S (rms ~0.026 at S = 4096), so 2e-2 alone
+# sits near their size; one bf16 rounding reads ~2.3e-3, a kernel that leaves out one of 64
+# tiles ~0.12, the padded head dim's scale at 1000 -> 1024 ~0.016
+# (tests/test_torch_flash_wide.py::test_bf16_bar_catches_a_dropped_tile_and_the_padded_scale)
+FLASH_REL_BAR = 1e-2
 BATCH = 8
 N_IMAGES = 16
 # GroupNorm+SiLU launches per flagship pass (21 encoder + 21 decoder) and
@@ -268,7 +285,12 @@ RAGGED_CONV_WGMMA = (2, 37, 70, 24, 40)  # Cin 24: the tensor-core kernel in bf1
 FLASH_CHECK_SHAPES = ((BATCH, 1, 1024, 128), (2, 2, 1000, 64),
                       *((2, 1, s, d) for d in (16, 32, 64, 128) for s in (1024, 200)))
 WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
-                 "flash_attention_bwd_wgmma.cu")
+                 "flash_attention_bwd_wgmma.cu", "flash_attention_wide_wgmma.cu",
+                 "flash_attention_bwd_wide_wgmma.cu")
+# the wide-head flash kernels' sources (bf16, head dims above 128)
+WIDE_SOURCES = ("flash_attention_wide_wgmma.cu", "flash_attention_bwd_wide_wgmma.cu")
+# head dims whose wide kernels' shared memory is read from the libraries
+WIDE_HEAD_DIMS = (192, 256, 320, 512, 640, 1024)
 
 KERNEL_NAMES = ("groupnorm_silu", "groupnorm_silu_bwd", "flash_attention", "flash_attention_bwd",
                 "conv3x3", "conv3x3_wgrad")
@@ -351,9 +373,11 @@ ANALYSIS_P_BAR = 1e-5
 ANALYSIS_KL_BAR = 0.01  # KL(P || Q) of the card's embedding, relative to the CPU's
 ANALYSIS_TRUST_BAR = 0.01  # trustworthiness (5 neighbours), absolute
 PROJECTION_SIZES = (2000, 6000)  # analyze_static's and analyze_interactive's 2 x --max-images
-# flash attention at head dims the kernels pad (96 -> 128, the tensor-core kernels in bf16)
-# or gained (512: a [128, 256, 512, 512] VAE's mid block at 256²)
-FLASH_HEAD_DIM_SHAPES = ((BATCH, 1, 1024, 96), (BATCH, 1, 1024, 512))
+# flash attention at head dims the kernels pad (96 -> 128, the tensor-core kernels in bf16),
+# 512 (a [128, 256, 512, 512] VAE's mid block at 256²) and above 512 (640, 1024: the wide
+# tensor-core kernels in bf16, the FMA split kernels in f32)
+FLASH_HEAD_DIM_SHAPES = ((BATCH, 1, 1024, 96), (BATCH, 1, 1024, 512), (2, 1, 1024, 640),
+                         (1, 1, 512, 1024))
 # the shipped configs chained as they are: 16 train images (2 steps of b8) and 2 validation
 CHAIN_CONFIGS = ("vae_dente_no_adv", "reg_edente_from_dente", "ldm_dente")
 CHAIN_IMAGES = 18
@@ -516,6 +540,19 @@ def check_close(name: str, got, want, tol: dict) -> float:
     return err
 
 
+def check_flash(name: str, got, want, dtype) -> tuple[float, float]:
+    """A flash kernel's output or gradient against the plain f32 version: f32
+    at ``F32_TOL``; bf16 at ``BF16_TOL`` and ``FLASH_REL_BAR``. Returns (max
+    abs error, rms error over the reference's rms)."""
+    import torch
+
+    err = check_close(name, got, want, F32_TOL if dtype == torch.float32 else BF16_TOL)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    if dtype == torch.bfloat16 and not rel <= FLASH_REL_BAR:
+        raise RuntimeError(f"{name}: rms error {rel:.3e} of the reference's, bar {FLASH_REL_BAR}")
+    return err, rel
+
+
 def gn_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
     """[(NHWC shape at batch 8, launches per pass)] of every GroupNorm+SiLU of
     a flagship pass, recorded with forward hooks during one CPU reconstruct of
@@ -568,7 +605,8 @@ KINDS = (
     ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
     ("groupnorm_silu_fwd", ("groupnorm_silu_fwd_kernel",)),
     ("groupnorm_silu_bwd", ("groupnorm_silu_bwd_kernel",)),
-    ("flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
+    ("flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel",
+                             "flash_fwd_split_kernel")),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("optimizer", ("multi_tensor_apply", "adam")),
     ("pool", ("max_pool",)),  # LPIPS trunk
@@ -616,10 +654,10 @@ def ptxas_report(log: Path) -> dict:
             name = None
     def short(name: str) -> str:
         # kernel name and template arguments (element type, integers) out of the mangled name
-        if m := re.search(r"\d((?:flash|conv3x3|groupnorm)\w*?_kernel)I(13__nv_bfloat16|f)?((?:Li\d+E)*)E",
+        if m := re.search(r"\d((?:flash|conv3x3|groupnorm)\w*?_kernel)I(13__nv_bfloat16|f)?((?:L[ib]\d+E)*)E",
                           name):
             kind = {"13__nv_bfloat16": ["bf16"], "f": ["f32"], None: []}[m.group(2)]
-            return f"{m.group(1)}<{','.join(kind + re.findall(r'Li(\d+)E', m.group(3)))}>"
+            return f"{m.group(1)}<{','.join(kind + re.findall(r'L[ib](\d+)E', m.group(3)))}>"
         return re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", name)[:60]
 
     return {"kernels": len(kernels),
@@ -630,10 +668,16 @@ def ptxas_report(log: Path) -> dict:
             "d128_bf16": [{"kernel": short(k["kernel"]),
                            "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
                           for k in kernels if "Li128E" in k["kernel"] and "bfloat16" in k["kernel"]],
-            # head dim 256 (the kl1e3 mid blocks), both types, on the f32-FMA flash kernels
+            # head dim 256 (the kl1e3 mid blocks) on the f32-FMA flash kernels (f32, and the
+            # bf16 yardstick of the timings)
             "d256": [{"kernel": short(k["kernel"]),
                       "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
-                     for k in kernels if "Li256E" in k["kernel"]]}
+                     for k in kernels if "Li256E" in k["kernel"]],
+            # the wide-head flash kernels (bf16 above head dim 128; <1>: A operands whole)
+            # and the f32-FMA split kernels (above 512)
+            "wide": [{"kernel": short(k["kernel"]),
+                      "registers": k["registers"], "spill_bytes": k["spill_bytes"]}
+                     for k in kernels if "_wide_kernel" in k["kernel"] or "_split_kernel" in k["kernel"]]}
 
 
 def wgmma_occupancy(torch, shapes) -> dict:
@@ -643,7 +687,8 @@ def wgmma_occupancy(torch, shapes) -> dict:
     input gradient) takes, with the tiles, the persistent blocks and the tiles
     per block that follow; of the tensor-core filter gradient at the tile and
     slab count each shape takes; and of every flash-attention instantiation,
-    forward and backward."""
+    forward and backward, the wide-head kernels at ``WIDE_HEAD_DIMS`` held to
+    the wrapper's formulas and to a block's 232,448 bytes."""
     import ctypes
 
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
@@ -656,7 +701,12 @@ def wgmma_occupancy(torch, shapes) -> dict:
         wgrad_wgmma_slabs,
         wgrad_wgmma_smem_bytes,
     )
-    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import bwd_wgmma_smem_bytes
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
+        bwd_wgmma_smem_bytes,
+        wide_bwd_smem_bytes,
+        wide_fwd_smem_bytes,
+        wide_smem_of_library,
+    )
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -706,15 +756,24 @@ def wgmma_occupancy(torch, shapes) -> dict:
                 raise RuntimeError(f"{fn}({d}): CUDA error {err}, {smem.value} bytes")
             out[f"{source.removesuffix('.cu')} d{d}"] = {"smem_bytes": smem.value,
                                                          "blocks_per_sm": blocks.value}
+    for d in WIDE_HEAD_DIMS:  # the wide kernels, held to the wrapper's formulas
+        got = wide_smem_of_library(d)
+        want = {"forward": wide_fwd_smem_bytes(d), "backward": wide_bwd_smem_bytes(d)}
+        for kind, (nbytes, per_sm) in got.items():
+            if nbytes != want[kind] or nbytes > 232_448 or per_sm < 1:
+                raise RuntimeError(f"wide flash {kind} at d{d}: {nbytes} bytes, {per_sm} blocks per SM, "
+                                   f"formula {want[kind]}")
+            source = WIDE_SOURCES[kind == "backward"]
+            out[f"{source.removesuffix('.cu')} d{d}"] = {"smem_bytes": nbytes, "blocks_per_sm": per_sm}
     return out
 
 
 def flash_fma_bwd_smem() -> dict:
     """Tile rows and shared memory (bytes) of the f32-FMA flash backward's dk/dv
-    and dq kernels and of the f32-FMA forward at every head dim, as the
-    libraries report them, held to the wrapper's formulas
-    (``bwd_fma_smem_bytes``, ``fwd_fma_smem_bytes``) and to a block's 232,448
-    bytes."""
+    and dq kernels and of the f32-FMA forward at every head dim (and at 640
+    and 1024, the split kernels), as the libraries report them, held to the
+    wrapper's formulas (``bwd_fma_smem_bytes``, ``fwd_fma_smem_bytes``) and to
+    a block's 232,448 bytes."""
     from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
         SUPPORTED_HEAD_DIMS,
         bwd_fma_smem_bytes,
@@ -726,7 +785,7 @@ def flash_fma_bwd_smem() -> dict:
     )
 
     out = {}
-    for d in SUPPORTED_HEAD_DIMS:
+    for d in (*SUPPORTED_HEAD_DIMS, 640, 1024):
         got = bwd_fma_smem_of_library(d)
         if got != (bwd_fma_tile(d), *bwd_fma_smem_bytes(d)) or max(got[1:]) > 232_448:
             raise RuntimeError(f"flash_attention_bwd_smem({d}): {got}")
@@ -822,7 +881,9 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     ``flash_shapes``, the convolution at ``conv_shapes`` and, with
     ``ragged``, the two ragged ones; inputs drawn in that order from a
     generator seeded with ``seed`` (``balanced``: see ``conv_inputs``);
-    returns the largest error per kernel and type."""
+    returns the largest error per kernel and type (and, under
+    ``"bfloat16_rel"``, flash attention's largest rms error over the
+    reference's rms in bf16)."""
     from pti_ldm_vae_tpu_torch.ops.kernels import (
         conv3x3_bwd_plain,
         conv3x3_plain,
@@ -843,7 +904,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    errs = {name: {"float32": 0.0, "bfloat16": 0.0} for name in KERNEL_NAMES}
+    errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_rel": 0.0} for name in KERNEL_NAMES}
     routes: dict[str, dict] = {"groupnorm_silu": {}, "flash_attention": {},
                                "flash_attention_bwd": {}, "conv3x3": {}, "conv3x3_wgrad": {}}
 
@@ -893,20 +954,27 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
             del grads, dx, want_dx, leaves, xd, gd
         del x, g
     torch.cuda.empty_cache()
+
+    def note_flash(name, key, errors):
+        note(name, key, max(e for e, _ in errors))
+        if key == "bfloat16":
+            note(name, "bfloat16_rel", max(r for _, r in errors))
+
     for shape in flash_shapes:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype in (torch.float32, torch.bfloat16):
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
-            # a head dim the kernels are not built for runs padded to the next one
-            routes["flash_attention"][tag] = flash_forward_kernel(dtype, padded_head_dim(shape[-1]))
-            routes["flash_attention_bwd"][tag] = flash_backward_kernel(dtype,
-                                                                       padded_head_dim(shape[-1]))
+            # a head dim the route is not built for runs padded to the next one it takes
+            d_pad = padded_head_dim(shape[-1], dtype)
+            routes["flash_attention"][tag] = flash_forward_kernel(dtype, d_pad)
+            routes["flash_attention_bwd"][tag] = flash_backward_kernel(dtype, d_pad)
             got = kernels_mod.flash_attention(qd, kd, vd)
             if not torch.equal(got, kernels_mod.flash_attention(qd, kd, vd)):
                 raise RuntimeError(f"flash_attention forward {tag}: two runs differ")
             want = flash_attention_plain(qd.float(), kd.float(), vd.float())
-            note("flash_attention", key, check_close(f"flash_attention {tag}", got, want, tol))
+            note_flash("flash_attention", key, [check_flash(f"flash_attention {tag}", got, want,
+                                                            dtype)])
 
             leaves = tuple(t.clone().requires_grad_() for t in (qd, kd, vd))
             grads = [torch.autograd.grad(kernels_mod.flash_attention(*leaves), leaves, gd)
@@ -915,9 +983,9 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
                 if not torch.equal(first, second):
                     raise RuntimeError(f"flash_attention backward {tag}: two runs differ")
             want = flash_attention_bwd_plain(qd.float(), kd.float(), vd.float(), gd.float())
-            for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want):
-                note("flash_attention_bwd", key,
-                     check_close(f"flash_attention {name} {tag}", ours, theirs, tol))
+            note_flash("flash_attention_bwd", key, [
+                check_flash(f"flash_attention {name} {tag}", ours, theirs, dtype)
+                for name, ours, theirs in zip(("dq", "dk", "dv"), grads[0], want)])
     ragged_conv = [RAGGED_CONV, RAGGED_CONV_WGMMA] if ragged else []
     for shape in [s for s, _ in conv_shapes] + ragged_conv:
         x, wmat, g = conv_inputs(torch, shape, gen, balanced)
@@ -959,10 +1027,15 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     for tag, want_route in by_rule.items():
         if routes["conv3x3"][tag] != want_route:
             raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
-    # any S: bf16 on wgmma up to head dim 128; head dims 256, 512 and f32 on the FMA kernels
+    # any S: bf16 on wgmma up to head dim 128 and on the wide wgmma kernels above; f32 on the
+    # FMA kernels
+    def flash_rule(tag: str) -> str:
+        if "bfloat16" not in tag:
+            return "fma"
+        return "wgmma" if int(tag.split(")")[0].split(",")[-1]) <= 128 else "wgmma_wide"
+
     for name in ("flash_attention", "flash_attention_bwd"):
-        want_route = {tag: "wgmma" if "bfloat16" in tag and int(tag.split(")")[0].split(",")[-1]) <= 128
-                      else "fma" for tag in routes[name]}
+        want_route = {tag: flash_rule(tag) for tag in routes[name]}
         if routes[name] != want_route:
             raise RuntimeError(f"{name} routes: {routes[name]}")
     if ragged and routes["flash_attention_bwd"][f"{(2, 2, 1000, 64)} bfloat16"] != "wgmma":
@@ -978,6 +1051,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
          flash_shapes=[list(s) for s in flash_shapes],
          conv_shapes=[[list(s), n] for s, n in conv_shapes] + [[list(s), 0] for s in ragged_conv],
          tolerance={"float32": F32_TOL, "bfloat16": BF16_TOL,
+                    "flash_bfloat16_rms_of_reference": FLASH_REL_BAR,
                     "dscale_dbias_dW": "rtol 1e-4, atol 1e-5*sqrt(B*H*W)"})
     return errs
 
@@ -1725,6 +1799,7 @@ def run_ar_train_cli(torch, np, kernels_mod, cfg_path: Path, run_dir: Path, extr
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels_mod.launch_counts()
+    wide = wide_launches(kernels_mod)
     train_steps = epochs * steps_per_epoch
     want = expected_launches(train_steps, epochs * (EVAL_STEPS_PER_EPOCH + 1), conv_kernel, per_pass)
     if result["total_step"] != train_steps or launches != want:
@@ -1752,12 +1827,20 @@ def run_ar_train_cli(torch, np, kernels_mod, cfg_path: Path, run_dir: Path, extr
     if len(best) != 1 or not (weights / "autoencoder_last.pth").exists():
         raise RuntimeError(f"checkpoints: {sorted(p.name for p in weights.iterdir())}")
     ar_keys = ("train/ar_loss_total", "train/loss_total", "train/adv_disc_loss")
-    return {"wall_s": wall, "launches": launches, "total_step": result["total_step"],
+    return {"wall_s": wall, "launches": launches, "wide_launches": wide,
+            "total_step": result["total_step"],
             "best_val_loss": result["best_val_loss"],
             "first_train": {k: train_rows[0][k] for k in ar_keys},
             "last_train": {k: train_rows[-1][k] for k in ar_keys},
             "val_ar_loss_total": [r["val/ar_loss_total"] for r in val_rows],
             "best_checkpoint": str(best[0])}
+
+
+def wide_launches(kernels_mod) -> dict[str, int]:
+    """Launches of the wide-head flash kernels since the last reset (a share of
+    the flash counts: bf16 above head dim 128)."""
+    fa = kernels_mod.flash_attention
+    return {"flash_attention_wide": fa.wide_launches, "flash_attention_bwd_wide": fa.wide_bwd_launches}
 
 
 def run_evaluate_cli(torch, np, kernels_mod, cfg_path: Path, checkpoint: str, input_dir: Path,
@@ -2773,8 +2856,15 @@ def time_groupnorm_silu(torch, cases, flush, gen, rows: dict[str, list], path: s
 def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: str) -> None:
     """Per flash-attention (shape [B, H, S, D], calls per pass) and dtype: the
     forward and the backward kernels, each beside its bound, its plain version
-    and ``F.scaled_dot_product_attention`` (and its autograd backward)."""
+    and ``F.scaled_dot_product_attention`` (and its autograd backward). Where
+    the wide tensor-core kernels serve bf16, also the f32-FMA kernels they
+    replaced on the same inputs, called through their libraries before and
+    after them (``fma_ms``: the mean of the two turns), and their last turn's
+    output and gradients held to the plain f32 version at the bf16 bars
+    (``check_flash``)."""
     import torch.nn.functional as F
+
+    from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import _backward_library, _forward_library
 
     from pti_ldm_vae_tpu_torch.ops.kernels import (
         flash_attention,
@@ -2799,18 +2889,39 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
         for shape, n in cases:
             q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
             nbytes = q.numel() * q.element_size()
-            d, d_pad = shape[-1], padded_head_dim(shape[-1])
+            d, d_pad = shape[-1], padded_head_dim(shape[-1], dtype)
             head = {"path": path, "shape": list(shape), "dtype": key, "per_pass": n,
                     **({"padded_head_dim": d_pad} if d_pad != d else {})}
             products = 2 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]  # one [S,S]x[S,D] product
             bound_ms, bound_by = bound(2 * products, key, 4 * nbytes)
+            route = flash_forward_kernel(dtype, d_pad)
+            bh, stream = shape[0] * shape[1], torch.cuda.current_stream().cuda_stream
+            fma_out = torch.empty_like(q)
+
+            def fma_forward():  # the route bf16 took above head dim 128 before the wide kernels
+                err = _forward_library().flash_attention_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), fma_out.data_ptr(), None, bh,
+                    shape[2], d, 1, d**-0.5, stream)
+                if err:
+                    raise RuntimeError(f"FMA forward {shape}: CUDA error {err}")
+
+            yardstick = route == "wgmma_wide" and d == d_pad
+            fma_turns = [timed("", fma_forward)["ms"]] if yardstick else []
             row = {
-                **head, "kernel": flash_forward_kernel(dtype, d_pad),
+                **head, "kernel": route,
                 **timed("", lambda: flash_attention(q, k, v)),
                 **timed("plain_", lambda: flash_attention_plain(q, k, v)),
                 **timed("library_", lambda: F.scaled_dot_product_attention(q, k, v)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            if yardstick:
+                fma_turns.append(timed("", fma_forward)["ms"])
+                want = flash_attention_plain(q.float(), k.float(), v.float())
+                fma_err = check_flash(f"FMA forward {shape} {key}", fma_out, want, dtype)
+                row.update(fma_ms=sum(fma_turns) / 2, fma_ms_turns=fma_turns,
+                           fma_max_abs_err=fma_err[0], fma_rel_rms_err=fma_err[1])
+                del want
+            del fma_out
             rows["flash_attention"].append(row)
             emit("time_flash_attention", **row)
 
@@ -2822,6 +2933,18 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
             out_lib = F.scaled_dot_product_attention(*leaves)
             # five products; reads q, k, v, out, dO, writes dq, dk, dv
             bound_ms, bound_by = bound(5 * products, key, 8 * nbytes)
+            grads = [torch.empty_like(q) for _ in range(3)]
+            delta = torch.empty(bh, shape[2], device="cuda")
+
+            def fma_backward():
+                err = _backward_library().flash_attention_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in grads), bh,
+                    shape[2], d, 1, d**-0.5, stream)
+                if err:
+                    raise RuntimeError(f"FMA backward {shape}: CUDA error {err}")
+
+            fma_turns = [timed("", fma_backward)["ms"]] if yardstick else []
             ours = time_ms(lambda: flash_backward(*padded[:3], out, lse, padded[3], d**-0.5,
                                                    d_pad != d), flush)
             row = {
@@ -2829,13 +2952,24 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
                 "ms": ours["device_ms"], "event_ms": ours["event_ms"],
                 "ms_by_kernel": {w: named_ms(ours["by_name"], w) for w in
                                  ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                                  "flash_bwd_dq_kernel", "flash_bwd_wgmma_kernel")},
+                                  "flash_bwd_dq_kernel", "flash_bwd_wgmma_kernel",
+                                  "flash_bwd_wide_kernel", "flash_bwd_dkdv_split_kernel",
+                                  "flash_bwd_dq_split_kernel")},
                 **timed("plain_", lambda: flash_attention_bwd_plain(q, k, v, g)),
                 **timed("library_", lambda: torch.autograd.grad(out_lib, leaves, g,
                                                                 retain_graph=True)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
-            del out_lib, leaves, padded, out, lse
+            if yardstick:
+                fma_turns.append(timed("", fma_backward)["ms"])
+                want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
+                fma_errs = [check_flash(f"FMA backward {name} {shape} {key}", ours, theirs, dtype)
+                            for name, ours, theirs in zip(("dq", "dk", "dv"), grads, want)]
+                row.update(fma_ms=sum(fma_turns) / 2, fma_ms_turns=fma_turns,
+                           fma_max_abs_err=max(e for e, _ in fma_errs),
+                           fma_rel_rms_err=max(r for _, r in fma_errs))
+                del want
+            del out_lib, leaves, padded, out, lse, grads, delta
             rows["flash_attention_bwd"].append(row)
             emit("time_flash_attention_bwd", **row)
 
@@ -3021,7 +3155,7 @@ def main() -> int:
     ptxas = {p.name: ptxas_report(p.with_suffix(".log")) for p in libs}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=[p.name for p in libs],
          native=Path(native_path).name, ptxas=ptxas)
-    for src in GN_SOURCES:
+    for src in (*GN_SOURCES, *WIDE_SOURCES):
         if ptxas[_build.library_path(src).name]["spill_bytes"]:
             raise RuntimeError(f"{src} spills registers: {ptxas[_build.library_path(src).name]}")
 
@@ -3090,19 +3224,25 @@ def main() -> int:
         balanced=True, phase="kernel_checks_ar_pti")
     errs = {name: {k: max(v, new_errs[name][k]) for k, v in by_type.items()}
             for name, by_type in errs.items()}
-    # head dims 96 (padded to 128) and 512, one shape at a time for the kernels line
+    # head dims 96 (padded to 128), 512, 640 and 1024, one shape at a time for the kernels line
     head_dim_errs = {}
+    fa = kernels_mod.flash_attention
     for shape in FLASH_HEAD_DIM_SHAPES:
         kernels_mod.reset_launch_counts()
         head_dim_errs[shape[-1]] = check_kernels(torch, [], (shape,), [], kernels_mod, seed=2,
                                                  ragged=False, phase="flash_head_dims")
-        counts, padded = kernels_mod.launch_counts(), kernels_mod.flash_attention.padded_launches
-        # per type: 2 plain forwards and 2 forwards + 2 backwards through autograd
+        counts, padded = kernels_mod.launch_counts(), fa.padded_launches
+        wide = (fa.wide_launches, fa.wide_bwd_launches)
+        # per type: 2 plain forwards and 2 forwards + 2 backwards through autograd; bf16
+        # above head dim 128 on the wide kernels
         want_padded = 12 if shape[-1] == 96 else 0
-        if (counts["flash_attention"], counts["flash_attention_bwd"], padded) != (8, 4, want_padded):
-            raise RuntimeError(f"flash {shape}: launches {counts}, padded {padded}")
+        want_wide = (4, 2) if shape[-1] > 128 else (0, 0)
+        if (counts["flash_attention"], counts["flash_attention_bwd"], padded, wide) != (
+                8, 4, want_padded, want_wide):
+            raise RuntimeError(f"flash {shape}: launches {counts}, padded {padded}, wide {wide}")
         emit("flash_head_dims", shape=list(shape), launches=counts["flash_attention"],
              bwd_launches=counts["flash_attention_bwd"], padded_launches=padded,
+             wide_launches=wide[0], wide_bwd_launches=wide[1],
              max_abs_err={k: head_dim_errs[shape[-1]][k] for k in ("flash_attention",
                                                                    "flash_attention_bwd")})
         errs = {name: {k: max(v, head_dim_errs[shape[-1]][name][k]) for k, v in by_type.items()}
@@ -3226,6 +3366,11 @@ def main() -> int:
     emit("kl1e3_train_path", config=KL1E3_CONFIG.name, dtype="bfloat16", batch=BATCH,
          conv_kernel=True, epochs=TRAIN_EPOCHS, steps_per_epoch=KL1E3_STEPS_PER_EPOCH,
          adv_warmup_epochs=0, **kl)
+    # its head dim 256 in bf16: the wide tensor-core kernels, each launched
+    if not all(kl["wide_launches"].values()) or any(
+            kl["wide_launches"][f"{name}_wide"] > kl["launches"][name]
+            for name in ("flash_attention", "flash_attention_bwd")):
+        raise RuntimeError(f"kl1e3 path: wide flash launches {kl['wide_launches']} of {kl['launches']}")
     kl_full = load_config(kl_cfg)
     kl_spec = build_ar_spec(kl_full, resolve_ar_settings(kl_full))
     ar_step_reference_check(torch, np, kernels_mod, kl_def, kl_spec, train_data / "dente",
@@ -3311,10 +3456,10 @@ def main() -> int:
     time_groupnorm_silu(torch, [(s, n, 16) for s, n in gn_shapes], flush, gen, rows, "vae")
     time_flash_attention(torch, [((BATCH, 1, 1024, 128), FLASH_PER_RECONSTRUCT)], flush, gen,
                          rows, "vae")
-    # head dim 256 (the kl1e3 mid blocks, the f32-FMA kernels in both types)
+    # head dim 256 (the kl1e3 mid blocks: the wide tensor-core kernels in bf16, the FMA ones in f32)
     time_flash_attention(torch, [(FLASH_D256_SHAPES[0], KL1E3_PASS["flash"])], flush, gen, rows,
                          "kl1e3")
-    # head dims 96 (padded to 128) and 512, two calls a pass as in a VAE's mid blocks
+    # head dims 96 (padded to 128), 512, 640 and 1024, two calls a pass as in a VAE's mid blocks
     for shape in FLASH_HEAD_DIM_SHAPES:
         time_flash_attention(torch, [(shape, FLASH_PER_RECONSTRUCT)], flush, gen, rows,
                              f"d{shape[-1]}")
@@ -3381,12 +3526,15 @@ def main() -> int:
 
     def per_call(name: str, path: str) -> dict:
         """Per call at one shape timed under ``path``, both types: [8, 1, 4096, 256]
-        (kl1e3, the f32-FMA kernel), [8, 1, 1024, 96] (padded to 128) and 512."""
-        keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel")
-        return {r["dtype"]: {k: r[k] for k in keys} for r in rows[name] if r["path"] == path}
+        (kl1e3), [8, 1, 1024, 96] (padded to 128), 512, and 640 and 1024 (smaller
+        batches); ``fma_ms`` and the FMA kernels' errors where the wide kernels serve bf16."""
+        keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel",
+                "fma_ms", "fma_max_abs_err", "fma_rel_rms_err")
+        return {r["dtype"]: {k: r[k] for k in keys if k in r} for r in rows[name]
+                if r["path"] == path}
 
     def head_dims(name: str) -> dict:
-        """The d96 / d512 entries of rows 4-5: times, the check's error and launches."""
+        """The d96 / d512 / d640 / d1024 entries of rows 4-5: times, the check's error."""
         out = {}
         for shape in FLASH_HEAD_DIM_SHAPES:
             d = shape[-1]
@@ -3446,6 +3594,28 @@ def main() -> int:
                    "flash_attention_bwd": "pti_ldm_vae_tpu_torch/csrc/flash_attention_bwd.cu",
                    "conv3x3": "pti_ldm_vae_tpu_torch/csrc/conv3x3.cu",
                    "conv3x3_wgrad": "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad.cu"}
+    # the wide-head flash kernels (bf16 above head dim 128), as their own entries: launched
+    # on the kl1e3 path (head dim 256), timed at its shape, errors of the bf16 checks at
+    # head dims 256, 512, 640 and 1024
+    wide_scope = ("bf16, device ms summed over the 2 {what} of one b8 kl1e3 {unit} at [8, 1, 4096, "
+                  "256]; fma_ms: the f32-FMA kernel bf16 took there before, on the same inputs, "
+                  "in turns; d512: per call at [8, 1, 1024, 512]")
+    wide_described = {
+        "flash_attention_wide": ("flash_attention", WIDE_SOURCES[0], f"{fa_pallas}:65",
+                                 wide_scope.format(what="launches", unit="pass")),
+        "flash_attention_bwd_wide": ("flash_attention_bwd", WIDE_SOURCES[1], f"{fa_pallas}:121",
+                                     wide_scope.format(what="calls", unit="train step")
+                                     + " (each call: the delta pre-pass and one launch)"),
+    }
+
+    def wide_totals(name: str) -> dict:
+        bf = [r for r in rows[name] if r["dtype"] == "bfloat16" and r["path"] == "kl1e3"]
+        if [r["kernel"] for r in bf] != ["wgmma_wide"]:
+            raise RuntimeError(f"{name} at kl1e3's shape did not take the wide kernel: {bf}")
+        return {**{k: bf[0][k] * bf[0]["per_pass"]
+                   for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "fma_ms")},
+                "bound_by": bf[0]["bound_by"]}
+
     kernels = []
     for name, (route, source, replaces, scope) in described.items():
         kernels.append({
@@ -3470,6 +3640,8 @@ def main() -> int:
                                  **{f"chain_{cli}": n[name]
                                     for cli, n in chain["launches"].items()}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
+            **({"rel_rms_err": errs[name]["bfloat16_rel"]}
+               if name in ("flash_attention", "flash_attention_bwd") else {}),
             **totals(name), "bound_by": rows[name][0]["bound_by"], "scope": scope,
             **({"ldm_unet": {**totals(name, "ldm"), "scope": ldm_scope[name]}}
                if name in ldm_scope else {}),
@@ -3477,6 +3649,19 @@ def main() -> int:
                if name in ("flash_attention", "flash_attention_bwd") else {}),
             **({"kl1e3": {**totals(name, "kl1e3"), "scope": kl_scope[name]}}
                if name in kl_scope else {}),
+        })
+    for wide_name, (name, source, replaces, scope) in wide_described.items():
+        kernels.append({
+            "name": wide_name, "route": "cuda", "source": f"pti_ldm_vae_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": kl["wide_launches"][wide_name],
+            "launches_by_path": {"train_vae_ar_kl1e3_conv_kernel": kl["wide_launches"][wide_name],
+                                 "train_vae_ar": ar["wide_launches"][wide_name]},
+            "max_abs_err": max([new_errs[name]["bfloat16"]]
+                               + [head_dim_errs[d][name]["bfloat16"] for d in (512, 640, 1024)]),
+            "rel_rms_err": max([new_errs[name]["bfloat16_rel"]]
+                               + [head_dim_errs[d][name]["bfloat16_rel"] for d in (512, 640, 1024)]),
+            **wide_totals(name), "scope": scope,
+            "d512": per_call(name, "d512").get("bfloat16", {}),
         })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)

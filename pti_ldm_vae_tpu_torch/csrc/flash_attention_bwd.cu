@@ -1,7 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a), f32-FMA kernel: the f32
-// (parity) route, and bf16 tensors whose base address is not 16-byte aligned.
-// Aligned bf16 inputs take the tensor-core kernel of
-// flash_attention_bwd_wgmma.cu (ops/kernels/flash_attention.py:backward_kernel).
+// (parity) route. bf16 inputs take the tensor-core kernels of
+// flash_attention_bwd_wgmma.cu (head dims up to 128) and
+// flash_attention_bwd_wide_wgmma.cu (above)
+// (ops/kernels/flash_attention.py:backward_kernel).
 //
 // Replaces the TPU kernel pti_ldm_vae_tpu/ops/pallas/flash_attention.py
 // (_bwd_pallas, body _bwd_kernel): with s = q k^T * d^-0.5 and p = softmax(s),
@@ -48,18 +49,29 @@
 //
 // Tile rows: the rows of a q tile and of a kv tile are a template parameter
 // TILE, 64 for D <= 128, 32 for D = 256 (one head over the 256 channels of a
-// 64-128-256 VAE's mid block; the tensor-core kernel stops at 128, so this
-// kernel takes D = 256 in both types) and 16 for D = 512 (a [128, 256, 512,
+// 64-128-256 VAE's mid block, in f32) and 16 for D = 512 (a [128, 256, 512,
 // 512] VAE's mid block). Four staged [TILE][D+1] f32 tiles of 64 rows would
 // need 296,960 bytes (dk/dv) and 280,320 (dq) at D = 256, over the 232,448 a
 // block may have; with 32 rows they need 140,288 and 136,064. At D = 512, 32
 // rows would need 271,360 (dk/dv); 16 rows need 133,632 and 132,544. Any other
-// head dim is zero-padded up to one of 16 ... 512 by the wrapper.
+// head dim up to 512 is zero-padded up to one of 16 ... 512 by the wrapper.
 // The 16 x 16 threads keep their layout: each holds TILE/16 rows and TILE/16
 // columns of a p / ds tile and TILE/16 x D/16 of an accumulator. The delta
 // pre-pass does not depend on TILE. flash_attention_bwd_smem reports the
 // bytes each kernel asks for at a head dim (ops/kernels/flash_attention.py:
 // bwd_fma_smem_bytes is the same formula).
+//
+// Head dims above 512 (any multiple of 64; the wrapper zero-pads others up to
+// one) take the split kernels flash_bwd_dkdv_split_kernel and
+// flash_bwd_dq_split_kernel, which never hold a whole-D tile: a grid
+// dimension walks slices of 128 columns of dk and dv (dq), and p and dp (p
+// and dp again in the dq kernel) are summed over depth chunks of 64 columns,
+// chunks of k, v, q and dO staged as [64][65] f32 tiles. Then the q and dO
+// (k) columns of the block's slice are staged as [64][129] tiles and the
+// products accumulated as above (64-row tiles; each thread 4 rows x 8
+// columns of each accumulator). p and dp are recomputed once per slice, the
+// price of blocks that fit 166,400 (dk/dv) and 116,736 (dq) bytes at any head
+// dim. Head dims up to 512 keep the kernels above.
 //
 // C interface (loaded with ctypes): flash_attention_bwd returns the first
 // error of its three launches (cudaGetLastError() after each); any other
@@ -409,6 +421,324 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   return cudaGetLastError();
 }
 
+// The split kernels for head dims above 512 (see the note at the top).
+constexpr int kSplitTile = 64;   // rows of a q tile and of a kv tile
+constexpr int kSplitChunk = 64;  // depth columns of a staged chunk
+constexpr int kSplitCols = 128;  // output columns of a block
+
+// Rows row0 .. row0+63, columns col0 .. col0+COLS-1 of a [s, d] matrix into a
+// [64][COLS+1] f32 tile, times mul; zero past s and past d.
+template <typename T, int COLS>
+__device__ __forceinline__ void load_block(float* dst, const T* __restrict__ src, size_t base,
+                                           int row0, int col0, int s, int d, float mul, int tid) {
+  constexpr int kPad = COLS + 1;
+  for (int i = tid; i < kSplitTile * COLS; i += kThreads) {
+    const int r = i / COLS, c = i % COLS;
+    dst[r * kPad + c] = (row0 + r < s && col0 + c < d)
+                            ? to_f32(src[base + static_cast<size_t>(row0 + r) * d + col0 + c]) * mul
+                            : 0.f;
+  }
+}
+
+// p and dp of one 64 x 64 tile pair summed over one depth chunk: the A tiles (q, dO) give the
+// rows, the B tiles (k, v) the columns; thread (tx, ty) holds rows ty*4+i, columns tx+16*j.
+__device__ __forceinline__ void chunk_p_dp(const float* qs, const float* ks, const float* dos,
+                                           const float* vs, int tx, int ty, float (&p)[4][4],
+                                           float (&dp)[4][4]) {
+  constexpr int kPad = kSplitChunk + 1;
+#pragma unroll 4
+  for (int dd = 0; dd < kSplitChunk; ++dd) {
+    float qv[4], gv[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = qs[(ty * 4 + i) * kPad + dd];
+      gv[i] = dos[(ty * 4 + i) * kPad + dd];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kv[j] = ks[(tx + 16 * j) * kPad + dd];
+      vv[j] = vs[(tx + 16 * j) * kPad + dd];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = fmaf(qv[i], kv[j], p[i][j]);
+        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+      }
+  }
+}
+
+// p = exp(s - lse) and ds = p (dp - delta) of a tile pair, masked past s.
+__device__ __forceinline__ void finish_p_ds(const float* row_lse, const float* row_delta, int q0,
+                                            int k0, int s, int tx, int ty, float (&p)[4][4],
+                                            float (&dp)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ty * 4 + i;
+    const float l = row_lse[row], dl = row_delta[row];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool live = (q0 + row < s) && (k0 + tx + 16 * j < s);
+      const float pv = live ? expf(p[i][j] - l) : 0.f;
+      p[i][j] = pv;
+      dp[i][j] = pv * (dp[i][j] - dl);  // ds
+    }
+  }
+}
+
+constexpr int dkdv_split_smem_floats() {
+  // k, v, q, dO chunks [64][65] + q, dO slices [64][129] + p, ds [64][65] + lse, delta [64]
+  constexpr int t = kSplitTile;
+  return 4 * t * (kSplitChunk + 1) + 2 * t * (kSplitCols + 1) + 2 * t * (t + 1) + 2 * t;
+}
+
+constexpr int dq_split_smem_floats() {
+  // q, dO, k, v chunks [64][65] + k slice [64][129] + ds [64][65] + lse, delta [64]
+  constexpr int t = kSplitTile;
+  return 4 * t * (kSplitChunk + 1) + t * (kSplitCols + 1) + t * (t + 1) + 2 * t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int s, int d, int n_slices,
+                            float scale) {
+  constexpr int kT = kSplitTile, kC = kSplitChunk, kW = kSplitCols;
+  constexpr int kPadC = kC + 1, kPadW = kW + 1, kPadP = kT + 1;
+  constexpr int kCols = kW / 16;
+
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kT * kPadC;
+  float* qs = vs + kT * kPadC;
+  float* dos = qs + kT * kPadC;
+  float* qw = dos + kT * kPadC;
+  float* dow = qw + kT * kPadW;
+  float* ps = dow + kT * kPadW;
+  float* dss = ps + kT * kPadP;
+  float* row_lse = dss + kT * kPadP;
+  float* row_delta = row_lse + kT;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int slice = static_cast<int>(blockIdx.x) % n_slices;
+  const int k0 = static_cast<int>(blockIdx.x) / n_slices * kT;
+  const int col0 = slice * kW;
+  const size_t base = static_cast<size_t>(blockIdx.y) * s * d;
+  const size_t stat_base = static_cast<size_t>(blockIdx.y) * s;
+
+  // this thread's patch of dk and dv: kv rows ty*4+i, columns col0+tx+16*j
+  float acc_dk[4][kCols], acc_dv[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      acc_dk[i][j] = 0.f;
+      acc_dv[i][j] = 0.f;
+    }
+
+  for (int q0 = 0; q0 < s; q0 += kT) {
+    float p[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = 0.f;
+        dp[i][j] = 0.f;
+      }
+    for (int c0 = 0; c0 < d; c0 += kC) {
+      __syncthreads();  // the previous chunk (and the previous tile's slices, p, ds) are consumed
+      load_block<T, kC>(ks, k, base, k0, c0, s, d, 1.f, tid);
+      load_block<T, kC>(vs, v, base, k0, c0, s, d, 1.f, tid);
+      load_block<T, kC>(qs, q, base, q0, c0, s, d, scale, tid);
+      load_block<T, kC>(dos, dout, base, q0, c0, s, d, 1.f, tid);
+      if (c0 == 0) load_rows<kT>(row_lse, row_delta, lse, delta, stat_base, q0, s, tid);
+      __syncthreads();
+      // rows = q rows of the tile, columns = the block's kv rows
+      chunk_p_dp(qs, ks, dos, vs, tx, ty, p, dp);
+    }
+    finish_p_ds(row_lse, row_delta, q0, k0, s, tx, ty, p, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ps[(ty * 4 + i) * kPadP + tx + 16 * j] = p[i][j];
+        dss[(ty * 4 + i) * kPadP + tx + 16 * j] = dp[i][j];
+      }
+    load_block<T, kW>(qw, q, base, q0, col0, s, d, scale, tid);
+    load_block<T, kW>(dow, dout, base, q0, col0, s, d, 1.f, tid);
+    __syncthreads();
+
+    // dv += p^T dO, dk += ds^T (q * scale) over the slice: sums over the tile's q rows
+#pragma unroll 2
+    for (int r = 0; r < kT; ++r) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = ps[r * kPadP + ty * 4 + i];
+        dsv[i] = dss[r * kPadP + ty * 4 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float gv = dow[r * kPadW + tx + 16 * j];
+        const float qv = qw[r * kPadW + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_dv[i][j] = fmaf(pv[i], gv, acc_dv[i][j]);
+          acc_dk[i][j] = fmaf(dsv[i], qv, acc_dk[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row < s) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = col0 + tx + 16 * j;
+        if (col < d) {
+          const size_t at = base + static_cast<size_t>(row) * d + col;
+          dk[at] = from_f32<T>(acc_dk[i][j]);
+          dv[at] = from_f32<T>(acc_dv[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dq, int s, int d, int n_slices, float scale) {
+  constexpr int kT = kSplitTile, kC = kSplitChunk, kW = kSplitCols;
+  constexpr int kPadC = kC + 1, kPadW = kW + 1, kPadP = kT + 1;
+  constexpr int kCols = kW / 16;
+
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kT * kPadC;
+  float* ks = dos + kT * kPadC;
+  float* vs = ks + kT * kPadC;
+  float* kw = vs + kT * kPadC;
+  float* dss = kw + kT * kPadW;
+  float* row_lse = dss + kT * kPadP;
+  float* row_delta = row_lse + kT;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int slice = static_cast<int>(blockIdx.x) % n_slices;
+  const int q0 = static_cast<int>(blockIdx.x) / n_slices * kT;
+  const int col0 = slice * kW;
+  const size_t base = static_cast<size_t>(blockIdx.y) * s * d;
+  const size_t stat_base = static_cast<size_t>(blockIdx.y) * s;
+
+  load_rows<kT>(row_lse, row_delta, lse, delta, stat_base, q0, s, tid);
+  // this thread's patch of dq: q rows ty*4+i, columns col0+tx+16*j
+  float acc[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < s; k0 += kT) {
+    float p[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = 0.f;
+        dp[i][j] = 0.f;
+      }
+    for (int c0 = 0; c0 < d; c0 += kC) {
+      __syncthreads();  // the previous chunk (and the previous tile's k slice and ds) are consumed
+      load_block<T, kC>(qs, q, base, q0, c0, s, d, scale, tid);
+      load_block<T, kC>(dos, dout, base, q0, c0, s, d, 1.f, tid);
+      load_block<T, kC>(ks, k, base, k0, c0, s, d, 1.f, tid);
+      load_block<T, kC>(vs, v, base, k0, c0, s, d, 1.f, tid);
+      __syncthreads();
+      chunk_p_dp(qs, ks, dos, vs, tx, ty, p, dp);
+    }
+    finish_p_ds(row_lse, row_delta, q0, k0, s, tx, ty, p, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dss[(ty * 4 + i) * kPadP + tx + 16 * j] = dp[i][j];
+    load_block<T, kW>(kw, k, base, k0, col0, s, d, 1.f, tid);
+    __syncthreads();
+
+    // dq += ds k over the slice: sums over the tile's kv rows
+#pragma unroll 4
+    for (int c = 0; c < kT; ++c) {
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty * 4 + i) * kPadP + c];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float kv = kw[c * kPadW + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row < s) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = col0 + tx + 16 * j;
+        if (col < d) dq[base + static_cast<size_t>(row) * d + col] = from_f32<T>(acc[i][j] * scale);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* out,
+                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                         void* dv, int bh, int s, int d, float scale, cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(dout);
+  const int rows = bh * s;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  flash_bwd_delta_kernel<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0, stream>>>(
+      static_cast<const T*>(out), gp, delta, rows, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int n_slices = (d + kSplitCols - 1) / kSplitCols;
+  const dim3 grid((s + kSplitTile - 1) / kSplitTile * n_slices, bh);
+  constexpr int smem_kv = dkdv_split_smem_floats() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_split_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_split_kernel<T><<<grid, kThreads, smem_kv, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, d, n_slices, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem_q = dq_split_smem_floats() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_bwd_dq_split_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_split_kernel<T><<<grid, kThreads, smem_q, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), s, d, n_slices, scale);
+  return cudaGetLastError();
+}
+
+// a head dim the split kernels take
+bool split_head_dim(int d) { return d > 512 && d % kSplitChunk == 0; }
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* out,
                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -423,7 +753,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* ou
       return launch<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, scale, stream);
     case 512:
       return launch<T, 512>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, scale, stream);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (split_head_dim(d))
+        return launch_split<T>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, s, d, scale, stream);
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -437,7 +770,8 @@ void smem_of(int* tile, int* dkdv_bytes, int* dq_bytes) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, out, dout, dq, dk, dv: contiguous
-// [bh, s, d]; lse (from flash_attention_fwd) and delta (scratch): contiguous f32 [bh, s].
+// [bh, s, d], d one of 16 ... 512 (powers of two) or a multiple of 64 above 512; lse (from
+// flash_attention_fwd) and delta (scratch): contiguous f32 [bh, s].
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int bh, int s, int d, int dtype,
@@ -458,7 +792,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 }
 
 // The tile rows and the dynamic shared memory (bytes) of the dk/dv and the dq
-// kernels at head dim d; returns cudaErrorInvalidValue for an unsupported d.
+// kernels at head dim d (the split kernels above 512); returns
+// cudaErrorInvalidValue for a head dim they do not take.
 extern "C" int flash_attention_bwd_smem(int d, int* tile, int* dkdv_bytes, int* dq_bytes) {
   switch (d) {
     case 16: smem_of<16>(tile, dkdv_bytes, dq_bytes); break;
@@ -467,7 +802,11 @@ extern "C" int flash_attention_bwd_smem(int d, int* tile, int* dkdv_bytes, int* 
     case 128: smem_of<128>(tile, dkdv_bytes, dq_bytes); break;
     case 256: smem_of<256>(tile, dkdv_bytes, dq_bytes); break;
     case 512: smem_of<512>(tile, dkdv_bytes, dq_bytes); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (!split_head_dim(d)) return static_cast<int>(cudaErrorInvalidValue);
+      *tile = kSplitTile;
+      *dkdv_bytes = dkdv_split_smem_floats() * static_cast<int>(sizeof(float));
+      *dq_bytes = dq_split_smem_floats() * static_cast<int>(sizeof(float));
   }
   return 0;
 }

@@ -1,11 +1,12 @@
 // PTX wrappers shared by the Hopper (sm_90a) tensor-core kernels of this
 // directory (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, flash_attention_wgmma.cu,
-// flash_attention_bwd_wgmma.cu): asynchronous 16- and 4-byte copies into
+// flash_attention_bwd_wgmma.cu, flash_attention_wide_wgmma.cu,
+// flash_attention_bwd_wide_wgmma.cu): asynchronous 16- and 4-byte copies into
 // shared memory (cp.async, with zero fill), the shared-memory matrix
 // descriptor of wgmma, its fence / commit / wait, and the bf16 x bf16 -> f32
 // warpgroup products m64nNk16 with A read from shared memory (WgmmaSS, N = 8,
 // 32, 64; either operand K-major or MN-major) or from registers (WgmmaRS, N =
-// 16, 32, 64, 128): the widths the four kernels use.
+// 16, 32, 64, 128): the widths the six kernels use.
 //
 // Operand layouts (no swizzle). wgmma reads an operand as 8-row x 16-byte
 // "core matrices", each stored as 128 contiguous bytes (row r at byte 16*r).

@@ -7,8 +7,11 @@
   kernels of ``_bwd_pallas``)
 - ``flash_attention``: CUDA C++ flash-attention forward and backward,
   ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
-  (bf16, tensor cores) and ``csrc/flash_attention.cu`` and
-  ``csrc/flash_attention_bwd.cu`` (f32 FMAs) (replace
+  (bf16, tensor cores, head dims up to 128),
+  ``csrc/flash_attention_wide_wgmma.cu`` and
+  ``csrc/flash_attention_bwd_wide_wgmma.cu`` (bf16, tensor cores, above) and
+  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (f32 FMAs)
+  (replace
   ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward`` and
   ``_bwd_pallas``)
 - ``conv3x3``: CUDA C++ 3x3 stride-1 SAME convolution, forward and input
@@ -59,8 +62,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0, and the padded flash-attention
-    launches (``flash_attention.padded_launches``, a share of its two counts)."""
+    """Set every kernel's launch count to 0, and the padded and the wide
+    flash-attention launches (``flash_attention.padded_launches``,
+    ``wide_launches``, ``wide_bwd_launches``: shares of its two counts)."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     flash_attention.padded_launches = 0
+    flash_attention.wide_launches = 0
+    flash_attention.wide_bwd_launches = 0

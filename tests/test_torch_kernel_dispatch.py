@@ -35,6 +35,8 @@ from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     forward_kernel as flash_forward_kernel,
     fwd_fma_smem_bytes,
     fwd_fma_tile,
+    pad_head_dim,
+    padded_head_dim,
 )
 
 # (B, H, W, Cin, Cout) of the 47 3x3 convolutions of a flagship pass at 256², batch 8
@@ -198,28 +200,84 @@ def test_kernel_layout_model_matches_plain(shape, mt, tn):
 
 @pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
 def test_flash_forward_kernel_rule(head_dim):
-    # the tensor-core kernel stops at head dim 128; 256 takes the FMA kernel in both types
-    assert flash_forward_kernel(torch.bfloat16, head_dim) == ("wgmma" if head_dim <= 128 else "fma")
+    # bf16: the narrow tensor-core kernel up to head dim 128, the wide one above
+    # (an unaligned view is copied first); f32: the FMA kernel
+    assert flash_forward_kernel(torch.bfloat16, head_dim) == (
+        "wgmma" if head_dim <= 128 else "wgmma_wide")
     assert flash_forward_kernel(torch.float32, head_dim) == "fma"
-    assert flash_forward_kernel(torch.bfloat16, head_dim, aligned=False) == "fma"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_head_dim_256_takes_the_fma_kernels(dtype):
     """One head over the 256 channels of config/ar_vae_dente_kl1e3.json's mid
-    blocks ([B, 1, 4096, 256]): both directions on the f32-FMA kernels."""
-    assert flash_forward_kernel(dtype, 256) == "fma"
-    assert flash_backward_kernel(dtype, 256) == "fma"
+    blocks ([B, 1, 4096, 256]): f32 takes the f32-FMA kernels both ways,
+    bf16 the wide tensor-core kernels, at 256 as it is."""
+    want = "wgmma_wide" if dtype == torch.bfloat16 else "fma"
+    assert flash_forward_kernel(dtype, 256) == want == flash_backward_kernel(dtype, 256)
+    assert padded_head_dim(256, dtype) == 256
 
 
 @pytest.mark.parametrize("head_dim", [256, 48, 8, 512])
 def test_flash_check_accepts_256_and_rejects_other_head_dims(head_dim):
-    q = torch.zeros(1, 1, 4, head_dim)
-    if head_dim in SUPPORTED_HEAD_DIMS:
-        flash_check(q, q, q)
-    else:
-        with pytest.raises(ValueError, match="head dim"):
+    """The launch takes the widths its route is built for: f32 16 ... 512
+    (powers of two) and multiples of 64 above 512; bf16 16 ... 128 and
+    multiples of 64 above 128. Others must be padded first."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 1, 4, head_dim, dtype=dtype)
+        if head_dim in SUPPORTED_HEAD_DIMS:
             flash_check(q, q, q)
+        else:
+            with pytest.raises(ValueError, match="head dim"):
+                flash_check(q, q, q)
+
+
+def _unaligned(shape, dtype):
+    """A contiguous view of ``shape`` whose base address is 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)
+    view = flat[1:1 + int(np.prod(shape))].view(shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [192, 256, 320, 512, 640, 1024])
+def test_flash_wide_head_dim_dispatch(head_dim, dtype):
+    """Head dims above 128: bf16 on the wide tensor-core kernels at any
+    multiple of 64, both ways; f32 on the FMA kernels, at 256 and 512 (their
+    instantiations) and at multiples of 64 above 512 (their split kernels). A
+    head dim the route does not take pads to the next one it does. The
+    launch takes an unaligned view in f32 and refuses it in bf16, where
+    ``flash_attention`` copies it first (the tensor-core kernels read 16
+    bytes at a time)."""
+    fma_dim = head_dim if head_dim in (256, 512) or head_dim > 512 else (256 if head_dim < 256 else 512)
+    assert flash_forward_kernel(torch.bfloat16, head_dim) == "wgmma_wide"
+    assert flash_backward_kernel(torch.bfloat16, head_dim) == "wgmma_wide"
+    assert flash_forward_kernel(torch.float32, head_dim) == "fma"
+    assert flash_backward_kernel(torch.float32, head_dim) == "fma"
+    want = head_dim if dtype == torch.bfloat16 else fma_dim
+    assert padded_head_dim(head_dim, dtype) == want
+    q = torch.zeros(1, 1, 4, want, dtype=dtype)
+    flash_check(q, q, q)
+    u = _unaligned((1, 1, 4, want), dtype)
+    if dtype == torch.float32:
+        flash_check(u, u, u)
+    else:
+        with pytest.raises(ValueError, match="aligned"):
+            flash_check(u, u, u)
+        flash_check(*(t.clone() for t in (u, u, u)))  # the wrapper's copies
+
+
+@pytest.mark.parametrize("head_dim", [100, 200, 600, 1000])
+def test_flash_unaligned_widths_pad_to_a_route_that_takes_them(head_dim):
+    """Widths no route takes as they are: the padded width is taken by the
+    route of the padded copy, in both types, and the copy is aligned."""
+    for dtype in (torch.float32, torch.bfloat16):
+        d_pad = padded_head_dim(head_dim, dtype)
+        assert d_pad > head_dim and d_pad - head_dim < max(64, head_dim)
+        u = _unaligned((1, 1, 4, head_dim), dtype)
+        q = pad_head_dim(u, d_pad)
+        assert q.data_ptr() % 16 == 0
+        flash_check(q, q, q)
 
 
 @pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
@@ -265,17 +323,37 @@ def test_flash_forward_tile_fits_shared_memory(head_dim):
         assert 4 * (64 * 512 + 64 * 513 + 64 * 512 + 64 * 65 + 3 * 64) == 410_880 > 232_448
 
 
+@pytest.mark.parametrize("head_dim", [576, 640, 1024, 4096])
+def test_flash_fma_split_fits_shared_memory_at_any_head_dim(head_dim):
+    """Above head dim 512 the FMA kernels split D (``split_smem_floats``,
+    ``dkdv_split_smem_floats``, ``dq_split_smem_floats``): 64-row tiles, q / k
+    chunks of 64 columns ([64][64] and [64][65] f32) beside a 128-column v
+    slice and p in the forward, four [64][65] chunks, the slice's [64][129]
+    tiles (two for dk/dv, one for dq), p and ds in the backward; the same
+    bytes at every head dim, where whole-D tiles grow with it (the 32-row
+    forward tile of D = 512 would need 397,952 bytes at D = 1024)."""
+    assert fwd_fma_tile(head_dim) == bwd_fma_tile(head_dim) == 64
+    assert fwd_fma_smem_bytes(head_dim) == 4 * (64 * 64 + 64 * 65 + 64 * 128 + 64 * 65 + 3 * 64) == 83_200
+    dkdv, dq = bwd_fma_smem_bytes(head_dim)
+    assert dkdv == 4 * (4 * 64 * 65 + 2 * 64 * 129 + 2 * 64 * 65 + 2 * 64) == 166_400
+    assert dq == 4 * (4 * 64 * 65 + 64 * 129 + 64 * 65 + 2 * 64) == 116_736
+    assert 4 * (32 * 1024 + 32 * 1025 + 32 * 1024 + 32 * 33 + 3 * 32) == 397_952 > 232_448
+
+
 def test_new_sources_are_built_with_the_rest():
     assert "conv3x3_wgmma.cu" in CONV_SOURCES and "conv3x3.cu" in CONV_SOURCES
     assert "flash_attention_wgmma.cu" in FLASH_SOURCES and "flash_attention.cu" in FLASH_SOURCES
     assert "conv3x3_wgrad_wgmma.cu" in CONV_SOURCES and "conv3x3_wgrad.cu" in CONV_SOURCES
     assert "flash_attention_bwd_wgmma.cu" in FLASH_SOURCES and "flash_attention_bwd.cu" in FLASH_SOURCES
+    assert {"flash_attention_wide_wgmma.cu", "flash_attention_bwd_wide_wgmma.cu"} <= set(FLASH_SOURCES)
     for source in (*CONV_SOURCES, *FLASH_SOURCES):
         assert (_build.CSRC_DIR / source).is_file()
 
 
 @pytest.mark.parametrize("source", ["conv3x3_wgmma.cu", "flash_attention_wgmma.cu",
-                                    "conv3x3_wgrad_wgmma.cu", "flash_attention_bwd_wgmma.cu"])
+                                    "conv3x3_wgrad_wgmma.cu", "flash_attention_bwd_wgmma.cu",
+                                    "flash_attention_wide_wgmma.cu",
+                                    "flash_attention_bwd_wide_wgmma.cu"])
 def test_build_hash_covers_included_headers(source, tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC_DIR, tmp_path / "csrc")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path / "csrc")

@@ -45,6 +45,7 @@ from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     backward_kernel,
     bwd_wgmma_smem_bytes,
     flash_attention_bwd_plain,
+    forward_kernel,
 )
 
 # (B, H, W, Cin, Cout) of the 47 3x3 convolutions of a flagship pass at 256², batch 8
@@ -105,10 +106,11 @@ def test_thin_wgrad_through_padding_matches_plain(shape):
 
 @pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
 def test_flash_backward_kernel_rule(head_dim):
-    # the path's [8, 1, 1024, 128] too; head dim 256 takes the FMA kernel in both types
-    assert backward_kernel(torch.bfloat16, head_dim) == ("wgmma" if head_dim <= 128 else "fma")
+    # the path's [8, 1, 1024, 128] too; head dims 256 and 512 take the wide tensor-core
+    # kernel in bf16 and the FMA kernel in f32; the backward follows the forward's route
+    assert backward_kernel(torch.bfloat16, head_dim) == ("wgmma" if head_dim <= 128 else "wgmma_wide")
     assert backward_kernel(torch.float32, head_dim) == "fma"
-    assert backward_kernel(torch.bfloat16, head_dim, aligned=False) == "fma"
+    assert backward_kernel(torch.bfloat16, head_dim) == forward_kernel(torch.bfloat16, head_dim)
     assert backward_kernel(torch.bfloat16, 48) == "fma"  # (the wrapper refuses the head dim)
 
 

@@ -85,6 +85,27 @@ def test_flash_attention_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("d", [256, 640])
+def test_flash_attention_wide_head_dims_match_pallas_interpret(d):
+    """Head dims the wide tensor-core kernels take in bf16 (256, the kl1e3 mid
+    blocks) and one above 512 (640, the FMA split kernels in f32): the port's
+    path on the CPU against the Pallas forward in interpret mode and, through
+    ``jax.vjp``, its backward (the XLA-remat backward off the TPU)."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+
+    q, k, v, g = _arrays(8, *[(1, 2, 48, d)] * 4)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(jax_flash, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want_grads = vjp(jnp.asarray(g))
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    got = flash_attention(*leaves)
+    got_grads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for ours, theirs in zip(got_grads, want_grads):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **TOL)
+
+
 @pytest.mark.parametrize("s", [1000, 77])
 def test_flash_attention_plain_matches_xla_reference_ragged(s):
     q, k, v = _arrays(4, *[(2, 2, s, 32)] * 3)

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Quick check of the four tensor-core kernels on one CUDA card.
+"""Quick check of the six tensor-core kernels on one CUDA card.
 
-    python3 tools/check_wgmma_kernels.py [--time] [--tiles]
+    python3 tools/check_wgmma_kernels.py [--time] [--tiles] [--wide]
 
 Builds ``csrc/conv3x3_wgmma.cu``, ``csrc/flash_attention_wgmma.cu``,
-``csrc/conv3x3_wgrad_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
-(and the f32-FMA kernels beside them; a few seconds), prints what ``ptxas``
-reports for the four, and holds each against its plain PyTorch version at the
+``csrc/conv3x3_wgrad_wgmma.cu``, ``csrc/flash_attention_bwd_wgmma.cu`` and
+the wide-head flash kernels ``csrc/flash_attention_wide_wgmma.cu`` and
+``csrc/flash_attention_bwd_wide_wgmma.cu`` (and the f32-FMA kernels beside
+them; a few seconds), prints what ``ptxas`` reports for the six, and holds
+each against its plain PyTorch version at the
 flagship path's shapes and at ragged ones: the forward kernels and the
-attention backward in bf16 at atol 2e-2 on the same rounded inputs, the filter
+attention backward in bf16 at atol 2e-2 on the same rounded inputs (flash
+attention also at the rms of its error within 1e-2 of the reference's rms,
+``FLASH_REL_BAR``, as ``chip_smoke.py`` holds it), the filter
 gradient (f32 sums of exact products) at rtol 1e-4 / atol 1e-5 * sqrt(B*H*W);
 both backward kernels also twice, for the same bits. With ``--time`` it also
 prints device times per call (``torch.profiler``, L2 warm) beside the f32-FMA
@@ -18,7 +22,15 @@ the first disagreement, after printing where the largest errors lie. With
 tile that fits, and the filter gradient with one and two warpgroups per
 block at several slab counts, with the worst error over the bar and the mean signed
 error against a float64 reference (the error that grows with the length of
-an accumulation chain). ``chip_smoke.py`` is the full run.
+an accumulation chain). The wide-head flash kernels run first (``--wide``:
+only they, and the f32-FMA split kernels above head dim 512 beside them): in
+bf16 against the plain version on the same rounded inputs, twice for the same
+bits, with ``--time`` beside the f32-FMA kernels in bf16 (their route before
+the wide kernels) and SDPA, and with ``--tiles`` the backward's signed and rms
+error against a float64 reference beside the FMA kernels'; then the head dims
+the wrapper pads in bf16, through ``flash_attention`` and autograd (the
+padded call's scale is the caller's ``D^-0.5``). ``chip_smoke.py``
+is the full run.
 """
 
 from __future__ import annotations
@@ -47,7 +59,24 @@ WGRAD_SHAPES = [(1, 8, 8, 8, 8), (2, 37, 70, 24, 40), (1, 11, 19, 72, 16), (1, 2
                 (8, 128, 128, 64, 64), (8, 128, 128, 128, 64), (8, 128, 128, 128, 128),
                 (8, 256, 256, 32, 32), (8, 256, 256, 64, 32), (8, 256, 256, 64, 64)]
 WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
-                 "flash_attention_bwd_wgmma.cu")
+                 "flash_attention_bwd_wgmma.cu", "flash_attention_wide_wgmma.cu",
+                 "flash_attention_bwd_wide_wgmma.cu")
+# the wide-head flash kernels: every slice / residency mode (192 and 256 keep their A tiles
+# whole, 320 and 512 stream them in the backward, 640 and 1024 also q in the forward), ragged
+# lengths, and the two timed shapes (config/ar_vae_dente_kl1e3.json's mid blocks at b8, and a
+# [128, 256, 512, 512] VAE's); D > 512 also in f32 (the FMA split kernels)
+FLASH_WIDE_SHAPES = [(1, 1, 64, 192), (1, 2, 200, 256), (2, 1, 300, 320), (2, 1, 1024, 512),
+                     (1, 1, 77, 640), (2, 1, 1024, 640), (1, 1, 512, 1024), (8, 1, 4096, 256),
+                     (8, 1, 1024, 512)]
+FLASH_TIMED = [(8, 1, 4096, 256), (8, 1, 1024, 512)]
+FLASH_REL_BAR = 1e-2  # bf16 flash: rms of the error over rms of the plain f32 version
+# head dims the wrapper pads in bf16 (96 -> 128 on the narrow kernels, 200 -> 256 and
+# 1000 -> 1024 on the wide ones), through flash_attention and autograd at D^-0.5
+FLASH_PADDED_SHAPES = [(8, 1, 1024, 96), (2, 1, 1024, 200), (1, 1, 512, 1000)]
+
+
+def rel_rms(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
 
 
 def emit(**fields) -> None:
@@ -75,6 +104,122 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     raise RuntimeError("torch.profiler recorded no device kernel in three traces")
 
 
+def check_wide(torch, F, flash_mod, gen, timed: bool, tiles: bool) -> bool:
+    """The wide-head flash kernels (and, above head dim 512, the f32-FMA split
+    kernels) against their plain versions; one line per shape and type."""
+    ok = True
+    for shape in FLASH_WIDE_SHAPES:
+        bh, s, d = shape[0] * shape[1], shape[2], shape[3]
+        scale = d ** -0.5
+        base = [torch.randn(shape, device="cuda", generator=gen) for _ in range(4)]
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and d <= 512:
+                continue
+            q, k, v, g = (t.to(dtype) for t in base)
+            bar = 2e-2 if dtype == torch.bfloat16 else None
+            route = flash_mod.forward_kernel(dtype, d)
+            assert route == flash_mod.backward_kernel(dtype, d) == (
+                "wgmma_wide" if dtype == torch.bfloat16 else "fma"), route
+            out, lse = flash_mod._launch_forward(q, k, v, True, scale)
+            out2, _ = flash_mod._launch_forward(q, k, v, True, scale)
+            grads = flash_mod._launch_backward(q, k, v, out, lse, g, scale)
+            again = flash_mod._launch_backward(q, k, v, out, lse, g, scale)
+            torch.cuda.synchronize()
+            want = flash_mod.flash_attention_plain(q.float(), k.float(), v.float())
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            lse_err = float((lse - torch.logsumexp(scores, dim=-1)).abs().max())
+            del scores
+            want_bwd = flash_mod.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
+            errs = [float((out.float() - want).abs().max())] + [
+                float((a.float() - b_.float()).abs().max()) for a, b_ in zip(grads, want_bwd)]
+            rels = [rel_rms(a, b_) for a, b_ in zip((out, *grads), (want, *want_bwd))]
+            same = torch.equal(out, out2) and all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+            if bar is None:  # f32: rtol 1e-4 / atol 1e-5
+                close = all(bool(((a.float() - b_).abs() <= 1e-5 + 1e-4 * b_.abs()).all())
+                            for a, b_ in zip((out, *grads), (want, *want_bwd)))
+            else:
+                close = max(errs) <= bar and max(rels) <= FLASH_REL_BAR
+            row = {"flash_wide": list(shape), "dtype": str(dtype).split(".")[1], "route": route,
+                   "max_abs_err_out_dq_dk_dv": errs, "rel_rms_err_out_dq_dk_dv": rels,
+                   "lse_max_abs_err": lse_err, "bit_identical": same, "close": close}
+            if not (close and same and lse_err <= 1e-3):
+                ok = False
+            if timed and shape in FLASH_TIMED and dtype == torch.bfloat16:
+                fma, bwd_fma = flash_mod._forward_library(), flash_mod._backward_library()
+                stream = torch.cuda.current_stream().cuda_stream
+                o2 = torch.empty_like(q)
+                delta = torch.empty(bh, s, device="cuda")
+                g2 = [torch.empty_like(q) for _ in range(3)]
+                leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+                out_lib = F.scaled_dot_product_attention(*leaves)
+
+                def fma_fwd():
+                    return fma.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                   o2.data_ptr(), None, bh, s, d, 1, scale, stream)
+
+                def fma_bwd():
+                    return bwd_fma.flash_attention_bwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in g2), bh, s, d, 1,
+                        scale, stream)
+
+                # in turns: FMA, wide, wide, FMA
+                times = {"fma_ms": [device_ms(torch, fma_fwd, 5)],
+                         "ms": [device_ms(torch, lambda: flash_mod._launch_forward(q, k, v, False, scale))]}
+                times["ms"].append(device_ms(torch, lambda: flash_mod._launch_forward(q, k, v, False, scale)))
+                times["fma_ms"].append(device_ms(torch, fma_fwd, 5))
+                times["bwd_fma_ms"] = [device_ms(torch, fma_bwd, 3)]
+                times["bwd_ms"] = [device_ms(torch, lambda: flash_mod._launch_backward(
+                    q, k, v, out, lse, g, scale)) for _ in range(2)]
+                times["bwd_fma_ms"].append(device_ms(torch, fma_bwd, 3))
+                times["library_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+                times["bwd_library_ms"] = device_ms(torch, lambda: torch.autograd.grad(
+                    out_lib, leaves, g, retain_graph=True))
+                row.update(times)
+                del out_lib, leaves
+            if tiles and dtype == torch.bfloat16 and shape in FLASH_TIMED:
+                # signed and rms error of dq, dk, dv against float64, relative to mean |x|,
+                # the wide kernel beside the FMA kernel (bf16 inputs, f32 sums, both)
+                want64 = flash_mod.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                                             g.double())
+                delta = torch.empty(bh, s, device="cuda")
+                g2 = [torch.empty_like(q) for _ in range(3)]
+                err = flash_mod._backward_library().flash_attention_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in g2), bh, s, d, 1,
+                    scale, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                torch.cuda.synchronize()
+                for name, got in (("wide", grads), ("fma", g2)):
+                    row[f"bias_rms_{name}"] = [
+                        [float((a.double() - w).mean() / w.abs().mean()),
+                         float((a.double() - w).pow(2).mean().sqrt() / w.abs().mean())]
+                        for a, w in zip(got, want64)]
+                del want64
+            emit(**row)
+            del out, out2, lse, grads, again, want, want_bwd
+        del base
+        torch.cuda.empty_cache()
+    for shape in FLASH_PADDED_SHAPES:
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).bfloat16() for _ in range(4))
+        leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+        flash_mod.flash_attention.padded_launches = 0
+        out = flash_mod.flash_attention(*leaves)
+        grads = torch.autograd.grad(out, leaves, g)
+        padded = flash_mod.flash_attention.padded_launches
+        want = (flash_mod.flash_attention_plain(q.float(), k.float(), v.float()),
+                *flash_mod.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float()))
+        errs = [float((a.float() - b_).abs().max()) for a, b_ in zip((out, *grads), want)]
+        rels = [rel_rms(a, b_) for a, b_ in zip((out, *grads), want)]
+        close = max(errs) <= 2e-2 and max(rels) <= FLASH_REL_BAR and padded == 2
+        emit(flash_padded=list(shape), padded_head_dim=flash_mod.padded_head_dim(shape[-1], q.dtype),
+             padded_launches=padded, max_abs_err_out_dq_dk_dv=errs, rel_rms_err_out_dq_dk_dv=rels,
+             close=close)
+        ok = ok and close
+        del leaves, out, grads, want
+    return ok
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -93,14 +238,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     libs = _build.build_all((*WGMMA_SOURCES, "conv3x3.cu", "flash_attention.cu",
                              "flash_attention_bwd.cu", "conv3x3_wgrad.cu"))
+    for lib in libs[len(WGMMA_SOURCES):]:  # the FMA split kernels: registers and spills
+        split, name = [], None
+        for ln in lib.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in ln:
+                name = ln.split("'")[1] if "split" in ln else None
+            elif name and ("spill" in ln or "registers" in ln):
+                split.append(f"{name[:48]}: {ln.strip()}")
+        emit(library=lib.name, split_ptxas=split)
     for lib in libs[:len(WGMMA_SOURCES)]:
         log = lib.with_suffix(".log").read_text().splitlines()
         keep = [ln for ln in log if "registers" in ln or "spill" in ln or "warning" in ln.lower()]
         emit(library=lib.name, ptxas=[ln for ln in keep if "injected" not in ln][:80],
-             injected_waits=sum("injected" in ln for ln in keep))
+             injected_waits=sum("injected" in ln for ln in keep),
+             injected_reasons=sorted({ln.split("'")[0][-160:] for ln in keep if "injected" in ln}))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ok = True
+    ok = check_wide(torch, F, flash_mod, gen, timed, "--tiles" in sys.argv[1:])
+    for d in (192, 256, 320, 512, 640, 1024):
+        got = flash_mod.wide_smem_of_library(d)
+        want = (flash_mod.wide_fwd_smem_bytes(d), flash_mod.wide_bwd_smem_bytes(d))
+        emit(wide_smem_blocks=d, **got, formula=want)
+        ok = ok and (got["forward"][0], got["backward"][0]) == want and max(want) <= 232448
+    if not ok or "--wide" in sys.argv[1:]:
+        emit(ok=ok, device=torch.cuda.get_device_name(0))
+        return 0 if ok else 1
     for shape in CONV_SHAPES:
         b, h, w, cin, cout = shape
         x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
@@ -167,9 +329,12 @@ def main() -> int:
         bwd_errs = [(a.float() - b_).abs() for a, b_ in zip(grads, want_bwd)]
         bwd_err = max(float(e.max()) for e in bwd_errs)
         same = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+        rels = [rel_rms(a, b_) for a, b_ in zip((out, *grads), (want, *want_bwd))]
         row = {"flash_attention_wgmma": list(shape), "max_abs_err": float(err.max()),
-               "lse_max_abs_err": lse_err, "bwd_max_abs_err": bwd_err, "bwd_bit_identical": same}
-        if not (float(err.max()) <= 2e-2 and lse_err <= 1e-3 and bwd_err <= 2e-2 and same):
+               "lse_max_abs_err": lse_err, "bwd_max_abs_err": bwd_err, "bwd_bit_identical": same,
+               "rel_rms_err_out_dq_dk_dv": rels}
+        if not (float(err.max()) <= 2e-2 and lse_err <= 1e-3 and bwd_err <= 2e-2 and same
+                and max(rels) <= FLASH_REL_BAR):
             ok = False
             bad = (err > 2e-2).nonzero()
             row.update(bad_share=float((err > 2e-2).float().mean()), first_bad=bad[:12].tolist(),
