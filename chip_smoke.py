@@ -10,8 +10,9 @@ result line):
 2. build: the twelve CUDA C++ sources of ``pti_ldm_vae_tpu_torch/csrc`` with
    nvcc (one process per source, started together, and beside them the
    native TIFF library ``native/ptidata.cpp`` with g++; ``ptxas`` registers and
-   spills reported, and none allowed in the two GroupNorm+SiLU libraries and
-   the two wide-head flash libraries; for
+   spills reported, and none allowed in the two GroupNorm+SiLU libraries,
+   the two wide-head flash libraries and the tensor-core convolution's (36
+   tile instantiations); for
    the six tensor-core sources also the shared memory per block and the
    resident blocks per SM of every instantiation the path takes, and whether
    their SASS holds ``HGMMA`` (``wgmma``) and ``LDGSTS`` (``cp.async``), read
@@ -43,11 +44,13 @@ result line):
    backward in both types, with the launches of the wide kernels counted;
    the 3x3 convolution: the 14 distinct shapes of the 47 convolutions of a
    flagship pass, as forward, input gradient and filter gradient, a ragged
-   [1,20,12,3->5] (which must go to the f32-FMA kernel) and a ragged
-   [2,37,70,24->40] (which must go to the tensor-core kernel), the AR
-   models' new shapes (Cin 10 of the 10-channel latent and Cin 256 of the
-   kl1e3 model, which take the f32-FMA forward in bf16 too) and the
-   flagship's at b1; its filter
+   [1,20,12,3->5] (which bf16 must send to the tensor-core kernel through
+   zero channels, f32 to the f32-FMA kernel) and a ragged [2,37,70,24->40],
+   the AR models' new shapes (Cin 10 of the 10-channel latent and Cin 256 of
+   the kl1e3 model, on the tensor-core kernel in bf16 since the 256-channel
+   blocks narrowed to 32 output columns and thin channel counts are padded)
+   and the flagship's at b1; every bf16 forward and input gradient must take
+   the tensor-core kernel; its filter
    gradient ``dW`` is held like ``dscale``; bf16 inputs take the tensor-core
    kernels wherever the wrappers' rules send them there, f32 inputs the FMA
    kernels, forward and backward, and the routes are asserted against the
@@ -210,7 +213,11 @@ result line):
    steps/s at b8, tune steps/s at b1) in bf16 and f32; the regression head's
    train step and predict at b8 in f32 and bf16, cuDNN and convolution
    kernels (phase ``regression_b8``); the convolution kernels at the kl1e3
-   model's shapes in bf16 (5 timed calls each); the flagship encode at b8 in
+   model's shapes in bf16 (5 timed calls each) and at the AR model's
+   10-channel latent, each forward or input gradient that took the f32-FMA
+   kernel in bf16 before (``Cin`` above 128 or no multiple of 8) beside that
+   kernel, called through its library before and after it, on the same
+   inputs; the flagship encode at b8 in
    f32 and bf16, cuDNN and kernels, on a device-resident batch and as
    ``analyze_static`` runs it (host TIFF read and resize included), and the
    projection's PCA-50, kNN + P and 1000 t-SNE iterations on seeded
@@ -223,7 +230,10 @@ result line):
    analysis runs' launches, the chained CLIs' under ``chain_*``; flash per
    call at head dim 256 under ``kl1e3_d256``, at [8,1,1024,96], 512, 640 and
    1024 under ``d96`` / ``d512`` / ``d640`` / ``d1024``; the
-   convolution kernels' sums over one kl1e3 train step under ``kl1e3``), the
+   convolution kernels' sums over one kl1e3 train step under ``kl1e3``, with
+   ``fma_ms`` the same step's forward and input-gradient calls as they ran
+   before this route, and the FMA and zero-padded launches of the
+   convolution-kernel paths, the kl1e3 step's FMA ones 0), the
    card line, and
    the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -280,7 +290,7 @@ CONV_PER_RECONSTRUCT = 47
 CONV_DGRAD_PER_STEP = 46
 ADV_EPOCHS = 3
 ADV_RESUME_EPOCHS = 4
-RAGGED_CONV = (1, 20, 12, 3, 5)  # Cin 3: the f32-FMA kernel in either type
+RAGGED_CONV = (1, 20, 12, 3, 5)  # Cin 3: zero-padded onto the tensor-core kernel in bf16
 RAGGED_CONV_WGMMA = (2, 37, 70, 24, 40)  # Cin 24: the tensor-core kernel in bf16
 FLASH_CHECK_SHAPES = ((BATCH, 1, 1024, 128), (2, 2, 1000, 64),
                       *((2, 1, s, d) for d in (16, 32, 64, 128) for s in (1024, 200)))
@@ -321,8 +331,12 @@ LDM_ZERO_GRAD_BAR = 1e-6  # gradients 0 in exact arithmetic, of the largest grad
 # kernel launches per pass (encode + decode) of a model: GroupNorm+SiLU, flash
 # attention, 3x3 convolutions and their input gradients in a train step (all but
 # the encoder's stem)
+# "thin" / "thin_dgrad": the forwards / input gradients among them whose Cin is no multiple
+# of 8 (the 1-channel stem, the latent's conv_in; the output conv's and conv_out's input
+# gradients), which bf16 runs on the tensor-core kernel through zero channels
 FLAGSHIP_PASS = {"gn": GN_PER_RECONSTRUCT, "flash": FLASH_PER_RECONSTRUCT,
-                 "conv": CONV_PER_RECONSTRUCT, "dgrad": CONV_DGRAD_PER_STEP}
+                 "conv": CONV_PER_RECONSTRUCT, "dgrad": CONV_DGRAD_PER_STEP,
+                 "thin": 2, "thin_dgrad": 2}
 # AR-VAE: config/ar_vae_dente.json is the flagship architecture with a 10-channel
 # latent (six attributes on channels 0-5); config/ar_vae_dente_kl1e3.json the
 # 64-128-256 KL-sweep point with 32 groups, whose mid blocks attend over 64²
@@ -330,7 +344,7 @@ FLAGSHIP_PASS = {"gn": GN_PER_RECONSTRUCT, "flash": FLASH_PER_RECONSTRUCT,
 AR_CONFIG = ROOT / "config" / "ar_vae_dente.json"
 KL1E3_CONFIG = ROOT / "config" / "ar_vae_dente_kl1e3.json"
 AR_ATTRIBUTES = ("height_0", "width_0", "width_1", "width_2", "width_3", "width_4")
-KL1E3_PASS = {"gn": 34, "flash": 2, "conv": 38, "dgrad": 37}
+KL1E3_PASS = {"gn": 34, "flash": 2, "conv": 38, "dgrad": 37, "thin": 2, "thin_dgrad": 2}
 KL1E3_GROUPS = 32
 KL1E3_SUBSET = 36  # images: 32 train (4 steps of 8) and 4 validation (1 step)
 KL1E3_STEPS_PER_EPOCH = 4
@@ -403,6 +417,24 @@ def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
         "conv3x3": conv,
         "conv3x3_wgrad": per_pass["conv"] * train_steps if conv_kernel else 0,
     }
+
+
+def expected_conv_shares(train_steps: int, forward_only: int,
+                         per_pass: dict[str, int] = FLAGSHIP_PASS) -> dict[str, int]:
+    """The shares of the convolution's forward-kernel launches in a bf16 run
+    with the convolution kernels (``expected_launches``' steps and passes):
+    none on the FMA kernel, the thin channel counts' on zero-padded ones."""
+    return {"fma": 0,
+            "padded": per_pass["thin"] * (train_steps + forward_only)
+            + per_pass["thin_dgrad"] * train_steps}
+
+
+def conv_shares(kernels_mod) -> dict[str, int]:
+    """Launches of the convolution's forward kernel since the last reset that
+    went to the FMA kernel and to the tensor-core kernel on zero-padded
+    channels (shares of ``conv3x3``'s count)."""
+    conv = kernels_mod.conv3x3
+    return {"fma": conv.fma_launches, "padded": conv.padded_launches}
 
 
 def expected_pti_launches(encodes: int, latent_steps: int, tune_steps: int, written: int,
@@ -713,11 +745,13 @@ def wgmma_occupancy(torch, shapes) -> dict:
     out: dict = {}
     smem, blocks = ctypes.c_int(), ctypes.c_int()
     conv = _build.load("conv3x3_wgmma.cu")
-    # the tiles the flagship pass's shapes take (Cin sizes the weight slab, kc the halo ring)
+    # the tiles the paths' shapes take (Cin sizes the weight slab, kc the halo ring; a thin Cin
+    # is padded with zero channels to a multiple of 8 first)
     for shape in shapes:
         b, h, w, cin, cout = shape
         if conv_forward_kernel(torch.bfloat16, cin) != "wgmma":
-            continue
+            raise RuntimeError(f"conv3x3 {shape}: bf16 does not take the tensor-core kernel")
+        cin = -(-cin // 8) * 8
         mt, tn, kc = wgmma_tile(b, h, w, cin, cout, n_sm)
         err = conv.conv3x3_wgmma_occupancy(mt, tn, kc, cin, ctypes.byref(smem), ctypes.byref(blocks))
         if err != 0 or smem.value != wgmma_smem_bytes(cin, mt, tn, kc):
@@ -725,9 +759,11 @@ def wgmma_occupancy(torch, shapes) -> dict:
                                f"{smem.value} bytes against {wgmma_smem_bytes(cin, mt, tn, kc)}")
         tiles = b * -(-h // 8) * -(-w // (8 * mt))
         groups = -(-cout // tn)
-        resident = min(tiles, -(-blocks.value * n_sm // groups)) * groups
+        # the launch's persistent grid: the resident blocks shared out over the N-groups
+        resident = min(tiles, max(1, blocks.value * n_sm // groups)) * groups
         out[f"conv3x3_wgmma {list(shape)}"] = {
-            "mt": mt, "tn": tn, "kc": kc, "smem_bytes": smem.value, "blocks_per_sm": blocks.value,
+            "cin": cin, "mt": mt, "tn": tn, "kc": kc, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks.value,
             "tiles": tiles * groups, "blocks": resident,
             "tiles_per_block": round(tiles * groups / resident, 2)}
     wgrad = _build.load("conv3x3_wgrad_wgmma.cu")
@@ -1021,12 +1057,14 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
             del grads, dx, dw, want_dx, want_dw, leaves
         del x, wmat, g
     torch.cuda.empty_cache()
-    by_rule = {f"{RAGGED_CONV} bfloat16": ["fma", "fma"],
-               f"{RAGGED_CONV_WGMMA} bfloat16": ["wgmma", "wgmma"],
-               f"{RAGGED_CONV_WGMMA} float32": ["fma", "fma"]} if ragged else {}
-    for tag, want_route in by_rule.items():
-        if routes["conv3x3"][tag] != want_route:
-            raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}, expected {want_route}")
+    # forward and input gradient: every bf16 shape on wgmma (a thin or ragged Cin, RAGGED_CONV's
+    # 3 and 5 too, through zero channels up to 8; Cin 256 on 32 output columns a block), every
+    # f32 one on the FMA kernel
+    for tag, route in routes["conv3x3"].items():
+        if route != (["wgmma", "wgmma"] if "bfloat16" in tag else ["fma", "fma"]):
+            raise RuntimeError(f"conv3x3 {tag} went to {route}")
+    if ragged and routes["conv3x3"][f"{RAGGED_CONV} bfloat16"] != ["wgmma", "wgmma"]:
+        raise RuntimeError("the ragged 3 -> 5 convolution did not take the tensor-core kernel")
     # any S: bf16 on wgmma up to head dim 128 and on the wide wgmma kernels above; f32 on the
     # FMA kernels
     def flash_rule(tag: str) -> str:
@@ -1259,11 +1297,14 @@ def run_adv_train_cli(torch, np, kernels_mod, data_dir: Path, run_dir: Path) -> 
     result = train_main(["-c", str(cfg_path), "--max-epochs", str(ADV_EPOCHS), *cli])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels_mod.launch_counts()
+    launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
     train_steps = ADV_EPOCHS * TRAIN_STEPS_PER_EPOCH
     want = expected_launches(train_steps, ADV_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1), conv_kernel=True)
-    if result["total_step"] != train_steps or launches != want or not all(launches.values()):
-        raise RuntimeError(f"adversarial path: {result}, launches {launches}, expected {want}")
+    want_shares = expected_conv_shares(train_steps, ADV_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1))
+    if (result["total_step"] != train_steps or launches != want or not all(launches.values())
+            or shares != want_shares):
+        raise RuntimeError(f"adversarial path: {result}, launches {launches}, expected {want}; "
+                           f"convolution FMA / padded launches {shares}, expected {want_shares}")
 
     def rows_of(kind: str) -> list[dict]:
         lines = (run_dir / "metrics.jsonl").read_text().splitlines()
@@ -1312,7 +1353,8 @@ def run_adv_train_cli(torch, np, kernels_mod, data_dir: Path, run_dir: Path) -> 
                            f"{new_rows[0]['train/step'] if new_rows else None}, expected {first_step}")
     adv_terms = ("train/adv_gen_loss", "train/adv_disc_loss", "train/loss_total")
     return {
-        "wall_s": wall, "launches": launches, "total_step": result["total_step"],
+        "wall_s": wall, "launches": launches, "conv_shares": shares,
+        "total_step": result["total_step"],
         "best_val_loss": result["best_val_loss"],
         "first_warmup": {k: warm[0][k] for k in adv_terms},
         "first_adversarial": {k: active[0][k] for k in adv_terms},
@@ -1798,13 +1840,18 @@ def run_ar_train_cli(torch, np, kernels_mod, cfg_path: Path, run_dir: Path, extr
                          "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels_mod.launch_counts()
+    launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
     wide = wide_launches(kernels_mod)
     train_steps = epochs * steps_per_epoch
-    want = expected_launches(train_steps, epochs * (EVAL_STEPS_PER_EPOCH + 1), conv_kernel, per_pass)
-    if result["total_step"] != train_steps or launches != want:
+    forward_only = epochs * (EVAL_STEPS_PER_EPOCH + 1)
+    want = expected_launches(train_steps, forward_only, conv_kernel, per_pass)
+    # bf16 with the convolution kernels: every forward and input gradient on the tensor cores
+    want_shares = (expected_conv_shares(train_steps, forward_only, per_pass) if conv_kernel
+                   else {"fma": 0, "padded": 0})
+    if result["total_step"] != train_steps or launches != want or shares != want_shares:
         raise RuntimeError(f"AR training path {cfg_path.name}: {result}, launches {launches}, "
-                           f"expected {want}")
+                           f"expected {want}; convolution FMA / padded launches {shares}, "
+                           f"expected {want_shares}")
     rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     train_rows = [r for r in rows if "train/loss_total" in r]
     val_rows = [r for r in rows if "val/loss_total" in r]
@@ -1827,7 +1874,7 @@ def run_ar_train_cli(torch, np, kernels_mod, cfg_path: Path, run_dir: Path, extr
     if len(best) != 1 or not (weights / "autoencoder_last.pth").exists():
         raise RuntimeError(f"checkpoints: {sorted(p.name for p in weights.iterdir())}")
     ar_keys = ("train/ar_loss_total", "train/loss_total", "train/adv_disc_loss")
-    return {"wall_s": wall, "launches": launches, "wide_launches": wide,
+    return {"wall_s": wall, "launches": launches, "wide_launches": wide, "conv_shares": shares,
             "total_step": result["total_step"],
             "best_val_loss": result["best_val_loss"],
             "first_train": {k: train_rows[0][k] for k in ar_keys},
@@ -1950,13 +1997,15 @@ def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: in
                      str(PTI_TUNE_STEPS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels_mod.launch_counts()
+    launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
     batches = -(-n_images // batch)
     tuned_rows = batches * batch if batch > 1 else n_images
     want = expected_pti_launches(batches, batches * PTI_LATENT_STEPS, tuned_rows * PTI_TUNE_STEPS,
                                  n_images, conv_kernel)
-    if launches != want:
-        raise RuntimeError(f"run_pti: launches {launches}, expected {want}")
+    # bf16 with the convolution kernels: no call on the FMA kernel, the thin ones padded
+    if launches != want or shares["fma"] or (shares["padded"] > 0) != conv_kernel:
+        raise RuntimeError(f"run_pti: launches {launches}, expected {want}; convolution FMA / "
+                           f"padded launches {shares}")
     pivots = sorted(out.glob("*_pivot.npz"))
     if len(pivots) != n_images or len(list(out.glob("*_pti.tif"))) != n_images or len(
             list(out.glob("*_pti.png"))) != n_images:
@@ -1974,8 +2023,9 @@ def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: in
             falls[key].append([float(loss[0]), float(loss[-1])])
             if not loss[-1] < loss[0]:
                 raise RuntimeError(f"{path.name}: {key} loss does not fall: {loss[0]} -> {loss[-1]}")
-    return {"wall_s": wall, "launches": launches, "images": n_images, "batch": batch,
-            "latent_loss_first_last": falls["latent"], "tune_loss_first_last": falls["tune"]}
+    return {"wall_s": wall, "launches": launches, "conv_shares": shares, "images": n_images,
+            "batch": batch, "latent_loss_first_last": falls["latent"],
+            "tune_loss_first_last": falls["tune"]}
 
 
 def pti_reference_check(torch, np, kernels_mod, ckpt: Path, data_dir: Path) -> None:
@@ -2707,24 +2757,65 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
     kernel, each beside its bound, its plain version and the library call
     (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
     one operand). ``kernel`` names the kernel the wrapper's rule picks for the
-    call (``wgmma``: a tensor-core kernel, ``fma``: an f32-FMA one). The filter
-    gradient's time (``ms``) includes the fold of its partial sums (one
-    ``torch.sum``); ``kernel_only_ms`` leaves it out. ``iters``: timed calls
-    per measurement."""
+    call (``wgmma``: a tensor-core kernel, ``fma``: an f32-FMA one); ``tile``
+    the tensor-core kernel's ``(cin, mt, tn, kc)``, its ``cin`` padded to a
+    multiple of 8. A bf16 forward or input gradient that took the f32-FMA
+    kernel before the tensor-core kernel took every ``Cin`` (``Cin`` above
+    128 or no multiple of 8) is also timed on that kernel, on the same
+    inputs, called through its library before and after the tensor-core
+    kernel (``fma_ms``: the mean of the two turns), and its last turn's
+    output held to the plain version at the bf16 bar. The filter gradient's
+    time (``ms``) includes the fold of its partial sums (one ``torch.sum``);
+    ``kernel_only_ms`` leaves it out. ``iters``: timed calls per
+    measurement."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+        _DTYPE_CODES,
+        _forward_library,
         _launch_forward,
         _launch_wgrad,
+        _sm_count,
         conv3x3_bwd_plain,
         conv3x3_plain,
         flip_transpose,
         forward_kernel,
+        wgmma_tile,
         wgrad_kernel,
     )
 
     def timed(prefix, fn):
         return _timed(flush, prefix, fn, iters)
+
+    def forward_row(head, role, n, x, wmat, library):
+        """One forward-kernel row: ``x`` [B, H, W, Cin] with the matrix
+        [9*Cin, Cout], beside the FMA kernel where it served bf16 before."""
+        b, h, w, cin = x.shape
+        cout = wmat.shape[1]
+        kernel = forward_kernel(x.dtype, cin)
+        cin_k = -(-cin // 8) * 8
+        yardstick = x.dtype == torch.bfloat16 and kernel == "wgmma" and (cin % 8 or cin > 128)
+        y_fma = torch.empty(b, h, w, cout, device="cuda", dtype=x.dtype)
+
+        def fma():  # the route bf16 took here before the tensor-core kernel took every Cin
+            err = _forward_library().conv3x3_fwd(x.data_ptr(), wmat.data_ptr(), y_fma.data_ptr(), b,
+                                                 h, w, cin, cout, _DTYPE_CODES[x.dtype],
+                                                 torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"FMA forward {head['shape']} {role}: CUDA error {err}")
+
+        fma_turns = [timed("", fma)["ms"]] if yardstick else []
+        row = {**head, "role": role, "per_pass": n, "kernel": kernel,
+               **({"tile": [cin_k, *wgmma_tile(b, h, w, cin_k, cout, _sm_count(x.device))]}
+                  if kernel == "wgmma" else {}),
+               **timed("", lambda: _launch_forward(x, wmat)),
+               **timed("plain_", lambda: conv3x3_plain(x, wmat)),
+               **timed("library_", library)}
+        if yardstick:
+            fma_turns.append(timed("", fma)["ms"])
+            err = check_close(f"FMA {role} {head['shape']}", y_fma, conv3x3_plain(x, wmat), BF16_TOL)
+            row.update(fma_ms=sum(fma_turns) / 2, fma_ms_turns=fma_turns, fma_max_abs_err=err)
+        return row
 
     for dtype in dtypes or (torch.bfloat16, torch.float32):
         key = dtype_key(dtype)
@@ -2747,19 +2838,14 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
             y_lib = F.conv2d(x_lib, w_lib, padding=1)
 
             bound_ms, bound_by = bound(flops, key, (x.numel() + wmat.numel() + g.numel()) * size)
-            row = {**head, "role": "forward", "per_pass": n, "kernel": forward_kernel(dtype, cin),
-                   **timed("", lambda: _launch_forward(x, wmat)),
-                   **timed("plain_", lambda: conv3x3_plain(x, wmat)),
-                   **timed("library_", lambda: F.conv2d(x_lib.detach(), w_lib.detach(), padding=1)),
+            row = {**forward_row(head, "forward", n, x, wmat,
+                                 lambda: F.conv2d(x_lib.detach(), w_lib.detach(), padding=1)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             rows["conv3x3"].append(row)
             emit("time_conv3x3", **row)
 
-            row = {**head, "role": "dgrad", "per_pass": n_dgrad, "kernel": forward_kernel(dtype, cout),
-                   **timed("", lambda: _launch_forward(g, wflip)),
-                   **timed("plain_", lambda: conv3x3_plain(g, wflip)),
-                   **timed("library_", lambda: torch.autograd.grad(y_lib, x_lib, g_lib,
-                                                                   retain_graph=True)),
+            row = {**forward_row(head, "dgrad", n_dgrad, g, wflip,
+                                 lambda: torch.autograd.grad(y_lib, x_lib, g_lib, retain_graph=True)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             rows["conv3x3"].append(row)
             emit("time_conv3x3", **row)
@@ -3155,7 +3241,7 @@ def main() -> int:
     ptxas = {p.name: ptxas_report(p.with_suffix(".log")) for p in libs}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=[p.name for p in libs],
          native=Path(native_path).name, ptxas=ptxas)
-    for src in (*GN_SOURCES, *WIDE_SOURCES):
+    for src in (*GN_SOURCES, *WIDE_SOURCES, "conv3x3_wgmma.cu"):
         if ptxas[_build.library_path(src).name]["spill_bytes"]:
             raise RuntimeError(f"{src} spills registers: {ptxas[_build.library_path(src).name]}")
 
@@ -3174,7 +3260,7 @@ def main() -> int:
                            f"{CONV_PER_RECONSTRUCT}")
     del probe
     # AR-VAE: the 10-channel latent's convolutions, the kl1e3 model's shapes (32
-    # groups; Cin 256 and 10 take the f32-FMA forward in bf16 too), and the
+    # groups; Cin 256 and 10 take the tensor-core forward in bf16 too), and the
     # flagship's at batch 1 (PTI's decoder fine-tune)
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
 
@@ -3188,8 +3274,12 @@ def main() -> int:
             KL1E3_PASS["gn"], KL1E3_PASS["conv"]):
         raise RuntimeError(f"kl1e3 shapes {kl_gn_shapes}, {kl_conv_shapes} do not add up to "
                            f"{KL1E3_PASS}")
-    if any(conv_forward_kernel(torch.bfloat16, cin) != "fma" for cin in (10, 256)):
-        raise RuntimeError("Cin 10 and 256 must take the f32-FMA convolution forward in bf16")
+    if any(conv_forward_kernel(torch.bfloat16, cin) != "wgmma" for cin in (1, 4, 10, 256)):
+        raise RuntimeError("Cin 1, 4, 10 and 256 must take the tensor-core convolution in bf16")
+    for per_pass, shapes in ((FLAGSHIP_PASS, conv_shapes), (KL1E3_PASS, kl_conv_shapes)):
+        thin = (sum(n for s, n in shapes if s[3] % 8), sum(n for s, n in shapes if s[4] % 8))
+        if thin != (per_pass["thin"], per_pass["thin_dgrad"]):
+            raise RuntimeError(f"thin convolutions {thin} of {shapes}, expected {per_pass}")
     flagship_conv = {s for s, _ in conv_shapes}
     new_conv = sorted({s for s, _ in ar_conv_shapes + kl_conv_shapes} - flagship_conv
                       | {(1, *s[1:]) for s in flagship_conv})
@@ -3465,9 +3555,12 @@ def main() -> int:
                              f"d{shape[-1]}")
     torch.cuda.empty_cache()
     time_conv3x3(torch, conv_shapes, flush, gen, rows)
-    # the kl1e3 model's convolutions, in bf16 as its config trains (Cin 10 and 256: FMA kernel)
+    # the kl1e3 model's convolutions, in bf16 as its config trains (Cin 256 and the padded Cin
+    # 10 and 1 beside the FMA kernel they took before), and the AR model's 10-channel latent's
     time_conv3x3(torch, kl_conv_shapes, flush, gen, rows, path="kl1e3", dtypes=(torch.bfloat16,),
                  iters=5)
+    ar_latent = [(s, n) for s, n in ar_conv_shapes if 10 in s[3:]]
+    time_conv3x3(torch, ar_latent, flush, gen, rows, path="ar", dtypes=(torch.bfloat16,), iters=5)
     torch.cuda.empty_cache()
 
     from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
@@ -3521,8 +3614,11 @@ def main() -> int:
     # 8. kernels line, card line, result line
     def totals(name: str, path: str = "vae") -> dict:
         bf = [r for r in rows[name] if r["dtype"] == "bfloat16" and r.get("path", "vae") == path]
-        return {k: sum(r[k] * r["per_pass"] for r in bf)
-                for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
+        out = {k: sum(r[k] * r["per_pass"] for r in bf)
+               for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
+        if any("fma_ms" in r for r in bf):  # the same calls as they ran before this route
+            out["fma_ms"] = sum(r.get("fma_ms", r["ms"]) * r["per_pass"] for r in bf)
+        return out
 
     def per_call(name: str, path: str) -> dict:
         """Per call at one shape timed under ``path``, both types: [8, 1, 4096, 256]
@@ -3566,10 +3662,11 @@ def main() -> int:
                                 "pre-pass and one launch of dk/dv and dq blocks)"),
         "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgmma.cu",
                     "pti_ldm_vae_tpu/ops/pallas/conv2d.py:120",
-                    "bf16 (the tensor-core kernel where Cin is a multiple of 8, else the "
-                    "kernel of source_f32, which also takes f32 inputs), device ms summed over the "
-                    "47 forward and 46 input-gradient launches of one b8 train step with "
-                    "conv_kernel=True; library_ms: F.conv2d and its "
+                    "bf16 (the tensor-core kernel at every Cin up to 1520, a thin Cin padded with "
+                    "zero channels; the kernel of source_f32 takes f32 inputs), device ms summed "
+                    "over the 47 forward and 46 input-gradient launches of one b8 train step with "
+                    "conv_kernel=True; fma_ms: the same calls with the thin ones on the kernel of "
+                    "source_f32, as before; library_ms: F.conv2d and its "
                     "input gradient, channels-last, TF32 off"),
         "conv3x3_wgrad": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
                           "pti_ldm_vae_tpu/ops/pallas/conv2d.py:137",
@@ -3587,7 +3684,8 @@ def main() -> int:
     # the same sums (bf16) over one b8 train step of config/ar_vae_dente_kl1e3.json
     kl_scope = {"conv3x3": f"device ms summed over the {KL1E3_PASS['conv']} forward and "
                            f"{KL1E3_PASS['dgrad']} input-gradient launches of one b8 kl1e3 "
-                           "train step",
+                           "train step; fma_ms: the same calls with Cin 256, 10 and 1 on the "
+                           "kernel of source_f32, as before",
                 "conv3x3_wgrad": f"device ms summed over the {KL1E3_PASS['conv']} launches of "
                                  "one b8 kl1e3 train step"}
     f32_sources = {"flash_attention": "pti_ldm_vae_tpu_torch/csrc/flash_attention.cu",
@@ -3649,6 +3747,15 @@ def main() -> int:
                if name in ("flash_attention", "flash_attention_bwd") else {}),
             **({"kl1e3": {**totals(name, "kl1e3"), "scope": kl_scope[name]}}
                if name in kl_scope else {}),
+            # of the forward kernel's launches on the bf16 convolution-kernel paths: on the FMA
+            # kernel (none) and on zero-padded channels
+            **({"shares_by_path": {"train_vae_adversarial_conv_kernel": adv["conv_shares"],
+                                   "train_vae_ar_kl1e3_conv_kernel": kl["conv_shares"],
+                                   "run_pti_b8_conv_kernel": pti["b8_conv_kernel"]["conv_shares"]},
+                "ar_latent": [{k: r[k] for k in ("shape", "role", "kernel", "tile", "ms", "fma_ms",
+                                                 "library_ms", "bound_ms") if k in r}
+                              for r in rows[name] if r["path"] == "ar"]}
+               if name == "conv3x3" else {}),
         })
     for wide_name, (name, source, replaces, scope) in wide_described.items():
         kernels.append({

@@ -7,16 +7,19 @@
 // tap-major matrix [9*Cin, Cout] (row (ky*3+kx)*Cin + ci), bf16 products
 // summed in f32, the output rounded once to bf16, no bias. On dy with the
 // spatially flipped, channel-transposed matrix the same kernel computes the
-// input gradient. f32 operands, and bf16 operands whose Cin is no multiple
-// of 8 or above 128, stay on the f32-FMA kernel of conv3x3.cu.
+// input gradient. It takes every Cin that is a multiple of 8 up to kMaxCin =
+// 1520; the wrapper (ops/kernels/conv3x3.py) pads a thinner or ragged Cin
+// (1, 4, 10, 20) with zero channels up to the next multiple of 8, x as well as
+// each tap's rows of the matrix. f32 operands, unaligned bf16 ones and Cin
+// above kMaxCin stay on the f32-FMA kernel of conv3x3.cu.
 //
 // Bound on an H100: 2*9*Cin*Cout FLOP per output pixel against 989 TFLOP/s
 // of bf16 tensor-core rate, and 2*(Cin + Cout) bytes per pixel against 3.35
-// TB/s: the 32- and 64-channel levels of the VAE are bytes-bound, the
-// 128-channel levels operations-bound, all within 0.04 ms per call at batch 8.
-// The f32-FMA kernel is bounded by the CUDA cores' 67 TFLOP/s instead and
-// converts its operands to f32 on staging; this kernel keeps them in bf16
-// from global memory to the tensor cores.
+// TB/s: the 32- and 64-channel levels of the VAE are bytes-bound, the 128-
+// and 256-channel levels operations-bound (0.039 ms at 8 x 64^2 x 256 -> 256,
+// 38.7 GFLOP). The f32-FMA kernel is bounded by the CUDA cores' 67 TFLOP/s
+// instead and converts its operands to f32 on staging; this kernel keeps them
+// in bf16 from global memory to the tensor cores.
 //
 // Design.
 // - GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.
@@ -28,9 +31,22 @@
 //   than tensor-core time, and a [9, 16, TN] weight slab per chunk is larger
 //   than the halo tile it multiplies: restaging it with every tile costs more
 //   traffic than the pixels do. A block therefore loads the whole [9, Cin,
-//   TN] slab of its output channels once (at most 149 KB: Cin 128, TN 64) and
-//   walks over many tiles (a persistent grid: blocks = resident blocks per SM
-//   x SMs, tile t, t + blocks, ...), streaming only halo tiles.
+//   TN] slab of its output channels once and walks over many tiles (a
+//   persistent grid: blocks = resident blocks per SM x SMs, shared out over
+//   the N-groups, tile t, t + blocks, ...), streaming only halo tiles.
+// - The slab is 9 * (TN/8) * (16 * Cin + 16) bytes (Cin rounded up to whole
+//   steps of KC): at TN 64 it fits up to Cin 128 (148,608 bytes); at Cin 256
+//   only TN 32 fits (148,032 bytes), at Cin 512 TN 16 (147,744), and TN 8
+//   carries Cin up to kMaxCin (1520: 219,024 bytes, with a ring of 16 channels
+//   and one patch per tile). So the caller (wgmma_tile) narrows the block's
+//   output columns as Cin grows, and the halo of a tile is staged once per
+//   N-group: 8 times over at 256 -> 256 (TN 32) against 2 times at 128 -> 128
+//   (TN 64). At Cin 256 that restaging (~180 MB of L2 reads at 8 x 64^2 x 256
+//   -> 256), the narrow m64n32k16 products (their A operand is read from
+//   shared memory once per 32 output columns instead of 64) and the copies'
+//   waits bound the kernel (PERF.md, row 6, measures it; a second ring that
+//   streams the slab at TN 64, or a second consumer warpgroup, are the
+//   alternatives).
 // - A comes from the halo tile, with no im2col copy. Per step of KC input
 //   channels (16, 32 or 64) the block stages the 10 x (8*MT+2) halo of its
 //   tile as KC/8 planes of 8 channels, [plane][halo row][halo column][8
@@ -56,8 +72,8 @@
 //   global reads are contiguous (a pixel's KC channels are one run of 2*KC
 //   bytes) and shared-memory writes spread over the banks (16 bytes of
 //   padding after each plane and each of B's N-groups).
-// - What it is bounded by now (tools/ablate_conv3x3_wgmma.py leaves parts of
-//   the kernel out and times the rest): the products alone run near the
+// - What bounds it at Cin <= 128 (tools/ablate_conv3x3_wgmma.py leaves parts
+//   of the kernel out and times the rest): the products alone run near the
 //   tensor cores' rate, but the halo copies hide under them only in part,
 //   and about a third of the time is neither (the slab's copy, barriers,
 //   waits). Each 16-byte piece of a pixel lies in another 128-byte line than
@@ -72,11 +88,12 @@
 //   16-byte vectors, one contiguous run of TN channels per pixel, while the
 //   next tiles' copies are in flight; rows, columns and channels past the
 //   edges are masked (a Cout that is no multiple of 8 takes 2-byte stores).
-// - Tiles: the caller (wgmma_tile in ops/kernels/conv3x3.py) picks TN = 8, 32
-//   or 64 (the smallest that covers Cout, else 64), MT = 4, 2 or 1 and KC.
-//   Shared memory per block: 9*(TN/8)*(16*Cin+16) + 3*(KC/8)*plane(MT) +
-//   64*(2*TN+16) bytes with plane(4) = 5520: 224 KB at Cin 128, TN 64, MT 4,
-//   KC 32 (one block per SM), 90 KB at Cin 32, TN 32, MT 4, KC 32 (two).
+// - Tiles: the caller (wgmma_tile in ops/kernels/conv3x3.py) picks TN = 8, 16,
+//   32 or 64 (the smallest that covers Cout, else 64, narrowed until the slab
+//   fits), MT = 4, 2 or 1 and KC. Shared memory per block: 9*(TN/8)*(16*Cin+16)
+//   + 3*(KC/8)*plane(MT) + 64*(2*TN+16) bytes with plane(4) = 5520: 224,064 at
+//   Cin 128, TN 64, MT 4, KC 32 and 219,392 at Cin 256, TN 32, MT 4, KC 32 (one
+//   block per SM), 90,368 at Cin 32, TN 32, MT 4, KC 32 (two).
 //
 // The weight matrix arrives with its columns padded to a multiple of 8
 // (ldw, zeros) so that every 16-byte piece of a row is aligned.
@@ -282,8 +299,12 @@ conv3x3_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
-constexpr int kMaxCin = 128;      // the slab of a block must fit in shared memory
 constexpr int kMaxSmem = 232448;  // what a block may ask for on sm_90
+// the widest Cin whose slab fits in shared memory: at TN 8, beside the smallest ring
+constexpr int kMaxCin = 1520;
+static_assert(smem_bytes<1, 8, 16>(kMaxCin) <= kMaxSmem &&
+                  smem_bytes<1, 8, 16>(kMaxCin + 8) > kMaxSmem,
+              "kMaxCin is the widest multiple of 8 that fits");
 
 // Shared memory per block and resident blocks per SM of an instantiation at this Cin. The
 // kernel's shared-memory limit is raised once per device, the occupancy asked once per
@@ -332,8 +353,10 @@ cudaError_t launch(const void* x, const void* wmat, void* y, int b, int h, int w
   const int tiles_h = (h + 7) / 8, tiles_w = (w + 8 * MT - 1) / (8 * MT);
   const int n_tiles = b * tiles_h * tiles_w;
   const int n_groups = (cout + TN - 1) / TN;
-  // persistent: as many blocks as the card holds at once, shared out over the N-groups
-  int walkers = (blocks_per_sm * n_sm + n_groups - 1) / n_groups;
+  // persistent: as many blocks as the card holds at once, shared out over the N-groups (no
+  // more: a block beyond them would start only when another ends, and double the time)
+  int walkers = blocks_per_sm * n_sm / n_groups;
+  if (walkers < 1) walkers = 1;
   if (walkers > n_tiles) walkers = n_tiles;
   const dim3 grid(walkers, n_groups);
   conv3x3_wgmma_kernel<MT, TN, KC><<<grid, kThreads, smem, stream>>>(
@@ -344,15 +367,13 @@ cudaError_t launch(const void* x, const void* wmat, void* y, int b, int h, int w
 
 }  // namespace
 
-#define PTI_FOR_EACH_TILE(CASE) \
-  CASE(4, 64, 16) CASE(2, 64, 16) CASE(1, 64, 16) CASE(4, 32, 16) CASE(2, 32, 16) CASE(1, 32, 16) \
-  CASE(4, 8, 16) CASE(2, 8, 16) CASE(1, 8, 16) CASE(4, 64, 32) CASE(2, 64, 32) CASE(1, 64, 32) \
-  CASE(4, 32, 32) CASE(2, 32, 32) CASE(1, 32, 32) CASE(4, 8, 32) CASE(2, 8, 32) CASE(1, 8, 32) \
-  CASE(4, 64, 64) CASE(2, 64, 64) CASE(1, 64, 64) CASE(4, 32, 64) CASE(2, 32, 64) CASE(1, 32, 64) \
-  CASE(4, 8, 64) CASE(2, 8, 64) CASE(1, 8, 64)
+#define PTI_FOR_KC(CASE, TN, KC) CASE(4, TN, KC) CASE(2, TN, KC) CASE(1, TN, KC)
+#define PTI_FOR_TN(CASE, KC) \
+  PTI_FOR_KC(CASE, 64, KC) PTI_FOR_KC(CASE, 32, KC) PTI_FOR_KC(CASE, 16, KC) PTI_FOR_KC(CASE, 8, KC)
+#define PTI_FOR_EACH_TILE(CASE) PTI_FOR_TN(CASE, 16) PTI_FOR_TN(CASE, 32) PTI_FOR_TN(CASE, 64)
 
 // Shared memory per block (bytes) and resident blocks per SM of the instantiation with
-// mt patches per tile (4, 2, 1), tn output channels per block (64, 32, 8) and kc input
+// mt patches per tile (4, 2, 1), tn output channels per block (64, 32, 16, 8) and kc input
 // channels per step (16, 32, 64), at cin input channels; cudaErrorInvalidConfiguration
 // (9) with blocks_per_sm 0 where it does not fit.
 extern "C" int conv3x3_wgmma_occupancy(int mt, int tn, int kc, int cin, int* smem,
@@ -367,12 +388,12 @@ extern "C" int conv3x3_wgmma_occupancy(int mt, int tn, int kc, int cin, int* sme
   return static_cast<int>(err);
 }
 
-// x: contiguous bf16 [b, h, w, cin], cin a multiple of 8 up to 128 (the weight slab of a
-// block stays in shared memory); wmat: contiguous bf16 [9*cin, ldw], ldw a multiple of 8,
+// x: contiguous bf16 [b, h, w, cin], cin a multiple of 8 up to kMaxCin (the weight slab of
+// a block stays in shared memory); wmat: contiguous bf16 [9*cin, ldw], ldw a multiple of 8,
 // columns cout .. ldw-1 zero; y: contiguous bf16 [b, h, w, cout]; x and wmat 16-byte
 // aligned. The tile is the caller's choice: mt patches of 8 x 8 pixels side by side (4, 2
-// or 1), tn output channels per block (64, 32 or 8), kc input channels per step (16, 32
-// or 64); it must fit in shared memory (conv3x3_wgmma_occupancy).
+// or 1), tn output channels per block (64, 32, 16 or 8), kc input channels per step (16,
+// 32 or 64); it must fit in shared memory (conv3x3_wgmma_occupancy).
 extern "C" int conv3x3_wgmma_fwd(const void* x, const void* wmat, void* y, int b, int h, int w,
                                  int cin, int cout, int ldw, int mt, int tn, int kc,
                                  void* stream) {

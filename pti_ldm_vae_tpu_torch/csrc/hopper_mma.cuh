@@ -5,7 +5,7 @@
 // shared memory (cp.async, with zero fill), the shared-memory matrix
 // descriptor of wgmma, its fence / commit / wait, and the bf16 x bf16 -> f32
 // warpgroup products m64nNk16 with A read from shared memory (WgmmaSS, N = 8,
-// 32, 64; either operand K-major or MN-major) or from registers (WgmmaRS, N =
+// 16, 32, 64; either operand K-major or MN-major) or from registers (WgmmaRS, N =
 // 16, 32, 64, 128): the widths the six kernels use.
 //
 // Operand layouts (no swizzle). wgmma reads an operand as 8-row x 16-byte
@@ -123,6 +123,21 @@ struct WgmmaSS<8, TransA, TransB> {
       "%4, %5, p, 1, 1, %7, %8;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+  }
+};
+
+template <int TransA, int TransB>
+struct WgmmaSS<16, TransA, TransB> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
   }
 };

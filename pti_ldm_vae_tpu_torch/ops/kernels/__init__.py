@@ -64,9 +64,13 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0, and the padded and the wide
     flash-attention launches (``flash_attention.padded_launches``,
-    ``wide_launches``, ``wide_bwd_launches``: shares of its two counts)."""
+    ``wide_launches``, ``wide_bwd_launches``: shares of its two counts) and
+    the convolution's FMA and padded launches (``conv3x3.fma_launches``,
+    ``padded_launches``: shares of ``conv3x3.launches``)."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     flash_attention.padded_launches = 0
     flash_attention.wide_launches = 0
     flash_attention.wide_bwd_launches = 0
+    conv3x3.fma_launches = 0
+    conv3x3.padded_launches = 0

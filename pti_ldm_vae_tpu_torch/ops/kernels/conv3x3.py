@@ -18,12 +18,14 @@ them at run time and neither stands in for the other when a build or a
 launch fails.
 
 - forward / input gradient: ``csrc/conv3x3_wgmma.cu`` for bf16 operands with
-  ``Cin`` a multiple of 8 up to 128 (``wgmma`` on bf16 tiles, f32 sums,
-  asynchronous staging; the matrix's columns padded with zeros to a multiple
-  of 8 by ``pad_columns``); ``csrc/conv3x3.cu`` (f32 FMAs, every shape) for
-  f32 operands and for bf16 operands with any other ``Cin`` (the 1-channel
-  stem, the 4-channel latent, wider than 128) or a base address that is not
-  16-byte aligned;
+  any ``Cin`` up to ``WGMMA_MAX_CIN`` = 1520 (``wgmma`` on bf16 tiles, f32
+  sums, asynchronous staging; the matrix's columns padded with zeros to a
+  multiple of 8 by ``pad_columns``; a ``Cin`` that is no multiple of 8 — the
+  1-channel stem, the 4- and 10-channel latents, a 20-channel ``conv_out``'s
+  input gradient — padded with zero channels by ``pad_channels`` and
+  ``pad_weight_channels``); ``csrc/conv3x3.cu`` (f32 FMAs, every shape) for
+  f32 operands, for bf16 operands whose base address is not 16-byte aligned,
+  and for a bf16 ``Cin`` above 1520;
 - filter gradient: ``csrc/conv3x3_wgrad_wgmma.cu`` for bf16 operands
   (``wgmma`` with both operands read MN-major from staged tiles; a thin side,
   ``Cin`` or ``Cout`` no multiple of 8, padded with zero channels by
@@ -42,7 +44,9 @@ launches the kernels for CUDA tensors (or raises) and runs the plain versions
 for CPU tensors; nothing falls back from one to the other.
 ``conv3x3.launches`` counts launches of the forward kernels (forward and input
 gradient, tensor-core and FMA alike), ``conv3x3.wgrad_launches`` those of the
-filter-gradient kernel.
+filter-gradient kernel; of ``launches``, ``conv3x3.fma_launches`` went to the
+FMA kernel and ``conv3x3.padded_launches`` to the tensor-core kernel on
+zero-padded channels.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_bwd_plain", "flip_transpose", "forward_kernel",
-           "pad_channels", "pad_columns", "unpad_wgrad", "wgmma_smem_bytes", "wgmma_tile",
+           "pad_channels", "pad_columns", "pad_weight_channels", "unpad_wgrad", "WGMMA_MAX_CIN",
+           "wgmma_smem_bytes", "wgmma_tile",
            "wgrad_kernel", "wgrad_slabs", "WGRAD_FMA_SLAB_PIXELS",
            "wgrad_warpgroups", "wgrad_wgmma_slabs", "wgrad_wgmma_smem_bytes", "SOURCES"]
 
@@ -83,17 +88,30 @@ def flip_transpose(wmat: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
     return wmat.reshape(3, 3, cin, cout).flip(0, 1).transpose(2, 3).reshape(9 * cout, cin)
 
 
-WGMMA_MAX_CIN = 128  # kMaxCin of csrc/conv3x3_wgmma.cu
+# kMaxCin of csrc/conv3x3_wgmma.cu: the widest Cin whose [9, Cin, 8] weight slab fits in a
+# block's shared memory beside the smallest halo ring (wgmma_smem_bytes(1520, 1, 8, 16) =
+# 231,152 bytes; 1528 would need 233,456)
+WGMMA_MAX_CIN = 1520
 
 
 def forward_kernel(dtype: torch.dtype, cin: int, aligned: bool = True) -> str:
     """Which kernel computes the forward / input gradient: ``"wgmma"`` (the
     tensor-core kernel, ``csrc/conv3x3_wgmma.cu``) for bf16 operands whose
-    ``Cin`` is a multiple of 8 (its 16-byte pieces hold 8 channels) up to 128
-    (a block keeps its ``[9, Cin, 64]`` weight slab in shared memory) and
-    whose base addresses are 16-byte aligned, else ``"fma"``
-    (``csrc/conv3x3.cu``)."""
-    if dtype == torch.bfloat16 and 8 <= cin <= WGMMA_MAX_CIN and cin % 8 == 0 and aligned:
+    base addresses are 16-byte aligned and whose ``Cin`` is at most
+    ``WGMMA_MAX_CIN`` (a block keeps its ``[9, Cin, TN]`` weight slab in
+    shared memory, ``TN`` narrowed down to 8 as ``Cin`` grows: ``wgmma_tile``),
+    else ``"fma"`` (``csrc/conv3x3.cu``): f32 operands, unaligned bf16 views,
+    which 16-byte copies cannot read, and a wider ``Cin``.
+
+    The kernel reads 8 channels per 16-byte piece, so a ``Cin`` that is no
+    multiple of 8 (the 1-channel stem and the output conv's input gradient,
+    the 4- and 10-channel latents, the 20-channel ``conv_out``'s input
+    gradient) is padded with zero channels by the wrapper: ``x`` (or ``dy``)
+    by ``pad_channels``, each tap's rows of the matrix by
+    ``pad_weight_channels``; products with zero channels add nothing. The copy
+    is one pass over the thin tensor, as in the filter gradient
+    (``wgrad_kernel``)."""
+    if dtype == torch.bfloat16 and aligned and cin <= WGMMA_MAX_CIN:
         return "wgmma"
     return "fma"
 
@@ -125,21 +143,30 @@ def _resident_blocks(smem: int) -> int:
 def wgmma_tile(b: int, h: int, w: int, cin: int, cout: int, n_sm: int) -> tuple[int, int, int]:
     """The tensor-core kernel's tile for a shape, ``(mt, tn, kc)``: a tile is
     ``mt`` patches of 8 x 8 pixels side by side by ``tn`` output channels, and
-    a step stages ``kc`` input channels. ``tn`` is the smallest of 8, 32, 64
-    that covers ``Cout`` (else 64); ``mt`` the widest of 4, 2, 1 that still
-    cuts the work into at least one tile per two SMs (wider tiles reread less
-    halo and reuse a weight slab longer; fewer tiles than that leave too much
-    of the card idle); ``kc`` the largest of 64, 32, 16 that ``Cin`` fills,
-    that fits in shared memory beside the slab and that does not leave an SM
-    with a single resident block where two would fit (deeper steps copy longer
-    runs of contiguous bytes per pixel and pass fewer barriers, but their
-    larger ring costs occupancy). Measured on an H100 at the flagship's
-    shapes with ``tools/check_wgmma_kernels.py --tiles``."""
-    tn = 8 if cout <= 8 else 32 if cout <= 32 else 64
+    a step stages ``kc`` input channels; ``cin`` is the kernel's (a multiple
+    of 8, up to ``WGMMA_MAX_CIN``). ``tn`` is the widest of 64, 32, 16, 8 that
+    is no wider than the smallest of them that covers ``Cout`` (else 64) and
+    whose ``[9, Cin, tn]`` weight slab fits in shared memory beside the
+    smallest ring (``mt`` 1, ``kc`` 16): 64 up to ``Cin`` 176, 32 up to 368,
+    16 up to 752, 8 up to 1520 (a block keeps its slab and streams pixels;
+    narrower blocks stage each halo tile for more N-groups); ``mt`` the
+    widest of 4, 2, 1 that fits beside that slab and still cuts the work into
+    at least one tile per two SMs (wider tiles reread less halo and reuse a
+    weight slab longer; fewer tiles than that leave too much of the card
+    idle); ``kc`` the largest of 64, 32, 16 that ``Cin`` fills, that fits in
+    shared memory beside the slab and that does not leave an SM with a single
+    resident block where two would fit (deeper steps copy longer runs of
+    contiguous bytes per pixel and pass fewer barriers, but their larger ring
+    costs occupancy). Measured on an H100 at the flagship's and the kl1e3
+    model's shapes with ``tools/check_wgmma_kernels.py --tiles``."""
+    cover = next((tn for tn in (8, 16, 32) if cout <= tn), 64)
+    tn = next(tn for tn in (64, 32, 16, 8)
+              if tn <= cover and wgmma_smem_bytes(cin, 1, tn, 16) <= _WGMMA_MAX_SMEM)
     per_column = b * _ceil_div(h, 8) * _ceil_div(cout, tn)
     mt = 1
     for wide in (4, 2):
-        if 2 * per_column * _ceil_div(w, 8 * wide) >= n_sm:
+        if (2 * per_column * _ceil_div(w, 8 * wide) >= n_sm
+                and wgmma_smem_bytes(cin, wide, tn, 16) <= _WGMMA_MAX_SMEM):
             mt = wide
             break
     keep = min(2, _resident_blocks(wgmma_smem_bytes(cin, mt, tn, 16)))
@@ -239,13 +266,16 @@ def _launch_forward(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
         return y
     aligned = x.data_ptr() % 16 == 0 and wmat.data_ptr() % 16 == 0
     kernel = forward_kernel(x.dtype, cin, aligned)
+    padded = kernel == "wgmma" and cin % 8 != 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kernel == "wgmma":
+            x, wmat = pad_channels(x), pad_weight_channels(wmat, cin)
             wpad = pad_columns(wmat)
-            mt, tn, kc = wgmma_tile(b, h, w, cin, cout, _sm_count(x.device))
+            cin_k = x.shape[-1]
+            mt, tn, kc = wgmma_tile(b, h, w, cin_k, cout, _sm_count(x.device))
             err = _wgmma_library().conv3x3_wgmma_fwd(
-                x.data_ptr(), wpad.data_ptr(), y.data_ptr(), b, h, w, cin, cout, wpad.shape[1],
+                x.data_ptr(), wpad.data_ptr(), y.data_ptr(), b, h, w, cin_k, cout, wpad.shape[1],
                 mt, tn, kc, stream)
         else:
             err = _forward_library().conv3x3_fwd(
@@ -254,6 +284,8 @@ def _launch_forward(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"conv3x3 forward ({kernel} kernel) launch failed: CUDA error {err}")
     conv3x3.launches += 1
+    conv3x3.fma_launches += kernel == "fma"
+    conv3x3.padded_launches += padded
     return y
 
 
@@ -301,10 +333,22 @@ def wgrad_kernel(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) 
 
 def pad_channels(t: torch.Tensor) -> torch.Tensor:
     """``t`` with zero channels appended up to a multiple of 8 on its last
-    axis, as the tensor-core filter gradient reads it (``t`` itself when it
-    already is)."""
+    axis, as the tensor-core kernels read it (``t`` itself when it already
+    is)."""
     pad = -t.shape[-1] % 8
     return t if pad == 0 else F.pad(t, (0, pad))
+
+
+def pad_weight_channels(wmat: torch.Tensor, cin: int) -> torch.Tensor:
+    """The matrix ``[9*Cin, Cout]`` with zero rows appended to each tap's
+    ``Cin`` rows up to a multiple of 8, ``[9*Cin8, Cout]``: the weights of
+    ``pad_channels(x)``, whose extra channels meet zero rows (``wmat`` itself
+    when ``Cin`` already is a multiple of 8)."""
+    pad = -cin % 8
+    if pad == 0:
+        return wmat
+    cout = wmat.shape[1]
+    return F.pad(wmat.reshape(9, cin, cout), (0, 0, 0, pad)).reshape(9 * (cin + pad), cout)
 
 
 def wgrad_wgmma_smem_bytes(wg: int) -> int:
@@ -454,3 +498,5 @@ def conv3x3(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
 
 conv3x3.launches = 0
 conv3x3.wgrad_launches = 0
+conv3x3.fma_launches = 0
+conv3x3.padded_launches = 0

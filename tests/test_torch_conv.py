@@ -33,9 +33,13 @@ from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
     wgrad_slabs,
 )
 
-# (B, H, W, Cin, Cout): the JAX test's shape, a ragged one, the thin ends
-SHAPES = [(2, 32, 32, 8, 16), (1, 20, 12, 3, 5), (2, 16, 16, 1, 8), (2, 16, 16, 8, 1)]
-IDS = ["8to16", "ragged_3to5", "cin1", "cout1"]
+# (B, H, W, Cin, Cout): the JAX test's shape, a ragged one, the thin ends, and the AR models'
+# widths: Cin 10 (the 10-channel latent), 20 (an input gradient's Cin of a 20-channel
+# conv_out) and 256 (the kl1e3 model's bottom level), which the card's tensor-core kernel
+# now takes (the thin ones padded with zero channels)
+SHAPES = [(2, 32, 32, 8, 16), (1, 20, 12, 3, 5), (2, 16, 16, 1, 8), (2, 16, 16, 8, 1),
+          (1, 8, 8, 10, 24), (2, 8, 8, 20, 8), (1, 8, 8, 256, 16)]
+IDS = ["8to16", "ragged_3to5", "cin1", "cout1", "cin10", "cin20", "cin256"]
 
 
 def _inputs(shape, seed=0):

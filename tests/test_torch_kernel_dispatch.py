@@ -1,7 +1,8 @@
 """Host-side pieces of the port's tensor-core kernels, on the CPU: the rules
 that pick a kernel by dtype and shape, the tile choice, the zero-padding of
-the weight matrix, a numpy model of the kernel's shared-memory layout and
-descriptor addressing against the plain version, and the build hash.
+the weight matrix and of thin channel counts, a numpy model of the kernel's
+shared-memory layout and descriptor addressing against the plain version,
+and the build hash.
 
 The kernels themselves run only on the card (``tests/test_torch_kernels_cuda.py``).
 Bars: the layout model repeats the plain version's f32 arithmetic in another
@@ -18,10 +19,13 @@ from pti_ldm_vae_tpu_torch.ops.conv import pack_weight
 from pti_ldm_vae_tpu_torch.ops.kernels import _build
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
     SOURCES as CONV_SOURCES,
+    WGMMA_MAX_CIN,
     conv3x3_plain,
     flip_transpose,
     forward_kernel,
+    pad_channels,
     pad_columns,
+    pad_weight_channels,
     wgmma_smem_bytes,
     wgmma_tile,
 )
@@ -46,52 +50,100 @@ PATH_SHAPES = [
     (8, 64, 64, 64, 128), (8, 32, 32, 128, 128), (8, 256, 256, 1, 32), (8, 256, 256, 32, 1),
     (8, 32, 32, 128, 4), (8, 32, 32, 4, 128),
 ]
-RAGGED_FMA = (1, 20, 12, 3, 5)
+# (B, H, W, Cin, Cout) of the 38 3x3 convolutions of a config/ar_vae_dente_kl1e3.json pass
+# (64-128-256, 10-channel latent) at 256², batch 8
+KL1E3_SHAPES = [
+    (8, 128, 128, 256, 256), (8, 256, 256, 128, 128), (8, 128, 128, 256, 128),
+    (8, 256, 256, 128, 64), (8, 256, 256, 64, 64), (8, 128, 128, 128, 128), (8, 64, 64, 256, 256),
+    (8, 128, 128, 64, 128), (8, 64, 64, 128, 256), (8, 64, 64, 256, 10), (8, 64, 64, 10, 256),
+    (8, 256, 256, 1, 64), (8, 256, 256, 64, 1),
+]
+RAGGED_THIN = (1, 20, 12, 3, 5)
 RAGGED_WGMMA = (2, 37, 70, 24, 40)
 N_SM = 132  # an H100
+SMEM_MAX = 232448  # what a block may ask for on sm_90
+
+
+def _kernel_cin(cin):
+    """The ``Cin`` the tensor-core kernel sees: padded with zero channels to a multiple of 8."""
+    return -(-cin // 8) * 8
 
 
 def _id(shape):
     return "x".join(map(str, shape))
 
 
-@pytest.mark.parametrize("shape", PATH_SHAPES + [RAGGED_FMA, RAGGED_WGMMA], ids=_id)
+@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_THIN, RAGGED_WGMMA], ids=_id)
 def test_conv_forward_kernel_rule(shape):
     cin, cout = shape[3], shape[4]
     # f32 never leaves the FMA kernel, as forward or as input gradient
     assert forward_kernel(torch.float32, cin) == "fma"
     assert forward_kernel(torch.float32, cout) == "fma"
-    # bf16: the tensor-core kernel wherever the channel count that plays Cin fills 16-byte pieces
-    assert forward_kernel(torch.bfloat16, cin) == ("wgmma" if cin % 8 == 0 else "fma")
-    assert forward_kernel(torch.bfloat16, cout) == ("wgmma" if cout % 8 == 0 else "fma")
+    # bf16: the tensor-core kernel at every channel count of the paths, a thin or ragged
+    # one through zero channels up to a multiple of 8
+    assert forward_kernel(torch.bfloat16, cin) == "wgmma"
+    assert forward_kernel(torch.bfloat16, cout) == "wgmma"
     # an unaligned base address keeps any shape on the FMA kernel
     assert forward_kernel(torch.bfloat16, cin, aligned=False) == "fma"
 
 
 def test_conv_forward_kernel_rule_on_the_path():
-    forward = [forward_kernel(torch.bfloat16, s[3]) for s in PATH_SHAPES]
-    dgrad = [forward_kernel(torch.bfloat16, s[4]) for s in PATH_SHAPES]
-    # the 1-channel stem and the 4-channel latent are the only thin inputs
-    assert forward.count("fma") == 2 and dgrad.count("fma") == 2
-    assert forward_kernel(torch.bfloat16, RAGGED_FMA[3]) == "fma"
+    forward = [forward_kernel(torch.bfloat16, s[3]) for s in PATH_SHAPES + KL1E3_SHAPES]
+    dgrad = [forward_kernel(torch.bfloat16, s[4]) for s in PATH_SHAPES + KL1E3_SHAPES]
+    # the 1-channel stems, the 4- and 10-channel latents and Cin 256 take the tensor cores too
+    assert set(forward) == set(dgrad) == {"wgmma"}
+    assert forward_kernel(torch.bfloat16, RAGGED_THIN[3]) == "wgmma"
     assert forward_kernel(torch.bfloat16, RAGGED_WGMMA[3]) == "wgmma"
     assert forward_kernel(torch.float16, 32) == "fma"  # (the wrapper refuses the dtype)
-    assert forward_kernel(torch.bfloat16, 128) == "wgmma" and forward_kernel(torch.bfloat16, 136) == "fma"
+    assert forward_kernel(torch.bfloat16, 128) == "wgmma" and forward_kernel(torch.bfloat16, 136) == "wgmma"
 
 
-@pytest.mark.parametrize("shape", PATH_SHAPES + [RAGGED_WGMMA], ids=_id)
-def test_wgmma_tile_covers_the_shape_and_spreads_over_the_card(shape):
+@pytest.mark.parametrize("cin", [1, 4, 8, 10, 20, 256, 512, 1000, 1513, WGMMA_MAX_CIN])
+def test_conv_forward_kernel_rule_up_to_the_limit(cin):
+    """Every bf16 ``Cin`` up to ``WGMMA_MAX_CIN`` takes the tensor cores, the
+    next one does not; the limit is the widest ``Cin`` (padded) whose slab
+    fits at the narrowest tile, 8 output channels beside a ring of 16."""
+    assert forward_kernel(torch.bfloat16, cin) == "wgmma"
+    assert forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 1) == "fma"
+    assert forward_kernel(torch.bfloat16, 2048) == "fma"
+    assert WGMMA_MAX_CIN % 8 == 0
+    assert wgmma_smem_bytes(WGMMA_MAX_CIN, 1, 8, 16) == 231_152 <= SMEM_MAX
+    assert wgmma_smem_bytes(WGMMA_MAX_CIN + 8, 1, 8, 16) == 233_456 > SMEM_MAX
+    mt, tn, kc = wgmma_tile(8, 32, 32, _kernel_cin(cin), 64, N_SM)
+    assert wgmma_smem_bytes(_kernel_cin(cin), mt, tn, kc) <= SMEM_MAX
+
+
+def _tile_rule_holds(shape):
     b, h, w, cin, cout = shape
-    cin = max(cin, 8)  # (the thin inputs never reach the tensor-core kernel)
+    cin = _kernel_cin(cin)
     mt, tn, kc = wgmma_tile(b, h, w, cin, cout, N_SM)
-    assert mt in (4, 2, 1) and tn in (8, 32, 64) and kc in (16, 32, 64)
-    assert tn >= min(cout, 64) and (tn == 8 or cout > {32: 8, 64: 32}[tn])
+    assert mt in (4, 2, 1) and tn in (8, 16, 32, 64) and kc in (16, 32, 64)
+    # no wider than the smallest width that covers Cout, and no narrower than the slab needs
+    cover = next((t for t in (8, 16, 32) if cout <= t), 64)
+    assert tn <= cover
+    assert tn == cover or wgmma_smem_bytes(cin, 1, 2 * tn, 16) > SMEM_MAX
     tiles = b * -(-h // 8) * -(-w // (8 * mt)) * -(-cout // tn)
     wider = b * -(-h // 8) * -(-w // (16 * mt)) * -(-cout // tn)
     assert 2 * tiles >= N_SM or mt == 1  # at least a tile per two SMs
-    assert mt == 4 or 2 * wider < N_SM  # and no wider tile would have given that
+    # and no wider tile that fits would have given that
+    assert mt == 4 or 2 * wider < N_SM or wgmma_smem_bytes(cin, 2 * mt, tn, 16) > SMEM_MAX
     assert kc == 16 or kc <= cin  # a step no deeper than the input
-    assert wgmma_smem_bytes(cin, mt, tn, kc) <= 232448  # what a block may ask for on sm_90
+    smem = wgmma_smem_bytes(cin, mt, tn, kc)
+    assert smem <= SMEM_MAX and (228 * 1024) // (smem + 1024) >= 1  # one block resident at least
+
+
+@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_WGMMA, RAGGED_THIN], ids=_id)
+def test_wgmma_tile_covers_the_shape_and_spreads_over_the_card(shape):
+    _tile_rule_holds(shape)
+    _tile_rule_holds((*shape[:3], shape[4], shape[3]))  # the input gradient's
+
+
+@pytest.mark.parametrize("cin", [136, 176, 184, 256, 368, 376, 512, 752, 760, 1024, WGMMA_MAX_CIN])
+def test_wgmma_tile_narrows_the_block_as_cin_grows(cin):
+    for cout in (1, 10, 64, 128, 256, 512):
+        _tile_rule_holds((8, 64, 64, cin, cout))
+    want_tn = 64 if cin <= 176 else 32 if cin <= 368 else 16 if cin <= 752 else 8
+    assert wgmma_tile(8, 64, 64, cin, 512, N_SM)[1] == want_tn
 
 
 def test_wgmma_tile_at_the_levels_of_the_flagship():
@@ -107,12 +159,50 @@ def test_wgmma_tile_at_the_levels_of_the_flagship():
     assert wgmma_tile(2, 37, 70, 24, 40, N_SM) == (1, 64, 16)
 
 
+def test_wgmma_tile_at_the_levels_of_the_kl1e3_model():
+    """Every forward and input gradient of a kl1e3 pass, with the bytes each
+    block asks for: ``Cin`` 256 narrows the block to 32 output channels (its
+    slab 148,032 bytes; 64 would need 296,064), a thin ``Cin`` is padded to 8
+    or 16 first."""
+    want = {  # (B, H, W, Cin, Cout): forward (mt, tn, kc, bytes), input gradient (the same)
+        (8, 128, 128, 256, 256): ((4, 32, 32, 219_392), (4, 32, 32, 219_392)),
+        (8, 256, 256, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
+        (8, 128, 128, 256, 128): ((4, 32, 32, 219_392), (4, 64, 32, 224_064)),
+        (8, 256, 256, 128, 64): ((4, 64, 32, 224_064), (4, 64, 64, 216_576)),
+        (8, 256, 256, 64, 64): ((4, 64, 64, 216_576), (4, 64, 64, 216_576)),
+        (8, 128, 128, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
+        (8, 64, 64, 256, 256): ((4, 32, 32, 219_392), (4, 32, 32, 219_392)),
+        (8, 128, 128, 64, 128): ((4, 64, 64, 216_576), (4, 64, 32, 224_064)),
+        (8, 64, 64, 128, 256): ((4, 64, 32, 224_064), (4, 32, 32, 219_392)),
+        (8, 64, 64, 256, 10): ((4, 16, 16, 110_208), (4, 64, 16, 61_920)),
+        (8, 64, 64, 10, 256): ((4, 64, 16, 61_920), (4, 16, 16, 110_208)),
+        (8, 256, 256, 1, 64): ((4, 64, 16, 61_920), (4, 8, 32, 77_648)),
+        (8, 256, 256, 64, 1): ((4, 8, 32, 77_648), (4, 64, 16, 61_920)),
+    }
+    assert sorted(want) == sorted(KL1E3_SHAPES)
+    for (b, h, w, cin, cout), (fwd, dgrad) in want.items():
+        for (c_in, c_out), tile in (((cin, cout), fwd), ((cout, cin), dgrad)):
+            got = wgmma_tile(b, h, w, _kernel_cin(c_in), c_out, N_SM)
+            assert (*got, wgmma_smem_bytes(_kernel_cin(c_in), *got)) == tile, (b, h, w, c_in, c_out)
+            assert tile[3] <= SMEM_MAX
+    # wider channel counts: Cin 512 on 16 output channels, the limit on 8
+    assert wgmma_tile(8, 32, 32, 512, 512, N_SM) == (4, 16, 32)
+    assert wgmma_smem_bytes(512, 4, 16, 32) == 217_056
+    assert wgmma_tile(8, 32, 32, WGMMA_MAX_CIN, 256, N_SM) == (1, 8, 16)
+
+
 def test_wgmma_smem_bytes_matches_the_kernel_formula():
     # slab 9 * (tn/8) * (16*Cin + 16), three stages of kc/8 padded planes, 64 * (2*tn + 16)
     assert wgmma_smem_bytes(128, 4, 64, 32) == 9 * 8 * 2064 + 3 * 4 * 5520 + 64 * 144
     assert wgmma_smem_bytes(32, 4, 32, 32) == 9 * 4 * 528 + 3 * 4 * 5520 + 64 * 80
     assert wgmma_smem_bytes(24, 1, 64, 16) == 9 * 8 * (32 * 16 + 16) + 3 * 2 * 1680 + 64 * 144
     assert wgmma_smem_bytes(128, 4, 64, 64) > 232448  # the rule must not pick it
+    # Cin 256: the slab alone overflows at 64 output channels, fits at 32 (and at 16 up to 512)
+    assert 9 * 8 * (256 * 16 + 16) == 296_064 > 232448
+    assert wgmma_smem_bytes(256, 4, 32, 32) == 9 * 4 * 4112 + 3 * 4 * 5520 + 64 * 80 == 219_392
+    assert wgmma_smem_bytes(256, 4, 32, 16) == 186_272
+    assert wgmma_smem_bytes(256, 4, 32, 64) > 232448
+    assert wgmma_smem_bytes(512, 4, 16, 32) == 9 * 2 * 8208 + 3 * 4 * 5520 + 64 * 48
 
 
 @pytest.mark.parametrize("cout", [1, 4, 5, 8, 40, 128])
@@ -135,67 +225,119 @@ def test_pad_columns_round_trip(cout):
     assert flipped.shape == (9 * cout, 8) and not flipped[:, 5:].any()
 
 
-def _model_of_the_kernel(x, wmat, mt, tn):
-    """The tensor-core convolution kernel's data path in numpy: per tile and
-    chunk of 16 input channels the halo as two planes ``[plane][halo row][halo
-    column][8]``, the weight slab as ``[tap][N-group][16 rows][8]``, and per
-    tap one product whose A rows are read at the descriptor's strides (8
-    pixels of a halo row; the next output row one halo row further; the next 8
-    channels one plane further) from the start moved by (ky, kx)."""
+def _model_of_the_kernel(x, wmat, mt, tn, kc=16):
+    """The tensor-core convolution kernel's data path in numpy, on the
+    operands as the kernel receives them (``Cin`` a multiple of 8, the
+    matrix's columns padded to a multiple of 8): per tile and chunk of ``kc``
+    input channels the halo as ``kc/8`` planes ``[plane][halo row][halo
+    column][8]`` (zero outside the image and past ``Cin``), the block's weight
+    slab as ``[tap][N-group][rows of whole chunks][8]`` (zero past ``Cin`` and
+    past the padded ``Cout``), and per tap and k16 step one product whose A
+    rows are read at the descriptor's strides (8 pixels of a halo row; the
+    next output row one halo row further; the next 8 channels one plane
+    further) from the start moved by (ky, kx), and whose B rows are 16 rows
+    of the slab from row ``chunk*kc + 16*kk``."""
     b, h, w, cin = x.shape
-    cout = wmat.shape[1]
-    ldw = -(-cout // 8) * 8
-    wpad = np.zeros((9 * cin, ldw), np.float32)
-    wpad[:, :cout] = wmat
-    hc, ng = 8 * mt + 2, tn // 8
-    y = np.zeros((b, h, w, cout), np.float32)
-    for img in range(b):
-        for th0 in range(0, h, 8):
-            for tw0 in range(0, w, 8 * mt):
-                for co0 in range(0, cout, tn):
+    ldw = wmat.shape[1]
+    assert cin % 8 == 0 and ldw % 8 == 0
+    hc, ng, planes = 8 * mt + 2, tn // 8, kc // 8
+    n_chunks = -(-cin // kc)
+    y = np.zeros((b, h, w, ldw), np.float32)
+    for co0 in range(0, ldw, tn):
+        slab = np.zeros((9, ng, n_chunks * kc, 8), np.float32)  # the block's whole slab
+        for tap in range(9):
+            for g in range(ng):
+                co = co0 + 8 * g
+                if co < ldw:
+                    slab[tap, g, :cin] = wmat[tap * cin:(tap + 1) * cin, co:co + 8]
+        for img in range(b):
+            for th0 in range(0, h, 8):
+                for tw0 in range(0, w, 8 * mt):
                     acc = np.zeros((mt, 64, tn), np.float32)
-                    for c0 in range(0, cin, 16):
-                        planes = np.zeros((2, 10 * hc, 8), np.float32)
+                    for chunk in range(n_chunks):
+                        c0 = chunk * kc
+                        halo = np.zeros((planes, 10 * hc, 8), np.float32)
                         for p in range(10 * hc):
                             gh, gw = th0 + p // hc - 1, tw0 + p % hc - 1
-                            for plane in range(2):
-                                ci = c0 + 8 * plane
-                                if 0 <= gh < h and 0 <= gw < w and ci < cin:
-                                    planes[plane, p] = x[img, gh, gw, ci:ci + 8]
-                        slab = np.zeros((9, ng, 16, 8), np.float32)
-                        for tap in range(9):
-                            for k in range(16):
-                                for g in range(ng):
-                                    ci, co = c0 + k, co0 + 8 * g
-                                    if ci < cin and co < ldw:
-                                        slab[tap, g, k] = wpad[tap * cin + ci, co:co + 8]
-                        for tap in range(9):
-                            ky, kx = divmod(tap, 3)
-                            b_mat = slab[tap].transpose(1, 0, 2).reshape(16, tn)  # [depth, N]
-                            for m in range(mt):
-                                start = ky * hc + 8 * m + kx
-                                rows = [start + (r // 8) * hc + r % 8 for r in range(64)]
-                                a_mat = np.concatenate([planes[0, rows], planes[1, rows]], axis=1)
-                                acc[m] += a_mat @ b_mat
+                            if 0 <= gh < h and 0 <= gw < w:
+                                for plane in range(planes):
+                                    ci = c0 + 8 * plane
+                                    if ci < cin:
+                                        halo[plane, p] = x[img, gh, gw, ci:ci + 8]
+                        for kk in range(kc // 16):
+                            for tap in range(9):
+                                ky, kx = divmod(tap, 3)
+                                rows_b = slab[tap, :, c0 + 16 * kk:c0 + 16 * kk + 16]  # [ng, 16, 8]
+                                b_mat = rows_b.transpose(1, 0, 2).reshape(16, tn)  # [depth, N]
+                                for m in range(mt):
+                                    start = ky * hc + 8 * m + kx
+                                    rows = [start + (r // 8) * hc + r % 8 for r in range(64)]
+                                    a_mat = np.concatenate([halo[2 * kk, rows], halo[2 * kk + 1, rows]],
+                                                           axis=1)
+                                    acc[m] += a_mat @ b_mat
                     for m in range(mt):
                         for r in range(64):
                             gh, gw = th0 + r // 8, tw0 + 8 * m + r % 8
                             if gh < h and gw < w:
-                                live = min(tn, cout - co0)
+                                live = min(tn, ldw - co0)
                                 y[img, gh, gw, co0:co0 + live] = acc[m, r, :live]
     return y
 
 
-@pytest.mark.parametrize("shape,mt,tn", [((1, 8, 8, 16, 8), 1, 8), ((2, 11, 19, 24, 40), 2, 64),
-                                         ((1, 16, 40, 8, 5), 4, 8), ((1, 9, 33, 32, 32), 4, 32)],
-                         ids=["one_patch", "ragged_24to40", "cout5", "32to32"])
-def test_kernel_layout_model_matches_plain(shape, mt, tn):
+def _as_the_kernel_gets_them(x, wmat):
+    """The wrapper's padding: zero channels up to a multiple of 8 on ``x`` and
+    on each tap's rows of the matrix, zero columns up to a multiple of 8."""
+    cin = x.shape[-1]
+    xt, wt = torch.from_numpy(x), torch.from_numpy(wmat)
+    return pad_channels(xt).numpy(), pad_columns(pad_weight_channels(wt, cin)).numpy()
+
+
+@pytest.mark.parametrize("shape,mt,tn,kc", [
+    ((1, 8, 8, 16, 8), 1, 8, 16), ((2, 11, 19, 24, 40), 2, 64, 16), ((1, 16, 40, 8, 5), 4, 8, 16),
+    ((1, 9, 33, 32, 32), 4, 32, 32), ((1, 9, 17, 256, 40), 2, 32, 32), ((1, 8, 12, 256, 10), 1, 16, 16),
+    ((1, 10, 8, 48, 24), 1, 16, 64), ((1, 9, 10, 1, 12), 1, 16, 16), ((1, 8, 9, 10, 20), 2, 32, 16),
+    ((1, 7, 8, 20, 1), 1, 8, 16)],
+    ids=["one_patch", "ragged_24to40", "cout5", "32to32", "256to40_tn32", "256to10_tn16",
+         "48to24_tn16_kc64", "padded_1to12", "padded_10to20", "padded_20to1"])
+def test_kernel_layout_model_matches_plain(shape, mt, tn, kc):
     b, h, w, cin, cout = shape
     rng = np.random.default_rng(7)
     x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
     wmat = (rng.normal(size=(9 * cin, cout)) * (9 * cin) ** -0.5).astype(np.float32)
     want = conv3x3_plain(torch.from_numpy(x), torch.from_numpy(wmat)).numpy()
-    np.testing.assert_allclose(_model_of_the_kernel(x, wmat, mt, tn), want, rtol=1e-4, atol=1e-5)
+    xk, wk = _as_the_kernel_gets_them(x, wmat)
+    assert xk.shape[-1] % 8 == 0 and wk.shape == (9 * xk.shape[-1], -(-cout // 8) * 8)
+    got = _model_of_the_kernel(xk, wk, mt, tn, kc)
+    assert not got[..., cout:].any()  # the padded columns are outputs that stay zero
+    np.testing.assert_allclose(got[..., :cout], want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin", [1, 4, 10, 20])
+@pytest.mark.parametrize("role", ["forward", "dgrad"])
+def test_zero_padded_channels_give_the_unpadded_convolution(cin, role):
+    """What the wrapper hands the tensor-core kernel for a ``Cin`` that is no
+    multiple of 8 (``pad_channels`` on ``x``, ``pad_weight_channels`` on the
+    matrix), through the plain version, equals the unpadded convolution: as a
+    forward, and as the input gradient of a convolution whose ``Cout`` is that
+    thin count (the flipped matrix's rows are then the thin side)."""
+    rng = np.random.default_rng(cin)
+    other = 24
+    x = torch.from_numpy(rng.normal(size=(2, 9, 11, cin)).astype(np.float32))
+    if role == "forward":
+        wmat = torch.from_numpy(rng.normal(size=(9 * cin, other)).astype(np.float32))
+    else:  # the forward was other -> cin; its input gradient reads cin channels of dy
+        forward = torch.from_numpy(rng.normal(size=(9 * other, cin)).astype(np.float32))
+        wmat = flip_transpose(forward, other, cin)
+    cin8 = -(-cin // 8) * 8
+    xp, wp = pad_channels(x), pad_weight_channels(wmat, cin)
+    assert xp.shape == (2, 9, 11, cin8) and wp.shape == (9 * cin8, other)
+    assert torch.equal(xp[..., :cin], x) and not xp[..., cin:].any()
+    taps = wp.reshape(9, cin8, other)
+    assert torch.equal(taps[:, :cin], wmat.reshape(9, cin, other)) and not taps[:, cin:].any()
+    torch.testing.assert_close(conv3x3_plain(xp, wp), conv3x3_plain(x, wmat), rtol=1e-5, atol=1e-5)
+    # a channel count that is already a multiple of 8 is handed over as it is
+    w8 = torch.zeros(9 * 16, 3)
+    assert pad_weight_channels(w8, 16) is w8 and pad_channels(xp) is xp
 
 
 @pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)

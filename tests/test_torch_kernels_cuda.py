@@ -48,7 +48,13 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
 )
-from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import _launch_wgrad, wgrad_kernel
+from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+    WGMMA_MAX_CIN,
+    _launch_wgrad,
+    wgmma_smem_bytes,
+    wgmma_tile,
+    wgrad_kernel,
+)
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
 from pti_ldm_vae_tpu_torch.ops.kernels.flash_attention import (
     SUPPORTED_HEAD_DIMS,
@@ -417,12 +423,34 @@ def test_no_gradient_saves_nothing_and_counts_no_backward(cuda):
 
 
 # (B, H, W, Cin, Cout): a res-block conv, a ragged image with odd channel
-# counts (the FMA kernel in bf16 too), the thin ends (Cin=1, Cout=1, Cout=4 /
-# Cin=4), a wide bottleneck conv, and a ragged image whose channels (24 -> 40)
-# the tensor-core kernel takes, at batch 8 (its widest tile) and batch 1
+# counts, the thin ends (Cin=1, Cout=1, Cout=4 / Cin=4), a wide bottleneck
+# conv, a ragged image whose channels (24 -> 40) the tensor-core kernel takes,
+# at batch 8 (its widest tile) and batch 1; then the AR models' widths: the
+# kl1e3 model's 256-channel convs (32 output columns a block), its latent
+# convs (Cin 10, and Cout 10 whose input gradient reads 10 channels), a
+# 20-channel conv_out's input gradient, Cin 512 (16 columns a block), and Cin
+# 1528, just above WGMMA_MAX_CIN, which stays on the FMA kernel in bf16 too.
+# bf16 takes the tensor-core kernel at every other shape, a thin or ragged
+# Cin (1, 3, 4, 10, 20) through zero channels up to a multiple of 8
 CONV_SHAPES = [(2, 64, 64, 32, 32), (1, 20, 12, 3, 5), (2, 40, 70, 1, 32), (2, 33, 31, 32, 1),
                (3, 32, 32, 128, 4), (2, 32, 32, 4, 128), (2, 32, 32, 128, 128), (1, 16, 48, 64, 96),
-               (2, 37, 70, 24, 40), (8, 37, 70, 24, 40), (8, 64, 64, 64, 128)]
+               (2, 37, 70, 24, 40), (8, 37, 70, 24, 40), (8, 64, 64, 64, 128),
+               (2, 64, 64, 256, 256), (1, 128, 128, 256, 128), (2, 64, 64, 256, 10),
+               (2, 32, 32, 10, 256), (2, 32, 32, 20, 128), (1, 32, 32, 512, 64),
+               (1, 16, 16, WGMMA_MAX_CIN + 8, 8)]
+
+
+def _conv_launches(dtype, *cins):
+    """(launches, FMA launches, padded launches) of forward-kernel calls whose
+    Cin are ``cins``: bf16 on the tensor cores up to WGMMA_MAX_CIN, a Cin that
+    is no multiple of 8 padded; f32 on the FMA kernel."""
+    fma = sum(conv_forward_kernel(dtype, c) == "fma" for c in cins)
+    padded = sum(conv_forward_kernel(dtype, c) == "wgmma" and c % 8 != 0 for c in cins)
+    return len(cins), fma, padded
+
+
+def _conv_counts():
+    return launch_counts()["conv3x3"], conv3x3.fma_launches, conv3x3.padded_launches
 
 
 def _conv_inputs(shape, dtype, device, gen):
@@ -441,7 +469,8 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype):
         reset_launch_counts()
         # a strided input, as the nearest upsample hands one over
         got = conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), wmat)
-        assert launch_counts()["conv3x3"] == 1 and got.dtype == dtype and got.is_contiguous()
+        assert _conv_counts() == _conv_launches(dtype, shape[3]), shape
+        assert got.dtype == dtype and got.is_contiguous()
         assert torch.equal(got, conv3x3(x, wmat))  # two runs, the same bits
         want = conv3x3_plain(x.float(), wmat.to(dtype).float())
         torch.testing.assert_close(got.float(), want, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
@@ -462,6 +491,8 @@ def test_conv3x3_backward_kernels_match_plain(cuda, dtype):
         dx, dw = torch.autograd.grad(conv3x3(x, wmat), (x, wmat), g)
         counts = launch_counts()
         assert (counts["conv3x3"], counts["conv3x3_wgrad"]) == (2, 1)  # forward + dgrad, wgrad
+        # the input gradient runs the forward kernel with Cout in Cin's place, padded alike
+        assert _conv_counts() == _conv_launches(dtype, cin, cout), shape
         assert dx.dtype == dtype and dw.dtype == torch.float32 and dw.shape == wmat.shape
         want_dx, want_dw = conv3x3_bwd_plain(x.detach().float(), wmat.detach().to(dtype).float(),
                                              g.float())
@@ -487,7 +518,12 @@ def test_conv3x3_skips_the_gradients_nobody_wants(cuda):
 @pytest.mark.cuda
 def test_bf16_routes_follow_the_rules(cuda):
     assert conv_forward_kernel(torch.bfloat16, 24) == "wgmma"
-    assert conv_forward_kernel(torch.bfloat16, 3) == "fma"
+    # a thin Cin is padded with zero channels onto the tensor cores, up to the widest Cin whose
+    # weight slab fits; f32 stays on the FMA kernel
+    assert conv_forward_kernel(torch.bfloat16, 3) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, 256) == conv_forward_kernel(torch.bfloat16, 10) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 8) == "fma"
     assert conv_forward_kernel(torch.float32, 24) == "fma"
     # an unaligned bf16 view goes to the FMA kernel and still agrees
     gen = torch.Generator(device=cuda).manual_seed(6)
@@ -497,9 +533,32 @@ def test_bf16_routes_follow_the_rules(cuda):
     wmat = torch.randn(144, 8, device=cuda, generator=gen) / 12
     reset_launch_counts()
     got = conv3x3(x, wmat)
-    assert launch_counts()["conv3x3"] == 1
+    assert _conv_counts() == (1, 1, 0)
     want = conv3x3_plain(x.float(), wmat.bfloat16().float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_conv3x3_wgmma_occupancy_matches_the_formula(cuda):
+    """The tensor-core kernel's shared memory and resident blocks per SM, as
+    the CUDA runtime reports them, at the tile each wide or padded shape
+    takes: the wrapper's formula, and at least one block."""
+    import ctypes
+
+    from pti_ldm_vae_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("conv3x3_wgmma.cu")
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    for b, h, w, cin, cout in [(8, 64, 64, 256, 256), (8, 64, 64, 256, 10), (8, 64, 64, 16, 256),
+                               (8, 32, 32, 512, 512), (8, 32, 32, WGMMA_MAX_CIN, 64),
+                               (8, 256, 256, 8, 64)]:
+        mt, tn, kc = wgmma_tile(b, h, w, cin, cout, n_sm)
+        err = lib.conv3x3_wgmma_occupancy(mt, tn, kc, cin, ctypes.byref(smem), ctypes.byref(blocks))
+        assert err == 0 and smem.value == wgmma_smem_bytes(cin, mt, tn, kc) and blocks.value >= 1
+    # a Cin past the limit is refused
+    assert lib.conv3x3_wgmma_occupancy(1, 8, 16, WGMMA_MAX_CIN + 8, ctypes.byref(smem),
+                                       ctypes.byref(blocks)) != 0
 
 
 # the filter gradient's bf16 shapes of a flagship pass (all on the tensor-core kernel, the

@@ -15,9 +15,10 @@ string replacement; the package's own library is untouched):
 - ``no_slab``: the weight slab is not copied; ``none_of_them+no_slab``: what is
   left then: the launch, barriers, waits and index arithmetic.
 
-Prints one JSON line per flagship shape with the device time (ms, summed
-kernel time of ``torch.profiler``, 20 calls, L2 warm) of each variant at the
-tile ``wgmma_tile`` picks. Parts whose times add up do not overlap.
+Prints one JSON line per shape (the flagship's, then the kl1e3 model's
+256-channel ones, on 32 output columns a block) with the device time (ms,
+summed kernel time of ``torch.profiler``, 20 calls, L2 warm) of each variant
+at the tile ``wgmma_tile`` picks. Parts whose times add up do not overlap.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SHAPES = [(8, 256, 256, 32, 32), (8, 128, 128, 128, 128), (8, 64, 64, 128, 128),
-          (8, 32, 32, 128, 128), (8, 256, 256, 64, 64), (8, 128, 128, 64, 64)]
+          (8, 32, 32, 128, 128), (8, 256, 256, 64, 64), (8, 128, 128, 64, 64),
+          (8, 64, 64, 256, 256), (8, 128, 128, 256, 256), (8, 128, 128, 256, 128)]
 
 
 def _replace(text: str, old: str, new: str) -> str:
