@@ -189,6 +189,32 @@ result line):
    with the numpy path, in turns; two native runs the same bits; the largest
    native-vs-numpy difference; ``preprocess_batch_device`` card vs CPU on
    [8,300,300,1] f32 (1e-5);
+6o. ``s2d_path``: the flagship with ``s2d_stem`` true (the encoder's level 0
+   and the decoder's full-resolution tail at 128² with 4x the channels, the
+   weights transformed at apply time): its GroupNorm+SiLU shapes (7; new:
+   8x128²x256 with 16 groups) and 3x3 convolution shapes (13; new: 4 -> 128
+   and 128 -> 4 at 128²) with their ``gn_plan`` cuts and tensor-core tiles,
+   checked against the plain versions in both types as in phase 3; the f32
+   reconstruct of each form (``"encoder"``, ``"decoder"``, true), cuDNN and
+   convolution kernels, against the f32 standard one on the card and the CPU
+   plain path's (1e-3); ``inference_vae`` on a copy of the config with
+   ``"s2d_stem": true`` in bf16 and bf16 ``--conv-kernel`` (launches as the
+   standard pass's, no FMA convolution, the thin calls padded); one f32
+   generator step in each form against the standard step on the card (terms
+   1e-4 relative, gradients 2e-3 of each tensor's largest entry);
+6p. ``remat_path``: the same f32 step with ``remat`` (standard and s2d) against
+   the standard step; bf16 steps at b8 with the convolution kernels whose
+   gradients with ``remat`` must be the bits of the step without it (cuDNN
+   asked for deterministic sums); ``train_vae --remat --s2d-stem encoder
+   --conv-kernel`` (18 TIFs: 2 steps and a validation step; its checkpoint
+   loads ``strict=True`` into a standard model), ``train_diffusion --remat``
+   (1 epoch of 2 steps) and ``run_pti`` b8 ``--conv-kernel`` on a config with
+   ``"remat": true``; every launch count computed from the models
+   (``remat_extra``: each checkpointed block's forward runs once more in the
+   backward) and no FMA convolution;
+6q. ``two_pass``: the f32 step with ``norm_stats`` ``"two_pass"`` (plain tensor
+   code on the card, counted in ``group_norm_silu.two_pass_calls``: 42 a
+   pass, no GroupNorm+SiLU launch) against the one-pass step, the same bars;
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -203,7 +229,8 @@ result line):
    per-kernel timings take 10 iterations and the reconstruct 6. Then the
    GroupNorm+SiLU and flash kernels at the UNet's shapes (bound, plain,
    ``F.group_norm`` + ``F.silu``, SDPA), and at b8 with the trained weights
-   the UNet forward, the 50-step DDIM loop (steps/s) and one diffusion train
+   the UNet forward, a ``LDM_TIMED_STEPS``-step DDIM loop (steps/s and
+   device ms per step) and one diffusion train
    step as the CLI runs it, in bf16 and f32; the AR step of both AR configs
    at b8 bf16 (kl1e3 as its config trains it: adversarial, convolution
    kernels), flash at [8,1,4096,256], [8,1,1024,96], [8,1,1024,512],
@@ -222,6 +249,17 @@ result line):
    ``analyze_static`` runs it (host TIFF read and resize included), and the
    projection's PCA-50, kNN + P and 1000 t-SNE iterations on seeded
    [N, 4096] latents at N = 2000 and 6000 with peak memory (``analysis_b8``);
+   then, in a process of their own (``chip_smoke.py --knob-timings SPEC
+   OUT``, started and waited for by the script: ``timings_child``), the
+   apply-time knobs (no claim): the GroupNorm+SiLU and convolution kernels at
+   the shapes only a pass with ``s2d_stem`` true has; phase
+   ``s2d_b8``: the reconstruct (bf16 cuDNN, bf16 kernels, f32 cuDNN) and the
+   generator step (bf16 cuDNN, bf16 kernels) in each s2d form (false,
+   ``"encoder"``, ``"decoder"``, true); ``remat_b8``: the generator step with
+   and without ``remat`` (bf16, f32), one diffusion step with and without it
+   (bf16), event ms, device ms and ``torch.cuda.max_memory_allocated`` GB;
+   ``two_pass_b8``: the generator step with two-pass against one-pass
+   statistics (bf16, f32);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites, and the wide-head flash kernels as two more entries, launched on
    the kl1e3 path; launches by path, the diffusion CLIs' included, and the four
@@ -233,8 +271,9 @@ result line):
    convolution kernels' sums over one kl1e3 train step under ``kl1e3``, with
    ``fma_ms`` the same step's forward and input-gradient calls as they ran
    before this route, and the FMA and zero-padded launches of the
-   convolution-kernel paths, the kl1e3 step's FMA ones 0), the
-   card line, and
+   convolution-kernel paths, the kl1e3 step's FMA ones 0; the sums over one
+   pass or train step with ``s2d_stem`` true under ``s2d``; the launches of
+   the knobs' CLI runs), the card line, and
    the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -400,6 +439,14 @@ CHAIN_TRACE_KERNELS = ("groupnorm_silu_fwd_kernel", "groupnorm_silu_bwd_kernel",
 LOADER_IMAGES = 64
 LOADER_WORKERS = 4  # the CLIs' default --num-workers
 PREPROCESS_BAR = 1e-5  # preprocess_batch_device, card f32 vs CPU f32
+# time_ldm's DDIM loop (the sampling CLI keeps LDM_SAMPLE_STEPS): at 50 steps this
+# host-bound phase alone took 144-180 s of the script
+LDM_TIMED_STEPS = 5
+# the apply-time knobs (ops/space_to_depth.py, remat, two-pass statistics)
+S2D_FORMS = (False, "encoder", "decoder", True)
+KNOB_TRAIN_SUBSET = 18  # 16 train images (2 steps of 8) and 2 validation images (1 step)
+KNOB_LDM_EPOCHS = 1
+KNOB_ITERS = 4  # calls of each knob A/B timed by CUDA events
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -493,6 +540,29 @@ def expected_encoder_launches(encodes: int, conv_kernel: bool) -> dict[str, int]
     }
 
 
+def remat_extra(model, conv_kernel: bool = False) -> dict[str, int]:
+    """Forward launches that ``remat`` adds to one backward through ``model``:
+    every checkpointed block (the VAE's ResBlocks and attention blocks, the
+    UNet's TimeResBlocks and SpatialTransformers) runs its forward once more,
+    whole (no early stop): two GroupNorm+SiLU (and, with the convolution
+    kernels, two 3x3 convolutions) a ResBlock, one flash attention an
+    attention block (whose own GroupNorm has no SiLU: plain tensor code)."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import ResBlock, SpatialAttentionBlock
+    from pti_ldm_vae_tpu_torch.models.unet import SpatialTransformer, TimeResBlock
+
+    mods = list(model.modules())
+    n_res = sum(isinstance(m, ResBlock) for m in mods)
+    n_time_res = sum(isinstance(m, TimeResBlock) for m in mods)
+    n_attn = sum(isinstance(m, (SpatialAttentionBlock, SpatialTransformer)) for m in mods)
+    return {"groupnorm_silu": 2 * (n_res + n_time_res), "flash_attention": n_attn,
+            "conv3x3": 2 * n_res if conv_kernel else 0}
+
+
+def plus(launches: dict[str, int], extra: dict[str, int], times: int) -> dict[str, int]:
+    """``launches`` with ``times`` x ``extra`` added."""
+    return {k: v + times * extra.get(k, 0) for k, v in launches.items()}
+
+
 T0 = time.perf_counter()
 
 
@@ -525,12 +595,14 @@ def _kernel_times_us(prof) -> dict[str, float]:
     return out
 
 
-def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
+def time_ms(fn, flush, iters: int = 10, warmup: int = 3, trace_iters: int | None = None) -> dict:
     """Per call of ``fn()``, each after an L2 flush (a 128 MB write):
-    ``device_ms``, the summed device time of its kernels (torch.profiler),
-    ``event_ms``, CUDA-event time from before its first launch to after its
-    last, which also holds any wait for the host to launch, and ``by_name``,
-    the device ms of each kernel name."""
+    ``device_ms``, the summed device time of its kernels (torch.profiler,
+    device activity only, over ``trace_iters`` calls, ``iters`` by default),
+    ``event_ms``, CUDA-event time from
+    before its first launch to after its last over ``iters`` calls, which also
+    holds any wait for the host to launch, and ``by_name``, the device ms of
+    each kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -545,13 +617,16 @@ def time_ms(fn, flush, iters: int = 10, warmup: int = 3) -> dict:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
+    traced = trace_iters or iters
     for _ in range(5):  # a trace now and then comes back without its device events: take it again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+        # the device's activity alone: host op events would go unread, and building them
+        # takes most of a traced train step's seconds
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        by_name = {name: us / 1e3 / iters for name, us in _kernel_times_us(prof).items()}
+        by_name = {name: us / 1e3 / traced for name, us in _kernel_times_us(prof).items()}
         if by_name:
             break
     else:
@@ -618,7 +693,9 @@ def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
 
     def hook(module, args):
         if module.conv_kernel:
-            shape = (BATCH, *args[0].shape[1:], module.conv.out_channels)
+            # in the space-to-depth domain the input has 4x the channels and so has the output
+            phases = args[0].shape[-1] // module.conv.in_channels
+            shape = (BATCH, *args[0].shape[1:], module.conv.out_channels * phases)
             counts[shape] = counts.get(shape, 0) + 1
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, Convolution)]
@@ -1530,12 +1607,13 @@ def write_ldm_config(vae_ckpt: Path, run_dir: Path) -> Path:
 
 
 def run_ldm_train_cli(torch, np, kernels_mod, cfg_path: Path, data_dir: Path,
-                      extra: list[str]) -> dict:
-    """``cli.train_diffusion`` for ``LDM_TRAIN_EPOCHS`` epochs of 2 steps at b8
-    (256² images, frozen VAE, full-width UNet): launch counts, finite
-    epsilon-MSE, every UNet and projector tensor finite and moved from its
-    seeded init (but those of ``zero_gradient_tensors``), the checkpoint
-    written."""
+                      extra: list[str], epochs: int = LDM_TRAIN_EPOCHS,
+                      extra_per_step: dict[str, int] | None = None) -> dict:
+    """``cli.train_diffusion`` for ``epochs`` epochs of 2 steps at b8 (256²
+    images, frozen VAE, full-width UNet): launch counts (``extra_per_step``:
+    the forward launches ``remat`` adds to a step), finite epsilon-MSE, every
+    UNet and projector tensor finite and moved from its seeded init (but those
+    of ``zero_gradient_tensors``), the checkpoint written."""
     from pti_ldm_vae_tpu_torch.cli.train_diffusion import main as train_main
     from pti_ldm_vae_tpu_torch.config import load_config
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_ldm_models
@@ -1543,19 +1621,19 @@ def run_ldm_train_cli(torch, np, kernels_mod, cfg_path: Path, data_dir: Path,
     kernels_mod.reset_launch_counts()
     t0 = time.perf_counter()
     result = train_main(["-c", str(cfg_path), "--input-dir", str(data_dir), "--num-samples",
-                         str(LDM_TRAIN_IMAGES), "--max-epochs", str(LDM_TRAIN_EPOCHS),
+                         str(LDM_TRAIN_IMAGES), "--max-epochs", str(epochs),
                          "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels_mod.launch_counts()
-    steps = LDM_TRAIN_EPOCHS * LDM_TRAIN_IMAGES // BATCH
-    want = expected_ldm_launches(steps, 0)
+    steps = epochs * LDM_TRAIN_IMAGES // BATCH
+    want = plus(expected_ldm_launches(steps, 0), extra_per_step or {}, steps)
     if result["total_step"] != steps or launches != want:
         raise RuntimeError(f"diffusion training path: {result}, launches {launches}, expected {want}")
     cfg = load_config(cfg_path)
     lines = (Path(cfg["run_dir"]) / "metrics.jsonl").read_text().splitlines()
     losses = [json.loads(line)["train/eps_mse"] for line in lines]
-    if len(losses) != LDM_TRAIN_EPOCHS or not np.isfinite(losses).all():
+    if len(losses) != epochs or not np.isfinite(losses).all():
         raise RuntimeError(f"diffusion training: epsilon-MSE per epoch {losses}")
     saved = torch.load(result["checkpoint"], map_location="cpu", weights_only=True)
     torch.manual_seed(TRAIN_SEED)  # the CLI's seeding before it builds the models
@@ -1740,11 +1818,15 @@ def zero_gradient_tensors(unet) -> set[str]:
     return out
 
 
-def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict:
-    """b8 on the card, with the trained weights: the UNet forward, the 50-step
-    DDIM loop (steps/s) and one diffusion train step as ``train_diffusion``
-    runs it (VAE encode, UNet forward and backward, Adam): event ms, device
-    ms, idle share and device ms by kind of kernel of each."""
+def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool, remat: bool = False,
+             parts: tuple[str, ...] = ("unet_forward", "ddim", "train_step"),
+             step_iters: int = 6, trace_iters: int = 2) -> dict:
+    """b8 on the card, with the trained weights: the UNet forward, the
+    ``LDM_TIMED_STEPS``-step DDIM loop (steps/s, device ms per step) and one
+    diffusion train step as ``train_diffusion`` runs it (VAE encode, UNet
+    forward and backward, Adam; ``remat``: the UNet checkpointed), those of
+    ``parts``: event ms, device ms, idle share and device ms by kind of kernel
+    of each, the peak memory."""
     from pti_ldm_vae_tpu_torch.checkpoint.unet_convert import load_diffusion_checkpoint
     from pti_ldm_vae_tpu_torch.config import load_config
     from pti_ldm_vae_tpu_torch.models.unet import project_latent_condition
@@ -1753,7 +1835,8 @@ def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_ldm_models
 
     torch.cuda.reset_peak_memory_stats()
-    m = load_ldm_models(load_config(cfg_path), device=torch.device("cuda"), exact=exact)
+    m = load_ldm_models(load_config(cfg_path), device=torch.device("cuda"), exact=exact,
+                        remat=remat)
     unet_sd, projector_sd = load_diffusion_checkpoint(checkpoint)
     m.unet.load_state_dict(unet_sd, strict=True)
     m.projector.load_state_dict(projector_sd, strict=True)
@@ -1771,7 +1854,7 @@ def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict
 
     def sample():
         with torch.no_grad():
-            return ddim_sample(m.unet, m.schedule, x, num_inference_steps=LDM_SAMPLE_STEPS,
+            return ddim_sample(m.unet, m.schedule, x, num_inference_steps=LDM_TIMED_STEPS,
                                context=project_latent_condition(m.projector, cond))
 
     trainable = torch.nn.ModuleDict({"unet": m.unet, "projector": m.projector})
@@ -1784,19 +1867,25 @@ def time_ldm(torch, cfg_path: Path, checkpoint: str, flush, exact: bool) -> dict
             latents = m.vae.sampling(z_mu, z_sigma, generator=gen)
         return step(latents, z_mu, mask, generator=gen)
 
-    out = {"dtype": "float32" if exact else "bfloat16"}
-    # one timed and one traced 50-step loop (2 each up to PR 7): the trace of a
-    # loop holds ~35,000 kernels, whose reading takes most of this phase
-    for name, fn, iters, warmup in (("unet_forward", unet_forward, 10, 3), ("ddim", sample, 1, 1),
-                                    ("train_step", train_step, 6, 3)):
-        r = time_ms(fn, flush, iters=iters, warmup=warmup)
+    out = {"dtype": "float32" if exact else "bfloat16", "remat": remat}
+    # one timed and one traced loop of LDM_TIMED_STEPS steps: the trace of a 50-step loop
+    # holds ~35,000 kernels, whose reading took most of this phase; the UNet pass and the
+    # train step traced over trace_iters calls
+    for name, fn, iters, warmup, traced in (
+            ("unet_forward", unet_forward, 10, 3, trace_iters), ("ddim", sample, 1, 1, 1),
+            ("train_step", train_step, step_iters, 3, trace_iters)):
+        if name not in parts:
+            continue
+        r = time_ms(fn, flush, iters=iters, warmup=warmup, trace_iters=traced)
         out[name] = {"event_ms": r["event_ms"], "device_ms": r["device_ms"],
                      "device_idle_share": 1.0 - r["device_ms"] / r["event_ms"],
                      "device_ms_by_kind": device_ms_by_kind(r["by_name"])}
-    out["ddim"]["steps"] = LDM_SAMPLE_STEPS
-    out["ddim"]["steps_per_s"] = LDM_SAMPLE_STEPS * 1e3 / out["ddim"]["event_ms"]
-    out["ddim"]["device_ms_per_step"] = out["ddim"]["device_ms"] / LDM_SAMPLE_STEPS
-    out["train_step"]["imgs_per_s"] = BATCH * 1e3 / out["train_step"]["event_ms"]
+    if "ddim" in out:
+        out["ddim"]["steps"] = LDM_TIMED_STEPS
+        out["ddim"]["steps_per_s"] = LDM_TIMED_STEPS * 1e3 / out["ddim"]["event_ms"]
+        out["ddim"]["device_ms_per_step"] = out["ddim"]["device_ms"] / LDM_TIMED_STEPS
+    if "train_step" in out:
+        out["train_step"]["imgs_per_s"] = BATCH * 1e3 / out["train_step"]["event_ms"]
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -1983,10 +2072,11 @@ def ar_step_reference_check(torch, np, kernels_mod, ae_def: dict, spec, data_dir
 
 
 def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: int, batch: int,
-                conv_kernel: bool) -> dict:
+                conv_kernel: bool, extra_per_backward: dict[str, int] | None = None) -> dict:
     """``run_pti`` on ``n_images`` at ``batch``: launch counts (every padded row
-    of a batch is tuned too, none is written), the outputs of every image,
-    latent and tune losses that fall."""
+    of a batch is tuned too, none is written; ``extra_per_backward``: the
+    forward launches ``remat`` adds to each decoder backward), the outputs of
+    every image, latent and tune losses that fall."""
     from pti_ldm_vae_tpu_torch.cli.run_pti import main as pti_main
     from pti_ldm_vae_tpu_torch.data.io import read_image
 
@@ -2000,8 +2090,9 @@ def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: in
     launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
     batches = -(-n_images // batch)
     tuned_rows = batches * batch if batch > 1 else n_images
-    want = expected_pti_launches(batches, batches * PTI_LATENT_STEPS, tuned_rows * PTI_TUNE_STEPS,
-                                 n_images, conv_kernel)
+    want = plus(expected_pti_launches(batches, batches * PTI_LATENT_STEPS,
+                                      tuned_rows * PTI_TUNE_STEPS, n_images, conv_kernel),
+                extra_per_backward or {}, batches * PTI_LATENT_STEPS + tuned_rows * PTI_TUNE_STEPS)
     # bf16 with the convolution kernels: no call on the FMA kernel, the thin ones padded
     if launches != want or shares["fma"] or (shares["padded"] > 0) != conv_kernel:
         raise RuntimeError(f"run_pti: launches {launches}, expected {want}; convolution FMA / "
@@ -2697,13 +2788,17 @@ def time_analysis(torch, np, ckpt: Path, flush, folders: tuple[Path, Path]) -> N
 
 
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
-                    adv_active: bool = False, ar_spec=None, adv_weight: float = 3.0) -> dict:
-    """Event ms, device ms and the device ms by kind of one b8 train step at
-    256²; the LPIPS share is the device ms a step without the perceptual term
-    saves. ``conv_kernel``: the 3x3 convolutions through the convolution
-    kernels; ``adv_active``: the adversarial step (PatchGAN at
-    ``adv_weight``); ``ar_spec``: with the AR-VAE term (gamma 0.5) on random
-    attributes."""
+                    adv_active: bool = False, ar_spec=None, adv_weight: float = 3.0,
+                    knobs: dict | None = None, lpips_split: bool = True,
+                    iters: int = 6, warmup: int = 3, trace_iters: int = 3) -> dict:
+    """Event ms, device ms, peak GB and the device ms by kind of one b8 train
+    step at 256²; the LPIPS share is the device ms a step without the
+    perceptual term saves (``lpips_split``). ``conv_kernel``: the 3x3
+    convolutions through the convolution kernels; ``adv_active``: the
+    adversarial step (PatchGAN at ``adv_weight``); ``ar_spec``: with the
+    AR-VAE term (gamma 0.5) on random attributes; ``knobs``: the model's
+    ``s2d_stem`` / ``remat`` / ``norm_stats``. ``iters`` calls timed by CUDA
+    events, ``trace_iters`` traced."""
     from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
     from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
     from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
@@ -2716,8 +2811,9 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
     torch.manual_seed(3)
     torch.cuda.reset_peak_memory_stats()
     dtype = torch.float32 if exact else torch.bfloat16
-    model = autoencoder_from_config(ae_def, compute_dtype=dtype, conv_kernel=conv_kernel).to(
-        device="cuda", memory_format=torch.channels_last)
+    model = autoencoder_from_config(ae_def, compute_dtype=dtype, conv_kernel=conv_kernel,
+                                    **(knobs or {})).to(device="cuda",
+                                                        memory_format=torch.channels_last)
     disc = None
     if adv_active:
         disc = PatchDiscriminator(compute_dtype=dtype, generator=torch.Generator().manual_seed(5)).to(
@@ -2730,27 +2826,33 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
         name: torch.rand(BATCH, device="cuda", generator=gen) for name in ar_spec.names}
     lp = init_lpips_params(0, "cuda")
     ar = dict(ar_vae_enabled=ar_spec is not None, ar_spec=ar_spec, ar_gamma=0.5)
-    out = {}
-    for name, lcfg in (("full", LossConfig(adv_weight=adv_weight, **ar)),
-                       ("no_lpips", LossConfig(adv_weight=adv_weight, use_perceptual=False, **ar))):
+    out, peak = {}, 0.0
+    losses = [("full", LossConfig(adv_weight=adv_weight, **ar))]
+    if lpips_split:
+        losses.append(("no_lpips", LossConfig(adv_weight=adv_weight, use_perceptual=False, **ar)))
+    for name, lcfg in losses:
         step = make_train_step(model, disc, lcfg, adv_active=adv_active)
         out[name] = time_ms(lambda: step(state, x, mask, attrs, lp, generator=gen), flush,
-                            iters=6, warmup=3)
+                            iters=iters, warmup=warmup, trace_iters=trace_iters)
+        if name == "full":  # the full step's peak, before a lighter variant runs
+            peak = torch.cuda.max_memory_allocated() / 1e9
     full = out["full"]
     kinds = device_ms_by_kind(full["by_name"])
-    kinds["lpips_by_difference"] = full["device_ms"] - out["no_lpips"]["device_ms"]
+    extra = {}
+    if lpips_split:
+        kinds["lpips_by_difference"] = full["device_ms"] - out["no_lpips"]["device_ms"]
+        extra["event_ms_no_lpips"] = out["no_lpips"]["event_ms"]
     return {"dtype": dtype_key(dtype), "conv_kernel": conv_kernel, "adv_active": adv_active,
             "ar_vae": ar_spec is not None, "channels": list(ae_def["channels"]),
+            **({"knobs": knobs} if knobs else {}),
             "event_ms": full["event_ms"], "device_ms": full["device_ms"],
             "imgs_per_s": BATCH * 1e3 / full["event_ms"],
             "device_idle_share": 1.0 - full["device_ms"] / full["event_ms"],
-            "event_ms_no_lpips": out["no_lpips"]["event_ms"],
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "device_ms_by_kind": kinds}
+            **extra, "peak_memory_gb": peak, "device_ms_by_kind": kinds}
 
 
 def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: str = "vae",
-                 dtypes=None, iters: int = 10) -> None:
+                 dtypes=None, iters: int = 10, stem_cin: int = 1) -> None:
     """Per distinct convolution shape of a pass of the model ``path`` names
     (the flagship's by default) and dtype: the
     forward kernel as forward and as input gradient, and the filter-gradient
@@ -2767,7 +2869,8 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
     output held to the plain version at the bf16 bar. The filter gradient's
     time (``ms``) includes the fold of its partial sums (one ``torch.sum``);
     ``kernel_only_ms`` leaves it out. ``iters``: timed calls per
-    measurement."""
+    measurement; ``stem_cin``: the ``Cin`` of the encoder's stem, whose
+    input gradient no path computes."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
@@ -2825,9 +2928,9 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
             wflip = flip_transpose(wmat, cin, cout).contiguous()
             flops = 2.0 * 9 * cin * cout * b * h * w
             size = x.element_size()
-            # only the encoder's stem reads the 1-channel image, whose gradient
-            # nobody wants: its dgrad is not on the path
-            n_dgrad = 0 if cin == 1 else n
+            # only the encoder's stem reads the 1-channel image (4 channels in the
+            # space-to-depth domain), whose gradient nobody wants: its dgrad is not on the path
+            n_dgrad = 0 if cin == stem_cin else n
             head = {"path": path, "shape": list(shape), "dtype": key}
 
             # the library call: NCHW views of the channels-last memory, OIHW channels-last weight
@@ -3058,6 +3161,365 @@ def time_flash_attention(torch, cases, flush, gen, rows: dict[str, list], path: 
             del out_lib, leaves, padded, out, lse, grads, delta
             rows["flash_attention_bwd"].append(row)
             emit("time_flash_attention_bwd", **row)
+
+
+def knob_config(path: Path, **keys) -> Path:
+    """A copy of the flagship config with the top-level knobs ``keys``."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg.update(keys)
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def s2d_path_shapes(torch, ae_def: dict) -> tuple[list, list]:
+    """The GroupNorm+SiLU and 3x3 convolution shapes (at b8, launches per
+    pass) of a flagship pass with ``s2d_stem=True``: the same launches as the
+    standard pass, thin channel counts included, at other shapes."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+
+    probe = autoencoder_from_config(ae_def, conv_kernel=True, s2d_stem=True)
+    gn, conv = gn_path_shapes(probe, torch), conv_path_shapes(probe, torch)
+    got = (sum(n for _, n in gn), sum(n for _, n in conv), sum(n for s, n in conv if s[3] % 8),
+           sum(n for s, n in conv if s[4] % 8))
+    want = (GN_PER_RECONSTRUCT, CONV_PER_RECONSTRUCT, FLAGSHIP_PASS["thin"],
+            FLAGSHIP_PASS["thin_dgrad"])
+    if got != want:
+        raise RuntimeError(f"s2d pass shapes {gn}, {conv}: counts {got}, expected {want}")
+    return gn, conv
+
+
+def knob_step_check(torch, np, kernels_mod, ae_def: dict, data_dir: Path, phase: str,
+                    variants: list[tuple[str, dict]]) -> dict:
+    """One f32 generator step (the batch, weights and eps of
+    ``train_reference_check``: 2 images at 256², full width) on the card in
+    each form of ``variants`` [(name, model knobs)] against the standard
+    form's step on the card: loss terms within 1e-4 relative, every gradient
+    tensor within ``GRAD_BAR`` of its largest entry (``to_k.bias``, 0 in exact
+    arithmetic, absolutely), the bars of the f32 train step. Launches of each
+    step as computed: the standard step's, plus ``remat_extra`` under
+    ``remat``; no GroupNorm+SiLU kernel and 42 counted plain calls under
+    ``norm_stats: two_pass``."""
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.data.transforms import preprocess_image_np
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.ops.norm import group_norm_silu
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _generator_losses
+
+    torch.manual_seed(7)
+    state = autoencoder_from_config(ae_def).state_dict()
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, perceptual_weight=1.0)
+    images = torch.from_numpy(np.stack([
+        preprocess_image_np(read_image(str(p)), (256, 256))
+        for p in sorted(data_dir.glob("*.tif"))[:2]])).cuda()
+    mask = torch.ones(2, device="cuda")
+    eps = torch.randn(2, 32, 32, ae_def["latent_channels"],
+                      generator=torch.Generator().manual_seed(8)).cuda()
+    lp = init_lpips_params(0, "cuda")
+
+    def step(knobs):
+        model = autoencoder_from_config(ae_def, **knobs).to(device="cuda",
+                                                            memory_format=torch.channels_last)
+        model.load_state_dict(state, strict=True)
+        kernels_mod.reset_launch_counts()
+        two_pass = group_norm_silu.two_pass_calls
+        total, aux = _generator_losses(model, lcfg, lp, images, mask, eps, None)
+        total.backward()
+        torch.cuda.synchronize()
+        launches = kernels_mod.launch_counts()
+        launches["two_pass_calls"] = group_norm_silu.two_pass_calls - two_pass
+        terms = {k: float(aux[k].detach()) for k in ("recon_loss", "kl_loss", "perceptual_loss")}
+        terms["loss_total"] = float(total.detach())
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        want = {**expected_launches(1, 0, conv_kernel=False), "two_pass_calls": 0}
+        if knobs.get("remat"):
+            want = plus(want, remat_extra(model), 1)
+        if knobs.get("norm_stats") == "two_pass":
+            want["two_pass_calls"] = want.pop("groupnorm_silu")
+            want.update(groupnorm_silu=0, groupnorm_silu_bwd=0)
+        if launches != want:
+            raise RuntimeError(f"{phase} {knobs}: one step launched {launches}, expected {want}")
+        return terms, grads, launches
+
+    want_terms, want_grads, _ = step({})
+    out = {}
+    for name, knobs in variants:
+        terms, grads, launches = step(knobs)
+        term_err = max(abs(terms[k] - v) / abs(v) for k, v in want_terms.items())
+        grad_err = {}
+        for key, ref in want_grads.items():
+            err = float((grads[key] - ref).abs().max())
+            grad_err[key] = err if key.endswith("to_k.bias") else err / float(ref.abs().max())
+        worst = max(grad_err, key=grad_err.get)
+        out[name] = {"knobs": knobs, "max_term_rel_err": term_err,
+                     "max_grad_err_of_tensor_max": grad_err[worst], "worst_tensor": worst,
+                     "launches_per_step": launches}
+        if not (term_err <= 1e-4 and grad_err[worst] <= GRAD_BAR):
+            raise RuntimeError(f"{phase} {name}: terms {term_err}, gradient {worst} "
+                               f"{grad_err[worst]} from the standard step's")
+    emit(phase, batch=2, dtype="float32", against="the standard form's step on the card",
+         term_bar=1e-4, grad_bar=GRAD_BAR, terms_standard=want_terms, **out)
+    return out
+
+
+def s2d_path(torch, np, kernels_mod, ae_def: dict, ckpt: Path, inputs, ref, bf16_recon,
+             data_dir: Path) -> dict:
+    """Phase ``s2d_path``: the kernels at the s2d pass's shapes against their
+    plain versions; the f32 reconstruct of every s2d form, cuDNN and kernels,
+    against the f32 standard one on the card and the CPU plain path's (1e-3);
+    ``inference_vae`` with ``"s2d_stem": true`` in bf16 and bf16
+    ``--conv-kernel`` (launch counts, no FMA convolution); the s2d forms' f32
+    train steps against the standard one."""
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
+
+    gn, conv = s2d_path_shapes(torch, ae_def)
+    both = (torch.float32, torch.bfloat16)
+    both_ways = sorted({s for s, _ in conv} | {(*s[:3], s[4], s[3]) for s, _ in conv})
+    emit("s2d_shapes", groupnorm_silu=[[list(s), n] for s, n in gn],
+         conv3x3=[[list(s), n] for s, n in conv],
+         gn_plans=gn_plans(torch, [(s, 16) for s, _ in gn]),
+         wgmma_occupancy={k: v for k, v in wgmma_occupancy(torch, both_ways).items()
+                          if k.startswith("conv3x3")})
+    errs = check_kernels(torch, [(s, 16, both) for s, _ in gn], (), conv, kernels_mod, seed=3,
+                         ragged=False, balanced=True, phase="kernel_checks_s2d")
+
+    config = load_vae_config(str(CONFIG))
+    x = torch.from_numpy(inputs).cuda()
+    recon = {}
+    with torch.inference_mode():
+        for conv_kernel in (False, True):
+            for form in S2D_FORMS:
+                model = load_vae_model(config, str(ckpt), device="cuda", s2d_stem=form,
+                                       conv_kernel=conv_kernel)
+                recon[(form, conv_kernel)] = model.reconstruct_deterministic(x).cpu().numpy()[..., 0]
+                del model
+    errors = {}
+    for (form, conv_kernel), got in recon.items():
+        tag = f"{form}{'_conv_kernel' if conv_kernel else ''}"
+        errors[tag] = {"vs_card_standard": float(np.abs(got - recon[(False, conv_kernel)]).max()),
+                       "vs_cpu": float(np.abs(got - ref).max())}
+    worst = max(max(e.values()) for e in errors.values())
+
+    cfg = knob_config(WORK / "vae_s2d_true.json", s2d_stem=True)
+    cli = ["-c", str(cfg), "--checkpoint", str(ckpt), "--input-dir", str(WORK / "data"),
+           "--batch-size", str(BATCH), "--num-workers", "4"]
+    runs = {}
+    for key, extra in (("bf16", []), ("bf16_conv_kernel", ["--conv-kernel"])):
+        r = run_cli(torch, np, kernels_mod, cli + extra, WORK / f"out_s2d_{key}")
+        shares = conv_shares(kernels_mod)
+        want = expected_conv_shares(0, -(-N_IMAGES // BATCH)) if extra else {"fma": 0, "padded": 0}
+        if shares != want:
+            raise RuntimeError(f"inference_vae s2d {key}: convolution shares {shares}, want {want}")
+        runs[key] = {"wall_s": r["wall_s"], "launches": r["launches"], "conv_shares": shares,
+                     "max_abs_diff_vs_standard_bf16": float(np.abs(
+                         np.stack(r["recon"]) - np.stack(bf16_recon)).max())}
+    emit("s2d_path", reconstruct_f32_max_abs_err=errors, bar=1e-3, images=2,
+         inference_vae=runs, config_keys={"s2d_stem": True})
+    if not worst <= 1e-3:
+        raise RuntimeError(f"f32 s2d reconstructs differ by {worst}: {errors}")
+    steps = knob_step_check(torch, np, kernels_mod, ae_def, data_dir, "s2d_train_reference",
+                            [(f"s2d_{form}", {"s2d_stem": form}) for form in S2D_FORMS[1:]])
+    return {"errs": errs, "gn_shapes": gn, "conv_shapes": conv, "runs": runs, "steps": steps}
+
+
+def remat_bits_check(torch, np, kernels_mod, ae_def: dict) -> dict:
+    """bf16 generator steps (b8, 256², L1 + KL, no LPIPS) with the convolution
+    kernels, standard and s2d: the gradients with ``remat`` the same bits as
+    without (cuDNN, which keeps the 1x1 shortcuts, the downsamples and the
+    quant convolutions, asked for deterministic sums), launches as computed,
+    no convolution on the FMA kernel."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _generator_losses
+
+    torch.manual_seed(11)
+    state = autoencoder_from_config(ae_def).state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
+    eps = torch.randn(BATCH, 32, 32, ae_def["latent_channels"], device="cuda", generator=gen)
+    mask = torch.ones(BATCH, device="cuda")
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, use_perceptual=False)
+    lp = init_lpips_params(0, "cuda")
+
+    def grads(knobs):
+        model = autoencoder_from_config(ae_def, compute_dtype=torch.bfloat16, conv_kernel=True,
+                                        **knobs).to(device="cuda", memory_format=torch.channels_last)
+        model.load_state_dict(state, strict=True)
+        kernels_mod.reset_launch_counts()
+        total, _ = _generator_losses(model, lcfg, lp, x, mask, eps, None)
+        total.backward()
+        torch.cuda.synchronize()
+        launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
+        want = expected_launches(1, 0, conv_kernel=True)
+        if knobs.get("remat"):
+            want = plus(want, remat_extra(model, conv_kernel=True), 1)
+        if launches != want or shares["fma"]:
+            raise RuntimeError(f"remat bits {knobs}: launches {launches}, expected {want}; "
+                               f"convolution shares {shares}")
+        return {k: p.grad.detach().clone() for k, p in model.named_parameters()}, launches
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, knobs in (("standard", {}), ("s2d_true", {"s2d_stem": True})):
+            plain, plain_launches = grads(knobs)
+            remat, remat_launches = grads({**knobs, "remat": True})
+            differ = [k for k, v in plain.items() if not torch.equal(v, remat[k])]
+            out[name] = {"bit_identical": not differ, "tensors": len(plain),
+                         "launches": plain_launches, "launches_remat": remat_launches}
+            if differ:
+                raise RuntimeError(f"remat bits {name}: {len(differ)} gradients differ: {differ[:4]}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def remat_path(torch, np, kernels_mod, ae_def: dict, ckpt: Path, data_dir: Path) -> dict:
+    """Phase ``remat_path``: the f32 remat steps (standard and s2d) against the
+    standard step; the bf16 ``--conv-kernel`` remat gradients bit for bit;
+    ``train_vae --remat --s2d-stem encoder --conv-kernel`` for 2 steps (its
+    checkpoint loads ``strict=True`` into a standard model),
+    ``train_diffusion --remat`` for 2 steps and ``run_pti`` b8 ``--conv-kernel``
+    on a ``"remat": true`` config, their launches as computed."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.unet import diffusion_unet_from_config
+
+    steps = knob_step_check(torch, np, kernels_mod, ae_def, data_dir, "remat_train_reference",
+                            [("remat", {"remat": True}),
+                             ("remat_s2d_true", {"remat": True, "s2d_stem": True})])
+    bits = remat_bits_check(torch, np, kernels_mod, ae_def)
+    torch.cuda.empty_cache()
+
+    # train_vae: 16 train images (2 steps), 2 validation images (1 step, padded)
+    run_dir = WORK / "run_remat_s2d"
+    cfg = knob_config(WORK / "run_remat_s2d.json", data_base_dir=str(data_dir.parent),
+                      run_dir=str(run_dir))
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg), "--max-epochs", "1", "--no-wandb", "--num-workers", "4",
+                         "--seed", str(TRAIN_SEED), "--subset-size", str(KNOB_TRAIN_SUBSET),
+                         "--remat", "--s2d-stem", "encoder", "--conv-kernel"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
+    model = autoencoder_from_config(ae_def, conv_kernel=True, remat=True, s2d_stem="encoder")
+    n_steps = KNOB_TRAIN_SUBSET * 9 // 10 // BATCH
+    want = plus(expected_launches(n_steps, 2, conv_kernel=True), remat_extra(model, True), n_steps)
+    want_shares = expected_conv_shares(n_steps, 2)
+    if result["total_step"] != n_steps or launches != want or shares != want_shares:
+        raise RuntimeError(f"train_vae --remat --s2d-stem encoder: {result}, launches {launches}, "
+                           f"expected {want}; convolution shares {shares}, expected {want_shares}")
+    sd = torch.load(run_dir / "trained_weights" / "autoencoder_last.pth", map_location="cpu",
+                    weights_only=True)
+    autoencoder_from_config(ae_def).load_state_dict(sd, strict=True)
+    if not all(torch.isfinite(v).all() for v in sd.values()):
+        raise RuntimeError("train_vae --remat --s2d-stem encoder wrote non-finite weights")
+    train_run = {"wall_s": wall, "launches": launches, "conv_shares": shares,
+                 "total_step": result["total_step"], "best_val_loss": result["best_val_loss"]}
+
+    ldm_cfg = write_ldm_config(ckpt, WORK / "run_ldm_remat")
+    unet = diffusion_unet_from_config(load_config(ldm_cfg)["diffusion_def"])
+    ldm = run_ldm_train_cli(torch, np, kernels_mod, ldm_cfg, data_dir.parent, ["--remat"],
+                            epochs=KNOB_LDM_EPOCHS, extra_per_step=remat_extra(unet))
+
+    pti_cfg = knob_config(WORK / "vae_remat.json", remat=True)
+    decoder = autoencoder_from_config(ae_def, conv_kernel=True).decoder
+    pti = run_pti_cli(torch, np, kernels_mod,
+                      ["-c", str(pti_cfg), "--checkpoint", str(ckpt), "--input-dir",
+                       str(WORK / "data"), "--num-workers", "4", "--conv-kernel"],
+                      WORK / "pti_remat", BATCH, BATCH, True,
+                      extra_per_backward=remat_extra(decoder, conv_kernel=True))
+    emit("remat_path", bits=bits, train_vae=train_run,
+         train_diffusion={k: v for k, v in ldm.items() if k != "checkpoint"}, run_pti=pti,
+         train_vae_flags=["--remat", "--s2d-stem", "encoder", "--conv-kernel"],
+         remat_extra_per_backward={"vae": remat_extra(model, True), "unet": remat_extra(unet),
+                                   "pti_decoder": remat_extra(decoder, True)})
+    return {"steps": steps, "bits": bits, "train_vae": train_run, "train_diffusion": ldm,
+            "run_pti": pti}
+
+
+def knob_timings(torch, ae_def: dict, ckpt: Path, ldm_cfg: Path, ldm_ckpt: str, flush) -> None:
+    """Phases ``s2d_b8``, ``remat_b8``, ``two_pass_b8`` (timings, no claim):
+    at 256², b8, the reconstruct (bf16 cuDNN, bf16 kernels, f32 cuDNN) and the
+    generator step (bf16 cuDNN, bf16 kernels) in each s2d form; the generator
+    step with and without ``remat`` (bf16, f32; peak GB) and one diffusion
+    step with and without it (bf16); the generator step with two-pass against
+    one-pass statistics (bf16). ``KNOB_ITERS`` calls timed by CUDA events
+    each, two traced (one diffusion step)."""
+    from pti_ldm_vae_tpu_torch.train.steps import make_inference_fn
+    from pti_ldm_vae_tpu_torch.utils.vae_loader import load_vae_config, load_vae_model
+
+    config = load_vae_config(str(CONFIG))
+    x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(13))
+    for dtype, conv_kernel in ((torch.bfloat16, False), (torch.bfloat16, True),
+                               (torch.float32, False)):
+        for form in S2D_FORMS:
+            model = load_vae_model(config, str(ckpt), device="cuda", compute_dtype=dtype,
+                                   s2d_stem=form, conv_kernel=conv_kernel)
+            reconstruct = make_inference_fn(model)
+            t = time_ms(lambda: reconstruct(x), flush, iters=KNOB_ITERS, warmup=2, trace_iters=2)
+            emit("s2d_b8", path="reconstruct", dtype=dtype_key(dtype), conv_kernel=conv_kernel,
+                 s2d_stem=form, imgs_per_s=BATCH * 1e3 / t["event_ms"], event_ms=t["event_ms"],
+                 device_ms=t["device_ms"], device_idle_share=1.0 - t["device_ms"] / t["event_ms"],
+                 device_ms_by_kind=device_ms_by_kind(t["by_name"]))
+            del model, reconstruct
+    torch.cuda.empty_cache()
+    few = dict(lpips_split=False, iters=KNOB_ITERS, warmup=2, trace_iters=2)
+    for conv_kernel in (False, True):
+        for form in S2D_FORMS:
+            emit("s2d_b8", path="train_step", **time_train_step(
+                torch, ae_def, flush, False, conv_kernel, knobs={"s2d_stem": form}, **few))
+            torch.cuda.empty_cache()
+    for exact in (False, True):
+        for remat in (False, True):
+            emit("remat_b8", path="train_step", **time_train_step(
+                torch, ae_def, flush, exact, knobs={"remat": remat}, **few))
+            torch.cuda.empty_cache()
+    for remat in (False, True):
+        emit("remat_b8", path="diffusion_step",
+             **time_ldm(torch, ldm_cfg, ldm_ckpt, flush, False, remat=remat, parts=("train_step",),
+                        step_iters=KNOB_ITERS, trace_iters=1))
+        torch.cuda.empty_cache()
+    for stats in ("one_pass", "two_pass"):
+        emit("two_pass_b8", path="train_step", **time_train_step(
+            torch, ae_def, flush, False, knobs={"norm_stats": stats}, **few))
+        torch.cuda.empty_cache()
+
+
+def timings_child(spec_path: str, out_path: str) -> int:
+    """``chip_smoke.py --knob-timings SPEC OUT``: the kernels at the shapes
+    only the s2d pass has (bf16 and f32 GroupNorm+SiLU, bf16 convolution)
+    and ``knob_timings``, in a process of their own, started by ``main``
+    after its last timing: ``torch.profiler`` came back without device events
+    from five traces running in one process past the load of the other
+    timings (twice, at different phases). The rows go to ``OUT`` (JSON), the phases'
+    lines to stdout."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from pti_ldm_vae_tpu_torch.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    global T0
+    T0 -= spec["t"]  # the lines' t: seconds since the parent script started
+    flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows: dict[str, list] = {name: [] for name in KERNEL_NAMES}
+    time_groupnorm_silu(torch, [(tuple(sh), n, 16) for sh, n in spec["gn_shapes"]], flush, gen,
+                        rows, "s2d")
+    time_conv3x3(torch, [(tuple(sh), n) for sh, n in spec["conv_shapes"]], flush, gen, rows,
+                 path="s2d", dtypes=(torch.bfloat16,), iters=5, stem_cin=4)
+    torch.cuda.empty_cache()
+    knob_timings(torch, load_config(CONFIG)["autoencoder_def"], Path(spec["ckpt"]),
+                 Path(spec["ldm_cfg"]), spec["ldm_ckpt"], flush)
+    Path(out_path).write_text(json.dumps(rows))
+    return 0
 
 
 def chain_path(torch, np, kernels_mod, work: Path) -> dict:
@@ -3535,6 +3997,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 6n. the loader's rate, native and numpy, and the device preprocessing on the card
     emit("loader_b8", **loader_b8(torch, np, WORK / "loader"))
+    torch.cuda.empty_cache()
+
+    # 6o. the space-to-depth forms: kernel checks at their shapes, the f32 reconstructs against
+    # the standard one and the CPU, inference_vae with "s2d_stem": true, the f32 steps
+    s2d = s2d_path(torch, np, kernels_mod, ae_def, ckpt, inputs, ref, bf16["recon"],
+                   train_data / "dente")
+    errs = {name: {k: max(v, s2d["errs"][name][k]) for k, v in by_type.items()}
+            for name, by_type in errs.items()}
+    torch.cuda.empty_cache()
+    # 6p. remat: the f32 steps, the bf16 gradients bit for bit, train_vae, train_diffusion, run_pti
+    remat = remat_path(torch, np, kernels_mod, ae_def, ckpt, train_data / "dente")
+    torch.cuda.empty_cache()
+    # 6q. two-pass statistics: the f32 step on the counted plain route against the one-pass step
+    knob_step_check(torch, np, kernels_mod, ae_def, train_data / "dente", "two_pass",
+                    [("two_pass", {"norm_stats": "two_pass"})])
+    torch.cuda.empty_cache()
 
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
@@ -3610,6 +4088,22 @@ def main() -> int:
     for exact in (False, True):
         emit("ldm_b8", **time_ldm(torch, cfg_path, ldm_train["bfloat16"]["checkpoint"], flush, exact))
         torch.cuda.empty_cache()
+    # the s2d pass's own kernel shapes and the knobs' A/B, in a process of their own
+    # (timings_child), then their rows beside this process's
+    timed_gn = {tuple(r["shape"]) for r in rows["groupnorm_silu"] if r["path"] == "vae"}
+    timed_conv = {tuple(r["shape"]) for r in rows["conv3x3"]}
+    spec = {"gn_shapes": [[list(sh), n] for sh, n in s2d["gn_shapes"] if sh not in timed_gn],
+            "conv_shapes": [[list(sh), n] for sh, n in s2d["conv_shapes"] if sh not in timed_conv],
+            "ckpt": str(ckpt), "ldm_cfg": str(cfg_path),
+            "ldm_ckpt": ldm_train["bfloat16"]["checkpoint"], "t": time.perf_counter() - T0}
+    (WORK / "knob_timings.json").write_text(json.dumps(spec))
+    del flush
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), "--knob-timings",
+                    str(WORK / "knob_timings.json"), str(WORK / "knob_rows.json")],
+                   check=True, timeout=600)
+    for name, extra in json.loads((WORK / "knob_rows.json").read_text()).items():
+        rows[name] += extra
 
     # 8. kernels line, card line, result line
     def totals(name: str, path: str = "vae") -> dict:
@@ -3618,6 +4112,25 @@ def main() -> int:
                for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")}
         if any("fma_ms" in r for r in bf):  # the same calls as they ran before this route
             out["fma_ms"] = sum(r.get("fma_ms", r["ms"]) * r["per_pass"] for r in bf)
+        return out
+
+    def s2d_totals(name: str) -> dict:
+        """The bf16 sums over one b8 pass or train step with ``s2d_stem`` true:
+        per distinct shape of its pass, the row of whichever path timed it
+        (the flagship's, kl1e3's, or the s2d pass's own), times its calls."""
+        conv = name.startswith("conv3x3")
+        shapes = s2d["conv_shapes"] if conv else s2d["gn_shapes"]
+        roles = {"conv3x3": ("forward", "dgrad"), "conv3x3_wgrad": ("wgrad",)}.get(name, (None,))
+        stem = (BATCH, IMAGE // 2, IMAGE // 2, 4, 4 * ae_def["channels"][0])
+        out = dict.fromkeys(("ms", "event_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        for shape, n in shapes:
+            for role in roles:
+                row = next(r for r in rows[name] if r["dtype"] == "bfloat16"
+                           and tuple(r["shape"]) == shape and r.get("role") == role
+                           and (conv or (r["path"] in ("vae", "s2d") and r["groups"] == 16)))
+                calls = 0 if role == "dgrad" and shape == stem else n  # the image's gradient
+                for k in out:
+                    out[k] += row[k] * calls
         return out
 
     def per_call(name: str, path: str) -> dict:
@@ -3681,6 +4194,15 @@ def main() -> int:
                  "groupnorm_silu_bwd": "device ms summed over the 45 calls of one diffusion step",
                  "flash_attention": "device ms summed over the 16 launches of one UNet pass",
                  "flash_attention_bwd": "device ms summed over the 16 calls of one diffusion step"}
+    # the same sums (bf16) over one b8 pass or train step of the flagship with s2d_stem true
+    s2d_scope = {"groupnorm_silu": "device ms summed over the 42 launches of one b8 pass with "
+                                   "s2d_stem true",
+                 "groupnorm_silu_bwd": "device ms summed over the 42 calls of one b8 train step "
+                                       "with s2d_stem true",
+                 "conv3x3": "device ms summed over the 47 forward and 46 input-gradient launches "
+                            "of one b8 train step with s2d_stem true and conv_kernel=True",
+                 "conv3x3_wgrad": "device ms summed over the 47 launches of one b8 train step "
+                                  "with s2d_stem true and conv_kernel=True"}
     # the same sums (bf16) over one b8 train step of config/ar_vae_dente_kl1e3.json
     kl_scope = {"conv3x3": f"device ms summed over the {KL1E3_PASS['conv']} forward and "
                            f"{KL1E3_PASS['dgrad']} input-gradient launches of one b8 kl1e3 "
@@ -3736,7 +4258,13 @@ def main() -> int:
                                     for cli in ("train", "evaluate", "inference")},
                                  **{key: n[name] for key, n in analysis["launches"].items()},
                                  **{f"chain_{cli}": n[name]
-                                    for cli, n in chain["launches"].items()}},
+                                    for cli, n in chain["launches"].items()},
+                                 **{f"inference_vae_s2d_{key}": r["launches"][name]
+                                    for key, r in s2d["runs"].items()},
+                                 "train_vae_remat_s2d_encoder_conv_kernel":
+                                     remat["train_vae"]["launches"][name],
+                                 "train_diffusion_remat": remat["train_diffusion"]["launches"][name],
+                                 "run_pti_remat_b8_conv_kernel": remat["run_pti"]["launches"][name]},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **({"rel_rms_err": errs[name]["bfloat16_rel"]}
                if name in ("flash_attention", "flash_attention_bwd") else {}),
@@ -3747,11 +4275,19 @@ def main() -> int:
                if name in ("flash_attention", "flash_attention_bwd") else {}),
             **({"kl1e3": {**totals(name, "kl1e3"), "scope": kl_scope[name]}}
                if name in kl_scope else {}),
+            **({"s2d": {**s2d_totals(name), "scope": s2d_scope[name]}}
+               if name in s2d_scope else {}),
             # of the forward kernel's launches on the bf16 convolution-kernel paths: on the FMA
             # kernel (none) and on zero-padded channels
             **({"shares_by_path": {"train_vae_adversarial_conv_kernel": adv["conv_shares"],
                                    "train_vae_ar_kl1e3_conv_kernel": kl["conv_shares"],
-                                   "run_pti_b8_conv_kernel": pti["b8_conv_kernel"]["conv_shares"]},
+                                   "run_pti_b8_conv_kernel": pti["b8_conv_kernel"]["conv_shares"],
+                                   "inference_vae_s2d_bf16_conv_kernel":
+                                       s2d["runs"]["bf16_conv_kernel"]["conv_shares"],
+                                   "train_vae_remat_s2d_encoder_conv_kernel":
+                                       remat["train_vae"]["conv_shares"],
+                                   "run_pti_remat_b8_conv_kernel":
+                                       remat["run_pti"]["conv_shares"]},
                 "ar_latent": [{k: r[k] for k in ("shape", "role", "kernel", "tile", "ms", "fma_ms",
                                                  "library_ms", "bound_ms") if k in r}
                               for r in rows[name] if r["path"] == "ar"]}
@@ -3779,4 +4315,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--knob-timings"]:
+        sys.exit(timings_child(*sys.argv[2:4]))
     sys.exit(main())

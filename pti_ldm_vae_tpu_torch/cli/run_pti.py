@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..data.io import write_png, write_tif
+from ..ops.space_to_depth import s2d_auto_mode
 from ..train.diffusion import (
     make_pivotal_tuning_inversion_batched,
     pivotal_tuning_inversion,
@@ -75,8 +76,11 @@ def main(argv=None) -> Path:
     args = parse_args(argv)
     device = resolve_device(args.device)
     init_device_and_seed(args.seed, device)
-    config, model = load_config_and_model(args.config_file, args.checkpoint, device=device,
-                                          exact=args.f32, conv_kernel=args.conv_kernel)
+    # PTI differentiates through the decoder, so the inference-profile s2d "auto"
+    # does not apply: the train profile decides, at the batch PTI runs
+    config, model = load_config_and_model(
+        args.config_file, args.checkpoint, device=device, exact=args.f32,
+        conv_kernel=args.conv_kernel, s2d_stem=s2d_auto_mode("train", max(args.batch_size, 1)))
     spatial_dims = config.autoencoder_def.get("spatial_dims", 2)
     if spatial_dims != 2:
         # the TIF/PNG dump slices [0, :, :, 0] (2-D NHWC)

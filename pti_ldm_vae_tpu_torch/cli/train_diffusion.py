@@ -50,7 +50,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--num-samples", type=int, default=None)
     parser.add_argument("--remat", action="store_true",
                         help="Activation checkpointing on the UNet (same as top-level "
-                             "\"remat\": true); not ported yet, raises")
+                             "\"remat\": true): its ResBlocks and transformers are "
+                             "recomputed in the backward instead of kept")
     parser.add_argument("--f32", action="store_true",
                         help="f32 compute with TF32 off (parity runs)")
     parser.add_argument("--device", type=str, default="cuda",

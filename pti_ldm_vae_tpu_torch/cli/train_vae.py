@@ -42,17 +42,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Use only the first N images (smoke runs)")
     parser.add_argument("--no-wandb", action="store_true")
     parser.add_argument("--remat", action="store_true",
-                        help="Activation checkpointing (same as config \"remat\": true); "
-                             "not ported yet, raises")
+                        help="Activation checkpointing of the ResBlocks and attention blocks "
+                             "(same as config \"remat\": true): their activations are "
+                             "recomputed in the backward instead of kept")
     parser.add_argument("--s2d-stem", nargs="?", const="true", default=None,
                         choices=("true", "false", "auto", "encoder", "decoder"),
                         help="Space-to-depth full-resolution path (same as config "
-                             "\"s2d_stem\"); only \"false\" and \"auto\" (the standard "
-                             "path) are ported, the others raise")
+                             "\"s2d_stem\"): the encoder's level 0 and/or the decoder's "
+                             "full-resolution tail at half resolution with 4x the channels; "
+                             "\"auto\" (the default) takes the standard path on the H100")
     parser.add_argument("--norm-stats", choices=("two_pass", "one_pass"), default=None,
                         help="GroupNorm statistics formulation (same as config "
-                             "\"norm_stats\"); the GroupNorm+SiLU kernels compute "
-                             "\"one_pass\", \"two_pass\" runs on the CPU only")
+                             "\"norm_stats\"): \"one_pass\" through the GroupNorm+SiLU "
+                             "kernels, \"two_pass\" (centered variance) as plain tensor code")
     parser.add_argument("--f32", action="store_true",
                         help="f32 compute with TF32 off (parity runs)")
     parser.add_argument("--conv-kernel", action="store_true",

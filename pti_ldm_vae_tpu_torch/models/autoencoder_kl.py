@@ -1,7 +1,7 @@
 """AutoencoderKL — convolutional VAE in PyTorch with MONAI parameter names.
 
-Counterpart of ``pti_ldm_vae_tpu/models/autoencoder_kl.py`` (standard 2-D
-path). Architecture (MONAI 1.5.1 ``AutoencoderKL``, CompVis VAE lineage):
+Counterpart of ``pti_ldm_vae_tpu/models/autoencoder_kl.py`` (2-D).
+Architecture (MONAI 1.5.1 ``AutoencoderKL``, CompVis VAE lineage):
 
 * encoder: conv_in 3x3 -> per level {num_res_blocks x ResBlock
   (GroupNorm->SiLU->Conv3x3, 1x1 skip on channel change) [+ self-attention]}
@@ -31,6 +31,18 @@ convolutions) goes through the hand-written convolution kernels instead
 stride-2 downsample and the quant convolutions stay with cuDNN. Parameters
 and state-dict keys are the same either way. Compute dtype: parameters stay f32, activations run in
 ``compute_dtype`` (bf16 on the accelerator by default).
+
+Two apply-time knobs leave the parameters as they are. ``s2d_stem`` runs the
+encoder's level 0 (``conv_in``, its ResBlocks, the downsample) and the
+decoder's full-resolution tail (the last upsample, its ResBlocks,
+``norm_out``, ``conv_out``) in the space-to-depth domain: the same modules
+and parameters at half resolution with 4x the channels, the weights
+transformed at apply time (``ops/space_to_depth.py``); the GroupNorm+SiLU and
+3x3 convolutions there go through the same routes as everywhere else.
+``remat`` recomputes each ResBlock's and attention block's internals in the
+backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping them,
+as the JAX package wraps the same blocks in ``nn.remat``; the kernels then
+launch again for the recomputed forward.
 """
 
 from __future__ import annotations
@@ -40,11 +52,21 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops.attention import multi_head_attention
 from ..ops.conv import conv3x3
 from ..ops.norm import DEFAULT_NORM_STATS, group_norm, group_norm_silu
 from ..ops.resize import upsample_nearest_2x
+from ..ops import space_to_depth as s2d_policy
+from ..ops.space_to_depth import (
+    depth_to_space,
+    s2d_conv1x1_kernel,
+    s2d_conv3x3_kernel,
+    s2d_downsample_kernel,
+    s2d_repeat_channels,
+    space_to_depth,
+)
 
 __all__ = ["AutoencoderKL", "autoencoder_from_config"]
 
@@ -64,14 +86,22 @@ class Convolution(nn.Module):
         # the convolution kernels compute the 3x3 stride-1 SAME form only
         self.conv_kernel = conv_kernel and (kernel_size, stride, padding) == (3, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        """``s2d``: ``x`` is in the space-to-depth domain, [B, H/2, W/2, 4*Cin];
+        the transformed 3x3 and 1x1 convolutions stay in it, the stride-2 one
+        (after its caller's (0,1) pad: a 2x2 VALID convolution) leaves it."""
         cd = self.compute_dtype
+        weight, bias = self.conv.weight, self.conv.bias
+        stride, padding = self.conv.stride, self.conv.padding
+        if s2d and stride[0] == 2:
+            weight, stride = s2d_downsample_kernel(weight), 1
+        elif s2d:
+            to_s2d = s2d_conv3x3_kernel if self.conv.kernel_size[0] == 3 else s2d_conv1x1_kernel
+            weight, bias = to_s2d(weight), s2d_repeat_channels(bias)
         if self.conv_kernel:
-            return conv3x3(x.to(cd), self.conv.weight, self.conv.bias)
-        y = F.conv2d(
-            x.to(cd).permute(0, 3, 1, 2), self.conv.weight.to(cd), self.conv.bias.to(cd),
-            stride=self.conv.stride, padding=self.conv.padding,
-        )
+            return conv3x3(x.to(cd), weight, bias)
+        y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), weight.to(cd), bias.to(cd), stride=stride,
+                     padding=padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -85,10 +115,14 @@ class GroupNormOp(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.num_groups, self.eps, self.silu, self.norm_stats = num_groups, eps, silu, norm_stats
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        """``s2d``: ``x`` is in the space-to-depth domain, where each group's
+        elements are the same and ``weight`` / ``bias`` repeat 4x."""
+        weight, bias = self.weight, self.bias
+        if s2d:
+            weight, bias = s2d_repeat_channels(weight), s2d_repeat_channels(bias)
         fn = group_norm_silu if self.silu else group_norm
-        return fn(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
-                  stats=self.norm_stats)
+        return fn(x, weight, bias, num_groups=self.num_groups, eps=self.eps, stats=self.norm_stats)
 
 
 class ResBlock(nn.Module):
@@ -105,10 +139,10 @@ class ResBlock(nn.Module):
         self.conv2 = Convolution(cout, cout, 3, padding=1, **cd)
         self.nin_shortcut = Convolution(cin, cout, 1, **cd) if cin != cout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x, s2d), s2d), s2d), s2d)
         if self.nin_shortcut is not None:
-            x = self.nin_shortcut(x)
+            x = self.nin_shortcut(x, s2d)
         return x.to(h.dtype) + h
 
 
@@ -156,8 +190,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = Convolution(channels, channels, 3, stride=2, compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)), s2d)
 
 
 class Upsample(nn.Module):
@@ -168,25 +202,45 @@ class Upsample(nn.Module):
         self.conv = Convolution(channels, channels, 3, padding=1, compute_dtype=compute_dtype,
                                 conv_kernel=conv_kernel)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        """``s2d``: nearest x2 as the phase repeat, entering the space-to-depth
+        domain ([B, H, W, C] -> [B, H, W, 4*C]) instead of the 2x tensor."""
+        if s2d:
+            return self.conv(s2d_repeat_channels(x), s2d)
         return self.conv(upsample_nearest_2x(x))
 
 
 class _Coder(nn.Module):
-    """Shared by Encoder and Decoder: ``blocks`` applied in order (MONAI layout)."""
+    """Shared by Encoder and Decoder: ``blocks`` applied in order (MONAI
+    layout); ``s2d_blocks`` of them, at the start (encoder) or the end
+    (decoder), run in the space-to-depth domain when ``s2d_stem`` applies;
+    with ``remat`` the ResBlocks and attention blocks are checkpointed."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x)
-        return x
+    def _init_knobs(self, channels: Sequence[int], attention_levels: Sequence[bool],
+                    s2d_blocks: int, s2d_stem: bool | str, remat: bool) -> None:
+        self.n_levels = len(channels)
+        self.full_res_attention = bool(attention_levels[0])
+        self.s2d_blocks, self.s2d_stem, self.remat = s2d_blocks, s2d_stem, remat
+
+    def _run(self, block: nn.Module, h: torch.Tensor, s2d: bool) -> torch.Tensor:
+        args = (h, True) if s2d else (h,)
+        if self.remat and torch.is_grad_enabled() and isinstance(block, (ResBlock,
+                                                                         SpatialAttentionBlock)):
+            # the whole block is recomputed (no early stop): its kernels launch twice per step
+            with set_checkpoint_early_stop(False):
+                return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
 
 class Encoder(_Coder):
     def __init__(self, in_channels: int, channels: Sequence[int], latent_channels: int,
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
-                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False):
+                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False,
+                 s2d_stem: bool | str = False, remat: bool = False):
         super().__init__()
+        # in the s2d domain: conv_in, level 0's ResBlocks, its downsample
+        self._init_knobs(channels, attention_levels, num_res_blocks[0] + 2, s2d_stem, remat)
         cd = dict(compute_dtype=compute_dtype)
         ck = dict(conv_kernel=conv_kernel, **cd)
         blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
@@ -208,13 +262,42 @@ class Encoder(_Coder):
                    Convolution(cin, latent_channels, 3, padding=1, **ck)]
         self.blocks = nn.ModuleList(blocks)
 
+    def _use_s2d(self, x: torch.Tensor) -> bool:
+        """Whether level 0 runs in the s2d domain (JAX ``Encoder._use_s2d``):
+        ``"auto"`` where eligible and the batch is within the H100 inference
+        threshold; an explicit form on an ineligible input raises."""
+        eligible = (x.dim() == 4 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
+                    and not self.full_res_attention and self.n_levels >= 2)
+        if self.s2d_stem == "auto":
+            return eligible and x.shape[0] <= s2d_policy.S2D_AUTO_INFER_ENCODER_MAX_BATCH
+        if self.s2d_stem and not eligible:
+            if x.dim() != 4:
+                raise ValueError("s2d_stem requires spatial_dims == 2")
+            if self.full_res_attention:
+                raise ValueError("s2d_stem does not support level-0 attention")
+            if self.n_levels < 2:
+                raise ValueError("s2d_stem requires >= 2 levels")
+            raise ValueError(f"s2d_stem requires even H, W; got {tuple(x.shape[1:3])}")
+        return bool(self.s2d_stem)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.s2d_blocks if self._use_s2d(x) else 0
+        h = space_to_depth(x) if n else x
+        for i, block in enumerate(self.blocks):
+            h = self._run(block, h, i < n)
+        return h
+
 
 class Decoder(_Coder):
     def __init__(self, channels: Sequence[int], latent_channels: int, out_channels: int,
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
-                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False):
+                 norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False,
+                 s2d_stem: bool | str = False, remat: bool = False):
         super().__init__()
+        # in the s2d domain: the last upsample, the full-resolution ResBlocks,
+        # norm_out and conv_out
+        self._init_knobs(channels, attention_levels, num_res_blocks[0] + 3, s2d_stem, remat)
         cd = dict(compute_dtype=compute_dtype)
         ck = dict(conv_kernel=conv_kernel, **cd)
         blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
@@ -239,6 +322,28 @@ class Decoder(_Coder):
                    Convolution(cin, out_channels, 3, padding=1, **ck)]
         self.blocks = nn.ModuleList(blocks)
 
+    def _use_s2d(self, z: torch.Tensor) -> bool:
+        """Whether the full-resolution tail runs in the s2d domain (JAX
+        ``Decoder._use_s2d``; its output is even-sized by construction)."""
+        eligible = z.dim() == 4 and not self.full_res_attention and self.n_levels >= 2
+        if self.s2d_stem == "auto":
+            return eligible and z.shape[0] <= s2d_policy.S2D_AUTO_INFER_DECODER_MAX_BATCH
+        if self.s2d_stem and not eligible:
+            if z.dim() != 4:
+                raise ValueError("s2d_stem requires spatial_dims == 2")
+            if self.full_res_attention:
+                raise ValueError("s2d_stem does not support full-res attention")
+            raise ValueError("s2d_stem requires >= 2 levels")
+        return bool(self.s2d_stem)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        n = self.s2d_blocks if self._use_s2d(z) else 0
+        first = len(self.blocks) - n
+        h = z
+        for i, block in enumerate(self.blocks):
+            h = self._run(block, h, i >= first)
+        return depth_to_space(h) if n else h
+
 
 class AutoencoderKL(nn.Module):
     """Conv VAE with KL-regularized latent space, NHWC in and out.
@@ -252,13 +357,14 @@ class AutoencoderKL(nn.Module):
     * ``decode(z)`` / ``decode_stage_2_outputs(z)`` -> reconstruction
     * ``reconstruct_deterministic(x)`` -> decode(z_mu)
 
-    ``remat`` is accepted for config parity and is inert here: activation
-    checkpointing is not ported, inference does not need it, and the trainer
-    refuses a config that sets it. ``s2d_stem`` ``"auto"`` and ``False`` take
-    the standard path; the space-to-depth forms are not ported yet.
-    ``conv_kernel`` sends the 3x3 stride-1 convolutions through the
-    hand-written convolution kernels (default: cuDNN, as the JAX models call
-    ``lax.conv``).
+    ``remat``: checkpoint the ResBlocks and attention blocks (only where a
+    gradient is being recorded). ``s2d_stem``: ``False``, ``True``,
+    ``"encoder"``, ``"decoder"`` (one side) or ``"auto"`` (each side where
+    eligible and the batch is within ``ops/space_to_depth.py``'s H100
+    inference thresholds, which take the standard path at every batch for
+    now); one state dict loads into every form. ``conv_kernel`` sends the 3x3
+    stride-1 convolutions through the hand-written convolution kernels
+    (default: cuDNN, as the JAX models call ``lax.conv``).
     """
 
     def __init__(
@@ -283,22 +389,27 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         if spatial_dims not in (1, 2, 3):
             raise ValueError(f"spatial_dims must be 1, 2, or 3, got {spatial_dims}")
+        if s2d_stem in (True, "encoder", "decoder") and spatial_dims != 2:
+            # an explicit form on a non-2-D model is a user error; "auto" takes the standard path
+            raise ValueError("s2d_stem requires spatial_dims == 2")
         if spatial_dims != 2:
             raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
-        if s2d_stem not in (False, "auto"):
-            raise NotImplementedError(f"s2d_stem={s2d_stem!r} is not ported yet ('auto' or False)")
+        s2d_enc = s2d_stem if s2d_stem in (False, True, "auto") else s2d_stem == "encoder"
+        s2d_dec = s2d_stem if s2d_stem in (False, True, "auto") else s2d_stem == "decoder"
         n_levels = len(channels)
         nrb = (num_res_blocks,) * n_levels if isinstance(num_res_blocks, int) else tuple(num_res_blocks)
         attn = (False,) * n_levels if attention_levels is None else tuple(attention_levels)
         common = dict(num_res_blocks=nrb, groups=norm_num_groups, eps=norm_eps,
                       attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype,
-                      conv_kernel=conv_kernel)
+                      conv_kernel=conv_kernel, remat=remat)
         self.compute_dtype = compute_dtype
         self.conv_kernel = conv_kernel
         self.encoder = Encoder(in_channels, channels, latent_channels,
-                               with_nonlocal_attn=with_encoder_nonlocal_attn, **common)
+                               with_nonlocal_attn=with_encoder_nonlocal_attn, s2d_stem=s2d_enc,
+                               **common)
         self.decoder = Decoder(channels, latent_channels, out_channels,
-                               with_nonlocal_attn=with_decoder_nonlocal_attn, **common)
+                               with_nonlocal_attn=with_decoder_nonlocal_attn, s2d_stem=s2d_dec,
+                               **common)
         cd = dict(compute_dtype=compute_dtype)
         self.quant_conv_mu = Convolution(latent_channels, latent_channels, 1, **cd)
         self.quant_conv_log_sigma = Convolution(latent_channels, latent_channels, 1, **cd)

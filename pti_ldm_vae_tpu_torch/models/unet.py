@@ -38,6 +38,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops.attention import multi_head_attention
 from ..ops.norm import DEFAULT_NORM_STATS
@@ -247,8 +248,12 @@ class DiffusionUNet(nn.Module):
     """Noise predictor ``forward(x [B, H, W, C_in], timesteps [B], context
     [B, S, cross_attention_dim] | None) -> eps [B, H, W, C_out]`` (f32).
 
-    ``remat`` (activation checkpointing) and ``spatial_dims`` other than 2 are
-    not ported and raise ``NotImplementedError``."""
+    ``remat``: each ``TimeResBlock`` and ``SpatialTransformer`` is
+    checkpointed where a gradient is being recorded (``torch.utils.checkpoint``,
+    non-reentrant; the JAX UNet's ``nn.remat`` of the same blocks): its
+    internals are recomputed in the backward, kernels included.
+    ``spatial_dims`` other than 2 is not ported and raises
+    ``NotImplementedError``."""
 
     def __init__(
         self,
@@ -272,10 +277,9 @@ class DiffusionUNet(nn.Module):
             raise ValueError(f"spatial_dims must be 1, 2, or 3, got {spatial_dims}")
         if spatial_dims != 2:
             raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
-        if remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported yet")
         channels = tuple(channels)
         self.channels = channels
+        self.remat = remat
         self.with_conditioning = with_conditioning
         self.compute_dtype = compute_dtype
         cd = dict(compute_dtype=compute_dtype)
@@ -337,6 +341,16 @@ class DiffusionUNet(nn.Module):
             Convolution(cin, out_channels, 3, padding=1, **cd),
         ])
 
+    def _run(self, block: nn.Module, h: torch.Tensor, extra: torch.Tensor | None) -> torch.Tensor:
+        """A ``TimeResBlock`` (``extra``: the time embedding) or a
+        ``SpatialTransformer`` (``extra``: the context), checkpointed under
+        ``remat`` where a gradient is being recorded."""
+        if self.remat and torch.is_grad_enabled():
+            # the whole block is recomputed (no early stop): its kernels launch twice per step
+            with set_checkpoint_early_stop(False):
+                return checkpoint(block, h, extra, use_reentrant=False)
+        return block(h, extra)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor | None = None) -> torch.Tensor:
         cd = self.compute_dtype
@@ -349,22 +363,23 @@ class DiffusionUNet(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = self._run(resnet, h, temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, ctx)
+                    h = self._run(block.attentions[j], h, ctx)
                 skips.append(h)
             if block.downsampler is not None:
                 h = block.downsampler(h)
                 skips.append(h)
 
         mid = self.middle_block
-        h = mid.resnet_2(mid.attention(mid.resnet_1(h, temb), ctx), temb)
+        h = self._run(mid.resnet_1, h, temb)
+        h = self._run(mid.resnet_2, self._run(mid.attention, h, ctx), temb)
 
         for block in self.up_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = self._run(resnet, torch.cat([h, skips.pop()], dim=-1), temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, ctx)
+                    h = self._run(block.attentions[j], h, ctx)
             if block.upsampler is not None:
                 h = block.upsampler(h)
 

@@ -5,11 +5,11 @@
 
 with mean/var over each group's (spatial, C/G) slab, biased variance
 (``torch.nn.GroupNorm`` semantics), statistics in f32 whatever the input
-dtype. ``group_norm_silu`` sends every call, forward and backward, through
-the hand-written GroupNorm+SiLU kernels on CUDA
+dtype. ``group_norm_silu`` with one-pass statistics sends every call, forward
+and backward, through the hand-written GroupNorm+SiLU kernels on CUDA
 (``ops/kernels/groupnorm_silu.py``), whose plain versions run on the CPU.
-``group_norm`` and ``instance_norm`` are plain tensor code and differentiate
-through autograd.
+``group_norm``, ``instance_norm`` and the two-pass ``group_norm_silu`` are
+plain tensor code and differentiate through autograd.
 """
 
 from __future__ import annotations
@@ -65,16 +65,19 @@ def group_norm_silu(
 
     ``"one_pass"`` statistics go through the GroupNorm+SiLU kernels (their
     plain versions on the CPU), forward and backward. The kernels compute
-    one-pass statistics only, so ``"two_pass"`` runs plain on the CPU (under
-    autograd) and raises on CUDA."""
+    one-pass statistics only, and no TPU kernel computes the centered form
+    (the JAX package leaves it to XLA), so ``"two_pass"`` runs this plain
+    formulation under autograd on every device, counted in
+    ``group_norm_silu.two_pass_calls``. Only ``stats`` picks it: nothing
+    falls back to it."""
     if stats == "one_pass":
         return groupnorm_silu(x.contiguous(), scale, bias, num_groups, eps)
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "norm_stats 'two_pass' has no GroupNorm+SiLU kernel; use 'one_pass' on CUDA"
-        )
     y = group_norm(x, scale, bias, num_groups=num_groups, eps=eps, stats=stats).float()
+    group_norm_silu.two_pass_calls += 1
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+group_norm_silu.two_pass_calls = 0
 
 
 def instance_norm(

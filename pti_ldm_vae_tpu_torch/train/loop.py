@@ -26,9 +26,13 @@ per-attribute terms are logged as ``train/ar_loss_*`` and ``val/ar_loss_*``.
 into ``run_dir/traces`` (``utils/profiling.py:trace_if``; the device is
 synchronized inside the traced block, so the step's kernels end within it).
 
-Not ported yet, and raising when configured: ``parallelism``, ``remat``, the
-space-to-depth stem (``s2d_stem`` other than false / "auto", which takes the
-standard path). ``profile_port`` raises: torch has no live profiler endpoint.
+Top-level model knobs as in the JAX trainer: ``remat`` (activation
+checkpointing of the ResBlocks and attention blocks), ``norm_stats`` and
+``s2d_stem`` (default ``"auto"``, resolved here on the batch with the train
+profile of ``ops/space_to_depth.py:s2d_auto_mode``; ``"encoder"``,
+``"decoder"`` and booleans pass as they are). Not ported yet, and raising
+when configured: ``parallelism``. ``profile_port`` raises: torch has no live
+profiler endpoint.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from ..models.autoencoder_kl import autoencoder_from_config
 from ..models.discriminator import PatchDiscriminator
 from ..models.lpips import load_lpips_params, lpips_is_pretrained
 from ..ops.norm import DEFAULT_NORM_STATS
+from ..ops.space_to_depth import s2d_auto_mode
 from ..utils.determinism import set_determinism
 from ..utils.logging import MetricLogger, init_wandb_config
 from ..utils.profiling import start_profiler_server, trace_if
@@ -150,13 +155,13 @@ class VAETrainer:
         ar_spec = build_ar_spec(cfg, self.ar)
         if cfg.get("parallelism"):
             raise _not_ported("the 'parallelism' config block", "the multi-device slice")
-        if resolve_bool(cfg.get("remat", False)):
-            raise _not_ported("remat (activation checkpointing)", "a later slice")
+        # "auto" resolves here from the train profile on the (one device's)
+        # batch: the model's own "auto" gate is the inference profile
         s2d_stem = cfg.get("s2d_stem", "auto")
-        if s2d_stem != "auto":
-            if s2d_stem in ("encoder", "decoder") or resolve_bool(s2d_stem):
-                raise _not_ported(f"s2d_stem={s2d_stem!r}", "ops/space_to_depth.py")
-            s2d_stem = False
+        if s2d_stem == "auto":
+            s2d_stem = s2d_auto_mode("train", self.batch_size)
+        elif s2d_stem not in ("encoder", "decoder"):
+            s2d_stem = resolve_bool(s2d_stem)
 
         if mixed_precision is None:
             mixed_precision = self.device.type == "cuda"
@@ -205,7 +210,7 @@ class VAETrainer:
         self.model = autoencoder_from_config(
             cfg["autoencoder_def"], compute_dtype=compute_dtype,
             norm_stats=str(cfg.get("norm_stats", DEFAULT_NORM_STATS)), s2d_stem=s2d_stem,
-            conv_kernel=conv_kernel,
+            remat=resolve_bool(cfg.get("remat", False)), conv_kernel=conv_kernel,
         ).to(device=self.device, memory_format=torch.channels_last)
         self.disc = None
         if self.adv_enabled:

@@ -15,6 +15,7 @@ from typing import Any
 
 import torch
 
+from ..config import resolve_bool
 from ..data.factory import create_vae_inference_dataloader
 from ..models.autoencoder_kl import AutoencoderKL
 from ..models.unet import ConditionProjector, DiffusionUNet, diffusion_unet_from_config
@@ -85,21 +86,22 @@ def enable_parity_numerics() -> None:
 
 def load_config_and_model(
     config_file: str, checkpoint_path: str, *, device: torch.device, exact: bool = False,
-    conv_kernel: bool = False,
+    conv_kernel: bool = False, s2d_stem: bool | str | None = None,
 ) -> tuple[Any, AutoencoderKL]:
     """Reference ``cli_common.py:57-70``: returns (config_namespace, model).
 
     Compute dtype: bf16 on CUDA, f32 on the CPU or with ``exact=True``, which
-    also turns TF32 off and pins the standard (reference) formulation.
-    ``conv_kernel`` sends the 3x3 convolutions through the hand-written
-    kernels."""
+    also turns TF32 off and pins the standard (reference) formulation
+    (``s2d_stem`` False). Otherwise ``s2d_stem`` overrides the config's key
+    (``None``: the config's, default ``"auto"``). ``conv_kernel`` sends the 3x3
+    convolutions through the hand-written kernels."""
     if exact:
         enable_parity_numerics()
     compute_dtype = torch.float32 if exact or device.type == "cpu" else torch.bfloat16
     config = load_vae_config(config_file)
     model = load_vae_model(
         config, checkpoint_path, device=device, compute_dtype=compute_dtype,
-        s2d_stem=False if exact else None, conv_kernel=conv_kernel,
+        s2d_stem=False if exact else s2d_stem, conv_kernel=conv_kernel,
     )
     return config, model
 
@@ -124,8 +126,8 @@ def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
     freshly initialized UNet and projector of ``cfg["diffusion_def"]`` in the
     same compute dtype (bf16 on CUDA, f32 on the CPU or with ``exact``, which
     also turns TF32 off). Top-level ``remat`` / ``norm_stats`` keys win over
-    the ``diffusion_def`` ones, as in the JAX package's CLIs; ``remat`` raises
-    (not ported)."""
+    the ``diffusion_def`` ones, as in the JAX package's CLIs; ``remat`` (or the
+    keyword) checkpoints the UNet's blocks."""
     vae_config, vae = load_config_and_model(cfg["vae"]["config_file"], cfg["vae"]["checkpoint"],
                                             device=device, exact=exact)
     ae_def = vae_config.autoencoder_def
@@ -133,7 +135,7 @@ def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
         raise NotImplementedError(
             f"the diffusion CLIs support spatial_dims=2 VAEs only (got {ae_def['spatial_dims']})")
     dd = cfg["diffusion_def"]
-    remat = remat or bool(cfg.get("remat", dd.get("remat", False)))
+    remat = remat or resolve_bool(cfg.get("remat", dd.get("remat", False)))
     norm_stats = str(cfg.get("norm_stats", dd.get("norm_stats", DEFAULT_NORM_STATS)))
     unet = diffusion_unet_from_config(dd, compute_dtype=vae.compute_dtype, remat=remat,
                                       norm_stats=norm_stats)

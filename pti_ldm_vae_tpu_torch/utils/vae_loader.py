@@ -56,10 +56,12 @@ def load_vae_model(
     """The autoencoder of ``config`` with the checkpoint's weights, in eval
     mode on ``device`` (reference ``vae_loader.py:27-43``).
 
-    Top-level extension keys as in the JAX package: ``remat`` (inert at
-    inference), ``norm_stats`` and ``s2d_stem`` (default ``"auto"``, which
-    takes the standard path here). The ``s2d_stem`` keyword overrides the
-    config. ``conv_kernel`` is the model field of that name."""
+    Top-level extension keys as in the JAX package: ``remat`` (inert on pure
+    forwards; PTI differentiates the decoder through this model, where it
+    recomputes the blocks' activations), ``norm_stats`` and ``s2d_stem``
+    (default ``"auto"``, gated per side on the batch by the model). The
+    ``s2d_stem`` keyword overrides the config. ``conv_kernel`` is the model
+    field of that name."""
     ae_def = _top_level(config, "autoencoder_def", None)
     remat = bool(_top_level(config, "remat", False))
     norm_stats = str(_top_level(config, "norm_stats", DEFAULT_NORM_STATS))

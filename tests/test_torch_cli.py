@@ -92,3 +92,26 @@ def test_cli_refuses_orbax_directories(workspace, tmp_path):
     with pytest.raises(ValueError, match="orbax"):
         main(["-c", str(cfg_path), "--checkpoint", str(tmp_path), "--input-dir",
               str(root / "data"), "--output-dir", str(tmp_path / "o"), "--device", "cpu"])
+
+
+def test_cli_honors_the_configs_s2d_stem_as_jax_does(workspace, tmp_path):
+    """``"s2d_stem": true`` at the top of the config: both CLIs (without
+    ``--f32``, which pins the standard form) run the space-to-depth forms, the
+    port's outputs agree with the JAX CLI's and with its own standard-form
+    outputs within 1e-3."""
+    root, cfg_path, ckpt = workspace
+    cfg = json.loads(cfg_path.read_text())
+    cfg["s2d_stem"] = True
+    s2d_cfg = tmp_path / "s2d.json"
+    s2d_cfg.write_text(json.dumps(cfg))
+    common = ["-c", str(s2d_cfg), "--checkpoint", str(ckpt), "--input-dir", str(root / "data"),
+              "--batch-size", "2", "--num-workers", "2", "--num-samples", "2"]
+    assert main(common + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"]) == 2
+    jax_main(common + ["--output-dir", str(tmp_path / "jax")])
+    standard = _run_both(workspace) / "port" / "results_tif"
+    names = sorted(os.listdir(tmp_path / "port" / "results_tif"))
+    assert names == sorted(os.listdir(tmp_path / "jax" / "results_tif")) and len(names) == 2
+    for name in names:
+        ours = read_image(str(tmp_path / "port" / "results_tif" / name))
+        assert np.abs(ours - jax_read_image(str(tmp_path / "jax" / "results_tif" / name))).max() <= 1e-3
+        assert np.abs(ours - read_image(str(standard / name))).max() <= 1e-3

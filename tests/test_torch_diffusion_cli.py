@@ -3,9 +3,10 @@ TIFs at the toy size of the JAX package's ``tests/test_diffusion_clis.py``:
 ``train_diffusion`` writes ``diffusion_last.pth`` (MONAI-keyed UNet plus
 projector) and ``metrics.jsonl``, ``sample_diffusion`` reads it and writes
 TIFs and PNGs; the unconditioned configuration runs both without a
-projector; orbax directories, a run without ``--device cpu`` on a machine
-without CUDA, and the unported ``remat`` are refused. The sampled latents are
-held to a DDIM run of the same UNet, noise and context outside the CLI."""
+projector; orbax directories and a run without ``--device cpu`` on a machine
+without CUDA are refused; ``remat`` trains to the plain run's weights. The
+sampled latents are held to a DDIM run of the same UNet, noise and context
+outside the CLI."""
 
 import json
 from pathlib import Path
@@ -169,10 +170,47 @@ def test_vae_orbax_directory_is_refused(ws):
         _train(ws / "ldm_orbax_vae.json", ws)
 
 
-def test_remat_is_refused(ws):
-    with pytest.raises(NotImplementedError, match="remat"):
-        train_main(["-c", str(_ldm_config(ws, "ldm_remat")), "--input-dir", str(ws / "imgs"),
-                    "--device", "cpu", "--remat"])
+def test_remat_trains_to_the_same_checkpoint(ws, trained):
+    """``train_diffusion --remat`` checkpoints the UNet's blocks; on the CPU
+    its gradients are the same bits, so the run ends on the same weights as
+    the plain run of the same config and seed."""
+    _, plain = trained
+    cfg = _ldm_config(ws, "ldm_remat")
+    result = train_main(["-c", str(cfg), "--input-dir", str(ws / "imgs"), "--device", "cpu",
+                         "--num-workers", "1", "--seed", "3", "--remat"])
+    assert result["total_step"] == plain["total_step"]
+    got, want = load_diffusion_checkpoint(result["checkpoint"]), load_diffusion_checkpoint(
+        plain["checkpoint"])
+    for ours, theirs in zip(got, want):
+        assert set(ours) == set(theirs)
+        for key, value in theirs.items():
+            assert torch.equal(ours[key], value), key
+
+
+@pytest.mark.parametrize("placement", ["top_level", "diffusion_def"])
+def test_remat_key_reaches_the_unet_of_both_clis(ws, trained, placement):
+    """The top-level ``remat`` key (or, as in the JAX CLIs, the
+    ``diffusion_def`` one) builds a checkpointed UNet, and ``sample_diffusion``
+    samples with it as without."""
+    cfg_path, result = trained
+    cfg = json.loads(cfg_path.read_text())
+    if placement == "top_level":
+        cfg["remat"] = True
+    else:
+        cfg["diffusion_def"]["remat"] = True
+    path = ws / f"ldm_remat_{placement}.json"
+    path.write_text(json.dumps(cfg))
+    assert load_ldm_models(load_config(str(path)), device=torch.device("cpu")).unet.remat
+    outs = []
+    for name, config in (("plain", cfg_path), (placement, path)):
+        sample_main(["-c", str(config), "--checkpoint", result["checkpoint"], "--output-dir",
+                     str(ws / f"samples_{name}_{placement}"), "--condition-dir", str(ws / "imgs"),
+                     "--num-images", "2", "--device", "cpu", "--num-workers", "1", "--seed", "5"])
+        outs.append([read_image(str(p)) for p in
+                     sorted((ws / f"samples_{name}_{placement}").glob("*.tif"))])
+    assert len(outs[0]) == 2
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("cli", ["train", "sample"])

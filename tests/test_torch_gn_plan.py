@@ -67,7 +67,12 @@ KL1E3_GROUPS = 32
 # batch 1: the kl1e3 shapes, and the flagship's, which PTI's decoder fine-tune runs at
 B1_SHAPES = ([((1, *s[1:]), KL1E3_GROUPS) for s in KL1E3_SHAPES]
              + [((1, *s[1:]), 16) for s in PATH_SHAPES])
-ALL = ([(s, 16, d, bwd) for s in PATH_SHAPES for d in DTYPES for bwd in (False, True)]
+# the space-to-depth forms' level-0 shapes (s2d_stem, 16 groups): 8x128²x128 (the 32-channel
+# level, 8 channels per group) is a flagship path shape already; 8x128²x256 (the decoder's
+# 64-channel upsample entering the domain, 16 channels per group) is theirs alone
+S2D_SHAPES = [(8, 128, 128, 256)]
+ALL = ([(s, 16, d, bwd) for s in PATH_SHAPES + S2D_SHAPES for d in DTYPES
+        for bwd in (False, True)]
        + [(s, g, d, False) for s, g in OTHER_SHAPES for d in DTYPES]
        + [(s, UNET_GROUPS, d, bwd) for s in UNET_SHAPES for d in DTYPES for bwd in (False, True)]
        + [(s, KL1E3_GROUPS, d, bwd) for s in KL1E3_SHAPES for d in DTYPES

@@ -58,6 +58,10 @@ KL1E3_SHAPES = [
     (8, 128, 128, 64, 128), (8, 64, 64, 128, 256), (8, 64, 64, 256, 10), (8, 64, 64, 10, 256),
     (8, 256, 256, 1, 64), (8, 256, 256, 64, 1),
 ]
+# (B, H, W, Cin, Cout) of the flagship's space-to-depth forms (s2d_stem) that no standard
+# pass has: the encoder's conv_in 1 -> 32 as 4 -> 128 and the decoder's conv_out 32 -> 1 as
+# 128 -> 4, at 128² (its 128 -> 128, 256 -> 256 and 256 -> 128 are above)
+S2D_SHAPES = [(8, 128, 128, 4, 128), (8, 128, 128, 128, 4)]
 RAGGED_THIN = (1, 20, 12, 3, 5)
 RAGGED_WGMMA = (2, 37, 70, 24, 40)
 N_SM = 132  # an H100
@@ -73,7 +77,8 @@ def _id(shape):
     return "x".join(map(str, shape))
 
 
-@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_THIN, RAGGED_WGMMA], ids=_id)
+@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_THIN, RAGGED_WGMMA] + S2D_SHAPES,
+                         ids=_id)
 def test_conv_forward_kernel_rule(shape):
     cin, cout = shape[3], shape[4]
     # f32 never leaves the FMA kernel, as forward or as input gradient
@@ -132,7 +137,8 @@ def _tile_rule_holds(shape):
     assert smem <= SMEM_MAX and (228 * 1024) // (smem + 1024) >= 1  # one block resident at least
 
 
-@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_WGMMA, RAGGED_THIN], ids=_id)
+@pytest.mark.parametrize("shape", PATH_SHAPES + KL1E3_SHAPES + [RAGGED_WGMMA, RAGGED_THIN] + S2D_SHAPES,
+                         ids=_id)
 def test_wgmma_tile_covers_the_shape_and_spreads_over_the_card(shape):
     _tile_rule_holds(shape)
     _tile_rule_holds((*shape[:3], shape[4], shape[3]))  # the input gradient's

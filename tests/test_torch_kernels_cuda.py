@@ -707,3 +707,107 @@ def test_diffusion_unet_on_the_card_matches_the_cpu(cuda):
     counts = launch_counts()
     assert (counts["groupnorm_silu"], counts["flash_attention"]) == (17, 4)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# the space-to-depth forms' new kernel shapes at the flagship's b8 (s2d_stem, 16 groups):
+# GroupNorm+SiLU on 128² with 128 and 256 channels (8 and 16 per group); the convolution's
+# 4 -> 128 (conv_in, Cin padded to 8), 128 -> 4 (conv_out) and 256 -> 256 (the upsample)
+S2D_GN_SHAPES = [(8, 128, 128, 128), (8, 128, 128, 256)]
+S2D_CONV_SHAPES = [(8, 128, 128, 4, 128), (8, 128, 128, 128, 4), (2, 128, 128, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_s2d_shapes(cuda, dtype):
+    """GroupNorm+SiLU and the convolution, forward and backward, at the shapes
+    the s2d forms give them: within the bars, bf16 on the tensor cores."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for shape in S2D_GN_SHAPES:
+        b, h, w, c = shape
+        x = torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+        scale = (1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        y = groupnorm_silu(x, scale, bias, 16, 1e-6)
+        got = torch.autograd.grad(y, (x, scale, bias), g)
+        xf = x.detach().float()
+        want_y, mean_g, inv_g = _plain_forward(xf, scale.detach(), bias.detach(), 16, 1e-6)
+        want = groupnorm_silu_bwd_plain(xf, scale.detach(), bias.detach(), mean_g, inv_g,
+                                        g.float(), 16)
+        torch.testing.assert_close(y.detach().float(), want_y, **_tol(dtype))
+        torch.testing.assert_close(got[0].float(), want[0], **_tol(dtype))
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)
+        torch.testing.assert_close(got[1], want[1], **sum_tol)
+        torch.testing.assert_close(got[2], want[2], **sum_tol)
+        del x, g, y, got, want
+    for shape in S2D_CONV_SHAPES:
+        b, h, w, cin, cout = shape
+        x, wmat = _conv_inputs(shape, dtype, cuda, gen)
+        x.requires_grad_()
+        wmat.requires_grad_()
+        # dx from an upstream gradient scaled to give it size ~1; dW from a unit-size one, since
+        # its bar counts terms x*g of size ~1 (at Cin 128 -> Cout 4 the scaling would make them ~6)
+        g_unit = torch.randn(b, h, w, cout, device=cuda, generator=gen)
+        g = (g_unit * (cin / cout) ** 0.5).to(dtype)
+        reset_launch_counts()
+        y = conv3x3(x, wmat)
+        dx, _ = torch.autograd.grad(y, (x, wmat), g, retain_graph=True)
+        assert _conv_counts() == _conv_launches(dtype, cin, cout), shape
+        (dw,) = torch.autograd.grad(y, wmat, g_unit.to(dtype))
+        wd = wmat.detach().to(dtype).float()
+        torch.testing.assert_close(y.detach().float(), conv3x3_plain(x.detach().float(), wd),
+                                   **_tol(dtype), msg=lambda m: f"{shape}: {m}")
+        want_dx = conv3x3_bwd_plain(x.detach().float(), wd, g.float())[0]
+        want_dw = conv3x3_bwd_plain(x.detach().float(), wd, g_unit.to(dtype).float())[1]
+        torch.testing.assert_close(dx.float(), want_dx, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
+        torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5,
+                                   msg=lambda m: f"{shape}: {m}")
+        del x, wmat, g, g_unit, y, dx, dw
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_s2d_and_remat_forms_on_the_card(cuda):
+    """A small VAE (channels [32, 64], 16 groups) at 64² with the convolution
+    kernels: in f32 every s2d form reconstructs as the standard form does
+    (1e-4 of the largest entry); in bf16 the s2d train step's gradients with
+    ``remat`` are the bits of the step without it, and no convolution goes to
+    the FMA kernel."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+
+    arch = dict(spatial_dims=2, in_channels=1, out_channels=1, latent_channels=4,
+                channels=[32, 64], num_res_blocks=1, norm_num_groups=16, norm_eps=1e-6,
+                attention_levels=[False, False], with_encoder_nonlocal_attn=True,
+                with_decoder_nonlocal_attn=True)
+    torch.manual_seed(0)
+    state = autoencoder_from_config(arch).state_dict()
+    x = torch.randn(2, 64, 64, 1, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def build(dtype, **knobs):
+        model = autoencoder_from_config(arch, compute_dtype=dtype, conv_kernel=True, **knobs)
+        model.load_state_dict(state, strict=True)
+        return model.to(device=cuda, memory_format=torch.channels_last)
+
+    with torch.no_grad():
+        want = build(torch.float32).reconstruct_deterministic(x)
+        for form in (True, "encoder", "decoder"):
+            got = build(torch.float32, s2d_stem=form).reconstruct_deterministic(x)
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), form
+
+    def grads(model):
+        out = model.reconstruct_deterministic(x)
+        out.square().mean().backward()
+        return [p.grad.clone() for p in model.parameters() if p.grad is not None]
+
+    # the 1x1 shortcuts and the downsample stay on cuDNN, whose filter gradients may sum in
+    # another order run to run unless asked not to
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launch_counts()
+        plain = grads(build(torch.bfloat16, s2d_stem=True))
+        remat = grads(build(torch.bfloat16, s2d_stem=True, remat=True))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert len(plain) == len(remat) and all(torch.equal(a, b) for a, b in zip(plain, remat))
+    assert conv3x3.fma_launches == 0 and launch_counts()["conv3x3"] > 0

@@ -171,12 +171,175 @@ def test_two_pass_norm_stats_parity():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(s2d_stem=True), dict(s2d_stem="encoder"), dict(s2d_stem="decoder"),
-])
-def test_unported_s2d_forms_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        autoencoder_from_config(TOY, **kwargs)
+# --- the apply-time knobs: s2d_stem and remat, each held to the JAX package's same form ---
+
+S2D_FORMS = [True, "encoder", "decoder"]
+
+
+def _port_form(port, **knobs):
+    """A port model in another form, loaded strict from ``port``'s state dict."""
+    model = autoencoder_from_config(TOY, **knobs)
+    model.load_state_dict(port.state_dict(), strict=True)
+    return model.eval()
+
+
+def _jax_outputs_and_grads(cfg, variables, x, r, **knobs):
+    """JAX reconstruct_deterministic in the form ``knobs`` and the gradients of
+    ``sum(recon * r)`` in the input and the parameters (MONAI-keyed)."""
+    jax_model = jax_from_config(cfg, use_pallas_attention=False, **knobs)
+
+    def loss(v, xx):
+        out = jax_model.apply(v, xx, method=jax_model.reconstruct_deterministic)
+        return jnp.sum(out * r), out
+
+    with jax.default_matmul_precision("highest"):
+        (_, out), (g_vars, g_x) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+            variables, jnp.asarray(x))
+    g_vars = jax.tree_util.tree_map(np.asarray, g_vars)
+    return np.asarray(out), np.asarray(g_x), state_dict_from_flax(g_vars, cfg)
+
+
+def _port_outputs_and_grads(model, x, r):
+    xx = torch.from_numpy(x).requires_grad_()
+    out = model.reconstruct_deterministic(xx)
+    (out * torch.from_numpy(r)).sum().backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out.detach(), xx.grad, grads
+
+
+def _assert_same(got, want, tol=TOL):
+    """Outputs at ``tol``; each gradient tensor at ``tol`` with its atol in
+    units of the larger of 1 and the tensor's largest entry (the gradients of
+    ``sum(recon * r)`` reach ~20, where f32 sums in another order differ by
+    ~1e-6 of that; the attention's ``to_k.bias`` gradients are 0 in exact
+    arithmetic and hold ~1e-7 of rounding on both sides)."""
+    out_g, gx_g, grads_g = got
+    out_w, gx_w, grads_w = want
+    np.testing.assert_allclose(np.asarray(out_g), np.asarray(out_w), **tol)
+    assert set(grads_g) == set(grads_w)
+    for key, (g, w) in {"x": (gx_g, gx_w), **{k: (grads_g[k], v) for k, v in grads_w.items()}}.items():
+        g, w = np.asarray(g), np.asarray(w)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=tol["rtol"], atol=tol["atol"] * scale, err_msg=key)
+
+
+def _knob_inputs(seed):
+    rng = np.random.default_rng(seed)
+    return _nhwc(rng, (2, 32, 32, 1)), _nhwc(rng, (2, 32, 32, 1))
+
+
+@pytest.mark.parametrize("form", S2D_FORMS, ids=["s2d_true", "s2d_encoder", "s2d_decoder"])
+def test_s2d_form_matches_jax(toy, form):
+    """Each s2d form: outputs, input gradient and every parameter gradient
+    against the JAX model in the same form on the same weights."""
+    _, variables, port = toy
+    x, r = _knob_inputs(20)
+    want = _jax_outputs_and_grads(TOY, variables, x, r, s2d_stem=form)
+    _assert_same(_port_outputs_and_grads(_port_form(port, s2d_stem=form), x, r), want)
+
+
+@pytest.mark.parametrize("form", S2D_FORMS, ids=["s2d_true", "s2d_encoder", "s2d_decoder"])
+def test_s2d_form_matches_the_standard_form(toy, form):
+    """Each s2d form against the port's own standard form: the same math on
+    another schedule, so the same outputs and gradients."""
+    _, _, port = toy
+    x, r = _knob_inputs(21)
+    want = _port_outputs_and_grads(port, x, r)
+    _assert_same(_port_outputs_and_grads(_port_form(port, s2d_stem=form), x, r), want)
+
+
+def test_remat_matches_jax(toy):
+    _, variables, port = toy
+    x, r = _knob_inputs(22)
+    want = _jax_outputs_and_grads(TOY, variables, x, r, remat=True)
+    _assert_same(_port_outputs_and_grads(_port_form(port, remat=True), x, r), want)
+
+
+@pytest.mark.parametrize("s2d_stem", [False, True], ids=["standard", "s2d_true"])
+def test_remat_gradients_are_bit_equal(toy, s2d_stem):
+    """Recomputing a block's forward in the backward gives the same bits on
+    the CPU: remat changes what is kept, not what is computed."""
+    _, _, port = toy
+    x, r = _knob_inputs(23)
+    want = _port_outputs_and_grads(_port_form(port, s2d_stem=s2d_stem), x, r)
+    got = _port_outputs_and_grads(_port_form(port, s2d_stem=s2d_stem, remat=True), x, r)
+    _assert_same(got, want, dict(rtol=0, atol=0))
+
+
+def test_remat_is_inert_without_a_gradient(toy, monkeypatch):
+    """Under ``inference_mode`` no block is checkpointed."""
+    import pti_ldm_vae_tpu_torch.models.autoencoder_kl as ae_mod
+
+    _, _, port = toy
+    model = _port_form(port, remat=True)
+    calls = []
+    monkeypatch.setattr(ae_mod, "checkpoint", lambda *a, **k: calls.append(1))
+    x = torch.from_numpy(_knob_inputs(24)[0])
+    with torch.inference_mode():
+        model.reconstruct_deterministic(x)
+    assert calls == []
+
+
+@pytest.mark.parametrize("knobs", [dict(s2d_stem=True), dict(s2d_stem="encoder"),
+                                   dict(s2d_stem="decoder"), dict(remat=True),
+                                   dict(s2d_stem=True, remat=True), dict(s2d_stem="auto")],
+                         ids=["s2d_true", "s2d_encoder", "s2d_decoder", "remat", "both", "auto"])
+def test_one_state_dict_loads_strict_into_every_form(toy, knobs):
+    _, variables, port = toy
+    model = autoencoder_from_config(TOY, **knobs)
+    assert list(model.state_dict()) == list(port.state_dict())
+    model.load_state_dict(state_dict_from_flax(variables, TOY), strict=True)
+    for key, value in model.state_dict().items():
+        assert value.shape == port.state_dict()[key].shape
+
+
+@pytest.mark.parametrize("cfg,x_shape,match", [
+    (dict(TOY, attention_levels=[True, False]), (1, 32, 32, 1), "level-0 attention"),
+    (dict(TOY, channels=[8], attention_levels=[False]), (1, 32, 32, 1), ">= 2 levels"),
+    (dict(TOY, attention_levels=[False, False]), (1, 33, 32, 1), "even H, W"),
+], ids=["level0_attention", "one_level", "odd_height"])
+def test_s2d_eligibility_errors_match_jax(cfg, x_shape, match):
+    """An explicit form on an ineligible model or input raises the JAX
+    package's ValueError, word for word; "auto" takes the standard path."""
+    jax_model = jax_from_config(cfg, use_pallas_attention=False, s2d_stem=True)
+    x = np.zeros(x_shape, np.float32)
+    with pytest.raises(ValueError) as jax_err:
+        jax_model.init(jax.random.key(0), jnp.asarray(x), jax.random.key(1))
+    model = autoencoder_from_config(cfg, s2d_stem=True)
+    with pytest.raises(ValueError) as port_err, torch.inference_mode():
+        model(torch.from_numpy(x), eps=torch.zeros(1))
+    assert str(port_err.value) == str(jax_err.value) and match in str(port_err.value)
+    auto = autoencoder_from_config(cfg, s2d_stem="auto")
+    with torch.inference_mode():
+        auto.reconstruct_deterministic(torch.from_numpy(x))
+
+
+def test_auto_gates_each_side_on_the_batch(toy, monkeypatch):
+    """``"auto"`` takes each side's s2d form at batches within its inference
+    threshold (the JAX package's v5e ones set here; the port's H100 ones are
+    0): at b2 both sides, at b4 the encoder alone, then neither."""
+    from pti_ldm_vae_tpu_torch.ops import space_to_depth as s2d_policy
+
+    _, _, port = toy
+    monkeypatch.setattr(s2d_policy, "S2D_AUTO_INFER_ENCODER_MAX_BATCH", 4)
+    monkeypatch.setattr(s2d_policy, "S2D_AUTO_INFER_DECODER_MAX_BATCH", 2)
+    auto = _port_form(port, s2d_stem="auto")
+    for batch, enc, dec in ((2, True, True), (4, True, False), (6, False, False)):
+        x = torch.zeros(batch, 32, 32, 1)
+        assert (auto.encoder._use_s2d(x), auto.decoder._use_s2d(torch.zeros(batch, 16, 16, 3))) == (
+            enc, dec)
+    x = torch.from_numpy(_nhwc(np.random.default_rng(25), (2, 32, 32, 1)))
+    with torch.inference_mode():
+        torch.testing.assert_close(auto.reconstruct_deterministic(x),
+                                   _port_form(port, s2d_stem=True).reconstruct_deterministic(x),
+                                   rtol=0, atol=0)
+
+
+def test_s2d_on_other_spatial_dims_is_a_value_error():
+    with pytest.raises(ValueError, match="s2d_stem requires spatial_dims == 2"):
+        autoencoder_from_config(dict(TOY, spatial_dims=3), s2d_stem="encoder")
 
 
 @pytest.mark.parametrize("spatial_dims", [1, 3])

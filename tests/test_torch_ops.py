@@ -146,6 +146,50 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty(1, 1, 16, 16, device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError):  # no two-pass kernel off the CPU
-        group_norm_silu(x, torch.ones(8), torch.zeros(8), num_groups=2, stats="two_pass")
+    # two-pass statistics are plain tensor code on every device: no kernel to refuse them
+    before = group_norm_silu.two_pass_calls
+    y = group_norm_silu(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"),
+                        num_groups=2, stats="two_pass")
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert group_norm_silu.two_pass_calls == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_group_norm_silu_takes_the_counted_plain_route(dtype):
+    """``"two_pass"`` runs the plain formulation, counted apart from the
+    kernels, on a meta (non-CPU) tensor as on the CPU; ``"one_pass"`` never
+    takes it, and no launch is counted for either on the CPU."""
+    x, scale, bias = _t(*_arrays(11, (2, 4, 4, 8), (8,), (8,)))
+    reset_launch_counts()
+    start = group_norm_silu.two_pass_calls
+    group_norm_silu(x.to(dtype), scale, bias, num_groups=2, stats="one_pass")
+    assert group_norm_silu.two_pass_calls == start
+    for device in ("cpu", "meta"):
+        out = group_norm_silu(x.to(device, dtype), scale.to(device), bias.to(device),
+                              num_groups=2, stats="two_pass")
+        assert out.dtype == dtype and out.shape == x.shape
+    assert group_norm_silu.two_pass_calls == start + 2
+    assert groupnorm_silu.launches == 0 and groupnorm_silu.bwd_launches == 0
+
+
+def test_two_pass_gradients_match_jax():
+    """The JAX package's ``two_pass`` GroupNorm+SiLU and the port's: outputs and
+    the gradients in x, scale and bias, on inputs whose mean dominates their
+    spread (where one-pass statistics would lose digits)."""
+    import jax
+
+    x, scale, bias, g = _arrays(12, (2, 8, 8, 16), (16,), (16,), (2, 8, 8, 16))
+    x = 3.0 + 0.05 * x
+
+    def jax_loss(xx, ss, bb):
+        return jnp.sum(jax_group_norm_silu(xx, ss, bb, num_groups=4, stats="two_pass") * g)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, scale, bias)))
+    leaves = [t.requires_grad_() for t in _t(x, scale, bias)]
+    out = group_norm_silu(*leaves, num_groups=4, stats="two_pass")
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
+    for name, ours, theirs in zip(("dx", "dscale", "dbias"), got, want):
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(np.abs(theirs).max())), err_msg=name)
 

@@ -237,3 +237,29 @@ def test_toy_autoencoder_batched_equals_sequential(toy):
             np.testing.assert_allclose(tuned[key][i].numpy(), value.numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=key)
     assert set(tuned) == set(decoder_parameters(model))
+
+
+def test_toy_autoencoder_remat_pti_is_bit_equal(toy):
+    """PTI differentiates the decoder of a ``remat`` model (the VAE loader
+    keeps the key): the blocks are recomputed in each backward under the
+    in-place parameter swap of stage 2, and the pivots, losses and tuned
+    tensors are the plain model's bits on the CPU."""
+    model = toy["model"]
+    remat = autoencoder_from_config(TOY, remat=True)
+    remat.load_state_dict(model.state_dict(), strict=True)
+    targets, z_init = torch.from_numpy(toy["targets"]), torch.from_numpy(toy["z_init"])
+    want = pivotal_tuning_inversion_batched(model, targets, z_init, **HYPER)
+    got = pivotal_tuning_inversion_batched(remat, targets, z_init, **HYPER)
+    assert torch.equal(got[0], want[0])
+    for key in ("latent", "tune"):
+        assert torch.equal(got[2][key], want[2][key]), key
+    for key, value in want[1].items():
+        assert torch.equal(got[1][key], value), key
+    tuned = {k: v[0] for k, v in want[1].items()}
+    pivot = want[0][:1].clone().requires_grad_()
+    grads = []
+    for m in (model, remat):
+        with swapped_decoder(m, tuned):
+            grads.append(torch.autograd.grad(m.decode(pivot).square().sum(), pivot)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert all(torch.equal(v, model.state_dict()[k]) for k, v in remat.state_dict().items())

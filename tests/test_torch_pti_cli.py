@@ -139,3 +139,19 @@ def test_vmap_and_missing_cuda_are_refused(workspace, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(_args(workspace, tmp_path / "cuda", 1))
+
+
+def test_remat_config_gives_the_plain_runs_outputs(workspace, sequential, tmp_path):
+    """A config with ``"remat": true`` reaches PTI's decoder (``load_vae_model``
+    keeps it): the outputs are the plain run's bits on the CPU."""
+    cfg = json.loads((workspace / "config.json").read_text())
+    cfg["remat"] = True
+    (tmp_path / "remat.json").write_text(json.dumps(cfg))
+    args = _args(workspace, tmp_path / "out", 1, "--device", "cpu")
+    args[args.index("-c") + 1] = str(tmp_path / "remat.json")
+    main(args)
+    got, want = _outputs(tmp_path / "out", NAMES), _outputs(sequential, NAMES)
+    for name in NAMES:
+        for key, value in want[name][0].items():
+            np.testing.assert_array_equal(got[name][0][key], value, err_msg=f"{name} {key}")
+        np.testing.assert_array_equal(got[name][1], want[name][1])

@@ -184,10 +184,7 @@ _NO_MAPPING = "attribute_latent_mapping must be provided"
     (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), ValueError, _NO_MAPPING),
     (lambda c: c.update(regularized_attributes={"enabled": True}), ValueError, _NO_MAPPING),
     (lambda c: c.update(parallelism={"spatial": 2}), NotImplementedError, "parallelism"),
-    (lambda c: c.update(remat=True), NotImplementedError, "remat"),
-    (lambda c: c.update(s2d_stem="encoder"), NotImplementedError, "s2d_stem"),
-    (lambda c: c.update(s2d_stem=True), NotImplementedError, "s2d_stem"),
-], ids=["adv", "ar_train", "ar_block", "parallelism", "remat", "s2d_encoder", "s2d_true"])
+], ids=["adv", "ar_train", "ar_block", "parallelism"])
 def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     root, _ = workspace
     cfg = resolve_refs(_config(root))
@@ -198,8 +195,7 @@ def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     assert not (tmp_path / "run").exists()  # refused before anything is written
 
 
-@pytest.mark.parametrize("flags", [["--profile-port", "9999"], ["--s2d-stem", "encoder"],
-                                    ["--remat"], ["--s2d-stem"], ["--s2d-stem", "decoder"]])
+@pytest.mark.parametrize("flags", [["--profile-port", "9999"]])
 def test_unported_flags_fail_loudly(workspace, tmp_path, flags):
     root, _ = workspace
     cfg = _config(root)
@@ -208,6 +204,82 @@ def test_unported_flags_fail_loudly(workspace, tmp_path, flags):
     path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["-c", str(path), "--device", "cpu", "--no-wandb", *flags])
+
+
+def _knobs(model):
+    return {"remat": (model.encoder.remat, model.decoder.remat),
+            "s2d_stem": (model.encoder.s2d_stem, model.decoder.s2d_stem),
+            "norm_stats": model.encoder.blocks[-2].norm_stats}
+
+
+# the apply-time knobs: config key -> (encoder, decoder) forms the trainer builds
+_KNOB_CONFIGS = [
+    ({"remat": True}, {"remat": (True, True), "s2d_stem": (False, False)}),
+    ({"s2d_stem": "encoder"}, {"remat": (False, False), "s2d_stem": (True, False)}),
+    ({"s2d_stem": True}, {"s2d_stem": (True, True)}),
+    ({"s2d_stem": "decoder"}, {"s2d_stem": (False, True)}),
+    ({"s2d_stem": "auto"}, {"s2d_stem": (False, False)}),  # the H100 train profile at b4
+    ({"s2d_stem": "false"}, {"s2d_stem": (False, False)}),
+    ({"norm_stats": "two_pass"}, {"norm_stats": "two_pass"}),
+]
+
+
+@pytest.mark.parametrize("keys,want", _KNOB_CONFIGS,
+                         ids=["remat", "s2d_encoder", "s2d_true", "s2d_decoder", "s2d_auto",
+                              "s2d_false_string", "two_pass"])
+def test_knob_config_keys_reach_the_model(workspace, tmp_path, keys, want):
+    """The JAX trainer's resolution of the top-level knobs (``loop.py``):
+    "auto" from the train profile on the batch, strings and booleans as
+    ``resolve_bool`` reads them."""
+    root, _ = workspace
+    cfg = resolve_refs(_config(root))
+    cfg["run_dir"] = str(tmp_path / "run")
+    cfg.update(keys)
+    got = _knobs(VAETrainer(cfg, device="cpu", use_wandb=False).model)
+    assert {k: got[k] for k in want} == want
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--s2d-stem", "encoder"], {"s2d_stem": (True, False)}),
+    (["--remat"], {"remat": (True, True)}),
+    (["--s2d-stem"], {"s2d_stem": (True, True)}),
+    (["--s2d-stem", "decoder"], {"s2d_stem": (False, True)}),
+    (["--norm-stats", "two_pass"], {"norm_stats": "two_pass"}),
+], ids=["s2d_encoder", "remat", "s2d_bare", "s2d_decoder", "two_pass"])
+def test_knob_flags_reach_the_model(workspace, tmp_path, monkeypatch, flags, want):
+    root, _ = workspace
+    cfg = _config(root)
+    cfg["run_dir"] = str(tmp_path / "run")
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    monkeypatch.setattr(VAETrainer, "train", lambda self: _knobs(self.model))
+    got = main(["-c", str(path), "--device", "cpu", "--no-wandb", *flags])
+    assert {k: got[k] for k in want} == want
+
+
+def test_remat_s2d_encoder_step_writes_a_standard_checkpoint(workspace, tmp_path):
+    """One train step with ``--remat --s2d-stem encoder``: finite losses, and
+    its checkpoint loads ``strict=True`` into a standard-form model, which
+    reconstructs as the trained form does."""
+    root, _ = workspace
+    cfg = _config(root, max_epochs=1)
+    cfg["run_dir"] = str(tmp_path / "run")
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    result = main(["-c", str(path), "--device", "cpu", "--no-wandb", "--num-workers", "1",
+                   "--subset-size", "4", "--remat", "--s2d-stem", "encoder"])
+    assert result["total_step"] == 1 and np.isfinite(result["best_val_loss"])
+    sd = torch.load(tmp_path / "run" / "trained_weights" / "autoencoder_last.pth",
+                    weights_only=True)
+    arch = resolve_refs(_config(root))["autoencoder_def"]
+    standard = autoencoder_from_config(arch)
+    standard.load_state_dict(sd, strict=True)
+    trained_form = autoencoder_from_config(arch, s2d_stem="encoder", remat=True)
+    trained_form.load_state_dict(sd, strict=True)
+    x = torch.rand(2, 32, 32, 1, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        torch.testing.assert_close(trained_form.reconstruct_deterministic(x),
+                                   standard.reconstruct_deterministic(x), rtol=1e-4, atol=1e-5)
 
 
 def test_every_reference_flag_parses():

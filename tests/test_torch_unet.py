@@ -288,10 +288,70 @@ def test_bf16_compute_runs_and_returns_f32(toy):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        DiffusionUNet(**{k: v for k, v in TOY.items()}, remat=True)
     with pytest.raises(NotImplementedError, match="spatial_dims"):
         diffusion_unet_from_config({**TOY, "spatial_dims": 3})
+
+
+def _port_grads(model, x, t, ctx, r):
+    xx = torch.from_numpy(x).requires_grad_()
+    out = model(xx, *_torch(t, ctx))
+    (out * torch.from_numpy(r)).sum().backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {"out": out.detach(), "x": xx.grad, **grads}
+
+
+def test_remat_unet_matches_jax(toy):
+    """``remat=True`` on both sides: outputs, the input gradient and every
+    parameter gradient (atol in units of the larger of 1 and each tensor's
+    largest entry)."""
+    jm, variables, model, (x, t, ctx) = toy
+    r = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    jm_remat = jax_unet.diffusion_unet_from_config(TOY, remat=True)
+
+    def loss(v, xx):
+        out = jm_remat.apply(v, xx, jnp.asarray(t), jnp.asarray(ctx))
+        return jnp.sum(out * r), out
+
+    with jax.default_matmul_precision("highest"):
+        (_, out), (g_vars, g_x) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+            variables, jnp.asarray(x))
+    want = {"out": np.asarray(out), "x": np.asarray(g_x),
+            **unet_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, g_vars), TOY)}
+    remat = diffusion_unet_from_config(TOY, remat=True)
+    remat.load_state_dict(model.state_dict(), strict=True)
+    got = _port_grads(remat, x, t, ctx, r)
+    assert set(got) == set(want)
+    for key, theirs in want.items():
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(got[key].numpy(), theirs, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(np.abs(theirs).max())), err_msg=key)
+
+
+def test_remat_unet_gradients_are_bit_equal(toy, monkeypatch):
+    """The checkpointed UNet gives the non-checkpointed one's bits on the CPU,
+    its TimeResBlocks and SpatialTransformers recomputed in the backward."""
+    import pti_ldm_vae_tpu_torch.models.unet as unet_mod
+
+    _, _, model, (x, t, ctx) = toy
+    r = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+    want = _port_grads(model, x, t, ctx, r)
+    remat = diffusion_unet_from_config(TOY, remat=True)
+    remat.load_state_dict(model.state_dict(), strict=True)
+    wrapped = []
+    real = unet_mod.checkpoint
+    monkeypatch.setattr(unet_mod, "checkpoint",
+                        lambda block, *a, **k: wrapped.append(type(block).__name__) or real(block, *a, **k))
+    got = _port_grads(remat, x, t, ctx, r)
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+    n_res = sum(len(b.resnets) for b in model.down_blocks) + sum(len(b.resnets) for b in model.up_blocks) + 2
+    n_attn = sum(len(b.attentions or []) for b in (*model.down_blocks, *model.up_blocks)) + 1
+    assert wrapped.count("TimeResBlock") == n_res and wrapped.count("SpatialTransformer") == n_attn
+    with torch.no_grad():
+        wrapped.clear()
+        remat(*_torch(x, t, ctx))
+    assert wrapped == []
 
 
 @pytest.mark.slow
