@@ -260,6 +260,31 @@ result line):
    (bf16), event ms, device ms and ``torch.cuda.max_memory_allocated`` GB;
    ``two_pass_b8``: the generator step with two-pass against one-pass
    statistics (bf16, f32);
+7b. data parallelism (phase ``ddp_path``, in two processes of their own,
+   ``chip_smoke.py --ddp-child SPEC RANK``, started together and waited for:
+   ``ddp_child``): (a) rank 0 runs ``train_vae`` bf16 ``--conv-kernel`` on
+   the flagship at 256², b8, one epoch of 2 steps, with no group and then
+   with the torchrun environment of one rank (``RANK=0 WORLD_SIZE=1
+   LOCAL_RANK=0``), from which the CLI starts a one-rank NCCL group: the
+   parameters, the logged losses and every kernel's launch count must be
+   the same bits; the step's CUDA-event ms with no group, in the group and
+   with no group again, and the flagship's gradient all-reduce (4.56 M
+   parameters, one flat f32 buffer) under NCCL;
+   (b) then both processes start a gloo group of two on the one card and
+   call the CLIs' ``main`` with ``--device cuda:0``: ``train_vae`` f32 at
+   ``--batch-size 4`` on 10 TIFs (one global step of 8, 2 validation
+   images) against one process at b8 with twice the LR (losses within 1e-4
+   relative; parameter changes within 2 lr, and within 2e-3 of their
+   tensor's largest change on 99% of all entries: an Adam step is about
+   ``lr x sign(g)``, and an entry whose gradient is rounding takes either
+   sign), one f32 flagship step
+   (``make_train_step``) at b4 a rank against b8 in one process (loss terms
+   within 1e-4 relative, every gradient tensor within 2e-3 of its largest
+   entry), ``sample_diffusion`` (8 images, 5 DDIM steps, f32) and ``run_pti``
+   (4 images at b2, f32), whose files together must be the one-process files
+   within 1e-4 of their largest entry; rank 0's launches those of the one
+   process; a gloo step's ms (correctness only: gloo stages CUDA tensors
+   through the host);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites, and the wide-head flash kernels as two more entries, launched on
    the kl1e3 path; launches by path, the diffusion CLIs' included, and the four
@@ -273,7 +298,8 @@ result line):
    before this route, and the FMA and zero-padded launches of the
    convolution-kernel paths, the kl1e3 step's FMA ones 0; the sums over one
    pass or train step with ``s2d_stem`` true under ``s2d``; the launches of
-   the knobs' CLI runs), the card line, and
+   the knobs' CLI runs and of the data-parallel runs, each rank's), the card
+   line, and
    the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -283,7 +309,9 @@ from __future__ import annotations
 import copy
 import json
 import re
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -447,6 +475,25 @@ S2D_FORMS = (False, "encoder", "decoder", True)
 KNOB_TRAIN_SUBSET = 18  # 16 train images (2 steps of 8) and 2 validation images (1 step)
 KNOB_LDM_EPOCHS = 1
 KNOB_ITERS = 4  # calls of each knob A/B timed by CUDA events
+# data parallelism (ddp_path): the flagship config at 256², 16 train images (2 steps of a
+# global batch of 8) and 2 validation images; sampling 8 images over 5 DDIM steps, PTI on 4
+# images at b2 (steps cut from 200 / 100); the config's LR
+DDP_IMAGES = 18
+DDP_STEPS = 2
+# (b)'s train_vae: 8 train images (one step of a global batch of 8: after one Adam step an entry
+# has moved by about lr x sign(g), which a rounding difference does not amplify) and 2 validation
+DDP_B_IMAGES = 10
+DDP_B_SPLIT = 0.8
+DDP_LR = 2.5e-5
+DDP_DDIM_STEPS = 5
+DDP_PTI_IMAGES = 4
+DDP_PTI_STEPS = (5, 3)
+DDP_ITERS = 10  # train steps timed by CUDA events
+DDP_LOSS_BAR = 1e-4  # relative: 2 gloo ranks at b4 against one process at b8, f32
+DDP_PARAM_BAR = 2e-3  # of each parameter tensor's largest change (the train-step bar)
+DDP_PARAM_SHARE = 0.99  # of all parameter entries (see ddp_compare)
+DDP_FILE_BAR = 1e-4  # sampled images and PTI outputs, of their largest entry, f32
+DDP_TIMEOUT_S = 480
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -3660,6 +3707,395 @@ def loader_b8(torch, np, work: Path) -> dict:
                                         "event_ms": timing["event_ms"]}}
 
 
+def ddp_train(torch, kernels_mod, cfg_path: Path, extra: list[str], steps: int) -> dict:
+    """``cli.train_vae`` for one epoch (``steps`` global steps of 8) through its own
+    ``main``, which joins whatever process group is active or the torchrun
+    environment describes; launch counts, the logged losses and (rank 0) the
+    last checkpoint's parameters on the host."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+    from pti_ldm_vae_tpu_torch.parallel import process_rank
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--max-epochs", "1", "--no-wandb",
+                         "--num-workers", "4", "--seed", str(TRAIN_SEED), *extra])
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0, "launches": kernels_mod.launch_counts(),
+           "total_step": result["total_step"]}
+    if result["total_step"] != steps:
+        raise RuntimeError(f"ddp train_vae: {result['total_step']} steps, expected {steps}")
+    if process_rank() == 0:
+        run_dir = Path(json.loads(cfg_path.read_text())["run_dir"])
+        rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        out["losses"] = [{k: v for k, v in r.items() if k.startswith(("train/", "val/"))
+                          and k != "train/step"} for r in rows
+                         if "train/loss_total" in r or "val/loss_total" in r]
+        out["params"] = torch.load(run_dir / "trained_weights" / "autoencoder_last.pth",
+                                   map_location="cpu", weights_only=True)
+    return out
+
+
+def ddp_step_ms(torch, ae_def: dict, batch: int, dtype, conv_kernel: bool,
+                iters: int = DDP_ITERS) -> float:
+    """CUDA-event ms of one generator train step of the flagship at 256²
+    (``make_train_step``, so under a group with its all-reduces), ``iters``
+    calls after 2; every rank makes the same calls."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+
+    torch.manual_seed(3)
+    model = autoencoder_from_config(ae_def, compute_dtype=dtype, conv_kernel=conv_kernel).to(
+        device="cuda", memory_format=torch.channels_last)
+    state = create_train_state(model, lr=2.5e-5)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(batch, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    mask = torch.ones(batch, device="cuda")
+    step = make_train_step(model, None, LossConfig(), adv_active=False)
+    lp = init_lpips_params(0, "cuda")
+    for _ in range(2):
+        step(state, x, mask, None, lp, generator=gen)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        step(state, x, mask, None, lp, generator=gen)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ddp_allreduce_ms(torch, ae_def: dict, iters: int = 20) -> dict:
+    """The flagship generator's gradient all-reduce under the active group:
+    ``allreduce_gradients`` (flatten, one all-reduce, copy back) and the bare
+    ``all_reduce`` of its flat buffer, CUDA-event ms each."""
+    import torch.distributed as dist
+
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.parallel import allreduce_gradients
+
+    params = list(autoencoder_from_config(ae_def).to(
+        device="cuda", memory_format=torch.channels_last).parameters())
+    for p in params:
+        p.grad = torch.randn_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+
+    def timed(fn) -> float:
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    return {"parameters": flat.numel(), "mbytes": flat.numel() * 4 / 1e6,
+            "allreduce_gradients_ms": timed(lambda: allreduce_gradients(params)),
+            "all_reduce_ms": timed(lambda: dist.all_reduce(flat)),
+            "bound_ms": 2 * flat.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+
+
+def ddp_files(np, read_image, out: Path, pattern: str) -> dict:
+    """The images (``*.tif``) or PTI npz arrays of ``out``, by file name."""
+    files = {}
+    for path in sorted(out.glob(pattern)):
+        if path.suffix == ".npz":
+            files.update({f"{path.name}:{k}": v for k, v in np.load(path).items()})
+        else:
+            files[path.name] = read_image(str(path))
+    return files
+
+
+def ddp_generate(torch, kernels_mod, spec: dict, tag: str) -> dict:
+    """``sample_diffusion`` (8 images, ``DDP_DDIM_STEPS`` DDIM steps, f32) and
+    ``run_pti`` (``DDP_PTI_IMAGES`` at b2, f32) into ``spec["work"]/<tag>_*``;
+    each rank writes its rows. Launch counts and seconds of each."""
+    from pti_ldm_vae_tpu_torch.cli.run_pti import main as pti_main
+    from pti_ldm_vae_tpu_torch.cli.sample_diffusion import main as sample_main
+
+    work, out = Path(spec["work"]), {}
+    for name, run in (
+            ("sample_diffusion", lambda: sample_main([
+                "-c", spec["ldm_cfg"], "--checkpoint", spec["ldm_ckpt"],
+                "--output-dir", str(work / f"{tag}_samples"), "--num-images", str(BATCH),
+                "--condition-dir", spec["cond_dir"], "--num-inference-steps",
+                str(DDP_DDIM_STEPS), "--num-workers", "4", "--seed", str(TRAIN_SEED), "--f32",
+                "--device", "cuda:0"])),
+            ("run_pti", lambda: pti_main([
+                "-c", str(CONFIG), "--checkpoint", spec["ckpt"], "--input-dir", spec["cond_dir"],
+                "--output-dir", str(work / f"{tag}_pti"), "--batch-size", "2", "--num-samples",
+                str(DDP_PTI_IMAGES), "--latent-steps", str(DDP_PTI_STEPS[0]), "--tune-steps",
+                str(DDP_PTI_STEPS[1]), "--num-workers", "4", "--f32", "--device", "cuda:0"]))):
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, "launches": kernels_mod.launch_counts()}
+    return out
+
+
+def ddp_step_grads(torch, ae_def: dict) -> dict:
+    """One f32 generator step of the flagship at 256² through
+    ``make_train_step``: 8 seeded images and their posterior noise, this
+    rank's rows of them (all 8 with no group); the loss terms, and the
+    gradients the optimizer steps on (after the ranks' all-reduce), on the
+    host."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.parallel import process_rank, world_size
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+
+    torch.manual_seed(7)
+    model = autoencoder_from_config(ae_def).to(device="cuda", memory_format=torch.channels_last)
+    state = create_train_state(model, lr=DDP_LR)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(BATCH, IMAGE, IMAGE, 1, generator=gen)
+    eps = torch.randn(BATCH, IMAGE // 8, IMAGE // 8, ae_def["latent_channels"], generator=gen)
+    rows = slice(process_rank(), None, world_size())
+    grads = {}
+    real = state.optimizer_g.step
+
+    def capture(*a, **kw):
+        grads.update({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        return real(*a, **kw)
+
+    state.optimizer_g.step = capture
+    _, metrics = make_train_step(model, None, LossConfig(), adv_active=False)(
+        state, x[rows].cuda(), torch.ones(BATCH // world_size(), device="cuda"), None,
+        init_lpips_params(0, "cuda"), eps=eps[rows].cuda())
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads}
+
+
+def ddp_grads_compare(single: dict, two: dict) -> dict:
+    """The step of two ranks at b4 against one process at b8: loss terms
+    within ``DDP_LOSS_BAR`` relative, every gradient tensor within
+    ``GRAD_BAR`` of its largest entry (a key projection's bias, 0 in exact
+    arithmetic, in absolute terms), as ``train_reference_check`` holds the
+    card to the CPU."""
+    term_err = max(abs(two["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in single["metrics"].items() if v)
+    grad_err = {}
+    for key, ref in single["grads"].items():
+        err = float((two["grads"][key] - ref).abs().max())
+        grad_err[key] = err if key.endswith("to_k.bias") else err / float(ref.abs().max())
+    worst = max(grad_err, key=grad_err.get)
+    if term_err > DDP_LOSS_BAR or grad_err[worst] > GRAD_BAR:
+        raise RuntimeError(f"(b) f32 step: terms {term_err} relative; gradient {worst} "
+                           f"{grad_err[worst]} of its largest entry")
+    return {"step_term_max_rel_err": term_err, "step_grad_max_err_of_tensor_max": grad_err[worst],
+            "step_worst_tensor": worst}
+
+
+def ddp_child(spec_path: str, rank_arg: str) -> int:
+    """``chip_smoke.py --ddp-child SPEC RANK``: one of the two processes of
+    phase ``ddp_path``. Rank 0 first runs (a): ``train_vae`` bf16
+    ``--conv-kernel`` on the flagship at b8 with no group, then as rank 0 of a
+    one-rank NCCL group that the CLI starts from a torchrun environment
+    (``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0``), with the step's CUDA-event ms
+    with no group, in the group and with no group again, and the gradient
+    all-reduce's in the group; then the one-process runs that (b) is held
+    to (``train_vae`` f32 at b8 with twice the LR, ``sample_diffusion``,
+    ``run_pti``). Both ranks then start a gloo group of two on the one card
+    and run (b): ``train_vae`` f32 at ``--batch-size 4``, ``sample_diffusion``
+    and ``run_pti`` with ``--device cuda:0``, one f32 step whose gradients
+    are held to the one-process step's, and a timed gloo step
+    (correctness only: gloo stages CUDA tensors through the host). Each rank
+    writes its results to ``SPEC``'s directory; rank 0 compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.ops import kernels as kernels_mod
+    from pti_ldm_vae_tpu_torch.parallel import world_size
+
+    spec = json.loads(Path(spec_path).read_text())
+    global T0
+    T0 -= spec["t"]  # the lines' t: seconds since the parent script started
+    rank = int(rank_arg)
+    work = Path(spec["work"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the 1x1 convolutions and the downsample stay on cuDNN, whose filter gradients may
+    # sum in another order run to run unless asked not to: (a) compares bits
+    torch.backends.cudnn.deterministic = True
+    ae_def = load_config(CONFIG)["autoencoder_def"]
+    out: dict = {}
+    if rank == 0:
+        # (a) no group, then one NCCL rank started by the CLI from a torchrun environment
+        plain = ddp_train(torch, kernels_mod, Path(spec["cfg"]["plain"]),
+                          ["--conv-kernel", "--device", "cuda"], DDP_STEPS)
+        step_plain = ddp_step_ms(torch, ae_def, BATCH, torch.bfloat16, True)
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(spec["nccl_port"])}
+        os.environ.update(env)
+        try:
+            nccl = ddp_train(torch, kernels_mod, Path(spec["cfg"]["nccl"]),
+                             ["--conv-kernel", "--device", "cuda"], DDP_STEPS)
+            if dist.get_backend() != "nccl" or world_size() != 1:
+                raise RuntimeError(f"train_vae under torchrun's environment: backend "
+                                   f"{dist.get_backend()}, world {world_size()}")
+            step_nccl = ddp_step_ms(torch, ae_def, BATCH, torch.bfloat16, True)
+            allreduce = ddp_allreduce_ms(torch, ae_def)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for key in env:
+                os.environ.pop(key)
+        # the ungrouped step once more: the step is host-bound, and its spread shows here
+        step_plain_again = ddp_step_ms(torch, ae_def, BATCH, torch.bfloat16, True)
+        same = [k for k in plain["params"] if torch.equal(plain["params"][k], nccl["params"][k])]
+        if len(same) != len(plain["params"]) or plain["launches"] != nccl["launches"]:
+            raise RuntimeError(f"(a) NCCL world 1: {len(same)} of {len(plain['params'])} "
+                               f"tensors bit-identical, launches {nccl['launches']} vs "
+                               f"{plain['launches']}")
+        if plain["losses"] != nccl["losses"]:
+            raise RuntimeError(f"(a) NCCL world 1 losses {nccl['losses']} vs {plain['losses']}")
+        out["nccl_world1"] = {"launches": nccl["launches"], "bit_identical_tensors": len(same),
+                              "wall_s": {"plain": plain["wall_s"], "nccl": nccl["wall_s"]},
+                              "step_ms": {"plain": step_plain, "nccl": step_nccl,
+                                          "plain_again": step_plain_again},
+                              "allreduce": allreduce}
+        emit("ddp_path", part="nccl_world1", **out["nccl_world1"])
+        # the one-process runs (b) is held to
+        single = ddp_train(torch, kernels_mod, Path(spec["cfg"]["single"]),
+                           ["--f32", "--batch-size", str(BATCH), "--lr", str(2 * DDP_LR),
+                            "--device", "cuda:0"], 1)
+        single_gen = ddp_generate(torch, kernels_mod, spec, "single")
+        single_grads = ddp_step_grads(torch, ae_def)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['gloo_port']}",
+                            rank=rank, world_size=2)
+    try:
+        two = ddp_train(torch, kernels_mod, Path(spec["cfg"]["gloo"]),
+                        ["--f32", "--batch-size", str(BATCH // 2), "--device", "cuda:0"], 1)
+        two_gen = ddp_generate(torch, kernels_mod, spec, "gloo")
+        two_grads = ddp_step_grads(torch, ae_def)
+        gloo_step = ddp_step_ms(torch, ae_def, BATCH // 2, torch.float32, False, iters=3)
+    finally:
+        dist.destroy_process_group()
+    gloo = {"launches": {"train_vae": two["launches"],
+                         **{k: v["launches"] for k, v in two_gen.items()}},
+            "wall_s": {"train_vae": two["wall_s"], **{k: v["wall_s"] for k, v in two_gen.items()}},
+            "step_ms_correctness_only": gloo_step}
+    if rank == 0:
+        gloo.update(ddp_compare(torch, np, read_image, spec, ae_def, single, single_gen, two,
+                                two_gen))
+        gloo.update(ddp_grads_compare(single_grads, two_grads))
+    out["gloo"] = gloo
+    emit("ddp_path", part=f"gloo_rank{rank}", **gloo)
+    (work / f"ddp_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def ddp_compare(torch, np, read_image, spec: dict, ae_def: dict, single: dict,
+                single_gen: dict, two: dict, two_gen: dict) -> dict:
+    """(b) against the one-process runs: the logged losses (the step's, and
+    the validation's after the update) within ``DDP_LOSS_BAR`` relative;
+    the parameters' changes from their init within 2 lr everywhere, and
+    within ``DDP_PARAM_BAR`` of their tensor's largest change on at least
+    ``DDP_PARAM_SHARE`` of all entries (an Adam step from a fresh state moves
+    an entry by about ``lr x sign(g)``: an entry whose gradient is at the
+    rounding of its sums takes either sign, and a few of them do in any
+    tensor; the gradients themselves are held in ``ddp_grads_compare``); the
+    files of both ranks together are the one-process files, each within
+    ``DDP_FILE_BAR`` of its largest entry; rank 0's launches those of the
+    one process (per step and per batch a rank launches what one process
+    does at twice the batch)."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+
+    if len(two["losses"]) != len(single["losses"]):
+        raise RuntimeError(f"(b) {len(two['losses'])} logged rows, one process "
+                           f"{len(single['losses'])}")
+    loss_err = 0.0
+    for got, want in zip(two["losses"], single["losses"]):
+        if got.keys() != want.keys():
+            raise RuntimeError(f"(b) logged keys {sorted(got)} vs {sorted(want)}")
+        for k, v in want.items():
+            loss_err = max(loss_err, abs(got[k] - v) / max(abs(v), 1e-12))
+    torch.manual_seed(TRAIN_SEED)  # the trainer's own seeding of the parameter init
+    init = autoencoder_from_config(ae_def).state_dict()
+    near = total = 0
+    worst_step = 0.0
+    for k, w in single["params"].items():
+        moved, got = w - init[k], two["params"][k] - init[k]
+        worst_step = max(worst_step, float((got - moved).abs().max()) / (2 * (2 * DDP_LR)))
+        near += int(((got - moved).abs() <= DDP_PARAM_BAR * float(moved.abs().max())).sum())
+        total += moved.numel()
+    share = near / total
+    if loss_err > DDP_LOSS_BAR or share < DDP_PARAM_SHARE or worst_step > 1.0:
+        raise RuntimeError(f"(b) train_vae: loss rel err {loss_err}; parameters: {share} of the "
+                           f"entries within the bar, worst change / (2 lr) {worst_step}")
+    work, file_err = Path(spec["work"]), {}
+    for name, pattern in (("sample_diffusion", "samples/sample_*.tif"),
+                          ("run_pti", "pti/*_pivot.npz"), ("run_pti_tif", "pti/*_pti.tif")):
+        sub, glob = pattern.split("/")
+        want = ddp_files(np, read_image, work / f"single_{sub}", glob)
+        got = ddp_files(np, read_image, work / f"gloo_{sub}", glob)
+        if sorted(got) != sorted(want) or not want:
+            raise RuntimeError(f"(b) {name}: files {sorted(got)} vs {sorted(want)}")
+        file_err[name] = max(float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 1e-12)
+                             for k, w in want.items())
+        if file_err[name] > DDP_FILE_BAR:
+            raise RuntimeError(f"(b) {name}: files differ by {file_err[name]} of their largest")
+    for name, want in (("train_vae", single["launches"]),
+                       ("sample_diffusion", single_gen["sample_diffusion"]["launches"])):
+        got = two["launches"] if name == "train_vae" else two_gen[name]["launches"]
+        if got != want:
+            raise RuntimeError(f"(b) {name}: rank 0 launches {got}, one process {want}")
+    return {"loss_max_rel_err": loss_err, "param_share_within_bar": share,
+            "param_worst_change_over_2lr": worst_step, "file_max_rel_err": file_err,
+            "one_process_wall_s": {"train_vae": single["wall_s"],
+                                   **{k: v["wall_s"] for k, v in single_gen.items()}}}
+
+
+def ddp_path(torch, np, ae_def: dict, ckpt: Path, ldm_cfg: Path, ldm_ckpt: str,
+             cond_dir: Path) -> dict:
+    """Phase ``ddp_path``: the two processes of ``ddp_child`` (rank 0 and 1),
+    started together and waited for; either failing fails the phase. Returns
+    rank 0's results."""
+    write_inputs(np, WORK / "ddp_data" / "dente", DDP_IMAGES)
+    write_inputs(np, WORK / "ddp_data_b" / "dente", DDP_B_IMAGES)
+    cfgs = {}
+    for key in ("plain", "nccl", "single", "gloo"):
+        cfg = json.loads(CONFIG.read_text())
+        b = key in ("single", "gloo")
+        cfg["data_base_dir"] = str(WORK / ("ddp_data_b" if b else "ddp_data"))
+        cfg["run_dir"] = str(WORK / f"ddp_run_{key}")
+        cfg["autoencoder_train"]["lr"] = DDP_LR
+        if b:
+            cfg["train_split"] = DDP_B_SPLIT
+        if key == "gloo":
+            cfg["parallelism"] = {"data": 2}
+        cfgs[key] = str(WORK / f"ddp_{key}.json")
+        Path(cfgs[key]).write_text(json.dumps(cfg))
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            ports.append(sock.getsockname()[1])
+    spec = {"work": str(WORK), "cfg": cfgs, "ckpt": str(ckpt), "ldm_cfg": str(ldm_cfg),
+            "ldm_ckpt": ldm_ckpt, "cond_dir": str(cond_dir), "nccl_port": ports[0],
+            "gloo_port": ports[1], "t": time.perf_counter() - T0}
+    (WORK / "ddp_spec.json").write_text(json.dumps(spec))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--ddp-child",
+                               str(WORK / "ddp_spec.json"), str(rank)]) for rank in (0, 1)]
+    try:
+        codes = [p.wait(timeout=DDP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0, 0]:
+        raise RuntimeError(f"ddp_path: the ranks exited with {codes}")
+    return {rank: json.loads((WORK / f"ddp_rank{rank}.json").read_text()) for rank in (0, 1)}
+
+
 def main() -> int:
     try:
         import torch
@@ -4104,6 +4540,10 @@ def main() -> int:
                    check=True, timeout=600)
     for name, extra in json.loads((WORK / "knob_rows.json").read_text()).items():
         rows[name] += extra
+    # 7b. data parallelism: one NCCL rank started by train_vae from a torchrun environment,
+    # then two gloo ranks on the one card (ddp_child), in two processes of their own
+    ddp = ddp_path(torch, np, ae_def, ckpt, cfg_path, ldm_train["bfloat16"]["checkpoint"],
+                   WORK / "data")
 
     # 8. kernels line, card line, result line
     def totals(name: str, path: str = "vae") -> dict:
@@ -4264,7 +4704,12 @@ def main() -> int:
                                  "train_vae_remat_s2d_encoder_conv_kernel":
                                      remat["train_vae"]["launches"][name],
                                  "train_diffusion_remat": remat["train_diffusion"]["launches"][name],
-                                 "run_pti_remat_b8_conv_kernel": remat["run_pti"]["launches"][name]},
+                                 "run_pti_remat_b8_conv_kernel": remat["run_pti"]["launches"][name],
+                                 "train_vae_ddp_nccl_world1_conv_kernel":
+                                     ddp[0]["nccl_world1"]["launches"][name],
+                                 **{f"{cli}_ddp_gloo_rank{r}": ddp[r]["gloo"]["launches"][cli][name]
+                                    for r in (0, 1)
+                                    for cli in ("train_vae", "sample_diffusion", "run_pti")}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **({"rel_rms_err": errs[name]["bfloat16_rel"]}
                if name in ("flash_attention", "flash_attention_bwd") else {}),
@@ -4317,4 +4762,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--knob-timings"]:
         sys.exit(timings_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--ddp-child"]:
+        sys.exit(ddp_child(*sys.argv[2:4]))
     sys.exit(main())

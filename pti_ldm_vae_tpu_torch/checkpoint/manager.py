@@ -25,6 +25,12 @@ thread; at this model's 4.6 M parameters a write is milliseconds). A failed
 write leaves a ``CHECKPOINT_WRITE_FAILED`` marker in the directory before the
 error propagates; the marker is reported at the next start and cleared by the
 next successful write.
+
+Under a process group rank 0 alone writes; every rank keeps the same
+bookkeeping (the validation loss is the global batch's, so the best epoch is
+the same everywhere) and waits at a barrier after each save, so that no rank
+reads a checkpoint before it is on disk. A resume loads the files on every
+rank.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Any
 
 import torch
 
+from ..parallel.mesh import barrier_sync
 from ..train.state import GanTrainState
 
 __all__ = ["CheckpointManager", "save_atomic"]
@@ -61,13 +68,15 @@ def _cpu(tree: Any) -> Any:
 
 
 class CheckpointManager:
-    """Best/last checkpoints of one run directory."""
+    """Best/last checkpoints of one run directory; ``rank`` 0 writes them."""
 
-    def __init__(self, model_dir: str):
+    def __init__(self, model_dir: str, rank: int = 0):
         self.model_dir = os.path.abspath(model_dir)
-        os.makedirs(self.model_dir, exist_ok=True)
+        self.rank = rank
+        if rank == 0:
+            os.makedirs(self.model_dir, exist_ok=True)
         self._sentinel = os.path.join(self.model_dir, "CHECKPOINT_WRITE_FAILED")
-        if os.path.exists(self._sentinel):
+        if rank == 0 and os.path.exists(self._sentinel):
             print(
                 f"[WARN] {self._sentinel} exists: the previous run's final checkpoint "
                 "write FAILED — on-disk best/last may be stale. The marker clears on "
@@ -93,7 +102,18 @@ class CheckpointManager:
                    best_val_loss: float, total_step: int) -> float:
         """One epoch's checkpoint work: overwrite ``last`` and, on val
         improvement, write the per-epoch best + full resume state and delete
-        the previous best. Returns the new best val loss."""
+        the previous best. Returns the new best val loss. Every rank calls
+        it; rank 0 writes, then all meet at a barrier."""
+        if self.rank == 0:
+            self._write_epoch(state, epoch, val_loss, best_val_loss, total_step)
+        barrier_sync("checkpoint")
+        if not val_loss < best_val_loss:
+            return best_val_loss
+        self.best_epoch_saved = epoch
+        return float(val_loss)
+
+    def _write_epoch(self, state: GanTrainState, epoch: int, val_loss: float,
+                     best_val_loss: float, total_step: int) -> None:
         model_sd = _cpu(state.model_g.state_dict())
         disc_sd = _cpu(state.model_d.state_dict()) if state.model_d is not None else None
         self._write(model_sd, "autoencoder_last.pth")
@@ -102,7 +122,7 @@ class CheckpointManager:
         if os.path.exists(self._sentinel):
             os.remove(self._sentinel)  # a fresh write supersedes a stale failure marker
         if not val_loss < best_val_loss:
-            return best_val_loss
+            return
         self._write(model_sd, f"autoencoder_epoch{epoch}.pth")
         full = {
             "autoencoder_state_dict": model_sd,
@@ -116,13 +136,12 @@ class CheckpointManager:
             full["discriminator_state_dict"] = disc_sd
             full["optimizer_d_state_dict"] = _cpu(state.optimizer_d.state_dict())
         self._write(full, f"checkpoint_epoch{epoch}.pth")
-        prev_best, self.best_epoch_saved = self.best_epoch_saved, epoch
+        prev_best = self.best_epoch_saved
         if prev_best is not None and prev_best != epoch:
             for name in (f"checkpoint_epoch{prev_best}.pth", f"autoencoder_epoch{prev_best}.pth",
                          f"discriminator_epoch{prev_best}.pth"):
                 if os.path.exists(self._path(name)):
                     os.remove(self._path(name))
-        return float(val_loss)
 
     def find_latest_full(self) -> str | None:
         """The ``checkpoint_epoch{N}.pth`` of the highest N, if any."""

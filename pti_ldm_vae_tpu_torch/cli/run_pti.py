@@ -16,7 +16,10 @@ writes the tuned tree as an orbax directory; the port reads and writes
 in one pass and tuned image by image (``make_pivotal_tuning_inversion_batched``,
 built once); padded rows of the last batch are optimized but not written.
 Runs on CUDA unless ``--device cpu`` is given; bf16 compute there unless
-``--f32``.
+``--f32``. Under torchrun (``torchrun --nproc_per_node N -m
+pti_ldm_vae_tpu_torch.cli.run_pti ...``) rank ``r`` tunes images
+``r::N`` of the sorted input list, as the JAX CLI's ``shard_map`` gives each
+device its images; outputs are named by stem, and the ranks do not talk.
 
     python -m pti_ldm_vae_tpu_torch.cli.run_pti -c config/vae_dente_no_adv.json \\
         --checkpoint vae.pth --input-dir data/ --output-dir pti_out/ [--batch-size 8] \\
@@ -31,8 +34,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.datasets import list_tif_paths
 from ..data.io import write_png, write_tif
+from ..data.loader import ShardedDataLoader
 from ..ops.space_to_depth import s2d_auto_mode
+from ..parallel.mesh import own_rows
 from ..train.diffusion import (
     make_pivotal_tuning_inversion_batched,
     pivotal_tuning_inversion,
@@ -40,8 +46,8 @@ from ..train.diffusion import (
 )
 from ..utils.cli_common import (
     add_shared_io_args,
-    build_inference_dataloader,
     init_device_and_seed,
+    join_process_group,
     load_config_and_model,
     resolve_device,
 )
@@ -75,6 +81,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> Path:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    join_process_group(device)
     init_device_and_seed(args.seed, device)
     # PTI differentiates through the decoder, so the inference-profile s2d "auto"
     # does not apply: the train profile decides, at the batch PTI runs
@@ -94,8 +101,10 @@ def main(argv=None) -> Path:
         model, tune_formulation=args.tune_formulation, **hyper) if batched else None)
     out_dir = Path(args.output_dir or "pti_out")
     out_dir.mkdir(parents=True, exist_ok=True)
-    loader, paths = build_inference_dataloader(args.input_dir, config, max(args.batch_size, 1),
-                                               args.num_samples, args.num_workers)
+    paths = list_tif_paths(args.input_dir, data_source="both")[:args.num_samples]
+    paths = [paths[i] for i in own_rows(len(paths))]  # this rank's images
+    loader = ShardedDataLoader(paths, tuple(config.autoencoder_train["patch_size"]),
+                               max(args.batch_size, 1), num_workers=args.num_workers)
 
     def save_one(name: str, pivot: torch.Tensor, tuned: dict[str, torch.Tensor],
                  latent_loss: torch.Tensor, tune_loss: torch.Tensor) -> None:

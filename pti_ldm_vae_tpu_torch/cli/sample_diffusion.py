@@ -1,6 +1,6 @@
 """DDIM sampling CLI: trained UNet -> latents -> frozen VAE decode -> images
 (counterpart of ``pti_ldm_vae_tpu/cli/sample_diffusion.py``). Runs on CUDA
-unless ``--device cpu`` is given; one device.
+unless ``--device cpu`` is given.
 
 With conditioning, the first ``--num-images`` images of ``--condition-dir``
 (zero-padded to ``--num-images``, as the JAX loader pads) are encoded to
@@ -11,6 +11,14 @@ are the ``.pth`` that ``train_diffusion`` writes, or that
 ``tools/export_jax_checkpoint.py diffusion`` writes beside an orbax directory
 of the JAX package (``--checkpoint`` may name either path). Writes ``sample_XXX.tif`` (float) and
 ``sample_XXX.png`` (display-normalized).
+
+Under torchrun (``torchrun --nproc_per_node N -m
+pti_ldm_vae_tpu_torch.cli.sample_diffusion ...``) the samples are split over
+the ranks as the JAX CLI splits them over its mesh: every rank draws the
+whole ``[num_images, ...]`` initial noise (and, with ``eta`` > 0, each step's
+noise) from the seeded generator, keeps rows ``rank::world`` with their
+conditions, denoises and decodes them, and writes them under their global
+index, so N ranks write the files one rank writes. The ranks do not talk.
 
     python -m pti_ldm_vae_tpu_torch.cli.sample_diffusion -c config/ldm_dente.json \\
         --checkpoint runs/ldm_dente/trained_weights/diffusion_last.pth \\
@@ -30,8 +38,14 @@ from ..config import load_config
 from ..data.factory import create_vae_inference_dataloader
 from ..data.io import write_png, write_tif
 from ..models.unet import project_latent_condition
+from ..parallel.mesh import own_rows, process_rank
 from ..train.diffusion import ddim_sample
-from ..utils.cli_common import init_device_and_seed, load_ldm_models, resolve_device
+from ..utils.cli_common import (
+    init_device_and_seed,
+    join_process_group,
+    load_ldm_models,
+    resolve_device,
+)
 from ..utils.visualization import normalize_batch_for_display
 
 __all__ = ["main"]
@@ -60,6 +74,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> Path:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    join_process_group(device)
     cfg = load_config(args.config_file)
     gen = init_device_and_seed(args.seed, device)
     out_dir = Path(args.output_dir)
@@ -73,6 +88,11 @@ def main(argv=None) -> Path:
     steps = args.num_inference_steps or int(sampling.get("num_inference_steps", 50))
     eta = float(sampling.get("eta", 0.0))
 
+    n = args.num_images
+    rows = own_rows(n)
+    if not rows:
+        raise ValueError(f"--num-images {n} leaves rank {process_rank()} "
+                         "no sample: launch at most that many ranks")
     context = None
     if m.projector is not None:
         if args.condition_dir is None:
@@ -90,20 +110,23 @@ def main(argv=None) -> Path:
         finally:
             loader.close()
         with torch.no_grad():
-            cond = m.vae.encode_deterministic(torch.from_numpy(batch["image"]).to(device))
+            cond = m.vae.encode_deterministic(torch.from_numpy(batch["image"][rows]).to(device))
             context = project_latent_condition(m.projector, cond)
 
-    n = args.num_images
+    # the draws of all n rows, in the order one process makes them: the initial
+    # noise, then (eta > 0) one [n, ...] draw per step; this rank keeps its rows
     noise = torch.randn((n, *m.latent_shape), generator=gen, dtype=torch.float32, device=device)
+    step_noise = [torch.randn(noise.shape, generator=gen, dtype=torch.float32, device=device)[rows]
+                  for _ in range(steps)] if eta > 0 else None
     with torch.no_grad():
-        latents = ddim_sample(m.unet, m.schedule, noise, num_inference_steps=steps,
-                              context=context, eta=eta, generator=gen)
+        latents = ddim_sample(m.unet, m.schedule, noise[rows], num_inference_steps=steps,
+                              context=context, eta=eta, step_noise=step_noise)
         images = m.vae.decode_stage_2_outputs(latents).cpu().numpy()
     disp = normalize_batch_for_display(images)
-    for i in range(images.shape[0]):
-        write_tif(str(out_dir / f"sample_{i:03d}.tif"), images[i, :, :, 0])
-        write_png(str(out_dir / f"sample_{i:03d}.png"), (disp[i, :, :, 0] * 255).astype(np.uint8))
-    print(f"Wrote {images.shape[0]} samples to {out_dir}")
+    for k, i in enumerate(rows):
+        write_tif(str(out_dir / f"sample_{i:03d}.tif"), images[k, :, :, 0])
+        write_png(str(out_dir / f"sample_{i:03d}.png"), (disp[k, :, :, 0] * 255).astype(np.uint8))
+    print(f"Wrote {len(rows)} samples to {out_dir}")
     return out_dir
 
 

@@ -16,6 +16,14 @@ MONAI-keyed ``unet`` state dict and the ``projector`` state dict, which
 
     python -m pti_ldm_vae_tpu_torch.cli.train_diffusion -c config/ldm_dente.json \\
         --input-dir data/ [--f32] [--device cpu]
+
+Data parallel under torchrun (``torchrun --nproc_per_node N -m
+pti_ldm_vae_tpu_torch.cli.train_diffusion ...``): each rank takes its
+``rank::world`` share of the images, ``batch_size`` rows per step (the
+global batch is N x ``batch_size``), draws its rows of the global batch's
+encoder noise, timesteps and noise, and the gradients are summed before the
+update. The LR is not scaled, as the JAX CLI's ``optax.adam(lr)`` over its
+global batch is not. Rank 0 writes the checkpoint and the metrics.
 """
 
 from __future__ import annotations
@@ -28,10 +36,17 @@ from torch import nn
 
 from ..checkpoint.manager import _cpu, save_atomic
 from ..config import load_config
-from ..data.factory import create_vae_inference_dataloader
+from ..data.datasets import list_tif_paths
+from ..data.loader import ShardedDataLoader
+from ..parallel.mesh import barrier_sync, broadcast_module
 from ..train.diffusion import make_diffusion_train_step
 from ..train.state import create_train_state
-from ..utils.cli_common import init_device_and_seed, load_ldm_models, resolve_device
+from ..utils.cli_common import (
+    init_device_and_seed,
+    join_process_group,
+    load_ldm_models,
+    resolve_device,
+)
 from ..utils.logging import MetricLogger
 
 __all__ = ["main"]
@@ -62,11 +77,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    rank, world = join_process_group(device)
     cfg = load_config(args.config_file)
     gen = init_device_and_seed(args.seed, device)
     run_dir = Path(cfg.get("run_dir", "./runs/ldm"))
     weights_dir = run_dir / "trained_weights"
-    weights_dir.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        weights_dir.mkdir(parents=True, exist_ok=True)
 
     m = load_ldm_models(cfg, device=device, exact=args.f32, remat=args.remat)
     train_cfg = cfg["diffusion_train"]
@@ -74,19 +91,21 @@ def main(argv=None) -> dict:
     max_epochs = args.max_epochs or int(train_cfg["max_epochs"])
     patch_size = tuple(m.vae_config.autoencoder_train["patch_size"])
 
-    loader, paths = create_vae_inference_dataloader(
-        args.input_dir, patch_size, batch_size, num_samples=args.num_samples,
-        num_workers=args.num_workers,
-    )
-    print(f"[INFO] {len(paths)} training images")
+    paths = list_tif_paths(args.input_dir, data_source="both")[:args.num_samples]
+    # the DistributedSampler schedule: every rank the same number of batches
+    loader = ShardedDataLoader(paths, patch_size, batch_size, rank=rank, world=world,
+                               num_workers=args.num_workers)
+    if rank == 0:
+        print(f"[INFO] {len(paths)} training images")
 
     trainable = nn.ModuleDict({"unet": m.unet})
     if m.projector is not None:
         trainable["projector"] = m.projector
+    broadcast_module(trainable)
     state = create_train_state(trainable, lr=float(train_cfg["lr"]))
     step = make_diffusion_train_step(m.unet, m.schedule, state, projector=m.projector)
 
-    logger = MetricLogger(str(run_dir), wandb_cfg=cfg.get("wandb", {"enabled": False}))
+    logger = MetricLogger(str(run_dir), rank=rank, wandb_cfg=cfg.get("wandb", {"enabled": False}))
     total_step, mean_loss = 0, 0.0
     try:
         for epoch in range(max_epochs):
@@ -104,11 +123,14 @@ def main(argv=None) -> dict:
                 n += 1
                 total_step += 1
             mean_loss = float(epoch_loss) / max(n, 1) if epoch_loss is not None else 0.0
-            print(f"Epoch {epoch}: eps-MSE {mean_loss:.5f}")
             logger.log({"train/eps_mse": mean_loss, "epoch": epoch}, step=total_step)
-            save_atomic({"unet": _cpu(m.unet.state_dict()),
-                         "projector": _cpu(m.projector.state_dict()) if m.projector is not None
-                         else None}, str(weights_dir / CHECKPOINT_NAME))
+            if rank == 0:
+                print(f"Epoch {epoch}: eps-MSE {mean_loss:.5f}")
+                save_atomic({"unet": _cpu(m.unet.state_dict()),
+                             "projector": _cpu(m.projector.state_dict())
+                             if m.projector is not None else None},
+                            str(weights_dir / CHECKPOINT_NAME))
+            barrier_sync("checkpoint")
     finally:
         loader.close()
         logger.finish()

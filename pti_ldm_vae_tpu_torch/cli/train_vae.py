@@ -4,6 +4,13 @@ workload parity with ``vae_scripts/train_vae.py``). Runs on CUDA unless
 
     python -m pti_ldm_vae_tpu_torch.cli.train_vae -c config/vae_dente_no_adv.json \\
         [--no-wandb] [--f32] [--conv-kernel] [--device cpu]
+
+Data parallel, one process per card (NCCL; gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node N -m pti_ldm_vae_tpu_torch.cli.train_vae -c CONFIG ...
+
+``batch_size`` is per process, so the global batch is N x ``batch_size``,
+and the LR is scaled by N (the reference's rule).
 """
 
 from __future__ import annotations
@@ -12,7 +19,7 @@ import argparse
 
 from ..config import load_config
 from ..train.loop import VAETrainer
-from ..utils.cli_common import enable_parity_numerics, resolve_device
+from ..utils.cli_common import enable_parity_numerics, join_process_group, resolve_device
 from ..utils.logging import load_dotenv
 
 __all__ = ["main"]
@@ -30,7 +37,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument("-c", "--config-file", required=True, help="Config json file")
     parser.add_argument("-g", "--gpus", type=int, default=1,
-                        help="Accepted for reference CLI compatibility; one device is used")
+                        help="Accepted for reference CLI compatibility; one process drives "
+                             "one card: launch N processes with torchrun --nproc_per_node N")
     parser.add_argument("--batch-size", type=int, default=None, help="Override batch size")
     parser.add_argument("--max-epochs", type=int, default=None, help="Override max epochs")
     parser.add_argument("--lr", type=float, default=None, help="Override learning rate")
@@ -75,6 +83,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    join_process_group(device)
     load_dotenv()  # WANDB_PROJECT/WANDB_ENTITY (reference ``train_vae.py:30``)
     cfg = load_config(args.config_file)
 

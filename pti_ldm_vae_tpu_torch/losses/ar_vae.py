@@ -18,6 +18,13 @@ Per attribute, over ordered sample pairs (i, j), i != j, with attribute delta
 ``sample_mask`` keeps zero-padded rows out of every pair, and an attribute
 with no ordered pair left contributes 0. Latents are pooled over H, W of NHWC
 and taken in f32 whatever the compute type.
+
+Under a process group the pairs run over the GLOBAL batch, as the JAX
+package's ``jit`` over the sharded global array computes the term: the
+pooled latents, the attributes and the mask of every rank are gathered (one
+all-reduce, ``parallel/mesh.py:gather_rows``, differentiable), every rank
+computes the same term, and "subset" pairs are drawn alike on every rank from
+generators seeded alike.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+
+from ..parallel.mesh import gather_rows, grouped
 
 __all__ = ["ARVaeSpec", "make_ar_vae_spec", "compute_ar_vae_loss", "draw_subset_pairs"]
 
@@ -114,15 +123,24 @@ def compute_ar_vae_loss(
 
     "subset" mode takes its flat pair indices from ``pair_indices`` when
     given, else draws them from ``generator``. ``sample_mask`` ([B], 1 =
-    valid) excludes padded samples from every pair."""
+    valid) excludes padded samples from every pair. Under a process group
+    ``B`` in the pairs is the global batch's."""
     z = _pool_latents(latent_vectors).float()  # [B, C]
-    batch = z.shape[0]
-    z_sel = z[:, list(spec.channels)].T  # [A, B]
     try:
-        a_sel = torch.stack([attributes[name].float() for name in spec.names], dim=0)
+        a_rows = torch.stack([attributes[name].float() for name in spec.names], dim=1)
     except KeyError as exc:
         raise KeyError(f"Missing attribute values for {exc} in batch.") from exc
-    a_sel = a_sel.to(z.device)
+    a_rows = a_rows.to(z.device)  # [B, A]
+    if grouped():
+        # the global batch's rows, in one gather: [world * B, C + A + 1]
+        m = (sample_mask.to(z.device).float() if sample_mask is not None
+             else torch.ones(z.shape[0], device=z.device))
+        rows = gather_rows(torch.cat([z, a_rows, m[:, None]], dim=1))
+        c, a = z.shape[1], a_rows.shape[1]
+        z, a_rows, sample_mask = rows[:, :c], rows[:, c:c + a], rows[:, c + a]
+    batch = z.shape[0]
+    z_sel = z[:, list(spec.channels)].T  # [A, B]
+    a_sel = a_rows.T  # [A, B]
     deltas = torch.tensor(spec.deltas, dtype=torch.float32, device=z.device)[:, None]  # [A, 1]
     valid = sample_mask.to(z.device).bool() if sample_mask is not None else None
 

@@ -67,6 +67,7 @@ from ..ops.space_to_depth import (
     s2d_repeat_channels,
     space_to_depth,
 )
+from ..parallel.mesh import local_randn
 
 __all__ = ["AutoencoderKL", "autoencoder_from_config"]
 
@@ -425,9 +426,10 @@ class AutoencoderKL(nn.Module):
     def sampling(self, z_mu: torch.Tensor, z_sigma: torch.Tensor, eps: torch.Tensor | None = None,
                  generator: torch.Generator | None = None) -> torch.Tensor:
         """``z_mu + eps * z_sigma``; ``eps`` standard normal from ``generator``
-        unless given."""
+        unless given (under a process group: this rank's rows of the global
+        batch's draw, ``parallel/mesh.py:local_randn``)."""
         if eps is None:
-            eps = torch.randn(z_mu.shape, generator=generator, dtype=z_mu.dtype,
+            eps = local_randn(tuple(z_mu.shape), generator=generator, dtype=z_mu.dtype,
                               device=z_mu.device)
         return z_mu + eps * z_sigma
 

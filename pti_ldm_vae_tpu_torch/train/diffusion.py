@@ -14,12 +14,18 @@ pivotal-tuning inversion (counterpart of
   cast to f32;
 * ``make_diffusion_train_step``: the masked mean of the per-sample epsilon
   MSE (``cli/train_diffusion.py:128-134`` of the JAX package), backward,
-  then one Adam update of the UNet and projector parameters;
+  then one Adam update of the UNet and projector parameters; under a process
+  group the mean is the global batch's, the gradients are summed over the
+  ranks before the update (``state.py``), and the timesteps and noise are
+  this rank's rows of the global batch's draws (``parallel/mesh.py``);
 * ``pivotal_tuning_inversion`` and its batched form: stage 1 optimizes a
   latent per image through the frozen decoder (Adam on z), stage 2
   fine-tunes a fresh copy of the decoder around each pivot (Adam on the
   ``post_quant_conv`` and ``decoder`` parameters). Each step's loss is kept
   before its update, as ``value_and_grad`` inside the JAX scan records it.
+  Each image's optimisation is its own: under a process group a rank takes
+  its images (``cli/run_pti.py``) and nothing is summed across ranks, as the
+  JAX ``shard_map`` keeps one image per device with no collective.
 
 Randomness: JAX's PRNG streams cannot be reproduced, so every draw takes an
 explicit ``torch.Generator`` and can be passed in instead (initial noise,
@@ -37,6 +43,14 @@ import torch
 from torch import nn
 
 from ..models.unet import project_latent_condition
+from ..parallel.mesh import (
+    allreduce_metrics,
+    global_count,
+    local_randint,
+    local_randn,
+    masked_mean,
+    world_size,
+)
 from .state import GanTrainState
 
 __all__ = [
@@ -140,12 +154,13 @@ def ddim_sample(
 def diffusion_loss(unet: nn.Module, schedule: NoiseSchedule, latents: torch.Tensor,
                    timesteps: torch.Tensor, noise: torch.Tensor, context: torch.Tensor | None,
                    mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked mean over the batch of the per-sample epsilon MSE (f32)."""
+    """Masked mean over the batch of the per-sample epsilon MSE (f32); under a
+    process group this rank's share of the global batch's mean."""
     eps = unet(add_noise(schedule, latents, noise, timesteps), timesteps, context)
     per = torch.square(eps - noise).mean(dim=tuple(range(1, eps.dim())))
     if mask is None:
-        return per.mean()
-    return torch.sum(per * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return per.mean() / world_size()
+    return masked_mean(per, mask, global_count(mask))
 
 
 def make_diffusion_train_step(unet: nn.Module, schedule: NoiseSchedule, state: GanTrainState,
@@ -164,10 +179,10 @@ def make_diffusion_train_step(unet: nn.Module, schedule: NoiseSchedule, state: G
              generator: torch.Generator | None = None) -> torch.Tensor:
         device = latents.device
         if timesteps is None:
-            timesteps = torch.randint(0, schedule.num_train_timesteps, (latents.shape[0],),
+            timesteps = local_randint(schedule.num_train_timesteps, latents.shape[0],
                                       generator=generator, device=device)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
+            noise = local_randn(tuple(latents.shape), generator=generator, dtype=torch.float32,
                                 device=device)
         context = None
         if projector is not None and cond_latents is not None:
@@ -175,7 +190,7 @@ def make_diffusion_train_step(unet: nn.Module, schedule: NoiseSchedule, state: G
         loss = diffusion_loss(unet, schedule, latents.float(), timesteps, noise, context, mask)
         loss.backward()
         state.apply_g()
-        return loss.detach()
+        return allreduce_metrics({"loss": loss.detach()})["loss"]
 
     return step
 
@@ -317,7 +332,9 @@ def make_pivotal_tuning_inversion_batched(
 
     ``tune_formulation="vmap"`` (per-image decoder copies as grouped
     convolutions, the JAX package's legacy A/B layout) is not ported:
-    ROADMAP A.7. The mesh / ``shard_map`` form is ROADMAP A.8."""
+    ROADMAP A.7. The JAX mesh / ``shard_map`` form (one image per device, no
+    collective) is the caller's split of its images over the ranks:
+    ``cli/run_pti.py`` hands each rank's rows to this program."""
     if tune_formulation == "vmap":
         raise NotImplementedError(
             "tune_formulation='vmap' (per-image decoder copies as grouped convolutions) is not "

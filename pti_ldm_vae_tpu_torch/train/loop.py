@@ -10,7 +10,13 @@ discriminator trains beside the autoencoder once ``epoch >
 adv_warmup_epochs`` (default 5: the reference hardcodes ``epoch > 5``,
 ``train_vae.py:399,449``); one train and one eval step are built per phase.
 
-* one device, no mesh: the batch goes to the trainer's device as it is;
+* one device per process; under a process group (``parallel/``, launched by
+  torchrun) each rank's loader takes its ``rank::world`` share of the files
+  (``batch_size`` rows per rank and step), the losses are global masked
+  means, each optimizer sums the ranks' gradients before its update, the LR
+  is scaled by the number of ranks, and rank 0 alone writes the run
+  directory (split, checkpoints, metrics, dumps, traces); the others wait
+  at a barrier where they read what it wrote;
 * bf16 compute / f32 parameters and Adam state by default on CUDA, f32 on the
   CPU or when ``mixed_precision=False``;
 * metrics stay on the device during an epoch and are read after it: a host
@@ -30,9 +36,10 @@ Top-level model knobs as in the JAX trainer: ``remat`` (activation
 checkpointing of the ResBlocks and attention blocks), ``norm_stats`` and
 ``s2d_stem`` (default ``"auto"``, resolved here on the batch with the train
 profile of ``ops/space_to_depth.py:s2d_auto_mode``; ``"encoder"``,
-``"decoder"`` and booleans pass as they are). Not ported yet, and raising
-when configured: ``parallelism``. ``profile_port`` raises: torch has no live
-profiler endpoint.
+``"decoder"`` and booleans pass as they are; ``"auto"`` decides on the
+per-rank batch). ``parallelism``: ``data``, when given, must equal the
+number of ranks; ``spatial`` and ``tensor`` above 1 raise (not ported:
+ROADMAP A.13). ``profile_port`` raises: torch has no live profiler endpoint.
 """
 
 from __future__ import annotations
@@ -57,6 +64,13 @@ from ..models.discriminator import PatchDiscriminator
 from ..models.lpips import load_lpips_params, lpips_is_pretrained
 from ..ops.norm import DEFAULT_NORM_STATS
 from ..ops.space_to_depth import s2d_auto_mode
+from ..parallel.mesh import (
+    barrier_sync,
+    broadcast_module,
+    first_local_rows,
+    process_rank,
+    world_size,
+)
 from ..utils.determinism import set_determinism
 from ..utils.logging import MetricLogger, init_wandb_config
 from ..utils.profiling import start_profiler_server, trace_if
@@ -109,6 +123,21 @@ def _not_ported(what: str, later: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet; it comes with {later}")
 
 
+def check_parallelism(block: dict[str, Any] | None, world: int) -> None:
+    """The config's ``parallelism`` block against the process group: ``data``
+    is the number of ranks (one card each); spatial and tensor sharding are
+    not ported."""
+    block = block or {}
+    for axis in ("spatial", "tensor"):
+        if int(block.get(axis, 1)) > 1:
+            raise _not_ported(f"parallelism '{axis}'", "ROADMAP A.13 (spatial and tensor "
+                              "parallelism)")
+    data = block.get("data")
+    if data is not None and int(data) != world:
+        raise ValueError(f"parallelism data={data} but the process group has {world} rank(s): "
+                         "launch one process per card with torchrun --nproc_per_node")
+
+
 class VAETrainer:
     def __init__(
         self,
@@ -129,8 +158,8 @@ class VAETrainer:
     ):
         self.cfg = cfg
         self.seed = seed
-        self.rank = 0
-        self.world = 1
+        self.rank = process_rank()
+        self.world = world_size()
         self.device = torch.device(device)
         if profile_port:
             start_profiler_server(profile_port)
@@ -153,9 +182,8 @@ class VAETrainer:
             raise _not_ported("the adversarial branch for spatial_dims other than 2 (a 1-D or "
                               "3-D PatchGAN discriminator)", "the 1-D / 3-D model slice")
         ar_spec = build_ar_spec(cfg, self.ar)
-        if cfg.get("parallelism"):
-            raise _not_ported("the 'parallelism' config block", "the multi-device slice")
-        # "auto" resolves here from the train profile on the (one device's)
+        check_parallelism(cfg.get("parallelism"), self.world)
+        # "auto" resolves here from the train profile on the (one rank's)
         # batch: the model's own "auto" gate is the inference profile
         s2d_stem = cfg.get("s2d_stem", "auto")
         if s2d_stem == "auto":
@@ -167,14 +195,17 @@ class VAETrainer:
             mixed_precision = self.device.type == "cuda"
         compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
 
-        # Overwrite protection (reference ``train_vae.py:794-803``).
-        if self.run_dir.exists() and not self.resume and any(self.run_dir.iterdir()):
-            raise ValueError(
-                f"Run directory already exists: {self.run_dir}\n"
-                "Change 'run_dir' in the config or set 'resume_ckpt: true'."
-            )
-        self.model_dir.mkdir(parents=True, exist_ok=True)
-        (self.run_dir / "splits").mkdir(parents=True, exist_ok=True)
+        # Overwrite protection (reference ``train_vae.py:794-803``): rank 0
+        # decides before anything is written (a rank that raises ends the
+        # torchrun launch; the others wait at the "run_dir" barrier below)
+        if self.rank == 0:
+            if self.run_dir.exists() and not self.resume and any(self.run_dir.iterdir()):
+                raise ValueError(
+                    f"Run directory already exists: {self.run_dir}\n"
+                    "Change 'run_dir' in the config or set 'resume_ckpt: true'."
+                )
+            self.model_dir.mkdir(parents=True, exist_ok=True)
+            (self.run_dir / "splits").mkdir(parents=True, exist_ok=True)
 
         # seeds python / numpy / torch (parameter init) and gives the device
         # generator the posterior noise is drawn from
@@ -194,6 +225,8 @@ class VAETrainer:
             cache_rate=cache_rate,
             ar_vae_enabled=self.ar["enabled"],
             regularized_attributes=self.ar["block"] or None,
+            rank=self.rank,
+            world_size=self.world,
         )
         split_payload = {
             "seed": seed,
@@ -203,8 +236,9 @@ class VAETrainer:
             "train_files": list(train_paths),
             "val_files": list(val_paths),
         }
-        with open(self.run_dir / "splits" / "vae_split.json", "w", encoding="utf-8") as fh:
-            json.dump(split_payload, fh, indent=2)
+        if self.rank == 0:
+            with open(self.run_dir / "splits" / "vae_split.json", "w", encoding="utf-8") as fh:
+                json.dump(split_payload, fh, indent=2)
 
         # ---- models, optimizers -------------------------------------------
         self.model = autoencoder_from_config(
@@ -221,6 +255,11 @@ class VAETrainer:
                 in_channels=1, out_channels=1, compute_dtype=compute_dtype,
                 generator=torch.Generator().manual_seed(seed + 1),
             ).to(device=self.device, memory_format=torch.channels_last)
+        # every rank starts from rank 0's parameters (the seeds make them
+        # equal already; the broadcast makes it a property of the run)
+        for module in (self.model, self.disc):
+            if module is not None:
+                broadcast_module(module)
         self.state = create_train_state(self.model, lr=float(train_cfg["lr"]),
                                         world_size=self.world, model_d=self.disc)
 
@@ -239,7 +278,7 @@ class VAETrainer:
         # whether the perceptual loss is real LPIPS or the random-feature
         # fallback is recorded in the run config: no silent fallback
         self.perceptual_pretrained = lpips_is_pretrained(self.lpips_params)
-        if not self.perceptual_pretrained:
+        if not self.perceptual_pretrained and self.rank == 0:
             print("[WARN] perceptual loss uses RANDOM features (no converted LPIPS weights "
                   "found: set $PTI_LPIPS_WEIGHTS or place weights/lpips_squeeze.npz)")
 
@@ -252,7 +291,9 @@ class VAETrainer:
         self._triplet_infer = make_inference_fn(self.model)
 
         # ---- bookkeeping ---------------------------------------------------
-        self.ckpt = CheckpointManager(str(self.model_dir))
+        # the run directory exists from here on (rank 0 made it, or raised)
+        barrier_sync("run_dir")
+        self.ckpt = CheckpointManager(str(self.model_dir), rank=self.rank)
         self.start_epoch = 0
         self.best_val_loss = 100.0
         self.total_step = 0
@@ -313,7 +354,8 @@ class VAETrainer:
         batch0: tuple[dict, torch.Tensor] | None = None
         for step, batch in enumerate(self.train_loader):
             images, mask, attributes = self._device_batch(batch)
-            traced = self.trace_at_step is not None and self.total_step + 1 == self.trace_at_step
+            traced = (self.rank == 0 and self.trace_at_step is not None
+                      and self.total_step + 1 == self.trace_at_step)
             with trace_if(self.run_dir / "traces", enabled=traced):
                 _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
                                      generator=self.generator)
@@ -327,7 +369,7 @@ class VAETrainer:
                 buffered.append((self.total_step, metrics))
             if step == 0:
                 batch0 = (metrics, images[:1])
-        if batch0 is not None:
+        if batch0 is not None and self.rank == 0:
             metrics0, img0 = batch0
             # KL-explosion debug stats (reference ``train_vae.py:432-442``)
             print(
@@ -345,8 +387,8 @@ class VAETrainer:
         """[original | reconstruction | diff] panel for the epoch's first
         image, rot90 k=3 display convention (reference ``train_vae.py:479-493``);
         the reconstruction uses end-of-epoch weights."""
-        recon = self._triplet_infer(img).cpu().numpy()
-        img = img.cpu().numpy()
+        recon = first_local_rows(self._triplet_infer(img))
+        img = first_local_rows(img)
         diff = np.abs(img - recon)
         panels = np.concatenate([
             normalize_batch_for_display(img),
@@ -365,7 +407,8 @@ class VAETrainer:
         sums: dict[str, torch.Tensor] | None = None
         n_batches = 0
         start_epoch_to_save, save_every = 10, 5
-        do_save_images = epoch >= start_epoch_to_save and epoch % save_every == 0
+        do_save_images = (self.rank == 0 and epoch >= start_epoch_to_save
+                          and epoch % save_every == 0)
         epoch_dir = self.run_dir / "validation_samples" / f"epoch_{epoch}"
         if do_save_images:
             for sub in ("originale", "reconstruction", "diff"):
@@ -383,7 +426,7 @@ class VAETrainer:
                 dumps.append((step, images[0, :, :, 0], recon[0, :, :, 0]))
 
         for step, img_dev, rec_dev in dumps:
-            img, rec = img_dev.cpu().numpy(), rec_dev.cpu().numpy()
+            img, rec = first_local_rows(img_dev), first_local_rows(rec_dev)
             diff = np.abs(img - rec)
             # rot90 k=3 display convention (reference ``train_vae.py:616-618``)
             write_tif(str(epoch_dir / "originale" / f"step{step:03}.tif"), np.rot90(img, k=3))
@@ -429,7 +472,8 @@ class VAETrainer:
                 if epoch % self.val_interval == 0:
                     val_loss = self.validate(epoch)
                     elapsed = time.time() - start_time
-                    print(f"Epoch {epoch} val_loss: {val_loss:.4f} | Time: {elapsed:.1f}s")
+                    if self.rank == 0:
+                        print(f"Epoch {epoch} val_loss: {val_loss:.4f} | Time: {elapsed:.1f}s")
                     self.logger.log({"time_per_epoch": elapsed, "epoch": epoch})
                     self.best_val_loss = self.ckpt.save_epoch(
                         state=self.state,

@@ -7,7 +7,13 @@ small mutable object: the generator module, its ``torch.optim.Adam``, a step
 counter and, when the adversarial branch is on, the discriminator module and
 its own ``torch.optim.Adam``.
 
-LR x world_size scaling as in the reference (``train_vae.py:301-304``).
+Under a process group (``parallel/``) each update first sums the ranks'
+gradients of its optimizer's parameters: one all-reduce of one flat buffer
+per optimizer and step (the explicit form of DDP's; DDP's reducer expects one
+forward and one backward per wrapped module, and the adversarial step runs
+the discriminator two or three times). LR x world size as in the reference
+(``train_vae.py:301-304``): the world is the number of ranks, one per card,
+each of which adds its ``batch_size`` rows to the global batch.
 """
 
 from __future__ import annotations
@@ -17,7 +23,13 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..parallel.mesh import allreduce_gradients
+
 __all__ = ["GanTrainState", "create_train_state"]
+
+
+def _allreduce(optimizer: torch.optim.Optimizer) -> None:
+    allreduce_gradients(p for group in optimizer.param_groups for p in group["params"])
 
 
 @dataclass
@@ -30,15 +42,17 @@ class GanTrainState:
 
     def apply_g(self) -> None:
         """One Adam update of the generator from the gradients on its
-        parameters; clears them afterwards."""
+        parameters (summed over the ranks first); clears them afterwards."""
+        _allreduce(self.optimizer_g)
         self.optimizer_g.step()
         self.optimizer_g.zero_grad(set_to_none=True)
         self.step += 1
 
     def apply_d(self) -> None:
         """One Adam update of the discriminator from the gradients on its
-        parameters; clears them afterwards. The step counter follows the
-        generator alone."""
+        parameters (summed over the ranks first); clears them afterwards. The
+        step counter follows the generator alone."""
+        _allreduce(self.optimizer_d)
         self.optimizer_d.step()
         self.optimizer_d.zero_grad(set_to_none=True)
 
@@ -52,7 +66,8 @@ def create_train_state(
     b1: float = 0.9,
     b2: float = 0.999,
 ) -> GanTrainState:
-    """Adam with torch defaults (eps=1e-8), lr scaled by world size, one
+    """Adam with torch defaults (eps=1e-8), lr scaled by ``world_size`` (the
+    number of ranks), one
     optimizer per model (the discriminator's only when ``model_d`` is given).
     On CUDA the update of all parameters is PyTorch's fused Adam (one library
     kernel per dtype and device), on the CPU its plain loop; the arithmetic is

@@ -21,6 +21,13 @@ With ``ar_vae_enabled`` and a spec, the attribute-regularization term of
 ``losses/ar_vae.py`` on ``z_mu`` joins the total at ``ar_gamma``; the batch's
 ``attributes`` ({name: [B] f32}) and its mask feed it, and "subset" pairs
 are drawn from the step's generator unless ``pair_indices`` are given.
+
+Under a process group (``parallel/``) the batch is this rank's rows of the
+global batch: every masked mean divides by the global count of valid rows
+(one all-reduce per step), the AR-VAE term runs over the gathered global
+batch, each optimizer sums the ranks' gradients before its update
+(``state.py``), and the metrics are the global batch's. With no group the
+arithmetic is the single-device one, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..losses.ar_vae import compute_ar_vae_loss
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import AutoencoderKL
 from ..models.lpips import lpips_distance_per_sample
+from ..parallel.mesh import allreduce_metrics, global_count, grouped, masked_mean, world_size
 from .state import GanTrainState
 
 __all__ = ["LossConfig", "make_train_step", "make_eval_step", "make_inference_fn"]
@@ -53,12 +61,6 @@ class LossConfig:
     ar_spec: Any | None = None
     kl_mode: str = "reference"  # see losses/kl.py
     use_perceptual: bool = True
-
-
-def _masked_mean(per_sample: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over valid samples (padding-safe batch mean)."""
-    mask = mask.float()
-    return torch.sum(per_sample * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def _per_sample_recon(pred: torch.Tensor, target: torch.Tensor, kind: str) -> torch.Tensor:
@@ -83,13 +85,14 @@ def _per_sample_lsgan(logits: torch.Tensor, target: float) -> torch.Tensor:
 
 
 def _discriminator_loss(disc, recon: torch.Tensor, images: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, count: torch.Tensor | None = None) -> torch.Tensor:
     """0.5 * (fake -> 0 + real -> 1) on the detached reconstruction, masked
-    means over the padded batch (reference ``train_vae.py:449-455``)."""
+    means over the padded batch (reference ``train_vae.py:449-455``);
+    ``count`` as in ``_generator_losses``."""
     logits_fake = disc(recon.detach())[-1]
     logits_real = disc(images)[-1]
-    fake = _masked_mean(_per_sample_lsgan(logits_fake, 0.0), mask)
-    real = _masked_mean(_per_sample_lsgan(logits_real, 1.0), mask)
+    fake = masked_mean(_per_sample_lsgan(logits_fake, 0.0), mask, count)
+    real = masked_mean(_per_sample_lsgan(logits_real, 1.0), mask, count)
     return 0.5 * (fake + real)
 
 
@@ -104,15 +107,17 @@ def _generator_losses(
     model: AutoencoderKL, lcfg: LossConfig, lpips_params, images: torch.Tensor,
     mask: torch.Tensor, eps: torch.Tensor | None, generator: torch.Generator | None,
     disc=None, attributes: dict[str, torch.Tensor] | None = None,
-    pair_indices: torch.Tensor | None = None,
+    pair_indices: torch.Tensor | None = None, count: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """All generator-side loss terms; shared by the train and eval paths.
     With a discriminator the LSGAN generator term (fake -> 1 through ``disc``)
-    joins the total, with an AR-VAE spec the attribute term on ``z_mu``."""
+    joins the total, with an AR-VAE spec the attribute term on ``z_mu``.
+    ``count`` is the global number of valid rows (``global_count``; this
+    batch's when None)."""
     recon, z_mu, z_sigma = model(images, eps, generator)
 
-    recons_loss = _masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask)
-    kl_loss = _masked_mean(_per_sample_kl(z_mu, z_sigma, lcfg.kl_mode), mask)
+    recons_loss = masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask, count)
+    kl_loss = masked_mean(_per_sample_kl(z_mu, z_sigma, lcfg.kl_mode), mask, count)
 
     zero = torch.zeros((), dtype=torch.float32, device=recon.device)
     if lcfg.use_perceptual:
@@ -120,13 +125,14 @@ def _generator_losses(
             raise ValueError(
                 f"perceptual loss supports 2-D (NHWC) models only here, got a rank-{recon.dim()} "
                 "reconstruction; set perceptual_weight=0 / use_perceptual=False")
-        p_loss = _masked_mean(
-            lpips_distance_per_sample(lpips_params, recon, images, model.compute_dtype), mask)
+        p_loss = masked_mean(
+            lpips_distance_per_sample(lpips_params, recon, images, model.compute_dtype), mask,
+            count)
     else:
         p_loss = zero
 
     if disc is not None:
-        adv_gen = _masked_mean(_per_sample_lsgan(disc(recon)[-1], 1.0), mask)
+        adv_gen = masked_mean(_per_sample_lsgan(disc(recon)[-1], 1.0), mask, count)
     else:
         adv_gen = zero
 
@@ -138,7 +144,17 @@ def _generator_losses(
             z_mu, attributes, lcfg.ar_spec, generator=generator, pair_indices=pair_indices,
             sample_mask=mask)
 
-    total = compute_total_loss(
+    total = _total(lcfg, recons_loss, kl_loss, p_loss, adv_gen, ar_loss)
+    aux = {
+        "recon": recon, "z_mu": z_mu, "z_sigma": z_sigma,
+        "recon_loss": recons_loss, "kl_loss": kl_loss, "perceptual_loss": p_loss,
+        "adv_gen_loss": adv_gen, "ar_loss": ar_loss, "ar_per_attr": ar_per_attr,
+    }
+    return total, aux
+
+
+def _total(lcfg: LossConfig, recons_loss, kl_loss, p_loss, adv_gen, ar_loss):
+    return compute_total_loss(
         recons_loss, kl_loss, p_loss, adv_gen, ar_loss,
         kl_weight=lcfg.kl_weight,
         perceptual_weight=lcfg.perceptual_weight,
@@ -146,12 +162,28 @@ def _generator_losses(
         ar_gamma=lcfg.ar_gamma,
         ar_vae_enabled=lcfg.ar_vae_enabled,
     )
-    aux = {
-        "recon": recon, "z_mu": z_mu, "z_sigma": z_sigma,
-        "recon_loss": recons_loss, "kl_loss": kl_loss, "perceptual_loss": p_loss,
-        "adv_gen_loss": adv_gen, "ar_loss": ar_loss, "ar_per_attr": ar_per_attr,
-    }
-    return total, aux
+
+
+def _global_terms(lcfg: LossConfig, total: torch.Tensor, aux: dict, disc_loss: torch.Tensor
+                  ) -> dict[str, torch.Tensor]:
+    """The step's loss terms over the global batch, unscaled: the ranks'
+    shares summed (one all-reduce), the AR-VAE terms (already the gathered
+    batch's) as they are, and the total recomposed from them. The debug
+    means are over the rows of every rank (the ranks' batches are equally
+    padded). Without a group: the terms as computed, ``total`` itself."""
+    ar = {"ar_loss": aux["ar_loss"],
+          **{f"ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()}}
+    terms = allreduce_metrics({
+        "recon_loss": aux["recon_loss"], "kl_loss": aux["kl_loss"],
+        "perceptual_loss": aux["perceptual_loss"], "adv_gen_loss": aux["adv_gen_loss"],
+        "adv_disc_loss": disc_loss,
+        "z_mu_mean": aux["z_mu"].mean() / world_size(),
+        "z_sigma_mean": aux["z_sigma"].mean() / world_size(), **ar,
+    }, replicated=ar)
+    terms["loss_total"] = (_total(lcfg, terms["recon_loss"], terms["kl_loss"],
+                                  terms["perceptual_loss"], terms["adv_gen_loss"],
+                                  terms["ar_loss"]) if grouped() else total)
+    return terms
 
 
 def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: bool) -> Callable:
@@ -180,8 +212,10 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
     def step(state: GanTrainState, images, mask, attributes, lpips_params,
              eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
              pair_indices: torch.Tensor | None = None):
+        count = global_count(mask)
         loss_g, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
-                                        disc if adv_active else None, attributes, pair_indices)
+                                        disc if adv_active else None, attributes, pair_indices,
+                                        count)
         # gradients for the generator's parameters only: none lands on the
         # discriminator, whose own pass below starts from clean slots
         loss_g.backward(inputs=params_g)
@@ -189,22 +223,24 @@ def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active:
 
         disc_loss = torch.zeros_like(loss_g.detach())
         if adv_active:
-            disc_loss = _discriminator_loss(disc, aux["recon"], images, mask)
+            disc_loss = _discriminator_loss(disc, aux["recon"], images, mask, count)
             (lcfg.adv_weight * disc_loss).backward()
             state.apply_d()
+        terms = _global_terms(lcfg, loss_g, aux, disc_loss)
         metrics = {
-            "train/recon_loss": aux["recon_loss"],
-            "train/kl_loss": aux["kl_loss"],
-            "train/perceptual_loss": aux["perceptual_loss"],
-            "train/adv_gen_loss": lcfg.adv_weight * aux["adv_gen_loss"],
-            "train/adv_disc_loss": lcfg.adv_weight * disc_loss,
-            "train/loss_total": loss_g,
-            **({"train/ar_loss_total": aux["ar_loss"],
-                **{f"train/ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()}}
+            "train/recon_loss": terms["recon_loss"],
+            "train/kl_loss": terms["kl_loss"],
+            "train/perceptual_loss": terms["perceptual_loss"],
+            "train/adv_gen_loss": lcfg.adv_weight * terms["adv_gen_loss"],
+            "train/adv_disc_loss": lcfg.adv_weight * terms["adv_disc_loss"],
+            "train/loss_total": terms["loss_total"],
+            **({"train/ar_loss_total": terms["ar_loss"],
+                **{f"train/ar_loss_{name}": terms[f"ar_loss_{name}"]
+                   for name in aux["ar_per_attr"]}}
                if lcfg.ar_vae_enabled else {}),
             # debug stats (reference ``train_vae.py:432-442``), cheap scalars
-            "debug/z_mu_mean": aux["z_mu"].mean(),
-            "debug/z_sigma_mean": aux["z_sigma"].mean(),
+            "debug/z_mu_mean": terms["z_mu_mean"],
+            "debug/z_sigma_mean": terms["z_sigma_mean"],
         }
         return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -223,21 +259,17 @@ def make_eval_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: 
              pair_indices: torch.Tensor | None = None):
         del state
         with torch.no_grad():
-            total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps, generator,
-                                           disc if adv_active else None, attributes,
-                                           pair_indices)
-            disc_loss = (_discriminator_loss(disc, aux["recon"], images, mask) if adv_active
-                         else torch.zeros_like(total))
-        metrics = {
-            "recon_loss": aux["recon_loss"],
-            "kl_loss": aux["kl_loss"],
-            "perceptual_loss": aux["perceptual_loss"],
-            "adv_gen_loss": aux["adv_gen_loss"],
-            "adv_disc_loss": disc_loss,
-            "ar_loss": aux["ar_loss"],
-            "loss_total": total,
-            **{f"ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()},
-        }
+            count = global_count(mask)
+            total, aux = _generator_losses(model, lcfg, lpips_params, images, mask, eps,
+                                           generator, disc if adv_active else None, attributes,
+                                           pair_indices, count)
+            disc_loss = (_discriminator_loss(disc, aux["recon"], images, mask, count)
+                         if adv_active else torch.zeros_like(total))
+            terms = _global_terms(lcfg, total, aux, disc_loss)
+        metrics = {k: terms[k] for k in ("recon_loss", "kl_loss", "perceptual_loss",
+                                         "adv_gen_loss", "adv_disc_loss", "ar_loss",
+                                         "loss_total")}
+        metrics.update({f"ar_loss_{name}": terms[f"ar_loss_{name}"] for name in aux["ar_per_attr"]})
         return metrics, aux["recon"]
 
     return step

@@ -2,7 +2,10 @@
 ``pti_ldm_vae_tpu/utils/cli_common.py``), plus device selection.
 
 Entry points run on CUDA unless ``--device cpu`` is passed; with no CUDA
-device and no explicit ``cpu`` they raise rather than run on the CPU.
+device and no explicit ``cpu`` they raise rather than run on the CPU. Under a
+torchrun launch ``cuda`` is the rank's own card, ``cuda:LOCAL_RANK``
+(``resolve_device``), and the training and generation entry points join the
+process group (``join_process_group``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from ..data.factory import create_vae_inference_dataloader
 from ..models.autoencoder_kl import AutoencoderKL
 from ..models.unet import ConditionProjector, DiffusionUNet, diffusion_unet_from_config
 from ..ops.norm import DEFAULT_NORM_STATS
+from ..parallel.mesh import process_rank, world_size
+from ..parallel.multihost import maybe_initialize_distributed, torchrun_local_rank
 from ..train.diffusion import NoiseSchedule
 from .determinism import set_determinism
 from .vae_loader import load_vae_config, load_vae_model
@@ -27,6 +32,7 @@ from .vae_loader import load_vae_config, load_vae_model
 __all__ = [
     "add_shared_io_args",
     "resolve_device",
+    "join_process_group",
     "init_device_and_seed",
     "enable_parity_numerics",
     "load_config_and_model",
@@ -61,13 +67,34 @@ def add_shared_io_args(parser: argparse.ArgumentParser, output_help: str) -> Non
 
 
 def resolve_device(name: str) -> torch.device:
-    """``cuda[:i]`` or ``cpu``; raises when CUDA is asked for and absent."""
+    """``cuda[:i]`` or ``cpu``; raises when CUDA is asked for and absent.
+    Under torchrun a bare ``cuda`` is ``cuda:LOCAL_RANK`` (an explicit index
+    is kept), and a ``LOCAL_RANK`` beyond the cards seen raises."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    local_rank = torchrun_local_rank()
+    if device.type == "cuda" and device.index is None and local_rank is not None:
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK={local_rank} but {torch.cuda.device_count()} "
+                               "card(s) are visible: one process per card")
+        device = torch.device("cuda", local_rank)
     return device
+
+
+def join_process_group(device: torch.device) -> tuple[int, int]:
+    """Join the torchrun launch's process group, if any (``parallel/multihost``:
+    NCCL on CUDA, gloo on the CPU; a group the caller started is kept), and
+    report it on rank 0. Returns (rank, world)."""
+    if maybe_initialize_distributed(device):
+        rank, world = process_rank(), world_size()
+        if rank == 0:
+            print(f"[INFO] process group: {world} rank(s), "
+                  f"backend {torch.distributed.get_backend()}, rank 0 on {device}")
+        return rank, world
+    return 0, 1
 
 
 def init_device_and_seed(seed: int | None, device: torch.device) -> torch.Generator:

@@ -37,7 +37,8 @@ def test_port_has_modules():
                      "utils/visualization.py", "analysis/latent_space.py",
                      "analysis/common.py", "cli/analyze_static.py",
                      "cli/analyze_interactive.py", "cli/analyze_ar_channels.py",
-                     "checkpoint/paths.py", "native/__init__.py", "utils/profiling.py"):
+                     "checkpoint/paths.py", "native/__init__.py", "utils/profiling.py",
+                     "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py"):
         assert expected in names
     assert (PORT / "native" / "ptidata.cpp").exists()
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",

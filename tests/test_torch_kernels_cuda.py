@@ -811,3 +811,38 @@ def test_s2d_and_remat_forms_on_the_card(cuda):
         torch.backends.cudnn.deterministic = deterministic
     assert len(plain) == len(remat) and all(torch.equal(a, b) for a, b in zip(plain, remat))
     assert conv3x3.fma_launches == 0 and launch_counts()["conv3x3"] > 0
+
+
+@pytest.mark.cuda
+def test_flat_gradient_allreduce_under_a_world_one_nccl_group(cuda):
+    """The data-parallel gradient all-reduce (one flat buffer per optimizer,
+    ``parallel/mesh.py``) under a one-rank NCCL group leaves every gradient
+    bit for bit as it was, channels-last ones included."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.parallel import allreduce_gradients
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already active in this process")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    model = autoencoder_from_config(
+        dict(spatial_dims=2, in_channels=1, out_channels=1, latent_channels=3, channels=[8, 16],
+             num_res_blocks=1, norm_num_groups=4, attention_levels=[False, False],
+             with_encoder_nonlocal_attn=True, with_decoder_nonlocal_attn=True),
+        compute_dtype=torch.bfloat16).to(device=cuda, memory_format=torch.channels_last)
+    x = torch.randn(2, 32, 32, 1, generator=torch.Generator().manual_seed(3)).to(cuda)
+    model.reconstruct_deterministic(x).square().mean().backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    before = [p.grad.clone() for p in params]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        allreduce_gradients(params)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(p.grad, b) for p, b in zip(params, before))
