@@ -215,6 +215,21 @@ result line):
 6q. ``two_pass``: the f32 step with ``norm_stats`` ``"two_pass"`` (plain tensor
    code on the card, counted in ``group_norm_silu.two_pass_calls``: 42 a
    pass, no GroupNorm+SiLU launch) against the one-pass step, the same bars;
+6r. ``dims_path``: the flagship's ``autoencoder_def`` at ``spatial_dims`` 3
+   (b2 x 64³ seeded volumes) and 1 (b2 x 4096): kernel checks at the rank-4
+   views its GroupNorm+SiLU calls hand the kernels and flash at
+   [2, 1, 512, 128], both types; the 5-D / 3-D calls the kernels' bits on
+   those views; bf16 and f32 reconstructs (42 GroupNorm+SiLU and 2 flash
+   launches each); f32 reconstructs against the CPU (1e-3; 3-D at 32³); the
+   3-D f32 generator step (L1 + KL + fake-3D LPIPS) and adversarial step (3-D
+   PatchGAN) at b2 x 32³ against the CPU (``dims_step_check``);
+6s. ``vmap_rules``: each kernel Function's ``torch.func.vmap`` rule (shared
+   weights folded into one launch, per-image weights one launch per image),
+   forward and ``vmap(grad)``, against a loop over the images; ``pti_vmap``:
+   ``cli.run_pti --tune-formulation vmap`` b8, 5 / 3 steps, bf16 / ``--f32`` /
+   ``--conv-kernel`` and the ``scan`` form beside it (launch counts, pivots),
+   both programs and both stage-2 forms in f32 against each other; timings
+   ``dims_b2`` and ``pti_vmap_b8`` in a child (``--dims-timings``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -308,6 +323,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
 import os
 import shutil
@@ -494,6 +510,14 @@ DDP_PARAM_BAR = 2e-3  # of each parameter tensor's largest change (the train-ste
 DDP_PARAM_SHARE = 0.99  # of all parameter entries (see ddp_compare)
 DDP_FILE_BAR = 1e-4  # sampled images and PTI outputs, of their largest entry, f32
 DDP_TIMEOUT_S = 480
+# phase dims_path: the flagship's widths at spatial_dims 3 and 1
+DIMS_BATCH = 2
+DIMS_SIDE = 64  # b2 x 64³ volumes (latent 8³: the mid blocks' 512 tokens)
+DIMS_REF_SIDE = 32  # card f32 against the CPU at 32³ (the 3-layer PatchGAN's floor)
+DIMS_SIGNAL = 4096  # the 1-D model's b2 x 4096 signal (latent 512)
+DIMS_FLASH_SHAPE = (DIMS_BATCH, 1, 512, 128)
+# phase pti_vmap: run_pti --tune-formulation vmap, (latent, tune) steps
+PTI_VMAP_STEPS = (5, 3)
 
 
 def expected_launches(train_steps: int, forward_only: int, conv_kernel: bool,
@@ -532,23 +556,30 @@ def conv_shares(kernels_mod) -> dict[str, int]:
 
 
 def expected_pti_launches(encodes: int, latent_steps: int, tune_steps: int, written: int,
-                          conv_kernel: bool) -> dict[str, int]:
+                          conv_kernel: bool, flash_tune_steps: int | None = None) -> dict[str, int]:
     """Launch counts of PTI on the flagship: ``encodes`` encoder passes (the
     initial latents of each batch), ``latent_steps`` decoder passes with the
     input gradient (stage 1, summed over batches), ``tune_steps`` decoder
     passes with both gradients (stage 2, summed over the tuned rows), and one
     decoder pass per ``written`` image. Every decoder convolution needs its
     input gradient in both stages (z, then ``post_quant_conv``'s output,
-    require it); only stage 2 takes filter gradients."""
+    require it); only stage 2 takes filter gradients. ``flash_tune_steps``:
+    stage 2's flash launches where they are not one per tuned row and step
+    (the ``vmap`` form folds the images of a step into one launch, while its
+    GroupNorm+SiLU and convolutions, with a weight per image, launch once per
+    image as the ``scan`` form's do)."""
     backward = latent_steps + tune_steps
     decodes = backward + written
+    flash_tune = tune_steps if flash_tune_steps is None else flash_tune_steps
+    flash_backward = latent_steps + flash_tune
     conv = (ENCODER_PASS["conv"] * encodes + DECODER_PASS["conv"] * (decodes + backward)
             if conv_kernel else 0)
     return {
         "groupnorm_silu": ENCODER_PASS["gn"] * encodes + DECODER_PASS["gn"] * decodes,
         "groupnorm_silu_bwd": DECODER_PASS["gn"] * backward,
-        "flash_attention": ENCODER_PASS["flash"] * encodes + DECODER_PASS["flash"] * decodes,
-        "flash_attention_bwd": DECODER_PASS["flash"] * backward,
+        "flash_attention": ENCODER_PASS["flash"] * encodes
+        + DECODER_PASS["flash"] * (flash_backward + written),
+        "flash_attention_bwd": DECODER_PASS["flash"] * flash_backward,
         "conv3x3": conv,
         "conv3x3_wgrad": DECODER_PASS["conv"] * tune_steps if conv_kernel else 0,
     }
@@ -2119,27 +2150,33 @@ def ar_step_reference_check(torch, np, kernels_mod, ae_def: dict, spec, data_dir
 
 
 def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: int, batch: int,
-                conv_kernel: bool, extra_per_backward: dict[str, int] | None = None) -> dict:
-    """``run_pti`` on ``n_images`` at ``batch``: launch counts (every padded row
-    of a batch is tuned too, none is written; ``extra_per_backward``: the
-    forward launches ``remat`` adds to each decoder backward), the outputs of
-    every image, latent and tune losses that fall."""
+                conv_kernel: bool, extra_per_backward: dict[str, int] | None = None,
+                steps: tuple[int, int] = (PTI_LATENT_STEPS, PTI_TUNE_STEPS)) -> dict:
+    """``run_pti`` on ``n_images`` at ``batch``, ``steps`` (latent, tune) steps:
+    launch counts (every padded row of a batch is tuned too, none is written;
+    ``extra_per_backward``: the forward launches ``remat`` adds to each
+    decoder backward; ``--tune-formulation vmap`` in ``args``: stage 2's flash
+    launches once per step for the batch), the outputs of every image, latent
+    and tune losses that fall."""
     from pti_ldm_vae_tpu_torch.cli.run_pti import main as pti_main
     from pti_ldm_vae_tpu_torch.data.io import read_image
 
+    latent_steps, tune_steps = steps
     kernels_mod.reset_launch_counts()
     t0 = time.perf_counter()
     pti_main(args + ["--output-dir", str(out), "--batch-size", str(batch), "--num-samples",
-                     str(n_images), "--latent-steps", str(PTI_LATENT_STEPS), "--tune-steps",
-                     str(PTI_TUNE_STEPS)])
+                     str(n_images), "--latent-steps", str(latent_steps), "--tune-steps",
+                     str(tune_steps)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, shares = kernels_mod.launch_counts(), conv_shares(kernels_mod)
     batches = -(-n_images // batch)
     tuned_rows = batches * batch if batch > 1 else n_images
-    want = plus(expected_pti_launches(batches, batches * PTI_LATENT_STEPS,
-                                      tuned_rows * PTI_TUNE_STEPS, n_images, conv_kernel),
-                extra_per_backward or {}, batches * PTI_LATENT_STEPS + tuned_rows * PTI_TUNE_STEPS)
+    vmap = "vmap" in args and batch > 1
+    want = plus(expected_pti_launches(batches, batches * latent_steps, tuned_rows * tune_steps,
+                                      n_images, conv_kernel,
+                                      batches * tune_steps if vmap else None),
+                extra_per_backward or {}, batches * latent_steps + tuned_rows * tune_steps)
     # bf16 with the convolution kernels: no call on the FMA kernel, the thin ones padded
     if launches != want or shares["fma"] or (shares["padded"] > 0) != conv_kernel:
         raise RuntimeError(f"run_pti: launches {launches}, expected {want}; convolution FMA / "
@@ -2152,8 +2189,8 @@ def run_pti_cli(torch, np, kernels_mod, args: list[str], out: Path, n_images: in
     for path in pivots:
         npz = np.load(path)
         recon = read_image(str(path).replace("_pivot.npz", "_pti.tif"))
-        if (npz["latent"].shape != (1, IMAGE // 8, IMAGE // 8, 4) or npz["latent_loss"].shape != (PTI_LATENT_STEPS,)
-                or npz["tune_loss"].shape != (PTI_TUNE_STEPS,) or recon.shape != (IMAGE, IMAGE)
+        if (npz["latent"].shape != (1, IMAGE // 8, IMAGE // 8, 4) or npz["latent_loss"].shape != (latent_steps,)
+                or npz["tune_loss"].shape != (tune_steps,) or recon.shape != (IMAGE, IMAGE)
                 or not all(np.isfinite(a).all() for a in (*npz.values(), recon))):
             raise RuntimeError(f"{path.name}: bad outputs")
         for key in falls:
@@ -4096,6 +4133,537 @@ def ddp_path(torch, np, ae_def: dict, ckpt: Path, ldm_cfg: Path, ldm_ckpt: str,
     return {rank: json.loads((WORK / f"ddp_rank{rank}.json").read_text()) for rank in (0, 1)}
 
 
+# ---- 1-D and 3-D models, PTI's vmap form (phases dims_path, pti_vmap) ------------------------
+
+def dims_def(ae_def: dict, spatial_dims: int) -> dict:
+    """The flagship's ``autoencoder_def`` at another spatial rank (widths,
+    depth, groups, eps and both mid-block attentions as they are)."""
+    return {**ae_def, "spatial_dims": spatial_dims}
+
+
+def dims_gn_shapes(torch, ae_def: dict, side: int, batch: int) -> list[tuple[tuple[int, ...], int]]:
+    """[(channel-last shape at ``batch`` and ``side``, launches per pass)] of
+    every GroupNorm+SiLU of a reconstruct of ``ae_def`` (1-D or 3-D), recorded
+    with forward hooks during a CPU reconstruct at side 8 (no launch) and
+    scaled to ``side`` (every level's side is the input's over a power of 2)."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import GroupNormOp, autoencoder_from_config
+
+    model = autoencoder_from_config(ae_def)
+    sd, probe = ae_def["spatial_dims"], 8
+    counts: dict[tuple[int, ...], int] = {}
+
+    def hook(module, args):
+        if module.silu:
+            spatial = tuple(s * side // probe for s in args[0].shape[1:-1])
+            shape = (batch, *spatial, args[0].shape[-1])
+            counts[shape] = counts.get(shape, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, GroupNormOp)]
+    try:
+        with torch.inference_mode():
+            model.reconstruct_deterministic(torch.zeros(1, *(probe,) * sd, 1))
+    finally:
+        for h in handles:
+            h.remove()
+    return sorted(counts.items(), key=lambda kv: -math.prod(kv[0]))
+
+
+def rank4(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The rank-4 view the GroupNorm+SiLU kernels get of a channel-last shape
+    (``ops/norm.py:rank4_view``): [B, D*H, W, C] or [B, 1, L, C]."""
+    if len(shape) == 5:
+        return (shape[0], shape[1] * shape[2], shape[3], shape[4])
+    return (shape[0], 1, shape[1], shape[2]) if len(shape) == 3 else tuple(shape)
+
+
+def dims_view_checks(torch, kernels_mod, shapes) -> dict:
+    """``ops.norm.group_norm_silu`` on the 1-D / 3-D tensors of ``shapes``
+    [(shape, groups)], forward and backward in both types, gives the bits of
+    the kernels' own call on the rank-4 view (the reshape is all the port
+    adds), one launch each way a call."""
+    from pti_ldm_vae_tpu_torch.ops.norm import group_norm_silu, rank4_view
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for shape, groups in shapes:
+        c = shape[-1]
+        x = torch.randn(shape, device="cuda", generator=gen)
+        scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        g = torch.randn(shape, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype), g.to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (xd, scale, bias)]
+            kernels_mod.reset_launch_counts()
+            y = group_norm_silu(*leaves, num_groups=groups, eps=1e-6)
+            grads = torch.autograd.grad(y, leaves, gd)
+            counts = kernels_mod.launch_counts()
+            view = [t.clone().requires_grad_() for t in (rank4_view(xd), scale, bias)]
+            y4 = kernels_mod.groupnorm_silu(*view, groups, 1e-6)
+            grads4 = torch.autograd.grad(y4, view, rank4_view(gd))
+            same = (torch.equal(y, y4.reshape(shape)) and torch.equal(grads[0], grads4[0].reshape(shape))
+                    and torch.equal(grads[1], grads4[1]) and torch.equal(grads[2], grads4[2]))
+            if (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) != (1, 1) or not same:
+                raise RuntimeError(f"group_norm_silu on {shape} {dtype_key(dtype)}: launches "
+                                   f"{counts}, bit-equal to the rank-4 call: {same}")
+            out[f"{list(shape)} {dtype_key(dtype)}"] = list(rank4(shape))
+        del x, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def vmap_rule_checks(torch, kernels_mod) -> dict:
+    """Each kernel Function's ``torch.func.vmap`` rule on the card: ``vmap(f)``
+    and ``vmap(grad)`` against a loop over the images through the same
+    wrappers. GroupNorm+SiLU with shared scale / bias (fold: one launch each
+    way a call) and per-image ones (one per image), flash attention (fold),
+    the convolution with a shared matrix (fold: forward and input gradient one
+    launch each) and a matrix per image (one per image); the filter gradient,
+    a sum over each image's own batch, launches once per image in both.
+    Outputs and input gradients at ``F32_TOL`` / ``BF16_TOL`` (a fold is a
+    bigger batch, which may cut the work another way), parameter gradients
+    (f32 sums) at rtol 1e-4 with atol 1e-4 of their largest entry; the
+    per-image branch gives the loop's bits."""
+    from torch.func import grad, vmap
+
+    v = 4
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    def gn(a, s, b):
+        return kernels_mod.groupnorm_silu(a, s, b, 16, 1e-6)
+
+    x = rnd(v, 1, 64, 64, 64)
+    cases = {  # name: (fn, args, in_dims, launches of one vmap(fn) and one vmap(grad))
+        "groupnorm_silu_fold": (gn, (x, 1 + 0.1 * rnd(64), 0.1 * rnd(64)), (0, None, None),
+                                {"groupnorm_silu": 2, "groupnorm_silu_bwd": 1}),
+        "groupnorm_silu_per_image": (gn, (x, 1 + 0.1 * rnd(v, 64), 0.1 * rnd(v, 64)), (0, 0, 0),
+                                     {"groupnorm_silu": 2 * v, "groupnorm_silu_bwd": v}),
+        "flash_attention_fold": (kernels_mod.flash_attention,
+                                 tuple(rnd(v, 1, 1, 1024, 128) for _ in range(3)), (0, 0, 0),
+                                 {"flash_attention": 2, "flash_attention_bwd": 1}),
+        "conv3x3_fold": (kernels_mod.conv3x3, (x, 0.05 * rnd(576, 64)), (0, None),
+                         {"conv3x3": 3, "conv3x3_wgrad": v}),
+        "conv3x3_per_image": (kernels_mod.conv3x3, (x, 0.05 * rnd(v, 576, 64)), (0, 0),
+                              {"conv3x3": 3 * v, "conv3x3_wgrad": v}),
+    }
+    out = {}
+    for name, (fn, args, dims, want_launches) in cases.items():
+        params = () if name.startswith("flash") else tuple(range(1, len(args)))
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            # activations in dtype; GroupNorm's affine and the convolution's matrix stay f32
+            targs = [a if i in params else a.to(dtype) for i, a in enumerate(args)]
+            one = fn(*(a if d is None else a[0] for a, d in zip(targs, dims)))
+            g = rnd(v, *one.shape).to(dtype)
+
+            def loss(*a, _fn=fn):
+                return (_fn(*a[:-1]).float() * a[-1].float()).sum()
+
+            argnums = tuple(range(len(targs)))
+            kernels_mod.reset_launch_counts()
+            got = vmap(fn, in_dims=dims)(*targs)
+            got_grads = vmap(grad(loss, argnums=argnums), in_dims=(*dims, 0))(*targs, g)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in kernels_mod.launch_counts().items() if n}
+            want = torch.stack([fn(*(a if d is None else a[i] for a, d in zip(targs, dims)))
+                                for i in range(v)])
+            loop = []
+            for i in range(v):
+                leaves = [(a if d is None else a[i]).clone().requires_grad_()
+                          for a, d in zip(targs, dims)]
+                loop.append(torch.autograd.grad(loss(*leaves, g[i]), leaves))
+            errs = [check_close(f"{name} vmap {dtype_key(dtype)}", got, want, tol)]
+            for j, got_g in enumerate(got_grads):
+                want_g = torch.stack([lg[j] for lg in loop])
+                bar = (dict(rtol=1e-4, atol=1e-4 * float(want_g.abs().max())) if j in params
+                       else tol)
+                errs.append(check_close(f"{name} vmap grad {j} {dtype_key(dtype)}", got_g, want_g,
+                                        bar))
+            if launches != want_launches:
+                raise RuntimeError(f"{name} {dtype_key(dtype)} under vmap launched {launches}, "
+                                   f"expected {want_launches}")
+            if "per_image" in name and not torch.equal(got, want):
+                raise RuntimeError(f"{name} {dtype_key(dtype)}: the per-image branch is not the "
+                                   "loop's bits")
+            out[f"{name} {dtype_key(dtype)}"] = {"max_abs_err": max(errs), "launches": launches}
+    torch.cuda.empty_cache()
+    return out
+
+
+def dims_model(torch, ae_def: dict, weights: Path, dtype, device: str):
+    """The 1-D / 3-D flagship from its seeded weights (``make_weights``), in
+    ``dtype`` compute on ``device`` (channel-last memory)."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import (
+        autoencoder_from_config,
+        channels_last_format,
+    )
+
+    model = autoencoder_from_config(ae_def, compute_dtype=dtype)
+    model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True), strict=True)
+    return model.to(device=device, memory_format=channels_last_format(ae_def["spatial_dims"]))
+
+
+def dims_reconstruct(torch, kernels_mod, model, x) -> tuple[object, dict]:
+    """One reconstruct on the card: (output, launches), the launches held to
+    a flagship pass's (42 GroupNorm+SiLU on rank-4 views, 2 flash)."""
+    kernels_mod.reset_launch_counts()
+    with torch.inference_mode():
+        y = model.reconstruct_deterministic(x)
+    torch.cuda.synchronize()
+    launches = kernels_mod.launch_counts()
+    want = expected_launches(0, 1, conv_kernel=False)
+    if launches != want or y.shape != x.shape or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"{model.spatial_dims}-D reconstruct: launches {launches} (expected "
+                           f"{want}), shape {tuple(y.shape)}")
+    return y, launches
+
+
+def dims_step_check(torch, kernels_mod, ae_def: dict, weights: Path, side: int) -> dict:
+    """The 3-D flagship's f32 generator step (L1 + KL + fake-3D LPIPS) and its
+    adversarial step (the 3-D PatchGAN the trainer builds) at b2 x ``side``³,
+    card against the CPU plain path, same weights, volumes and eps, with the
+    bars of ``adv_train_reference_check``: loss terms 1e-4 relative; the
+    generator's gradient without the adversarial term and the
+    discriminator's on one shared reconstruction within 2e-3 of each
+    tensor's largest entry; the whole generator's and the discriminator's on
+    its own reconstruction within 2e-2 (the LeakyReLU kinks, ROADMAP C).
+    Launches of the generator pass: one flagship forward and backward."""
+    from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, _discriminator_loss, _generator_losses
+
+    cpu_model = dims_model(torch, ae_def, weights, torch.float32, "cpu")
+    gpu_model = dims_model(torch, ae_def, weights, torch.float32, "cuda")
+    cpu_disc = PatchDiscriminator(spatial_dims=3, generator=torch.Generator().manual_seed(10))
+    gpu_disc = copy.deepcopy(cpu_disc).to(device="cuda", memory_format=torch.channels_last_3d)
+    lcfg = LossConfig(recon_loss="l1", kl_weight=1e-3, perceptual_weight=1.0, adv_weight=3.0)
+    gen = torch.Generator().manual_seed(23)
+    images = torch.rand(DIMS_BATCH, side, side, side, 1, generator=gen)
+    mask = torch.ones(DIMS_BATCH)
+    lat = side // 2 ** (len(ae_def["channels"]) - 1)
+    eps = torch.randn(DIMS_BATCH, lat, lat, lat, ae_def["latent_channels"], generator=gen)
+
+    def disc_grads(disc, recon, x, m):
+        d_loss = _discriminator_loss(disc, recon, x, m)
+        grads = torch.autograd.grad(lcfg.adv_weight * d_loss, list(disc.parameters()))
+        return d_loss.detach(), {k: g.cpu() for (k, _), g in zip(disc.named_parameters(), grads)}
+
+    def one(model, disc, device, shared_recon, counts: dict):
+        lp = init_lpips_params(0, device)
+        x, m = images.to(device), mask.to(device)
+        params = list(model.parameters())
+        names = [k for k, _ in model.named_parameters()]
+        kernels_mod.reset_launch_counts()
+        total_g, aux_g = _generator_losses(model, lcfg, lp, x, m, eps.to(device), None)
+        plain = torch.autograd.grad(total_g, params)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts.update(kernels_mod.launch_counts())
+        total, aux = _generator_losses(model, lcfg, lp, x, m, eps.to(device), None, disc)
+        whole = torch.autograd.grad(total, params)
+        d_loss, d_grads = disc_grads(disc, aux["recon"], x, m)
+        terms = {k: float(aux[k].detach()) for k in
+                 ("recon_loss", "kl_loss", "perceptual_loss", "adv_gen_loss")}
+        terms.update(loss_total=float(total.detach()), adv_disc_loss=float(d_loss),
+                     generator_loss_total=float(total_g.detach()))
+        grads = {
+            "generator_step": {k: g.cpu() for k, g in zip(names, plain)},
+            "adversarial_generator": {k: g.cpu() for k, g in zip(names, whole)},
+            "discriminator": d_grads,
+            "discriminator_on_shared_reconstruction": disc_grads(
+                disc, (aux["recon"].detach() if shared_recon is None else shared_recon).to(device),
+                x, m)[1],
+        }
+        return terms, grads, aux["recon"].detach().cpu()
+
+    want_terms, want_grads, cpu_recon = one(cpu_model, cpu_disc, "cpu", None, {})
+    per_step: dict[str, int] = {}
+    got_terms, got_grads, _ = one(gpu_model, gpu_disc, "cuda", cpu_recon, per_step)
+    want = expected_launches(1, 0, conv_kernel=False)
+    if per_step != want:
+        raise RuntimeError(f"3-D generator step launched {per_step}, expected {want}")
+    term_err = {k: abs(got_terms[k] - v) / abs(v) for k, v in want_terms.items()}
+    bars = {"generator_step": GRAD_BAR, "adversarial_generator": ADV_GRAD_BAR,
+            "discriminator": ADV_GRAD_BAR, "discriminator_on_shared_reconstruction": GRAD_BAR}
+    worst = {}
+    for group, refs in want_grads.items():
+        errs = {}
+        for key, ref in refs.items():
+            err = float((got_grads[group][key] - ref).abs().max())
+            errs[key] = err if key.endswith("to_k.bias") else err / float(ref.abs().max())
+        key = max(errs, key=errs.get)
+        worst[group] = {"tensor": key, "err_of_tensor_max": errs[key], "bar": bars[group]}
+    result = {"batch": DIMS_BATCH, "side": side, "terms_card": got_terms, "terms_cpu": want_terms,
+              "max_term_rel_err": max(term_err.values()), "term_bar": 1e-4,
+              "worst_gradient": worst, "launches_per_generator_step": per_step}
+    if not max(term_err.values()) <= 1e-4:
+        raise RuntimeError(f"3-D f32 CUDA loss terms differ from the CPU plain path: {term_err}")
+    for group, w in worst.items():
+        if not w["err_of_tensor_max"] <= w["bar"]:
+            raise RuntimeError(f"3-D f32 CUDA {group} gradient {w['tensor']} differs from the CPU "
+                               f"by {w['err_of_tensor_max']} of its largest entry (bar {w['bar']})")
+    return result
+
+
+def dims_path(torch, np, kernels_mod, ae_def: dict) -> dict:
+    """Phase ``dims_path``: the flagship's widths at ``spatial_dims`` 3 and 1.
+
+    3-D: kernel checks at the GroupNorm+SiLU shapes of a b2 x 64³ pass, as the
+    rank-4 views the kernels get, and flash at [2, 1, 512, 128] (the mid
+    blocks' 8³ tokens), both types; the 5-D calls bit-equal to the kernels'
+    rank-4 ones; reconstructs in bf16 and f32 at b2 x 64³ (launch counts); an
+    f32 reconstruct at b2 x 32³ against the CPU (1e-3); the f32 generator and
+    adversarial steps at b2 x 32³ against the CPU (``dims_step_check``).
+    1-D: the same kernel checks at a b2 x 4096 signal's shapes and flash
+    [2, 1, 512, 128], a bf16 and an f32 reconstruct, the f32 one against the
+    CPU (1e-3). Returns the launches by run and the kernel errors."""
+    both = (torch.float32, torch.bfloat16)
+    out: dict = {"launches": {}}
+    errs = None
+    for sd, side in ((3, DIMS_SIDE), (1, DIMS_SIGNAL)):
+        d_def = dims_def(ae_def, sd)
+        shapes = dims_gn_shapes(torch, d_def, side, DIMS_BATCH)
+        if sum(n for _, n in shapes) != GN_PER_RECONSTRUCT:
+            raise RuntimeError(f"{sd}-D GroupNorm+SiLU shapes {shapes}")
+        views = [(rank4(s), n) for s, n in shapes]
+        e = check_kernels(torch, [(s, 16, both) for s, _ in views], (DIMS_FLASH_SHAPE,), [],
+                          kernels_mod, seed=20 + sd, ragged=False, phase=f"dims_kernel_checks_{sd}d")
+        errs = e if errs is None else {k: {t: max(x, e[k][t]) for t, x in by_t.items()}
+                                       for k, by_t in errs.items()}
+        emit("dims_view_checks", spatial_dims=sd,
+             views=dims_view_checks(torch, kernels_mod, [(s, 16) for s, _ in shapes]))
+        weights = WORK / f"vae_{sd}d_random.pth"
+        make_weights(torch, d_def, weights)
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        x = torch.rand(DIMS_BATCH, *(side,) * sd, 1, device="cuda", generator=gen)
+        for dtype in both:
+            model = dims_model(torch, d_def, weights, dtype, "cuda")
+            _, launches = dims_reconstruct(torch, kernels_mod, model, x)
+            out["launches"][f"dims_{sd}d_reconstruct_{dtype_key(dtype)}"] = launches
+            del model
+        ref_side = DIMS_REF_SIDE if sd == 3 else side
+        xr = x[(slice(None), *(slice(0, ref_side),) * sd)].contiguous()
+        gpu = dims_model(torch, d_def, weights, torch.float32, "cuda")
+        got, _ = dims_reconstruct(torch, kernels_mod, gpu, xr)
+        with torch.inference_mode():
+            want = dims_model(torch, d_def, weights, torch.float32, "cpu").reconstruct_deterministic(
+                xr.cpu())
+        err = float((got.cpu() - want).abs().max())
+        emit("dims_path", spatial_dims=sd, batch=DIMS_BATCH, side=side, reference_side=ref_side,
+             gn_shapes=[[list(s), n] for s, n in shapes], gn_views=[[list(s), n] for s, n in views],
+             flash_shape=list(DIMS_FLASH_SHAPE), max_abs_err_f32_vs_cpu=err, bar=1e-3,
+             launches={k: v for k, v in out["launches"].items() if k.startswith(f"dims_{sd}d")})
+        if not err <= 1e-3:
+            raise RuntimeError(f"{sd}-D f32 reconstruct differs from the CPU by {err}")
+        del gpu
+        torch.cuda.empty_cache()
+        if sd == 3:
+            step = dims_step_check(torch, kernels_mod, d_def, weights, DIMS_REF_SIDE)
+            out["launches"]["dims_3d_generator_step_f32"] = step["launches_per_generator_step"]
+            emit("dims_train_reference", spatial_dims=3, **step)
+            out["weights_3d"] = str(weights)
+            torch.cuda.empty_cache()
+    out["errs"] = errs
+    return out
+
+
+def pti_vmap_path(torch, np, kernels_mod, ckpt: Path) -> dict:
+    """Phase ``pti_vmap``: ``run_pti --tune-formulation vmap`` on the seeded
+    flagship checkpoint at 256², b8, ``PTI_VMAP_STEPS`` (latent, tune) steps,
+    in bf16, f32 and bf16 with ``--conv-kernel`` (launch counts with stage 2's
+    flash folded, GroupNorm+SiLU and convolutions once per image), beside
+    ``--tune-formulation scan`` on the same inputs in bf16: the written
+    pivots must be the scan run's (one stage-1 program). Then both forms'
+    programs on two images in f32 on the card (launches; pivots within
+    ``PTI_PIVOT_BAR``, losses 1e-4 relative), and stage 2 of both forms from
+    one set of pivots, held to each other with ``pti_reference_check``'s
+    bars: losses 1e-4 relative, tuned tensors ``PTI_TUNED_BAR`` of their
+    change where the first gradient is outside its rounding, Adam's 2 lr a
+    step everywhere (from each program's own pivots the pivots' spread under
+    cuDNN's f32 algorithms would be compared, not the form)."""
+    from pti_ldm_vae_tpu_torch.train.diffusion import (
+        _tune,
+        _tune_vmap,
+        decoder_parameters,
+        make_pivotal_tuning_inversion_batched,
+    )
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
+
+    cli = ["-c", str(CONFIG), "--checkpoint", str(ckpt), "--input-dir", str(WORK / "data"),
+           "--num-workers", "4"]
+    runs = {}
+    for key, extra, conv in (("vmap_b8", ["--tune-formulation", "vmap"], False),
+                             ("vmap_b8_f32", ["--tune-formulation", "vmap", "--f32"], False),
+                             ("vmap_b8_conv_kernel", ["--tune-formulation", "vmap", "--conv-kernel"],
+                              True),
+                             ("scan_b8", [], False)):
+        runs[key] = run_pti_cli(torch, np, kernels_mod, cli + extra, WORK / f"pti_{key}", BATCH,
+                                BATCH, conv, steps=PTI_VMAP_STEPS)
+        emit("pti_vmap", run=key, latent_steps=PTI_VMAP_STEPS[0], tune_steps=PTI_VMAP_STEPS[1],
+             **runs[key])
+        torch.cuda.empty_cache()
+    pivot_err = 0.0
+    for path in sorted((WORK / "pti_scan_b8").glob("*_pivot.npz")):
+        want = np.load(path)
+        got = np.load(WORK / "pti_vmap_b8" / path.name)
+        pivot_err = max(pivot_err, float(np.abs(got["latent"] - want["latent"]).max()
+                                         / np.abs(want["latent"]).max()))
+
+    # both programs in f32 on two images (cuDNN's deterministic algorithms: the two stage-1
+    # runs then give the same pivots), then stage 2 of both forms from one set of pivots
+    steps, latent_lr, tune_lr = PTI_REFERENCE_STEPS, 1e-1, 1e-4
+    _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"), exact=True)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    images = torch.rand(2, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    with torch.no_grad():
+        z0 = model.encode_deterministic(images)
+    start = {k: v.detach().clone() for k, v in decoder_parameters(model).items()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        forms = {}
+        for form in ("scan", "vmap"):
+            program = make_pivotal_tuning_inversion_batched(
+                model, latent_steps=steps, latent_lr=latent_lr, tune_steps=steps, tune_lr=tune_lr,
+                tune_formulation=form)
+            kernels_mod.reset_launch_counts()
+            pivots, _, losses = program(images, z0)
+            torch.cuda.synchronize()
+            forms[form] = (pivots, losses, kernels_mod.launch_counts())
+        pivots = forms["scan"][0]
+        scan = [_tune(model, images[i:i + 1], pivots[i:i + 1], start, steps, tune_lr)
+                for i in range(2)]
+        with torch.no_grad():
+            for name, p in decoder_parameters(model).items():
+                p.copy_(start[name])
+        s_tuned = {k: torch.stack([t[0][k] for t in scan]) for k in start}
+        s_loss = torch.stack([t[1] for t in scan])
+        v_tuned, v_loss = _tune_vmap(model, images, pivots, steps, tune_lr)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want_launches = expected_pti_launches(0, steps, 2 * steps, 0, False, steps)
+    if forms["vmap"][2] != want_launches:
+        raise RuntimeError(f"vmap program launched {forms['vmap'][2]}, expected {want_launches}")
+    params = decoder_parameters(model)
+    for p in params.values():  # the loader freezes an inference model
+        p.requires_grad_(True)
+    g_tune = []
+    for i in range(2):
+        loss = (model.decode(pivots[i:i + 1]) - images[i:i + 1]).square().mean()
+        g_tune.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+    for p in params.values():
+        p.requires_grad_(False)
+    loss_err = max(float(((forms["vmap"][1][k] - forms["scan"][1][k]).abs()
+                          / forms["scan"][1][k].abs()).max()) for k in ("latent", "tune"))
+    loss_err = max(loss_err, float(((v_loss - s_loss).abs() / s_loss.abs()).max()))
+    prog_pivot_err = float((forms["vmap"][0] - pivots).abs().max()) / float(pivots.abs().max())
+    tuned_err, adam_err, n_firm, n_all = {}, {}, 0, 0
+    for key, ref in s_tuned.items():
+        for i in range(2):
+            diff = (v_tuned[key][i] - ref[i]).abs()
+            adam_err[key] = max(adam_err.get(key, 0.0), float(diff.max()) / (2 * tune_lr * steps))
+            if key.endswith("to_k.bias"):
+                continue
+            g = g_tune[i][key].abs()
+            mask = g > GRAD_BAR * g.max()
+            n_firm, n_all = n_firm + int(mask.sum()), n_all + mask.numel()
+            change = float((ref[i] - start[key]).abs().max())
+            if mask.any():
+                tuned_err[key] = max(tuned_err.get(key, 0.0), float(diff[mask].max()) / change)
+    worst = max(tuned_err, key=tuned_err.get)
+    worst_adam = max(adam_err, key=adam_err.get)
+    emit("pti_vmap_reference", images=2, steps=steps, cli_pivot_err_of_max=pivot_err,
+         pivot_err_of_max=prog_pivot_err, pivot_bar=PTI_PIVOT_BAR, max_loss_rel_err=loss_err,
+         loss_bar=1e-4, tuned_err_of_change=tuned_err[worst], worst_tensor=worst,
+         tuned_bar=PTI_TUNED_BAR, tuned_firm_share=n_firm / n_all,
+         worst_of_adam_bound=adam_err[worst_adam], worst_of_adam_bound_tensor=worst_adam,
+         launches={form: f[2] for form, f in forms.items()})
+    if not (max(pivot_err, prog_pivot_err) <= PTI_PIVOT_BAR and loss_err <= 1e-4
+            and tuned_err[worst] <= PTI_TUNED_BAR and adam_err[worst_adam] <= 1.0):
+        raise RuntimeError(f"PTI vmap against scan: pivots {pivot_err} / {prog_pivot_err}, losses "
+                           f"{loss_err}, tuned {worst} {tuned_err[worst]}, {worst_adam} "
+                           f"{adam_err[worst_adam]} of the Adam bound")
+    del model
+    torch.cuda.empty_cache()
+    return {f"run_pti_{key}": r["launches"] for key, r in runs.items()}
+
+
+def dims_timings(torch, ae_def: dict, weights_3d: Path, ckpt: Path, flush) -> None:
+    """Phases ``dims_b2`` and ``pti_vmap_b8`` (timings, no claim): the 3-D
+    flagship's bf16 generator step (L1 + KL + fake-3D LPIPS, Adam) at
+    b2 x 64³; one PTI stage-2 step of eight 256² images in bf16 in each form
+    (``scan``: eight batch-1 steps; ``vmap``: one step on eight decoder
+    copies). Event ms, device ms, idle share and peak GB each."""
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.train.diffusion import _tune, _tune_vmap, decoder_parameters
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+    from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = dims_model(torch, dims_def(ae_def, 3), weights_3d, torch.bfloat16, "cuda")
+    state = create_train_state(model, lr=2.5e-5)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.rand(DIMS_BATCH, DIMS_SIDE, DIMS_SIDE, DIMS_SIDE, 1, device="cuda", generator=gen)
+    mask = torch.ones(DIMS_BATCH, device="cuda")
+    lp = init_lpips_params(0, "cuda")
+    step = make_train_step(model, None, LossConfig(), adv_active=False)
+    t = time_ms(lambda: step(state, x, mask, None, lp, generator=gen), flush, iters=4, warmup=2,
+                trace_iters=2)
+    emit("dims_b2", path="train_step", spatial_dims=3, dtype="bfloat16", batch=DIMS_BATCH,
+         side=DIMS_SIDE, event_ms=t["event_ms"], device_ms=t["device_ms"],
+         device_idle_share=1.0 - t["device_ms"] / t["event_ms"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device_ms_by_kind=device_ms_by_kind(t["by_name"]))
+    del model, state, step
+    torch.cuda.empty_cache()
+    _, model = load_config_and_model(str(CONFIG), str(ckpt), device=torch.device("cuda"))
+    xs = torch.rand(BATCH, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+    with torch.no_grad():
+        z0 = model.encode_deterministic(xs)
+    start = {k: v.detach().clone() for k, v in decoder_parameters(model).items()}
+    n = 2
+    forms = {
+        "scan": lambda: [_tune(model, xs[i:i + 1], z0[i:i + 1], start, n, 1e-4)
+                         for i in range(BATCH)],
+        "vmap": lambda: _tune_vmap(model, xs, z0, n, 1e-4),
+    }
+    for form, fn in forms.items():
+        torch.cuda.reset_peak_memory_stats()
+        r = time_ms(fn, flush, iters=2, warmup=1, trace_iters=1)
+        emit("pti_vmap_b8", form=form, dtype="bfloat16", images=BATCH,
+             event_ms_per_step=r["event_ms"] / n, device_ms_per_step=r["device_ms"] / n,
+             device_idle_share=1.0 - r["device_ms"] / r["event_ms"],
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             device_ms_by_kind=device_ms_by_kind({k: v / n for k, v in r["by_name"].items()}))
+        torch.cuda.empty_cache()
+    with torch.no_grad():  # _tune leaves the last image's values in the model
+        for name, p in decoder_parameters(model).items():
+            p.copy_(start[name])
+
+
+def dims_timings_child(spec_path: str) -> int:
+    """``chip_smoke.py --dims-timings SPEC``: ``dims_timings`` in a process of
+    its own (see ``timings_child``), started by ``main`` after the
+    ``dims_path`` and ``pti_vmap`` phases; the phases' lines to stdout."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from pti_ldm_vae_tpu_torch.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    global T0
+    T0 -= spec["t"]
+    flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
+    dims_timings(torch, load_config(CONFIG)["autoencoder_def"], Path(spec["weights_3d"]),
+                 Path(spec["ckpt"]), flush)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4449,6 +5017,20 @@ def main() -> int:
     knob_step_check(torch, np, kernels_mod, ae_def, train_data / "dente", "two_pass",
                     [("two_pass", {"norm_stats": "two_pass"})])
     torch.cuda.empty_cache()
+    # 6r. the flagship's widths at spatial_dims 3 and 1: kernel checks at their rank-4 views,
+    # reconstructs, the f32 reconstructs and 3-D steps against the CPU
+    dims = dims_path(torch, np, kernels_mod, ae_def)
+    errs = {name: {k: max(v, dims["errs"][name][k]) for k, v in by_type.items()}
+            for name, by_type in errs.items()}
+    # 6s. the kernels' vmap rules on the card, then PTI's vmap form through run_pti
+    emit("vmap_rules", checks=vmap_rule_checks(torch, kernels_mod))
+    pti_vmap = pti_vmap_path(torch, np, kernels_mod, ckpt)
+    # their timings, in a process of their own (timings_child)
+    (WORK / "dims_timings.json").write_text(json.dumps(
+        {"weights_3d": dims["weights_3d"], "ckpt": str(ckpt), "t": time.perf_counter() - T0}))
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dims-timings",
+                    str(WORK / "dims_timings.json")], check=True, timeout=600)
 
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
@@ -4709,7 +5291,9 @@ def main() -> int:
                                      ddp[0]["nccl_world1"]["launches"][name],
                                  **{f"{cli}_ddp_gloo_rank{r}": ddp[r]["gloo"]["launches"][cli][name]
                                     for r in (0, 1)
-                                    for cli in ("train_vae", "sample_diffusion", "run_pti")}},
+                                    for cli in ("train_vae", "sample_diffusion", "run_pti")},
+                                 **{key: n[name] for key, n in dims["launches"].items()},
+                                 **{key: n[name] for key, n in pti_vmap.items()}},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **({"rel_rms_err": errs[name]["bfloat16_rel"]}
                if name in ("flash_attention", "flash_attention_bwd") else {}),
@@ -4764,4 +5348,6 @@ if __name__ == "__main__":
         sys.exit(timings_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ddp-child"]:
         sys.exit(ddp_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dims-timings"]:
+        sys.exit(dims_timings_child(sys.argv[2]))
     sys.exit(main())

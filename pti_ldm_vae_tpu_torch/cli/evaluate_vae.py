@@ -22,7 +22,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.lpips import lpips_distance_per_sample, lpips_is_pretrained, load_lpips_params
+from ..models.lpips import (
+    load_lpips_params,
+    lpips_distance_per_sample,
+    lpips_distance_per_sample_3d,
+    lpips_is_pretrained,
+)
 from ..utils.cli_common import (
     add_shared_io_args,
     build_inference_dataloader,
@@ -74,7 +79,9 @@ def evaluate_batch(model, images: torch.Tensor, mask: torch.Tensor, *, recon_kin
         kl_ps = -0.5 * torch.sum(1.0 + sec - z_mu.float().square() - torch.exp(sec),
                                  dim=tuple(range(1, sec.dim())))
         kl = _masked_mean(kl_ps, mask)
-        perc = _masked_mean(lpips_distance_per_sample(lpips_params, recon, images), mask)
+        # 5-D (NDHWC) reconstructions take the fake-3D slicing path
+        lpips_fn = lpips_distance_per_sample_3d if recon.dim() == 5 else lpips_distance_per_sample
+        perc = _masked_mean(lpips_fn(lpips_params, recon, images), mask)
         return {
             "recon_loss": intensity,
             "kl_loss": kl,

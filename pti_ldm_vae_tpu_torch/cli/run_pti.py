@@ -13,17 +13,22 @@ writes the tuned tree as an orbax directory; the port reads and writes
 ``.pth`` only.)
 
 ``--batch-size 1`` runs each image on its own; above 1 a batch is inverted
-in one pass and tuned image by image (``make_pivotal_tuning_inversion_batched``,
-built once); padded rows of the last batch are optimized but not written.
+in one pass and tuned image by image (``--tune-formulation scan``, the
+default) or all images at once on per-image decoder copies under
+``torch.func.vmap`` (``--tune-formulation vmap``)
+(``make_pivotal_tuning_inversion_batched``, built once); padded rows of the
+last batch are optimized but not written.
 Runs on CUDA unless ``--device cpu`` is given; bf16 compute there unless
 ``--f32``. Under torchrun (``torchrun --nproc_per_node N -m
 pti_ldm_vae_tpu_torch.cli.run_pti ...``) rank ``r`` tunes images
 ``r::N`` of the sorted input list, as the JAX CLI's ``shard_map`` gives each
-device its images; outputs are named by stem, and the ranks do not talk.
+device its images, in either form; outputs are named by stem, and the ranks
+do not talk.
 
     python -m pti_ldm_vae_tpu_torch.cli.run_pti -c config/vae_dente_no_adv.json \\
         --checkpoint vae.pth --input-dir data/ --output-dir pti_out/ [--batch-size 8] \\
-        [--latent-steps 200 --tune-steps 100] [--save-tuned] [--f32] [--conv-kernel] [--device cpu]
+        [--latent-steps 200 --tune-steps 100] [--tune-formulation {scan,vmap}] [--save-tuned] \\
+        [--f32] [--conv-kernel] [--device cpu]
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Save each image's autoencoder with its tuned decoder (.pth)")
     parser.add_argument("--tune-formulation", choices=("scan", "vmap"), default="scan",
                         help="Batched tune stage: 'scan' tunes one image's decoder at a time; "
-                             "'vmap' (per-image copies as grouped convolutions) is not ported")
+                             "'vmap' tunes every image's own copy at once (torch.func.vmap)")
     parser.add_argument("--f32", action="store_true",
                         help="Exact f32 numerics (f32 compute, TF32 off)")
     parser.add_argument("--conv-kernel", action="store_true",
@@ -96,7 +101,7 @@ def main(argv=None) -> Path:
     hyper = dict(latent_steps=args.latent_steps, latent_lr=args.latent_lr,
                  tune_steps=args.tune_steps, tune_lr=args.tune_lr)
     batched = args.batch_size > 1
-    # built once, before any work: the vmap form raises here
+    # built once, before any work
     program = (make_pivotal_tuning_inversion_batched(
         model, tune_formulation=args.tune_formulation, **hyper) if batched else None)
     out_dir = Path(args.output_dir or "pti_out")

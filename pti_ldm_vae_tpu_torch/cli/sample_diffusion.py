@@ -82,6 +82,11 @@ def main(argv=None) -> Path:
 
     unet_sd, projector_sd = load_diffusion_checkpoint(args.checkpoint)
     m = load_ldm_models(cfg, device=device, exact=args.f32)
+    if m.vae.spatial_dims != 2:
+        # the condition images and the dump are 2-D (``[i, :, :, 0]``): volumes are refused
+        raise NotImplementedError(
+            f"sample_diffusion supports spatial_dims=2 VAEs only (got spatial_dims="
+            f"{m.vae.spatial_dims})")
     m.unet.load_state_dict(unet_sd, strict=True)
     m.unet.requires_grad_(False).eval()
     sampling = cfg.get("sampling", {})

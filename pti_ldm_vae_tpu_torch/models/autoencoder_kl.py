@@ -1,6 +1,7 @@
 """AutoencoderKL — convolutional VAE in PyTorch with MONAI parameter names.
 
-Counterpart of ``pti_ldm_vae_tpu/models/autoencoder_kl.py`` (2-D).
+Counterpart of ``pti_ldm_vae_tpu/models/autoencoder_kl.py``, for
+``spatial_dims`` 1, 2 and 3 as there.
 Architecture (MONAI 1.5.1 ``AutoencoderKL``, CompVis VAE lineage):
 
 * encoder: conv_in 3x3 -> per level {num_res_blocks x ResBlock
@@ -18,13 +19,18 @@ segment and attention under ``.attn.{to_q,to_k,to_v,out_proj}``, so
 ``state_dict()`` keys are MONAI's and reference ``.pth`` files load with
 ``strict=True``.
 
-Tensors between blocks are channel-last ([B, H, W, C], the JAX package's
-layout and the model's I/O layout). A convolution views its input as NCHW
-(a free permute of channel-last memory, i.e. ``torch.channels_last``), which
-cuDNN prefers on Hopper, and hands back the channel-last view of its output.
-Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernels and every
-attention through the flash-attention kernels (``ops/kernels``), forward and
-backward. With ``conv_kernel=True`` every 3x3 stride-1 padding-1 convolution
+Tensors between blocks are channel-last ([B, *spatial, C]: NLC, NHWC or
+NDHWC, the JAX package's layout and the model's I/O layout). A convolution
+views its input as channels-first (a free permute of channel-last memory,
+i.e. ``torch.channels_last`` / ``channels_last_3d``), which cuDNN prefers on
+Hopper, and hands back the channel-last view of its output. Every
+GroupNorm+SiLU goes through the GroupNorm+SiLU kernels (a 1-D or 3-D tensor
+as a rank-4 view, ``ops/norm.py``) and every attention through the
+flash-attention kernels (``ops/kernels``), forward and backward. The 1-D and
+3-D convolutions are cuDNN's: the convolution kernels compute the 2-D 3x3
+form only (the JAX package runs its 3x3x3 convolutions in XLA too), so
+``conv_kernel=True`` with ``spatial_dims != 2`` is a ``ValueError``. With
+``conv_kernel=True`` (2-D) every 3x3 stride-1 padding-1 convolution
 (the stems, the res-block convolutions, the upsample convolutions, the output
 convolutions) goes through the hand-written convolution kernels instead
 (``ops/conv.py``), on the channel-last tensor as it is; the 1x1 skips, the
@@ -69,23 +75,46 @@ from ..ops.space_to_depth import (
 )
 from ..parallel.mesh import local_randn
 
-__all__ = ["AutoencoderKL", "autoencoder_from_config"]
+__all__ = ["AutoencoderKL", "autoencoder_from_config", "channels_last_format"]
 
 LOGVAR_CLAMP_MIN = -30.0
 LOGVAR_CLAMP_MAX = 20.0
 
 
+def channels_last_format(spatial_dims: int) -> torch.memory_format:
+    """The channel-last memory format of a model's convolution weights
+    (``Module.to(memory_format=...)`` converts the rank-4 / rank-5 ones)."""
+    return torch.channels_last_3d if spatial_dims == 3 else torch.channels_last
+
+
+_CONV_MODULES = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
+_CONV_FUNCTIONS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def conv_channel_last(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                      stride, padding) -> torch.Tensor:
+    """cuDNN convolution of a channel-last [B, *spatial, C] tensor (rank 3, 4
+    or 5) through its channels-first view; the channel-last view of the
+    output."""
+    y = _CONV_FUNCTIONS[x.dim() - 2](x.movedim(-1, 1), weight, bias, stride=stride,
+                                      padding=padding)
+    return y.movedim(1, -1)
+
+
 class Convolution(nn.Module):
-    """MONAI ``Convolution`` wrapper (parameters under ``conv.``); NHWC in and out."""
+    """MONAI ``Convolution`` wrapper (parameters under ``conv.``); channel-last
+    in and out, ``nn.Conv{1,2,3}d`` by ``spatial_dims``."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, *, stride: int = 1,
                  padding: int = 0, compute_dtype: torch.dtype = torch.float32,
-                 conv_kernel: bool = False):
+                 conv_kernel: bool = False, spatial_dims: int = 2):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding)
+        self.conv = _CONV_MODULES[spatial_dims](cin, cout, kernel_size, stride=stride,
+                                                padding=padding)
         self.compute_dtype = compute_dtype
-        # the convolution kernels compute the 3x3 stride-1 SAME form only
-        self.conv_kernel = conv_kernel and (kernel_size, stride, padding) == (3, 1, 1)
+        # the convolution kernels compute the 2-D 3x3 stride-1 SAME form only
+        self.conv_kernel = (conv_kernel and spatial_dims == 2
+                            and (kernel_size, stride, padding) == (3, 1, 1))
 
     def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         """``s2d``: ``x`` is in the space-to-depth domain, [B, H/2, W/2, 4*Cin];
@@ -101,9 +130,7 @@ class Convolution(nn.Module):
             weight, bias = to_s2d(weight), s2d_repeat_channels(bias)
         if self.conv_kernel:
             return conv3x3(x.to(cd), weight, bias)
-        y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), weight.to(cd), bias.to(cd), stride=stride,
-                     padding=padding)
-        return y.permute(0, 2, 3, 1)
+        return conv_channel_last(x.to(cd), weight.to(cd), bias.to(cd), stride, padding)
 
 
 class GroupNormOp(nn.Module):
@@ -131,9 +158,9 @@ class ResBlock(nn.Module):
     (MONAI ``AEKLResBlock``)."""
 
     def __init__(self, cin: int, cout: int, groups: int, eps: float, norm_stats: str,
-                 compute_dtype: torch.dtype, conv_kernel: bool = False):
+                 compute_dtype: torch.dtype, conv_kernel: bool = False, spatial_dims: int = 2):
         super().__init__()
-        cd = dict(compute_dtype=compute_dtype, conv_kernel=conv_kernel)
+        cd = dict(compute_dtype=compute_dtype, conv_kernel=conv_kernel, spatial_dims=spatial_dims)
         self.norm1 = GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats)
         self.conv1 = Convolution(cin, cout, 3, padding=1, **cd)
         self.norm2 = GroupNormOp(groups, cout, eps, silu=True, norm_stats=norm_stats)
@@ -185,23 +212,26 @@ class SpatialAttentionBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """(0,1) pad of H and W + 3x3 stride-2 valid conv (MONAI ``AEKLDownsample``)."""
+    """(0,1) pad of every spatial axis + 3x3 stride-2 valid conv (MONAI
+    ``AEKLDownsample``)."""
 
-    def __init__(self, channels: int, compute_dtype: torch.dtype):
+    def __init__(self, channels: int, compute_dtype: torch.dtype, spatial_dims: int = 2):
         super().__init__()
-        self.conv = Convolution(channels, channels, 3, stride=2, compute_dtype=compute_dtype)
+        self.conv = Convolution(channels, channels, 3, stride=2, compute_dtype=compute_dtype,
+                                spatial_dims=spatial_dims)
 
     def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)), s2d)
+        return self.conv(F.pad(x, (0, 0) + (0, 1) * (x.dim() - 2)), s2d)
 
 
 class Upsample(nn.Module):
     """Nearest x2 + 3x3 conv (MONAI decoder upsample, non-transposed)."""
 
-    def __init__(self, channels: int, compute_dtype: torch.dtype, conv_kernel: bool = False):
+    def __init__(self, channels: int, compute_dtype: torch.dtype, conv_kernel: bool = False,
+                 spatial_dims: int = 2):
         super().__init__()
         self.conv = Convolution(channels, channels, 3, padding=1, compute_dtype=compute_dtype,
-                                conv_kernel=conv_kernel)
+                                conv_kernel=conv_kernel, spatial_dims=spatial_dims)
 
     def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         """``s2d``: nearest x2 as the phase repeat, entering the space-to-depth
@@ -238,14 +268,14 @@ class Encoder(_Coder):
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
                  norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False,
-                 s2d_stem: bool | str = False, remat: bool = False):
+                 s2d_stem: bool | str = False, remat: bool = False, spatial_dims: int = 2):
         super().__init__()
         # in the s2d domain: conv_in, level 0's ResBlocks, its downsample
         self._init_knobs(channels, attention_levels, num_res_blocks[0] + 2, s2d_stem, remat)
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         ck = dict(conv_kernel=conv_kernel, **cd)
-        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
-        res = dict(conv_kernel=conv_kernel, **blk)
+        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, compute_dtype=compute_dtype)
+        res = dict(conv_kernel=conv_kernel, spatial_dims=spatial_dims, **blk)
         blocks: list[nn.Module] = [Convolution(in_channels, channels[0], 3, padding=1, **ck)]
         cin = channels[0]
         for level, ch in enumerate(channels):
@@ -294,15 +324,15 @@ class Decoder(_Coder):
                  num_res_blocks: Sequence[int], groups: int, eps: float,
                  attention_levels: Sequence[bool], with_nonlocal_attn: bool,
                  norm_stats: str, compute_dtype: torch.dtype, conv_kernel: bool = False,
-                 s2d_stem: bool | str = False, remat: bool = False):
+                 s2d_stem: bool | str = False, remat: bool = False, spatial_dims: int = 2):
         super().__init__()
         # in the s2d domain: the last upsample, the full-resolution ResBlocks,
         # norm_out and conv_out
         self._init_knobs(channels, attention_levels, num_res_blocks[0] + 3, s2d_stem, remat)
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         ck = dict(conv_kernel=conv_kernel, **cd)
-        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, **cd)
-        res = dict(conv_kernel=conv_kernel, **blk)
+        blk = dict(groups=groups, eps=eps, norm_stats=norm_stats, compute_dtype=compute_dtype)
+        res = dict(conv_kernel=conv_kernel, spatial_dims=spatial_dims, **blk)
         rev_channels = list(reversed(channels))
         rev_blocks = list(reversed(num_res_blocks))
         rev_attention = list(reversed(attention_levels))
@@ -347,7 +377,8 @@ class Decoder(_Coder):
 
 
 class AutoencoderKL(nn.Module):
-    """Conv VAE with KL-regularized latent space, NHWC in and out.
+    """Conv VAE with KL-regularized latent space, channel-last in and out
+    ([B, *spatial, C] for ``spatial_dims`` 1, 2 or 3).
 
     Methods as in the JAX package (reference wrapper ``VAEModel``):
 
@@ -365,7 +396,7 @@ class AutoencoderKL(nn.Module):
     inference thresholds, which take the standard path at every batch for
     now); one state dict loads into every form. ``conv_kernel`` sends the 3x3
     stride-1 convolutions through the hand-written convolution kernels
-    (default: cuDNN, as the JAX models call ``lax.conv``).
+    (default: cuDNN, as the JAX models call ``lax.conv``); 2-D only.
     """
 
     def __init__(
@@ -393,8 +424,9 @@ class AutoencoderKL(nn.Module):
         if s2d_stem in (True, "encoder", "decoder") and spatial_dims != 2:
             # an explicit form on a non-2-D model is a user error; "auto" takes the standard path
             raise ValueError("s2d_stem requires spatial_dims == 2")
-        if spatial_dims != 2:
-            raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
+        if conv_kernel and spatial_dims != 2:
+            raise ValueError(f"conv_kernel requires spatial_dims == 2 (the convolution kernels "
+                             f"compute 2-D 3x3 convolutions; got spatial_dims={spatial_dims})")
         s2d_enc = s2d_stem if s2d_stem in (False, True, "auto") else s2d_stem == "encoder"
         s2d_dec = s2d_stem if s2d_stem in (False, True, "auto") else s2d_stem == "decoder"
         n_levels = len(channels)
@@ -402,7 +434,8 @@ class AutoencoderKL(nn.Module):
         attn = (False,) * n_levels if attention_levels is None else tuple(attention_levels)
         common = dict(num_res_blocks=nrb, groups=norm_num_groups, eps=norm_eps,
                       attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype,
-                      conv_kernel=conv_kernel, remat=remat)
+                      conv_kernel=conv_kernel, remat=remat, spatial_dims=spatial_dims)
+        self.spatial_dims = spatial_dims
         self.compute_dtype = compute_dtype
         self.conv_kernel = conv_kernel
         self.encoder = Encoder(in_channels, channels, latent_channels,
@@ -411,7 +444,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(channels, latent_channels, out_channels,
                                with_nonlocal_attn=with_decoder_nonlocal_attn, s2d_stem=s2d_dec,
                                **common)
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         self.quant_conv_mu = Convolution(latent_channels, latent_channels, 1, **cd)
         self.quant_conv_log_sigma = Convolution(latent_channels, latent_channels, 1, **cd)
         self.post_quant_conv = Convolution(latent_channels, latent_channels, 1, **cd)

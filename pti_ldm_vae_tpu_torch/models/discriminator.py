@@ -1,5 +1,5 @@
 """PatchGAN discriminator in PyTorch with MONAI parameter names (counterpart
-of ``pti_ldm_vae_tpu/models/discriminator.py``; 2-D).
+of ``pti_ldm_vae_tpu/models/discriminator.py``; ``spatial_dims`` 1, 2 and 3).
 
 Equivalent of MONAI ``PatchDiscriminator(num_layers_d=3, channels=32,
 in_channels=1, out_channels=1, norm="INSTANCE")`` as the reference builds it
@@ -16,8 +16,9 @@ Parameters sit under MONAI's names (``initial_conv.conv``, ``0.conv`` ...
 pix2pix ``normal(0, 0.02)`` of MONAI's ``initialise_weights``, biases from 0,
 drawn from an explicit ``torch.Generator``.
 
-Tensors are channel-last ([B, H, W, C]) at the module's boundary and between
-layers; a convolution views its input as NCHW as the autoencoder's do.
+Tensors are channel-last ([B, *spatial, C]) at the module's boundary and
+between layers; a convolution views its input as channels-first as the
+autoencoder's do (``nn.Conv{1,2,3}d`` parameters, cuDNN).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import instance_norm
+from .autoencoder_kl import conv_channel_last
 
 __all__ = ["PatchDiscriminator"]
 
@@ -34,9 +36,11 @@ __all__ = ["PatchDiscriminator"]
 class _Conv(nn.Module):
     """One 4x4 convolution under MONAI's ``.conv`` segment."""
 
-    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int, bias: bool):
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int, bias: bool,
+                 spatial_dims: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=1, bias=bias)
+        conv = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}[spatial_dims]
+        self.conv = conv(cin, cout, kernel_size, stride=stride, padding=1, bias=bias)
 
 
 class PatchDiscriminator(nn.Module):
@@ -55,19 +59,20 @@ class PatchDiscriminator(nn.Module):
         super().__init__()
         if spatial_dims not in (1, 2, 3):
             raise ValueError(f"spatial_dims must be 1, 2, or 3, got {spatial_dims}")
-        if spatial_dims != 2:
-            raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
         self.num_layers_d = num_layers_d
         self.negative_slope = negative_slope
         self.compute_dtype = compute_dtype
-        self.initial_conv = _Conv(in_channels, channels, kernel_size, 2, bias=True)
+        self.initial_conv = _Conv(in_channels, channels, kernel_size, 2, bias=True,
+                                  spatial_dims=spatial_dims)
         ch = channels
         # strided middle layers "0" .. "n-2", then the stride-1 penultimate "n-1"
         for layer in range(num_layers_d):
             stride = 2 if layer < num_layers_d - 1 else 1
-            self.add_module(str(layer), _Conv(ch, ch * 2, kernel_size, stride, bias=False))
+            self.add_module(str(layer), _Conv(ch, ch * 2, kernel_size, stride, bias=False,
+                                              spatial_dims=spatial_dims))
             ch *= 2
-        self.final_conv = _Conv(ch, out_channels, kernel_size, 1, bias=True)
+        self.final_conv = _Conv(ch, out_channels, kernel_size, 1, bias=True,
+                                spatial_dims=spatial_dims)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -82,9 +87,8 @@ class PatchDiscriminator(nn.Module):
     def _apply_conv(self, block: _Conv, h: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         bias = None if block.conv.bias is None else block.conv.bias.to(cd)
-        y = F.conv2d(h.permute(0, 3, 1, 2), block.conv.weight.to(cd), bias,
-                     stride=block.conv.stride, padding=block.conv.padding)
-        return y.permute(0, 2, 3, 1)
+        return conv_channel_last(h, block.conv.weight.to(cd), bias, block.conv.stride,
+                                 block.conv.padding)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         slope = self.negative_slope

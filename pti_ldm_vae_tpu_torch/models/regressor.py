@@ -144,15 +144,17 @@ class VAELatentRegressor(nn.Module):
 
 
 def infer_flat_dim_from_patch(vae: AutoencoderKL, patch_size, *, channels: int | None = None) -> int:
-    """Flattened latent size for a 2-D patch, from the encoder's arithmetic:
-    each downsample, a (0, 1) pad and a 3x3 stride-2 convolution, halves a
-    side rounding down; the latent has ``latent_channels`` channels."""
+    """Flattened latent size for a patch of the VAE's spatial rank (``(H, W)``,
+    ``(D, H, W)`` or ``(L,)``), from the encoder's arithmetic: each
+    downsample, a (0, 1) pad and a 3x3 stride-2 convolution, halves a side
+    rounding down; the latent has ``latent_channels`` channels."""
     stem = vae.encoder.blocks[0].conv
     if channels is not None and channels != stem.in_channels:
         raise ValueError(f"the encoder takes {stem.in_channels} input channels, not {channels}")
     spatial = [int(s) for s in patch_size]
-    if len(spatial) != 2:
-        raise NotImplementedError(f"2-D patches only (got {tuple(patch_size)})")
+    if len(spatial) != vae.spatial_dims:
+        raise ValueError(f"a patch of {vae.spatial_dims} spatial axes for this VAE, got "
+                         f"{tuple(patch_size)}")
     for _ in range(sum(isinstance(b, Downsample) for b in vae.encoder.blocks)):
         spatial = [s // 2 for s in spatial]
     return vae.quant_conv_mu.conv.out_channels * math.prod(spatial)

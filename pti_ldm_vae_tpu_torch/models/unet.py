@@ -1,7 +1,8 @@
 """Diffusion UNet — timestep-conditioned latent-space UNet in PyTorch with
 MONAI parameter names.
 
-Counterpart of ``pti_ldm_vae_tpu/models/unet.py`` (2-D path). Architecture
+Counterpart of ``pti_ldm_vae_tpu/models/unet.py``, for ``spatial_dims`` 1,
+2 and 3 as there. Architecture
 (MONAI ``DiffusionModelUNet`` with cross-attention conditioning): sinusoidal
 timestep embedding -> two-layer MLP; per level ``num_res_blocks``
 time-conditioned ResBlocks, each followed by a spatial transformer
@@ -19,9 +20,9 @@ attention,resnet_2}``, ``up_blocks.{k}.{resnets,attentions}.{j}``,
 ``up_blocks.{k}.upsampler.conv.conv``, ``out.{0,2}``), so MONAI-keyed
 ``.pth`` files load with ``strict=True``.
 
-Tensors between blocks are channel-last ([B, H, W, C], the JAX package's
-layout); convolutions view them as NCHW (``torch.channels_last`` memory) and
-run on cuDNN, as the JAX UNet's ``nn.Conv`` runs outside any Pallas kernel.
+Tensors between blocks are channel-last ([B, *spatial, C], the JAX
+package's layout); convolutions view them as channels-first
+(``torch.channels_last`` / ``channels_last_3d`` memory) and run on cuDNN, as the JAX UNet's ``nn.Conv`` runs outside any Pallas kernel.
 Every GroupNorm+SiLU goes through the GroupNorm+SiLU kernels and every
 self-attention through the flash-attention kernels (``ops/kernels``), forward
 and backward; the spatial transformer's input norm (no SiLU), the LayerNorms,
@@ -80,9 +81,9 @@ class TimeResBlock(nn.Module):
     channel count changes (MONAI ``ResnetBlock``)."""
 
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, eps: float,
-                 norm_stats: str, compute_dtype: torch.dtype):
+                 norm_stats: str, compute_dtype: torch.dtype, spatial_dims: int = 2):
         super().__init__()
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         self.norm1 = GroupNormOp(groups, cin, eps, silu=True, norm_stats=norm_stats)
         self.conv1 = Convolution(cin, cout, 3, padding=1, **cd)
         self.time_emb_proj = nn.Linear(temb_dim, cout)
@@ -95,7 +96,7 @@ class TimeResBlock(nn.Module):
         cd = self.compute_dtype
         h = self.conv1(self.norm1(x))
         t = _linear(F.silu(temb.to(cd)), self.time_emb_proj, cd)
-        h = self.norm2(h + t[:, None, None, :])
+        h = self.norm2(h + t.reshape(t.shape[0], *(1,) * (h.dim() - 2), t.shape[-1]))
         h = self.conv2(h)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
@@ -191,9 +192,10 @@ class SpatialTransformer(nn.Module):
     -> 1x1 ``proj_out``, residual (MONAI ``SpatialTransformer``)."""
 
     def __init__(self, channels: int, num_heads: int, groups: int, eps: float, norm_stats: str,
-                 cross_attention_dim: int | None, compute_dtype: torch.dtype):
+                 cross_attention_dim: int | None, compute_dtype: torch.dtype,
+                 spatial_dims: int = 2):
         super().__init__()
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         self.norm = GroupNormOp(groups, channels, eps, norm_stats=norm_stats)
         self.proj_in = Convolution(channels, channels, 1, **cd)
         self.transformer_blocks = nn.ModuleList(
@@ -212,9 +214,10 @@ class StridedDownsample(nn.Module):
     """3x3 stride-2 convolution with padding 1 on every side (MONAI
     ``Downsample`` with a convolution); not the VAE's (0,1)-padded one."""
 
-    def __init__(self, channels: int, compute_dtype: torch.dtype):
+    def __init__(self, channels: int, compute_dtype: torch.dtype, spatial_dims: int = 2):
         super().__init__()
-        self.op = Convolution(channels, channels, 3, stride=2, padding=1, compute_dtype=compute_dtype)
+        self.op = Convolution(channels, channels, 3, stride=2, padding=1, compute_dtype=compute_dtype,
+                              spatial_dims=spatial_dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
@@ -252,8 +255,7 @@ class DiffusionUNet(nn.Module):
     checkpointed where a gradient is being recorded (``torch.utils.checkpoint``,
     non-reentrant; the JAX UNet's ``nn.remat`` of the same blocks): its
     internals are recomputed in the backward, kernels included.
-    ``spatial_dims`` other than 2 is not ported and raises
-    ``NotImplementedError``."""
+    ``spatial_dims`` 1 and 3 take [B, L, C] and [B, D, H, W, C] inputs."""
 
     def __init__(
         self,
@@ -275,14 +277,12 @@ class DiffusionUNet(nn.Module):
         super().__init__()
         if spatial_dims not in (1, 2, 3):
             raise ValueError(f"spatial_dims must be 1, 2, or 3, got {spatial_dims}")
-        if spatial_dims != 2:
-            raise NotImplementedError(f"spatial_dims={spatial_dims} is not ported yet (2-D only)")
         channels = tuple(channels)
         self.channels = channels
         self.remat = remat
         self.with_conditioning = with_conditioning
         self.compute_dtype = compute_dtype
-        cd = dict(compute_dtype=compute_dtype)
+        cd = dict(compute_dtype=compute_dtype, spatial_dims=spatial_dims)
         temb_dim = channels[0] * 4
         norm = dict(groups=norm_num_groups, eps=norm_eps, norm_stats=norm_stats)
         cross = cross_attention_dim if with_conditioning else None

@@ -22,7 +22,8 @@
 
 Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
 kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
-plain versions. ``launch_counts()`` reads the six counts by kernel name,
+plain versions. Under ``torch.func.vmap`` / ``grad`` the Functions' ``vmap``
+rules launch the same kernels (``_vmap.py``). ``launch_counts()`` reads the six counts by kernel name,
 ``reset_launch_counts()`` sets them to 0.
 """
 

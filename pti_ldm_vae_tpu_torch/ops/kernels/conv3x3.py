@@ -46,7 +46,11 @@ for CPU tensors; nothing falls back from one to the other.
 gradient, tensor-core and FMA alike), ``conv3x3.wgrad_launches`` those of the
 filter-gradient kernel; of ``launches``, ``conv3x3.fma_launches`` went to the
 FMA kernel and ``conv3x3.padded_launches`` to the tensor-core kernel on
-zero-padded channels.
+zero-padded channels. Under ``torch.func.vmap`` the forward and the input
+gradient fold the vmapped axis into the batch (one launch) where the weight
+is shared, and launch once per image where each image has its own; the
+filter gradient, a sum over the batch, launches once per image
+(``_vmap.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from ._vmap import fold, front, transformed, unfold
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_bwd_plain", "flip_transpose", "forward_kernel",
            "pad_channels", "pad_columns", "pad_weight_channels", "unpad_wgrad", "WGMMA_MAX_CIN",
@@ -196,14 +202,8 @@ def conv3x3_bwd_plain(
     with the flipped, transposed matrix (in ``g``'s dtype); ``dW [9*Cin,
     Cout]`` is, tap by tap, the product of the shifted ``x`` with ``g`` over
     all pixels, in f32."""
-    b, h, w, cin = x.shape
-    cout = wmat.shape[1]
-    dx = conv3x3_plain(g, flip_transpose(wmat, cin, cout))
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    gf = g.float().reshape(-1, cout)
-    taps = [xp[:, ky:ky + h, kx:kx + w, :].reshape(-1, cin).t() @ gf
-            for ky in range(3) for kx in range(3)]
-    return dx, torch.cat(taps, dim=0)
+    dx = conv3x3_plain(g, flip_transpose(wmat, x.shape[-1], wmat.shape[1]))
+    return dx, _filter_gradient_plain(x, g)
 
 
 @functools.cache
@@ -452,45 +452,92 @@ def unpad_wgrad(dw: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
     return dw.reshape(9, cin_k, cout_k)[:, :cin, :cout].reshape(9 * cin, cout)
 
 
+def _filter_gradient_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dW [9*Cin, Cout]`` of ``conv3x3_bwd_plain``, in f32."""
+    b, h, w, cin = x.shape
+    cout = g.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(-1, cout)
+    taps = [xp[:, ky:ky + h, kx:kx + w, :].reshape(-1, cin).t() @ gf
+            for ky in range(3) for kx in range(3)]
+    return torch.cat(taps, dim=0)
+
+
 class _Conv3x3(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or their plain versions (CPU)."""
+    """Forward and backward through the kernels (CUDA) or their plain versions
+    (CPU). The input gradient is this Function again on ``g`` with the
+    flipped, transposed matrix; the filter gradient is ``_Conv3x3Wgrad``."""
 
     @staticmethod
-    def forward(ctx, x, wmat):
+    def forward(x, wmat):
         wk = wmat.to(x.dtype).contiguous()  # the kernels' operand, rounded as x is
-        ctx.save_for_backward(x, wk)
-        ctx.wmat_dtype = wmat.dtype
         return conv3x3_plain(x, wk) if x.device.type == "cpu" else _launch_forward(x, wk)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, g):
-        x, wk = ctx.saved_tensors
+        x, wmat = ctx.saved_tensors
         need_dx, need_dw = ctx.needs_input_grad
-        cin, cout = x.shape[-1], wk.shape[1]
         g = g.to(x.dtype).contiguous()  # autograd often hands over a strided view
         dx = dw = None
-        if g.device.type == "cpu":
-            got_dx, got_dw = conv3x3_bwd_plain(x, wk, g)
-            dx = got_dx if need_dx else None
-            dw = got_dw.to(ctx.wmat_dtype) if need_dw else None
-            return dx, dw
         if need_dx:
-            dx = _launch_forward(g, flip_transpose(wk, cin, cout).contiguous())
+            wk = wmat.to(x.dtype)
+            dx = _Conv3x3.apply(g, flip_transpose(wk, x.shape[-1], wk.shape[1]))
         if need_dw:
-            dw = _launch_wgrad(x, g).to(ctx.wmat_dtype)
+            dw = _Conv3x3Wgrad.apply(x, g).to(wmat.dtype)
         return dx, dw
+
+    @staticmethod
+    def vmap(info, in_dims, x, wmat):
+        n = info.batch_size
+        x = front(x, in_dims[0], n)
+        if in_dims[1] is None:  # one weight for every image: one launch
+            return unfold(_Conv3x3.apply(fold(x), wmat), n), 0
+        wmat = front(wmat, in_dims[1], n)
+        return torch.stack([_Conv3x3.apply(x[i].contiguous(), wmat[i]) for i in range(n)]), 0
+
+
+class _Conv3x3Wgrad(torch.autograd.Function):
+    """The filter-gradient launch (CUDA) or its plain version (CPU), ``dW
+    [9*Cin, Cout]`` in f32, as a Function of its own, so that
+    ``torch.func.vmap`` reaches it through ``vmap``. Not differentiable
+    itself."""
+
+    @staticmethod
+    def forward(x, g):
+        if x.device.type == "cpu":
+            return _filter_gradient_plain(x, g)
+        return _launch_wgrad(x.contiguous(), g.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("conv3x3's filter gradient is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, x, g):
+        n = info.batch_size  # a sum over each image's own batch: one launch per image
+        x, g = front(x, in_dims[0], n), front(g, in_dims[1], n)
+        return torch.stack([_Conv3x3Wgrad.apply(x[i], g[i]) for i in range(n)]), 0
 
 
 def conv3x3(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME convolution of NHWC ``x`` with the tap-major matrix
     ``wmat [9*Cin, Cout]``, differentiable in both: the CUDA kernels for CUDA
     tensors, the plain versions for CPU tensors. ``x`` is made contiguous
-    here (upsampled or permuted views arrive strided)."""
+    here (upsampled or permuted views arrive strided). Under ``torch.func``
+    transforms it runs through its Function's rules."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"conv3x3 runs on cuda or cpu, got {x.device}")
     _check(x, wmat)
     x = x.contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or wmat.requires_grad):
+    if transformed(x, wmat) or (torch.is_grad_enabled() and (x.requires_grad or wmat.requires_grad)):
         return _Conv3x3.apply(x, wmat)
     wk = wmat.detach().to(x.dtype).contiguous()
     return conv3x3_plain(x, wk) if x.device.type == "cpu" else _launch_forward(x, wk)

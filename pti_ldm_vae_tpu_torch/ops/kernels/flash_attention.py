@@ -67,7 +67,9 @@ forward launches, ``flash_attention.bwd_launches`` backward calls that
 launched the backward kernels, ``flash_attention.padded_launches`` the
 forward and backward launches among those that ran on padded tensors, and
 ``flash_attention.wide_launches`` / ``wide_bwd_launches`` the forward and
-backward launches among them that took the wide tensor-core kernels.
+backward launches among them that took the wide tensor-core kernels. Under
+``torch.func.vmap`` the forward and the backward fold the vmapped axis into
+the batch: one launch for all images (``_vmap.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from ._vmap import fold, front, transformed, unfold
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
            "forward_kernel", "backward_kernel", "padded_head_dim", "pad_head_dim",
@@ -243,11 +247,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (in [0, 1]) to bf16 before its second product, which this version does
     not; the bf16 bar (atol 2e-2 against this version in f32 on the same
     rounded inputs) covers that rounding."""
+    return _plain_forward(q, k, v, scale)[0]
+
+
+def _plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_plain`` and the f32 logsumexp of the scaled scores
+    ``[B, H, S]``, the statistic the forward kernels save."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(scores, dim=-1)
-    return torch.matmul(weights, v.float()).to(q.dtype)
+    return torch.matmul(weights, v.float()).to(q.dtype), torch.logsumexp(scores, dim=-1)
 
 
 def flash_attention_bwd_plain(
@@ -482,27 +493,75 @@ def _launch_backward(
     return dq, dk, dv
 
 
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: contiguous, and for bf16 at a 16-byte
+    aligned address (an unaligned view is copied)."""
+    t = t.contiguous()
+    return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or their plain versions
-    (CPU), at softmax scale ``scale``; ``padded`` says that q, k and v carry
-    zero columns past the caller's head dim (counted in ``padded_launches``)."""
+    (CPU), at softmax scale ``scale``: ``(out, lse)``, the logsumexp not
+    differentiable; ``padded`` says that q, k and v carry zero columns past
+    the caller's head dim (counted in ``padded_launches``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, padded):
-        ctx.scale, ctx.padded = scale, padded
+    def forward(q, k, v, scale, padded):
         if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, scale)
-            ctx.save_for_backward(q, k, v)
-        else:
-            out, lse = _launch_forward(q, k, v, True, scale, padded)
-            ctx.save_for_backward(q, k, v, out, lse)
-        return out
+            return _plain_forward(q, k, v, scale)
+        q, k, v = (_kernel_operand(t) for t in (q, k, v))
+        return _launch_forward(q, k, v, True, scale, padded)
 
     @staticmethod
-    def backward(ctx, g):
-        if g.device.type == "cpu":
-            return (*flash_attention_bwd_plain(*ctx.saved_tensors, g, ctx.scale), None, None)
-        return (*_launch_backward(*ctx.saved_tensors, g, ctx.scale, ctx.padded), None, None)
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, padded = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.padded = scale, padded
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_FlashAttentionBackward.apply(q, k, v, out, lse, g, ctx.scale, ctx.padded),
+                None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, padded):
+        n = info.batch_size  # every image attends on its own: one launch for all
+        q, k, v = (fold(front(t, d, n)) for t, d in zip((q, k, v), in_dims[:3]))
+        out, lse = _FlashAttention.apply(q, k, v, scale, padded)
+        return (unfold(out, n), unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    """The backward launches (CUDA) or their plain version (CPU) as a Function
+    of its own, so that ``torch.func.vmap`` reaches them through ``vmap``:
+    ``(dq, dk, dv)``. Not differentiable itself."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, g, scale, padded):
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, g, scale)
+        q, k, v, out = (_kernel_operand(t) for t in (q, k, v, out))
+        return _launch_backward(q, k, v, out, lse.contiguous(), g, scale, padded)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, g, scale, padded):
+        n = info.batch_size
+        q, k, v, out, lse, g = (fold(front(t, d, n)) for t, d in zip((q, k, v, out, lse, g),
+                                                                       in_dims[:6]))
+        grads = _FlashAttentionBackward.apply(q, k, v, out, lse, g, scale, padded)
+        return tuple(unfold(t, n) for t in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -511,7 +570,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     dim; one the route is not built for is zero-padded to the next width it
     takes, ``padded_head_dim``; an unaligned bf16 view is copied), the plain
     versions for CPU tensors. With no gradient wanted nothing is saved and no
-    logsumexp is written."""
+    logsumexp is written. Under ``torch.func`` transforms it runs through its
+    Function's rules."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     d = q.shape[-1]
@@ -522,12 +582,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         if d_pad != d:  # the padded copies are aligned
             q, k, v = (pad_head_dim(t, d_pad) for t in (q, k, v))
             padded = True
-        elif q.dtype == torch.bfloat16:
-            q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.device.type == "cuda":
+    functorch = transformed(q, k, v)  # the Function's rules hand the kernels plain tensors
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16 and not functorch:
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+    if functorch or (torch.is_grad_enabled()
+                     and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        if q.device.type == "cuda" and not functorch:
             _check(q, k, v)
-        out = _FlashAttention.apply(q, k, v, scale, padded)
+        out = _FlashAttention.apply(q, k, v, scale, padded)[0]
     elif q.device.type == "cpu":
         out = flash_attention_plain(q, k, v)
     else:

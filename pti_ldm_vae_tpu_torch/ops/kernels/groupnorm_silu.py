@@ -50,7 +50,10 @@ forward only for a group whose values are all equal.
 ``groupnorm_silu`` launches the kernels for CUDA tensors (or raises) and runs
 the plain versions, forward and backward formula, for CPU tensors; nothing
 falls back from one to the other. ``groupnorm_silu.launches`` counts forward
-launches, ``groupnorm_silu.bwd_launches`` backward launches.
+launches, ``groupnorm_silu.bwd_launches`` backward launches. Under
+``torch.func.vmap`` the forward and the backward fold the vmapped axis into
+the batch (one launch) where ``scale`` and ``bias`` are shared, and launch
+once per image where each image has its own (``_vmap.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from ._vmap import fold, front, transformed, unfold
 
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "groupnorm_silu_bwd_plain", "GnPlan",
            "gn_plan", "gn_smem_bytes", "SOURCES"]
@@ -116,6 +121,17 @@ def groupnorm_silu_bwd_plain(
     from the saved ``[B, G]`` mean and inverse std, by the formulas in the
     module docstring. All math in f32; ``dx`` rounded once to ``x.dtype``,
     ``dscale`` and ``dbias`` f32."""
+    dx, r = _plain_backward(x, scale, bias, mean_g, inv_g, g, num_groups)
+    r = r.sum(dim=0)
+    return dx, r[1], r[0]
+
+
+def _plain_backward(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean_g: torch.Tensor,
+    inv_g: torch.Tensor, g: torch.Tensor, num_groups: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, r [B, 2, C])`` of the plain backward, ``r[:, 0]`` = r1 and
+    ``r[:, 1]`` = r2 per image: the kernel's own output."""
     b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
     xf = x.float().reshape(b, -1, c)
@@ -135,7 +151,7 @@ def groupnorm_silu_bwd_plain(
     a_c = a_g.repeat_interleave(cg, dim=1)[:, None, :]
     b_c = b_g.repeat_interleave(cg, dim=1)[:, None, :]
     dx = inv_c * (dn * gamma - a_c - xhat * b_c)
-    return dx.reshape(x.shape).to(x.dtype), r2.sum(dim=0), r1.sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), torch.stack([r1, r2], dim=1)
 
 
 class GnPlan(NamedTuple):
@@ -385,6 +401,17 @@ def _launch_backward(
     """One backward launch on CUDA tensors, then the sum over images of its
     ``[B, 2, C]`` output: (dx, dscale f32, dbias f32). ``plan`` overrides
     ``gn_plan`` (for measurements of other cuts)."""
+    dx, r = _launch_backward_parts(x, scale, bias, mean_g, inv_g, g, num_groups, plan)
+    r = r.sum(dim=0)  # [2, C]: dbeta = sum_b r1, dgamma = sum_b r2
+    return dx, r[1], r[0]
+
+
+def _launch_backward_parts(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean_g: torch.Tensor,
+    inv_g: torch.Tensor, g: torch.Tensor, num_groups: int, plan: GnPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One backward launch on CUDA tensors: (dx, its ``[B, 2, C]`` f32 sums
+    r1, r2 per image)."""
     _check(x, scale, bias, num_groups)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"upstream gradient {tuple(g.shape)} on {g.device} does not match x")
@@ -392,8 +419,7 @@ def _launch_backward(
     b, h, w, c = x.shape
     dx = torch.empty_like(x)
     if x.numel() == 0:
-        zeros = torch.zeros(c, device=x.device, dtype=torch.float32)
-        return dx, zeros, zeros.clone()
+        return dx, torch.zeros((b, 2, c), device=x.device, dtype=torch.float32)
     if plan is None:
         plan = _plan(b, h, w, c, num_groups, x.dtype, True, _aligned(x, g, dx))
     code = _DTYPE_CODES[x.dtype]
@@ -413,29 +439,79 @@ def _launch_backward(
     if err != 0:
         raise RuntimeError(f"groupnorm_silu backward launch failed: CUDA error {err} ({plan})")
     groupnorm_silu.bwd_launches += 1
-    r = r.sum(dim=0)  # [2, C]: dbeta = sum_b r1, dgamma = sum_b r2
-    return dx, r[1], r[0]
+    return dx, r
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or their plain versions (CPU)."""
+    """Forward and backward through the kernels (CUDA) or their plain versions
+    (CPU): ``(y, mean_g, inv_g)``, the statistics not differentiable."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps):
+    def forward(x, scale, bias, num_groups, eps):
         if x.device.type == "cpu":
-            y, mean_g, inv_g = _plain_forward(x, scale, bias, num_groups, eps)
-        else:
-            y, mean_g, inv_g = _launch_forward(x, scale, bias, num_groups, eps, save_stats=True)
+            return _plain_forward(x, scale, bias, num_groups, eps)
+        return _launch_forward(x, scale, bias, num_groups, eps, save_stats=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, num_groups, _ = inputs
+        _, mean_g, inv_g = output
+        ctx.mark_non_differentiable(mean_g, inv_g)
         ctx.save_for_backward(x, scale, bias, mean_g, inv_g)
         ctx.num_groups = num_groups
-        return y
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_mean, _g_inv):
         x, scale, bias, mean_g, inv_g = ctx.saved_tensors
-        bwd = groupnorm_silu_bwd_plain if x.device.type == "cpu" else _launch_backward
-        dx, dscale, dbias = bwd(x, scale, bias, mean_g, inv_g, g, ctx.num_groups)
-        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+        dx, r = _GroupNormSiLUBackward.apply(x, scale, bias, mean_g, inv_g, g, ctx.num_groups)
+        r = r.sum(dim=0)  # [2, C]: dbeta = sum_b r1, dgamma = sum_b r2
+        return dx, r[1].to(scale.dtype), r[0].to(bias.dtype), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, num_groups, eps):
+        n = info.batch_size
+        x = front(x, in_dims[0], n)
+        if in_dims[1] is None and in_dims[2] is None:  # shared scale and bias: one launch
+            out = _GroupNormSiLU.apply(fold(x), scale, bias, num_groups, eps)
+            return tuple(unfold(t, n) for t in out), (0, 0, 0)
+        scale, bias = front(scale, in_dims[1], n), front(bias, in_dims[2], n)
+        outs = [_GroupNormSiLU.apply(x[i].contiguous(), scale[i], bias[i], num_groups, eps)
+                for i in range(n)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0, 0)
+
+
+class _GroupNormSiLUBackward(torch.autograd.Function):
+    """The backward launch (CUDA) or its plain version (CPU) as a Function of
+    its own, so that ``torch.func.vmap`` reaches it through ``vmap``:
+    ``(dx, r [B, 2, C])``. Not differentiable itself."""
+
+    @staticmethod
+    def forward(x, scale, bias, mean_g, inv_g, g, num_groups):
+        if x.device.type == "cpu":
+            return _plain_backward(x, scale, bias, mean_g, inv_g, g, num_groups)
+        return _launch_backward_parts(x, scale, bias, mean_g, inv_g, g, num_groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("groupnorm_silu is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, mean_g, inv_g, g, num_groups):
+        n = info.batch_size
+        x, mean_g, inv_g, g = (front(t, d, n) for t, d in zip(
+            (x, mean_g, inv_g, g), (in_dims[0], in_dims[3], in_dims[4], in_dims[5])))
+        if in_dims[1] is None and in_dims[2] is None:  # shared scale and bias: one launch
+            dx, r = _GroupNormSiLUBackward.apply(fold(x), scale, bias, fold(mean_g), fold(inv_g),
+                                                 fold(g), num_groups)
+            return (unfold(dx, n), unfold(r, n)), (0, 0)
+        scale, bias = front(scale, in_dims[1], n), front(bias, in_dims[2], n)
+        outs = [_GroupNormSiLUBackward.apply(x[i].contiguous(), scale[i], bias[i], mean_g[i],
+                                             inv_g[i], g[i], num_groups) for i in range(n)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0)
 
 
 def groupnorm_silu(
@@ -443,13 +519,16 @@ def groupnorm_silu(
 ) -> torch.Tensor:
     """``silu(group_norm(x))`` of an NHWC [B, H, W, C] tensor, differentiable
     in ``x``, ``scale`` and ``bias``: the CUDA kernels for CUDA tensors, the
-    plain versions for CPU tensors. With no gradient wanted nothing is saved."""
+    plain versions for CPU tensors. With no gradient wanted nothing is saved.
+    Under ``torch.func`` transforms it runs through its Function's rules."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"groupnorm_silu runs on cuda or cpu, got {x.device}")
+    if transformed(x, scale, bias):
+        return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps)[0]
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
         if x.device.type == "cuda":
             _check(x, scale, bias, num_groups)
-        return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps)
+        return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps)[0]
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, scale, bias, num_groups, eps)
     return _launch_forward(x, scale, bias, num_groups, eps, save_stats=False)[0]

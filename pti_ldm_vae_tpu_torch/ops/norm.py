@@ -7,7 +7,8 @@ with mean/var over each group's (spatial, C/G) slab, biased variance
 (``torch.nn.GroupNorm`` semantics), statistics in f32 whatever the input
 dtype. ``group_norm_silu`` with one-pass statistics sends every call, forward
 and backward, through the hand-written GroupNorm+SiLU kernels on CUDA
-(``ops/kernels/groupnorm_silu.py``), whose plain versions run on the CPU.
+(``ops/kernels/groupnorm_silu.py``), whose plain versions run on the CPU; a
+1-D or 3-D tensor reaches them as a contiguous rank-4 view (``rank4_view``).
 ``group_norm``, ``instance_norm`` and the two-pass ``group_norm_silu`` are
 plain tensor code and differentiate through autograd.
 """
@@ -18,7 +19,7 @@ import torch
 
 from .kernels.groupnorm_silu import groupnorm_silu
 
-__all__ = ["DEFAULT_NORM_STATS", "group_norm", "group_norm_silu", "instance_norm"]
+__all__ = ["DEFAULT_NORM_STATS", "group_norm", "group_norm_silu", "instance_norm", "rank4_view"]
 
 DEFAULT_NORM_STATS = "one_pass"
 
@@ -52,6 +53,23 @@ def group_norm(
     return (xn * scale.float() + bias.float()).to(x.dtype)
 
 
+def rank4_view(x: torch.Tensor) -> torch.Tensor:
+    """A channel-last tensor as the contiguous [B, H, W, C] the GroupNorm+SiLU
+    kernels take: NDHWC ``[B, D, H, W, C]`` as ``[B, D*H, W, C]``, NLC
+    ``[B, L, C]`` as ``[B, 1, L, C]``. Each image's (group) statistics run over
+    the same elements, so the result is the rank-generic GroupNorm's."""
+    x = x.contiguous()
+    if x.dim() == 5:
+        b, d, h, w, c = x.shape
+        return x.reshape(b, d * h, w, c)
+    if x.dim() == 3:
+        return x.unsqueeze(1)
+    if x.dim() != 4:
+        raise ValueError(f"group_norm_silu takes [B, *spatial, C] of 1 to 3 spatial axes, "
+                         f"got {tuple(x.shape)}")
+    return x
+
+
 def group_norm_silu(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -61,17 +79,18 @@ def group_norm_silu(
     eps: float = 1e-6,
     stats: str = DEFAULT_NORM_STATS,
 ) -> torch.Tensor:
-    """Fused GroupNorm + SiLU on an NHWC tensor.
+    """Fused GroupNorm + SiLU on a channel-last [B, *spatial, C] tensor.
 
     ``"one_pass"`` statistics go through the GroupNorm+SiLU kernels (their
-    plain versions on the CPU), forward and backward. The kernels compute
+    plain versions on the CPU), forward and backward, on ``rank4_view(x)``
+    for every spatial rank. The kernels compute
     one-pass statistics only, and no TPU kernel computes the centered form
     (the JAX package leaves it to XLA), so ``"two_pass"`` runs this plain
     formulation under autograd on every device, counted in
     ``group_norm_silu.two_pass_calls``. Only ``stats`` picks it: nothing
     falls back to it."""
     if stats == "one_pass":
-        return groupnorm_silu(x.contiguous(), scale, bias, num_groups, eps)
+        return groupnorm_silu(rank4_view(x), scale, bias, num_groups, eps).reshape(x.shape)
     y = group_norm(x, scale, bias, num_groups=num_groups, eps=eps, stats=stats).float()
     group_norm_silu.two_pass_calls += 1
     return (y * torch.sigmoid(y)).to(x.dtype)

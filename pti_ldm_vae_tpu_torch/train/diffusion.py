@@ -21,7 +21,9 @@ pivotal-tuning inversion (counterpart of
 * ``pivotal_tuning_inversion`` and its batched form: stage 1 optimizes a
   latent per image through the frozen decoder (Adam on z), stage 2
   fine-tunes a fresh copy of the decoder around each pivot (Adam on the
-  ``post_quant_conv`` and ``decoder`` parameters). Each step's loss is kept
+  ``post_quant_conv`` and ``decoder`` parameters), image by image
+  (``"scan"``) or all images at once on per-image copies of those parameters
+  under ``torch.func.vmap`` (``"vmap"``). Each step's loss is kept
   before its update, as ``value_and_grad`` inside the JAX scan records it.
   Each image's optimisation is its own: under a process group a rank takes
   its images (``cli/run_pti.py``) and nothing is summed across ranks, as the
@@ -313,38 +315,103 @@ def pivotal_tuning_inversion(
     return pivot, tuned, {"latent": latent_losses, "tune": tune_losses}
 
 
+@contextmanager
+def _unchecked(model: nn.Module) -> Iterator[None]:
+    """``model.decoder``'s ``remat`` off (where it has one), restored on exit."""
+    decoder = getattr(model, "decoder", None)
+    remat = getattr(decoder, "remat", None)
+    try:
+        if remat is not None:
+            decoder.remat = False
+        yield
+    finally:
+        if remat is not None:
+            decoder.remat = remat
+
+
+class _Decode(nn.Module):
+    """``model.decode`` as a module's forward, for ``torch.func.functional_call``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.model.decode(z)
+
+
+def _tune_vmap(model: nn.Module, targets: torch.Tensor, pivots: torch.Tensor, steps: int,
+               lr: float) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """Stage 2 of every image at once (JAX ``run_vmap``'s ``tune_one`` under
+    ``vmap``): the decoder's parameters stacked into one ``[B, ...]`` tensor
+    per key, each step ``torch.func.vmap(torch.func.grad_and_value(loss))``
+    over ``functional_call`` of the decoder with each image's own copy, pivot
+    and target, then one Adam on the stacked tensors (elementwise, so B
+    separate Adams). Returns (tuned {key: [B, ...]}, losses [B, steps]); the
+    model's own parameters are not touched. A ``remat`` decoder runs its
+    blocks unchecked here: ``torch.utils.checkpoint`` needs saved-tensor
+    hooks, which ``torch.func.grad`` does not support, and remat changes the
+    memory, not the numbers."""
+    decode = _Decode(model)
+
+    def loss(params: dict[str, torch.Tensor], pivot: torch.Tensor, target: torch.Tensor):
+        recon = torch.func.functional_call(decode, params, (pivot[None],))
+        return (recon - target[None]).square().mean()
+
+    step = torch.func.vmap(torch.func.grad_and_value(loss))
+    n = targets.shape[0]
+    stacked = {f"model.{name}": p.detach().unsqueeze(0).repeat(n, *(1,) * p.dim())
+               for name, p in decoder_parameters(model).items()}
+    opt = _adam(list(stacked.values()), lr)
+    losses = []
+    with _frozen(model), _unchecked(model):
+        for _ in range(steps):
+            grads, value = step(stacked, pivots, targets)
+            for key, t in stacked.items():
+                t.grad = grads[key].contiguous()  # the fused Adam takes one layout for both
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(value.detach())
+    tuned = {key[len("model."):]: t for key, t in stacked.items()}
+    return tuned, torch.stack(losses, dim=-1)
+
+
 def make_pivotal_tuning_inversion_batched(
     model: nn.Module, *, latent_steps: int = 200, latent_lr: float = 1e-1, tune_steps: int = 100,
     tune_lr: float = 1e-4, tune_formulation: str = "scan",
 ) -> Callable[[torch.Tensor, torch.Tensor],
               tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]]:
-    """The batched PTI program (JAX ``make_pivotal_tuning_inversion_batched``
-    with its default ``tune_formulation="scan"``), built once and called per
-    batch: ``program(targets [B, H, W, C], latent_inits [B, ...]) -> (pivots
+    """The batched PTI program (JAX ``make_pivotal_tuning_inversion_batched``),
+    built once and called per batch: ``program(targets [B, H, W, C], latent_inits [B, ...]) -> (pivots
     [B, ...], tuned {key: [B, ...]}, {"latent": [B, latent_steps], "tune":
     [B, tune_steps]})``, starting from the model's current decoder.
 
     Stage 1 inverts all B latents in one batched pass (per-image losses
     summed: see ``_invert``); decoder GroupNorm and attention are per sample
     and Adam per element, so each image's pivot is the one it would get alone.
-    Stage 2 tunes one image at a time, each from the same decoder with a fresh
-    Adam: one copy of the decoder's parameters and Adam state live at a time.
+    Stage 2, each image from the same decoder with a fresh Adam:
 
-    ``tune_formulation="vmap"`` (per-image decoder copies as grouped
-    convolutions, the JAX package's legacy A/B layout) is not ported:
-    ROADMAP A.7. The JAX mesh / ``shard_map`` form (one image per device, no
-    collective) is the caller's split of its images over the ranks:
-    ``cli/run_pti.py`` hands each rank's rows to this program."""
-    if tune_formulation == "vmap":
-        raise NotImplementedError(
-            "tune_formulation='vmap' (per-image decoder copies as grouped convolutions) is not "
-            "ported to PyTorch; it is left in ROADMAP A.7 — use 'scan'")
-    if tune_formulation != "scan":
+    * ``"scan"`` (default) tunes one image at a time: one copy of the
+      decoder's parameters and Adam state live at a time;
+    * ``"vmap"`` (the JAX package's legacy A/B layout) tunes all B at once on
+      stacked per-image copies (``_tune_vmap``): every convolution and
+      GroupNorm has a per-image weight, so cuDNN runs grouped convolutions,
+      and the hand-written kernels (GroupNorm+SiLU; the convolution kernels
+      with ``conv_kernel``) launch once per image while flash attention
+      launches once for the batch (their ``vmap`` rules, ``ops/kernels``).
+
+    The JAX mesh / ``shard_map`` form (one image per device, no collective) is
+    the caller's split of its images over the ranks: ``cli/run_pti.py`` hands
+    each rank's rows to this program, in either form."""
+    if tune_formulation not in ("scan", "vmap"):
         raise ValueError(f"tune_formulation must be 'scan' or 'vmap', got {tune_formulation!r}")
 
     def program(targets: torch.Tensor, latent_inits: torch.Tensor):
         pivots, latent_losses = _invert(model, targets, latent_inits, latent_steps, latent_lr,
                                         per_image=True)
+        if tune_formulation == "vmap":
+            tuned, tune_losses = _tune_vmap(model, targets, pivots, tune_steps, tune_lr)
+            return pivots, tuned, {"latent": latent_losses, "tune": tune_losses}
         start = {name: p.detach().clone() for name, p in decoder_parameters(model).items()}
         tuned: dict[str, list[torch.Tensor]] = {name: [] for name in start}
         tune_losses = []

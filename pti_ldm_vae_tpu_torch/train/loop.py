@@ -59,7 +59,7 @@ from ..data.factory import create_vae_dataloaders
 from ..data.io import write_tif
 from ..losses.ar_vae import ARVaeSpec, make_ar_vae_spec
 from ..losses.composite import compute_total_loss
-from ..models.autoencoder_kl import autoencoder_from_config
+from ..models.autoencoder_kl import autoencoder_from_config, channels_last_format
 from ..models.discriminator import PatchDiscriminator
 from ..models.lpips import load_lpips_params, lpips_is_pretrained
 from ..ops.norm import DEFAULT_NORM_STATS
@@ -178,9 +178,12 @@ class VAETrainer:
         self.log_every = log_every
         self.ar = resolve_ar_settings(cfg)
 
-        if self.adv_enabled and int(cfg.get("spatial_dims", 2)) != 2:
-            raise _not_ported("the adversarial branch for spatial_dims other than 2 (a 1-D or "
-                              "3-D PatchGAN discriminator)", "the 1-D / 3-D model slice")
+        disc_dims = int(cfg.get("spatial_dims", 2))
+        if self.adv_enabled and disc_dims != int(cfg["autoencoder_def"].get("spatial_dims", 2)):
+            # the JAX trainer builds its discriminator from the top-level key too, and its
+            # init on the model's patch fails there
+            raise ValueError(f"the discriminator's spatial_dims (top-level, {disc_dims}) differs "
+                             f"from autoencoder_def's ({cfg['autoencoder_def'].get('spatial_dims', 2)})")
         ar_spec = build_ar_spec(cfg, self.ar)
         check_parallelism(cfg.get("parallelism"), self.world)
         # "auto" resolves here from the train profile on the (one rank's)
@@ -245,16 +248,18 @@ class VAETrainer:
             cfg["autoencoder_def"], compute_dtype=compute_dtype,
             norm_stats=str(cfg.get("norm_stats", DEFAULT_NORM_STATS)), s2d_stem=s2d_stem,
             remat=resolve_bool(cfg.get("remat", False)), conv_kernel=conv_kernel,
-        ).to(device=self.device, memory_format=torch.channels_last)
+        )
+        memory_format = channels_last_format(self.model.spatial_dims)
+        self.model = self.model.to(device=self.device, memory_format=memory_format)
         self.disc = None
         if self.adv_enabled:
             # the reference's fixed PatchGAN (``train_vae.py:268-275``), its
             # init drawn from a generator of its own seeded from the run's seed
             self.disc = PatchDiscriminator(
-                spatial_dims=cfg.get("spatial_dims", 2), num_layers_d=3, channels=32,
+                spatial_dims=disc_dims, num_layers_d=3, channels=32,
                 in_channels=1, out_channels=1, compute_dtype=compute_dtype,
                 generator=torch.Generator().manual_seed(seed + 1),
-            ).to(device=self.device, memory_format=torch.channels_last)
+            ).to(device=self.device, memory_format=memory_format)
         # every rank starts from rank 0's parameters (the seeds make them
         # equal already; the broadcast makes it a property of the run)
         for module in (self.model, self.disc):

@@ -41,7 +41,7 @@ import torch
 from ..losses.ar_vae import compute_ar_vae_loss
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import AutoencoderKL
-from ..models.lpips import lpips_distance_per_sample
+from ..models.lpips import lpips_distance_per_sample, lpips_distance_per_sample_3d
 from ..parallel.mesh import allreduce_metrics, global_count, grouped, masked_mean, world_size
 from .state import GanTrainState
 
@@ -121,13 +121,15 @@ def _generator_losses(
 
     zero = torch.zeros((), dtype=torch.float32, device=recon.device)
     if lcfg.use_perceptual:
-        if recon.dim() != 4:
+        # 5-D (NDHWC) reconstructions take the fake-3D slicing path
+        if recon.dim() not in (4, 5):
             raise ValueError(
-                f"perceptual loss supports 2-D (NHWC) models only here, got a rank-{recon.dim()} "
-                "reconstruction; set perceptual_weight=0 / use_perceptual=False")
-        p_loss = masked_mean(
-            lpips_distance_per_sample(lpips_params, recon, images, model.compute_dtype), mask,
-            count)
+                f"perceptual loss supports 2-D (NHWC) and 3-D (NDHWC) models only, got "
+                f"rank-{recon.dim()} reconstruction; set perceptual_weight=0 / "
+                f"use_perceptual=False for spatial_dims=1")
+        lpips_fn = lpips_distance_per_sample_3d if recon.dim() == 5 else lpips_distance_per_sample
+        p_loss = masked_mean(lpips_fn(lpips_params, recon, images, model.compute_dtype), mask,
+                             count)
     else:
         p_loss = zero
 

@@ -20,7 +20,7 @@ import torch
 
 from ..config import resolve_bool
 from ..data.factory import create_vae_inference_dataloader
-from ..models.autoencoder_kl import AutoencoderKL
+from ..models.autoencoder_kl import AutoencoderKL, channels_last_format
 from ..models.unet import ConditionProjector, DiffusionUNet, diffusion_unet_from_config
 from ..ops.norm import DEFAULT_NORM_STATS
 from ..parallel.mesh import process_rank, world_size
@@ -144,7 +144,7 @@ class LdmModels:
     unet: DiffusionUNet
     projector: ConditionProjector | None
     schedule: NoiseSchedule
-    latent_shape: tuple[int, int, int]
+    latent_shape: tuple[int, ...]
 
 
 def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
@@ -158,9 +158,6 @@ def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
     vae_config, vae = load_config_and_model(cfg["vae"]["config_file"], cfg["vae"]["checkpoint"],
                                             device=device, exact=exact)
     ae_def = vae_config.autoencoder_def
-    if ae_def.get("spatial_dims", 2) != 2:
-        raise NotImplementedError(
-            f"the diffusion CLIs support spatial_dims=2 VAEs only (got {ae_def['spatial_dims']})")
     dd = cfg["diffusion_def"]
     remat = remat or resolve_bool(cfg.get("remat", dd.get("remat", False)))
     norm_stats = str(cfg.get("norm_stats", dd.get("norm_stats", DEFAULT_NORM_STATS)))
@@ -177,11 +174,12 @@ def load_ldm_models(cfg: dict, *, device: torch.device, exact: bool = False,
         float(train_cfg.get("beta_end", 2e-2)),
     ).to(device)
     # each of the VAE's downsamples, (0, 1) pad + 3x3 stride 2, halves a side (rounding down)
-    h, w = vae_config.autoencoder_train["patch_size"]
+    spatial = [int(s) for s in vae_config.autoencoder_train["patch_size"]]
     for _ in range(len(ae_def["channels"]) - 1):
-        h, w = h // 2, w // 2
-    return LdmModels(vae_config, vae, unet.to(device=device, memory_format=torch.channels_last),
-                     projector, schedule, (h, w, int(ae_def["latent_channels"])))
+        spatial = [s // 2 for s in spatial]
+    unet = unet.to(device=device, memory_format=channels_last_format(len(spatial)))
+    return LdmModels(vae_config, vae, unet, projector, schedule,
+                     (*spatial, int(ae_def["latent_channels"])))
 
 
 def build_inference_dataloader(

@@ -65,9 +65,20 @@ def compute_ssim(
     k2: float = 0.03,
 ) -> torch.Tensor:
     """SSIM per sample, NHWC, matching reference ``eval_metrics.py:22-63``.
-    2-D only, as the port's models are."""
+
+    5-D (NDHWC) volumes are scored as the per-sample mean of 2-D SSIM over
+    depth slices (JAX ``compute_ssim``: the JAX package's documented
+    divergence from MONAI's 3-D windowed SSIM). Other ranks have no SSIM
+    there either: a ``ValueError``."""
+    if pred.dim() == 5:
+        b, d = pred.shape[:2]
+        per_slice = compute_ssim(pred.reshape(b * d, *pred.shape[2:]),
+                                 target.reshape(b * d, *target.shape[2:]),
+                                 data_range=data_range, k1=k1, k2=k2)
+        return per_slice.reshape(b, d).mean(dim=1)
     if pred.dim() != 4:
-        raise NotImplementedError(f"compute_ssim takes NHWC batches (rank 4), got rank {pred.dim()}")
+        raise ValueError(f"compute_ssim takes NHWC (rank 4) or NDHWC (rank 5) batches, got rank "
+                         f"{pred.dim()}")
     pred = pred.float().permute(0, 3, 1, 2)
     target = target.float().permute(0, 3, 1, 2)
     blur = functools.partial(_depthwise_blur, window_size=11, sigma=1.5)

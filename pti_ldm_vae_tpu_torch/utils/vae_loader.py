@@ -19,7 +19,7 @@ import torch
 from ..checkpoint.paths import resolve_checkpoint
 from ..checkpoint.torch_convert import monai_state_dict
 from ..config import load_config_namespace
-from ..models.autoencoder_kl import AutoencoderKL, autoencoder_from_config
+from ..models.autoencoder_kl import AutoencoderKL, autoencoder_from_config, channels_last_format
 from ..ops.norm import DEFAULT_NORM_STATS
 
 __all__ = ["load_vae_config", "load_vae_model", "load_autoencoder_state_dict"]
@@ -75,4 +75,4 @@ def load_vae_model(
     )
     model.load_state_dict(load_autoencoder_state_dict(checkpoint_path), strict=True)
     model.requires_grad_(False)
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    return model.to(device=device, memory_format=channels_last_format(model.spatial_dims)).eval()

@@ -143,11 +143,19 @@ def test_discriminator_init_is_seeded_normal_002():
     assert float(w.std()) == pytest.approx(0.02, rel=0.02) and abs(float(w.mean())) < 1e-3
 
 
-@pytest.mark.parametrize("spatial_dims,error", [(1, NotImplementedError), (3, NotImplementedError),
-                                                (4, ValueError)])
-def test_discriminator_is_2d_only(spatial_dims, error):
-    with pytest.raises(error):
-        PatchDiscriminator(spatial_dims=spatial_dims)
+@pytest.mark.parametrize("spatial_dims", [1, 3, 4])
+def test_discriminator_spatial_dims(spatial_dims):
+    """Rank 1 and 3 build and give the patch map of the JAX package's
+    ``test_discriminator_3d_patch_output`` (held to it in
+    ``tests/test_torch_spatial_dims.py``); rank 4 is a ``ValueError``, as there."""
+    if spatial_dims == 4:
+        with pytest.raises(ValueError, match="spatial_dims"):
+            PatchDiscriminator(spatial_dims=spatial_dims)
+        return
+    disc = PatchDiscriminator(spatial_dims=spatial_dims, num_layers_d=2, channels=4,
+                              generator=torch.Generator().manual_seed(0))
+    feats = disc(torch.ones(2, *(16,) * spatial_dims, 1))
+    assert feats[-1].shape == (2, *(2,) * spatial_dims, 1) and len(feats) == 4
 
 
 def test_discriminator_bf16_compute_keeps_f32_logits_and_parameters():

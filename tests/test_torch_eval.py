@@ -62,8 +62,9 @@ def test_metrics_on_identical_and_scaled_inputs():
     got = metrics.compute_psnr(torch.from_numpy(pred * 255), torch.from_numpy(target * 255),
                                data_range=255.0)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    with pytest.raises(NotImplementedError, match="rank 4"):
-        metrics.compute_ssim(torch.zeros(1, 4, 8, 8, 1), torch.zeros(1, 4, 8, 8, 1))
+    # rank 5 is the depth-slice mean (tests/test_torch_spatial_dims.py); rank 3 has no SSIM
+    with pytest.raises(ValueError, match="rank 3"):
+        metrics.compute_ssim(torch.zeros(1, 8, 1), torch.zeros(1, 8, 1))
 
 
 def test_metrics_take_bf16_and_answer_in_f32():

@@ -846,3 +846,95 @@ def test_flat_gradient_allreduce_under_a_world_one_nccl_group(cuda):
     finally:
         dist.destroy_process_group()
     assert all(torch.equal(p.grad, b) for p, b in zip(params, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16, 32), (2, 4096, 64)], ids=["ndhwc", "nlc"])
+def test_group_norm_silu_on_1d_and_3d_tensors_launches_on_the_rank4_view(cuda, dtype, shape):
+    """A 3-D (NDHWC) or 1-D (NLC) tensor reaches the GroupNorm+SiLU kernels as
+    its rank-4 view, forward and backward: one launch each way, the kernels'
+    bits on the view, within the bars of the plain version."""
+    from pti_ldm_vae_tpu_torch.ops.norm import group_norm_silu, rank4_view
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c = shape[-1]
+    x = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)
+    bias = 0.1 * torch.randn(c, device=cuda, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    reset_launch_counts()
+    y = group_norm_silu(*leaves, num_groups=16, eps=1e-6)
+    dx, dscale, dbias = torch.autograd.grad(y, leaves, g)
+    counts = launch_counts()
+    assert (counts["groupnorm_silu"], counts["groupnorm_silu_bwd"]) == (1, 1)
+    view = rank4_view(x)
+    assert view.dim() == 4
+    want, mean_g, inv_g = _plain_forward(view.float(), scale, bias, 16, 1e-6)
+    want_dx, want_dscale, want_dbias = groupnorm_silu_bwd_plain(
+        view.float(), scale, bias, mean_g, inv_g, rank4_view(g).float(), 16)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+    n = view.shape[0] * view.shape[1] * view.shape[2]
+    sum_tol = dict(rtol=1e-4, atol=1e-5 * n ** 0.5)
+    torch.testing.assert_close(y.float(), want.reshape(shape), **tol)
+    torch.testing.assert_close(dx.float(), want_dx.reshape(shape), **tol)
+    torch.testing.assert_close(dscale, want_dscale, **sum_tol)
+    torch.testing.assert_close(dbias, want_dbias, **sum_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["groupnorm_silu_fold", "groupnorm_silu_per_image",
+                                  "flash_attention_fold", "conv3x3_fold", "conv3x3_per_image"])
+def test_vmap_rules_launch_the_kernels(cuda, case):
+    """Each Function's ``torch.func.vmap`` rule on the card, forward and
+    ``vmap(grad)``, against a loop over the images through the same
+    wrappers (f32): the shared-weight branch folds the images into one
+    launch, the per-image branch launches once per image and gives the
+    loop's bits; the filter gradient launches once per image."""
+    from torch.func import grad, vmap
+
+    v = 3
+    gen = torch.Generator(device=cuda).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=cuda, generator=gen)
+
+    def gn(a, s, b):
+        return groupnorm_silu(a, s, b, 16, 1e-6)
+
+    x = rnd(v, 2, 32, 32, 64)
+    fn, args, dims, want = {
+        "groupnorm_silu_fold": (gn, (x, 1 + 0.1 * rnd(64), 0.1 * rnd(64)), (0, None, None),
+                                {"groupnorm_silu": 2, "groupnorm_silu_bwd": 1}),
+        "groupnorm_silu_per_image": (gn, (x, 1 + 0.1 * rnd(v, 64), 0.1 * rnd(v, 64)), (0, 0, 0),
+                                     {"groupnorm_silu": 2 * v, "groupnorm_silu_bwd": v}),
+        "flash_attention_fold": (flash_attention, tuple(rnd(v, 2, 1, 256, 64) for _ in range(3)),
+                                 (0, 0, 0), {"flash_attention": 2, "flash_attention_bwd": 1}),
+        "conv3x3_fold": (conv3x3, (x, 0.05 * rnd(576, 64)), (0, None),
+                         {"conv3x3": 3, "conv3x3_wgrad": v}),
+        "conv3x3_per_image": (conv3x3, (x, 0.05 * rnd(v, 576, 64)), (0, 0),
+                              {"conv3x3": 3 * v, "conv3x3_wgrad": v}),
+    }[case]
+    g = rnd(v, *fn(*(a if d is None else a[0] for a, d in zip(args, dims))).shape)
+
+    def loss(*a):
+        return (fn(*a[:-1]) * a[-1]).sum()
+
+    reset_launch_counts()
+    got = vmap(fn, in_dims=dims)(*args)
+    got_grads = vmap(grad(loss, argnums=tuple(range(len(args)))), in_dims=(*dims, 0))(*args, g)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} == want
+    loop = []
+    for i in range(v):
+        leaves = [(a if d is None else a[i]).clone().requires_grad_() for a, d in zip(args, dims)]
+        loop.append((fn(*leaves).detach(), torch.autograd.grad(loss(*leaves, g[i]), leaves)))
+    want_out = torch.stack([o for o, _ in loop])
+    if "per_image" in case:
+        assert torch.equal(got, want_out)
+    torch.testing.assert_close(got, want_out, rtol=1e-4, atol=1e-5)
+    for j, got_g in enumerate(got_grads):
+        want_g = torch.stack([gr[j] for _, gr in loop])
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4,
+                                   atol=1e-4 * float(want_g.abs().max()))

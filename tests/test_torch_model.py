@@ -343,9 +343,18 @@ def test_s2d_on_other_spatial_dims_is_a_value_error():
 
 
 @pytest.mark.parametrize("spatial_dims", [1, 3])
-def test_unported_spatial_dims_raise(spatial_dims):
-    with pytest.raises(NotImplementedError):
-        autoencoder_from_config(dict(TOY, spatial_dims=spatial_dims))
+def test_spatial_dims_1_and_3_reconstruct(spatial_dims):
+    """The toy model at rank 1 and 3 builds and runs end to end (held to the
+    JAX package in ``tests/test_torch_spatial_dims.py``); the convolution
+    kernels stay 2-D."""
+    port = autoencoder_from_config(dict(TOY, spatial_dims=spatial_dims))
+    x = torch.from_numpy(_nhwc(np.random.default_rng(26), (2, *(16,) * spatial_dims, 1)))
+    with torch.inference_mode():
+        recon, z_mu, z_sigma = port(x, eps=torch.zeros(2, *(8,) * spatial_dims, 3))
+    assert recon.shape == x.shape and z_mu.shape == z_sigma.shape == (2, *(8,) * spatial_dims, 3)
+    assert torch.isfinite(recon).all()
+    with pytest.raises(ValueError, match="conv_kernel requires spatial_dims == 2"):
+        autoencoder_from_config(dict(TOY, spatial_dims=spatial_dims), conv_kernel=True)
 
 
 def test_auto_s2d_takes_standard_path(toy):

@@ -333,6 +333,38 @@ def test_pti_split_tunes_each_image_once(ldm, as_rank):
                                        rtol=1e-4, atol=1e-4, err_msg=name)
 
 
+def test_pti_vmap_form_split_tunes_each_image_once(ldm, as_rank):
+    """The row split hands each rank's rows to the ``vmap`` form too: two
+    ranks write the files of one process, with its values."""
+    vae_cfg = ldm / "pti_vae_vmap.json"
+    vae_cfg.write_text(json.dumps({"spatial_dims": 2, "autoencoder_def": {
+        **AE_DEF, "with_encoder_nonlocal_attn": False},
+        "autoencoder_train": {"patch_size": [16, 16]}}))
+
+    def pti(out: str) -> Path:
+        return pti_main(["-c", str(vae_cfg), "--checkpoint", str(ldm / "vae.pth"),
+                         "--input-dir", str(ldm / "imgs"), "--output-dir", str(ldm / out),
+                         "--batch-size", "2", "--num-samples", "5", "--num-workers", "1",
+                         "--latent-steps", "3", "--tune-steps", "2", "--tune-lr", "1e-3",
+                         "--tune-formulation", "vmap", "--device", "cpu"])
+
+    one = pti("pti_vmap_one")
+    names = [f"img_{i:02d}" for i in range(5)]
+    for rank in (0, 1):
+        as_rank(rank, 2)
+        out = pti(f"pti_vmap_rank{rank}")
+        assert sorted(p.stem for p in out.glob("*_pti.tif")) == [
+            f"{n}_pti" for n in names[rank::2]]
+        for name in names[rank::2]:
+            got, want = np.load(out / f"{name}_pivot.npz"), np.load(one / f"{name}_pivot.npz")
+            for key in ("latent", "latent_loss", "tune_loss"):
+                np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-4,
+                                           err_msg=f"{name} {key}")
+            np.testing.assert_allclose(read_image(str(out / f"{name}_pti.tif")),
+                                       read_image(str(one / f"{name}_pti.tif")),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+
+
 @pytest.mark.slow
 def test_train_diffusion_two_ranks_like_one_process(ldm):
     """Two ranks at batch 2 against one process at batch 4, the same LR: the

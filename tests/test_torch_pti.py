@@ -120,12 +120,20 @@ def test_linear_decoder_batched_matches_jax_and_sequential():
                                    rtol=1e-5, atol=1e-7)
 
 
-def test_vmap_formulation_raises_and_others_are_refused():
-    model = LinearDecoder(*_linear_world(0, 1)[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        make_pivotal_tuning_inversion_batched(model, tune_formulation="vmap")
+def test_vmap_formulation_runs_and_others_are_refused():
+    """The ``vmap`` form gives the ``scan`` form's results on the linear
+    decoder (held to both JAX forms in ``tests/test_torch_pti_vmap.py``); an
+    unknown form is a ``ValueError``."""
+    w, b, target, z0 = _linear_world(0, 3)
+    hyper = dict(latent_steps=20, latent_lr=5e-2, tune_steps=10, tune_lr=1e-2)
+    args = (torch.from_numpy(target), torch.from_numpy(z0))
+    scan = make_pivotal_tuning_inversion_batched(LinearDecoder(w, b), **hyper)(*args)
+    vmap = make_pivotal_tuning_inversion_batched(LinearDecoder(w, b), tune_formulation="vmap",
+                                                 **hyper)(*args)
+    for got, want in zip(jax.tree_util.tree_leaves(vmap), jax.tree_util.tree_leaves(scan)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     with pytest.raises(ValueError, match="tune_formulation"):
-        make_pivotal_tuning_inversion_batched(model, tune_formulation="grouped")
+        make_pivotal_tuning_inversion_batched(LinearDecoder(w, b), tune_formulation="grouped")
 
 
 # ---- a toy AutoencoderKL ---------------------------------------------------------------------

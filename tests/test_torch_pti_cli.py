@@ -114,6 +114,28 @@ def test_batch_three_with_a_padded_row_matches_batch_one(workspace, sequential, 
                                    atol=1e-4 * float(np.abs(want_recon).max()))
 
 
+def test_vmap_form_writes_the_scan_forms_files(workspace, sequential, tmp_path):
+    """``--tune-formulation vmap`` at batch 3 (a padded row) writes the files
+    of the sequential run with their values: the same stage 1, and stage 2 on
+    per-image decoder copies (losses 1e-4 relative; tuned tensors within
+    Adam's bound, 2 lr a step, of the sequential run's)."""
+    out = tmp_path / "vmap"
+    main(_args(workspace, out, 3, "--device", "cpu", "--tune-formulation", "vmap", "--save-tuned"))
+    assert sorted(p.name for p in out.iterdir()) == sorted(p.name for p in sequential.iterdir())
+    ours, seq = _outputs(out, NAMES), _outputs(sequential, NAMES)
+    for name in NAMES:
+        (got, got_recon), (want, want_recon) = ours[name], seq[name]
+        scale = float(np.abs(want["latent"]).max())
+        np.testing.assert_allclose(got["latent"], want["latent"], rtol=1e-5, atol=1e-5 * scale)
+        for key in ("latent_loss", "tune_loss"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4, err_msg=key)
+        np.testing.assert_allclose(got_recon, want_recon, rtol=0,
+                                   atol=1e-4 * float(np.abs(want_recon).max()))
+        tuned = torch.load(out / f"{name}_decoder.pth", weights_only=True)
+        for key, value in torch.load(sequential / f"{name}_decoder.pth", weights_only=True).items():
+            assert float((tuned[key] - value).abs().max()) <= 2 * 1e-3 * 3, key
+
+
 def test_saved_tuned_autoencoder_loads_into_inference(workspace, sequential, tmp_path):
     original = torch.load(workspace / "vae.pth", weights_only=True)
     tuned = torch.load(sequential / "img_000_decoder.pth", weights_only=True)
@@ -131,10 +153,19 @@ def test_saved_tuned_autoencoder_loads_into_inference(workspace, sequential, tmp
     assert n == N_IMAGES
 
 
-def test_vmap_and_missing_cuda_are_refused(workspace, tmp_path):
-    with pytest.raises(NotImplementedError, match="vmap"):
-        main(_args(workspace, tmp_path / "vmap", 2, "--device", "cpu", "--tune-formulation", "vmap"))
-    assert not (tmp_path / "vmap").exists()
+def test_spatial_dims_3_and_missing_cuda_are_refused(workspace, tmp_path):
+    """``run_pti`` takes 2-D VAEs only, as the JAX CLI does (its dump slices
+    ``[0, :, :, 0]``); without CUDA it needs ``--device cpu``."""
+    cfg = json.loads((workspace / "config.json").read_text())
+    cfg["autoencoder_def"]["spatial_dims"] = 3
+    (tmp_path / "vae3.json").write_text(json.dumps(cfg))
+    torch.save(autoencoder_from_config(cfg["autoencoder_def"]).state_dict(), tmp_path / "vae3.pth")
+    args = _args(workspace, tmp_path / "three", 2, "--device", "cpu")
+    args[args.index("-c") + 1] = str(tmp_path / "vae3.json")
+    args[args.index("--checkpoint") + 1] = str(tmp_path / "vae3.pth")
+    with pytest.raises(NotImplementedError, match="spatial_dims=2"):
+        main(args)
+    assert not (tmp_path / "three").exists()
     assert parse_args(["-c", "x", "--checkpoint", "y", "--input-dir", "z"]).batch_size == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):

@@ -22,6 +22,7 @@ from pti_ldm_vae_tpu_torch.data.io import write_tif
 from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
 from pti_ldm_vae_tpu_torch.train.loop import VAETrainer, resolve_ar_settings
 from pti_ldm_vae_tpu_torch.train.state import create_train_state
+from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
 
 N_IMAGES = 12
 
@@ -180,7 +181,7 @@ _NO_MAPPING = "attribute_latent_mapping must be provided"
 
 @pytest.mark.parametrize("patch,error,match", [
     (lambda c: (c["autoencoder_train"].update(adv_enabled=True), c.update(spatial_dims=3)),
-     NotImplementedError, "adversarial"),
+     ValueError, "spatial_dims"),
     (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), ValueError, _NO_MAPPING),
     (lambda c: c.update(regularized_attributes={"enabled": True}), ValueError, _NO_MAPPING),
     (lambda c: c.update(parallelism={"spatial": 2}), NotImplementedError, "parallelism"),
@@ -384,3 +385,27 @@ def test_checkpoint_write_failure_leaves_marker_and_old_best(tmp_path, monkeypat
     assert "FAILED" in capsys.readouterr().err
     again.save_epoch(state=state, epoch=1, val_loss=0.9, best_val_loss=0.5, total_step=2)
     assert "CHECKPOINT_WRITE_FAILED" not in os.listdir(tmp_path)
+
+
+def test_3d_config_builds_the_adversarial_branch(workspace, tmp_path):
+    """A 3-D config builds its 3-D model and the trainer's 3-D PatchGAN from
+    the top-level ``spatial_dims`` (JAX ``train/loop.py``), and one
+    adversarial step of those two runs on a volume (the loaders read 2-D
+    TIFs, as the JAX package's do, so no volume comes from disk)."""
+    root, _ = workspace
+    cfg = resolve_refs(_config(root, adv_enabled=True, adv_warmup_epochs=0, patch_size=[32, 32, 32],
+                               perceptual_weight=0.0))
+    cfg["spatial_dims"] = cfg["autoencoder_def"]["spatial_dims"] = 3
+    cfg["run_dir"] = str(tmp_path / "run3d")
+    trainer = VAETrainer(cfg, device="cpu", use_wandb=False, num_workers=1)
+    assert isinstance(trainer.disc.initial_conv.conv, torch.nn.Conv3d)
+    assert isinstance(trainer.model.encoder.blocks[0].conv, torch.nn.Conv3d)
+    state = create_train_state(trainer.model, lr=1e-4, model_d=trainer.disc)
+    step = make_train_step(trainer.model, trainer.disc, LossConfig(perceptual_weight=0.0,
+                                                                   use_perceptual=False),
+                           adv_active=True)
+    images = torch.from_numpy(np.random.default_rng(1).uniform(0.1, 1.0, (2, 32, 32, 32, 1))
+                              .astype(np.float32))
+    _, metrics = step(state, images, torch.ones(2), None, None, eps=torch.zeros(2, 16, 16, 16, 3))
+    assert float(metrics["train/adv_disc_loss"]) > 0 and all(
+        np.isfinite(float(v)) for v in metrics.values())

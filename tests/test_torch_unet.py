@@ -287,9 +287,17 @@ def test_bf16_compute_runs_and_returns_f32(toy):
     assert float((got - want).abs().max()) < 0.1 * float(want.abs().max())
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="spatial_dims"):
-        diffusion_unet_from_config({**TOY, "spatial_dims": 3})
+@pytest.mark.parametrize("spatial_dims", [1, 3])
+def test_spatial_dims_1_and_3_forward(spatial_dims):
+    """The toy UNet at rank 1 and 3 builds and predicts a finite noise of the
+    input's shape (held to the JAX package in ``tests/test_torch_spatial_dims.py``)."""
+    model = diffusion_unet_from_config({**TOY, "spatial_dims": spatial_dims})
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, *(4,) * spatial_dims, 2)).astype(np.float32))
+    ctx = torch.from_numpy(rng.normal(size=(2, 5, 12)).astype(np.float32))
+    with torch.inference_mode():
+        out = model(x, torch.tensor([7, 423]), ctx)
+    assert out.shape == x.shape and torch.isfinite(out).all()
 
 
 def _port_grads(model, x, t, ctx, r):
