@@ -230,6 +230,24 @@ result line):
    ``--conv-kernel`` and the ``scan`` form beside it (launch counts, pivots),
    both programs and both stage-2 forms in f32 against each other; timings
    ``dims_b2`` and ``pti_vmap_b8`` in a child (``--dims-timings``);
+6t. ``image_comparison_path``: the GT-vs-synthesis suite
+   (``analysis.metrics.ImageComparison``) on 16 seeded ``edente`` /
+   ``edente_synth`` TIF pairs at 256² (filled ellipses with noise, 12 at
+   random angles within +-20 degrees, 4 axis-aligned): kernel checks of the
+   convolution at VGG16's 9 distinct shapes (224² x 3 -> 64 down to
+   14² x 512 -> 512, both types, forward and backward) and, per shape, how
+   many f32 outputs of the kernel differ from cuDNN's (TF32 off); then, with
+   TF32 allowed as PyTorch allows it by default (VGG16 turns it off for its
+   own convolutions), one image's f32 features on the card (cuDNN), on the
+   card with ``conv_kernel=True`` and on the CPU, within 1e-4 of their
+   largest magnitude; ``process_all_images`` with ``save_csv`` on the card,
+   on the card with the kernel (13 launches a feature vector, 416 in all)
+   and on the CPU, each processing 16 of 16 pairs, the metrics of the card
+   runs equal to the CPU's (the host's geometry and pixel metrics exactly,
+   cosine and Euclidean distance rtol 1e-4) and ``_dimensions.csv`` byte for
+   byte; device and event ms of the VGG16 b1 forward (cuDNN, kernel), wall
+   seconds a pair and the host's share (each convolution shape's f32
+   forward is timed in the timings child of phase 7, path ``vgg16``);
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -2936,7 +2954,7 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
 
 
 def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: str = "vae",
-                 dtypes=None, iters: int = 10, stem_cin: int = 1) -> None:
+                 dtypes=None, iters: int = 10, stem_cin: int = 1, forward_only: bool = False) -> None:
     """Per distinct convolution shape of a pass of the model ``path`` names
     (the flagship's by default) and dtype: the
     forward kernel as forward and as input gradient, and the filter-gradient
@@ -2954,7 +2972,8 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
     time (``ms``) includes the fold of its partial sums (one ``torch.sum``);
     ``kernel_only_ms`` leaves it out. ``iters``: timed calls per
     measurement; ``stem_cin``: the ``Cin`` of the encoder's stem, whose
-    input gradient no path computes."""
+    input gradient no path computes; ``forward_only``: the forward row alone
+    (a path that computes no gradient)."""
     import torch.nn.functional as F
 
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
@@ -3030,6 +3049,9 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
                    "bound_ms": bound_ms, "bound_by": bound_by}
             rows["conv3x3"].append(row)
             emit("time_conv3x3", **row)
+            if forward_only:
+                del x, wmat, g, wflip, x_lib, w_lib, g_lib, y_lib
+                continue
 
             row = {**forward_row(head, "dgrad", n_dgrad, g, wflip,
                                  lambda: torch.autograd.grad(y_lib, x_lib, g_lib, retain_graph=True)),
@@ -3575,13 +3597,16 @@ def knob_timings(torch, ae_def: dict, ckpt: Path, ldm_cfg: Path, ldm_ckpt: str, 
 
 
 def timings_child(spec_path: str, out_path: str) -> int:
-    """``chip_smoke.py --knob-timings SPEC OUT``: the kernels at the shapes
-    only the s2d pass has (bf16 and f32 GroupNorm+SiLU, bf16 convolution)
-    and ``knob_timings``, in a process of their own, started by ``main``
-    after its last timing: ``torch.profiler`` came back without device events
-    from five traces running in one process past the load of the other
-    timings (twice, at different phases). The rows go to ``OUT`` (JSON), the phases'
-    lines to stdout."""
+    """``chip_smoke.py --knob-timings SPEC OUT``: VGG16's f32 convolutions
+    (the comparison suite with ``conv_kernel=True``, forward only), the
+    kernels at the shapes only the s2d pass has (bf16 and f32
+    GroupNorm+SiLU, bf16 convolution) and ``knob_timings``, in a process of
+    their own, started by ``main`` after its last timing: ``torch.profiler``
+    came back without device events from five traces running in one process
+    past the load of the other timings (twice, at different phases), and
+    there it kept about half of the VGG16 convolutions' events (device ms
+    0.47 of their event ms, 0.91 in a fresh process). The rows go to ``OUT``
+    (JSON), the phases' lines to stdout."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -3595,6 +3620,8 @@ def timings_child(spec_path: str, out_path: str) -> int:
     flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(14)
     rows: dict[str, list] = {name: [] for name in KERNEL_NAMES}
+    time_conv3x3(torch, [(tuple(sh), n) for sh, n in spec["vgg16_shapes"]], flush, gen, rows,
+                 path="vgg16", dtypes=(torch.float32,), forward_only=True)
     time_groupnorm_silu(torch, [(tuple(sh), n, 16) for sh, n in spec["gn_shapes"]], flush, gen,
                         rows, "s2d")
     time_conv3x3(torch, [(tuple(sh), n) for sh, n in spec["conv_shapes"]], flush, gen, rows,
@@ -4664,6 +4691,210 @@ def dims_timings_child(spec_path: str) -> int:
     return 0
 
 
+COMPARISON_PAIRS = 16
+COMPARISON_AXIS_ALIGNED = (0, 5, 10, 15)  # the pairs drawn at 0 degrees
+
+
+def write_comparison_inputs(np, root: Path) -> Path:
+    """16 seeded ``edente`` / ``edente_synth`` TIF pairs at 256², the flagship's
+    patch size: a filled ellipse (GT: 1 with 2% noise, background exactly 0;
+    synthesis: a slightly different ellipse at 0.9 with noise, faint noise
+    below the 0.2 threshold everywhere and a bright 5x5 speck that the
+    largest-contour cleaning removes), at a random angle within +-20 degrees
+    but for the axis-aligned pairs. Returns the ``edente`` folder."""
+    from pti_ldm_vae_tpu_torch.data.io import write_tif
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[0:IMAGE, 0:IMAGE].astype(np.float64)
+
+    def ellipse(cx, cy, a, b, deg):
+        t = np.deg2rad(deg)
+        u = (xx - cx) * np.cos(t) + (yy - cy) * np.sin(t)
+        v = -(xx - cx) * np.sin(t) + (yy - cy) * np.cos(t)
+        return ((u / a) ** 2 + (v / b) ** 2 <= 1.0).astype(np.float32)
+
+    for sub in ("edente", "edente_synth"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(COMPARISON_PAIRS):
+        deg = 0.0 if i in COMPARISON_AXIS_ALIGNED else float(rng.uniform(-20, 20))
+        a, b = rng.uniform(40, 55), rng.uniform(82, 96)
+        cx, cy = 128 + rng.uniform(-6, 6), 134 + rng.uniform(-4, 4)
+        gt = ellipse(cx, cy, a, b, deg)
+        gt *= (1 + 0.02 * rng.standard_normal(gt.shape)).astype(np.float32)
+        shifted = deg if i in COMPARISON_AXIS_ALIGNED else deg + rng.uniform(-4, 4)
+        pred = 0.9 * ellipse(cx + rng.uniform(-4, 4), cy + rng.uniform(-3, 3),
+                             a * rng.uniform(0.9, 1.1), b * rng.uniform(0.92, 1.05), shifted)
+        pred += 0.03 * rng.standard_normal(pred.shape) * (pred > 0)
+        pred += rng.uniform(-0.1, 0.1, pred.shape)
+        pred[10:15, 10:15] = 0.5
+        write_tif(str(root / "edente" / f"pair_{i:02d}.tif"), gt.astype(np.float32))
+        write_tif(str(root / "edente_synth" / f"pair_{i:02d}.tif"), pred.astype(np.float32))
+    return root / "edente"
+
+
+def image_comparison_path(torch, np, kernels_mod, work: Path) -> dict:
+    """Phase 6t: the comparison suite on the card and the CPU (see the module
+    docstring). The features and the three runs see TF32 allowed, PyTorch's
+    default and so a user's process: VGG16 turns it off for its own
+    convolutions. Returns the kernel checks' errors, the convolution launches
+    of the ``conv_kernel`` run, VGG16's distinct convolution shapes with their
+    calls a feature vector, the VGG16 forward times and each run's seconds a
+    pair and host share."""
+    import torch.nn.functional as F
+
+    from pti_ldm_vae_tpu_torch.analysis.metrics import (
+        VGG_SIZE,
+        ImageComparison,
+        vgg16_conv_shapes,
+        vgg16_features_fn,
+        vgg16_input,
+    )
+    from pti_ldm_vae_tpu_torch.data.io import read_image
+    from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import _launch_forward
+
+    os.environ["PTI_VGG16_WEIGHTS"] = "none"  # no VGG16 weights ship: the seeded init
+    shutil.rmtree(work, ignore_errors=True)
+    folder = write_comparison_inputs(np, work)
+    shapes = vgg16_conv_shapes()
+    distinct = sorted(set(shapes), key=shapes.index)
+    errs = check_kernels(torch, [], (), [(s, shapes.count(s)) for s in distinct], kernels_mod,
+                         seed=3, ragged=False, phase="kernel_checks_vgg16")
+    # each layer's f32 output, the kernel's against cuDNN's (TF32 off) on the same random
+    # inputs: how many entries differ, and by how much
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layers = []
+    for b, h, w, cin, cout in distinct:
+        x, wmat, _ = conv_inputs(torch, (b, h, w, cin, cout), gen)
+        w_lib = (wmat.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+                 .contiguous(memory_format=torch.channels_last))
+        got = _launch_forward(x, wmat)
+        want = F.conv2d(x.permute(0, 3, 1, 2), w_lib, padding=1).permute(0, 2, 3, 1)
+        layers.append({"shape": [b, h, w, cin, cout], "entries": got.numel(),
+                       "differ": int((got != want).sum()),
+                       "max_abs_diff": float((got - want).abs().max())})
+    emit("vgg16_kernel_vs_cudnn", layers=layers, card=card_line())
+
+    # one image's features: cuDNN and the kernel on the card, and the CPU
+    torch.backends.cudnn.allow_tf32 = True
+    x = vgg16_input(read_image(str(folder / "pair_00.tif")))
+    if x.shape != (1, VGG_SIZE, VGG_SIZE, 3):
+        raise RuntimeError(f"vgg16_input gave {x.shape}")
+    forms = {"cuda": vgg16_features_fn("cuda"),
+             "cuda_conv_kernel": vgg16_features_fn("cuda", conv_kernel=True),
+             "cpu": vgg16_features_fn("cpu")}
+    kernels_mod.reset_launch_counts()
+    feats = {k: f(x) for k, f in forms.items()}
+    if kernels_mod.launch_counts()["conv3x3"] != len(shapes):
+        raise RuntimeError(f"VGG16 with conv_kernel: {kernels_mod.launch_counts()} launches")
+    if not torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("VGG16 left TF32 off behind it")
+    feature_bar = 1e-4 * float(np.abs(feats["cpu"]).max())
+    feature_errs = {k: float(np.abs(feats[k] - feats["cpu"]).max())
+                    for k in ("cuda", "cuda_conv_kernel")}
+    feature_errs["kernel_vs_cudnn"] = float(np.abs(feats["cuda_conv_kernel"] - feats["cuda"]).max())
+    if not max(feature_errs.values()) <= feature_bar or feats["cpu"].shape != (25088,):
+        raise RuntimeError(f"VGG16 features: errors {feature_errs} over the bar {feature_bar}")
+    x_dev = torch.from_numpy(x).cuda()
+    flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
+    forward_ms = {}
+    for key in ("cuda", "cuda_conv_kernel"):
+        model = forms[key].model
+
+        def forward():
+            with torch.inference_mode():
+                model(x_dev)
+
+        t = time_ms(forward, flush)
+        forward_ms[key] = {"device_ms": t["device_ms"], "event_ms": t["event_ms"]}
+    emit("vgg16_features", shape=list(x.shape), max_abs_err=feature_errs, bar=feature_bar,
+         kernel_vs_cudnn_entries_differ=int((feats["cuda_conv_kernel"] != feats["cuda"]).sum()),
+         forward_b1_ms=forward_ms, card=card_line())
+    del forms, x_dev, flush
+
+    # process_all_images on the card, on the card with the kernel, on the CPU: one folder,
+    # the outputs moved aside after each run (the listing order is the folder's)
+    outputs = ("_metrics.csv", "_dimensions.csv", "_metrics_distribution.png")
+    runs, launches = {}, 0
+    for key, device, conv_kernel in (("cuda", "cuda", False), ("cuda_conv_kernel", "cuda", True),
+                                     ("cpu", "cpu", False)):
+        comparison = ImageComparison(device=device, conv_kernel=conv_kernel)
+        pairs, feature_s = [0], [0.0]
+        compare, extract = comparison.compare_images_and_display_metrics, comparison.extract_features
+
+        def counted(*args, **kwargs):
+            pairs[0] += 1
+            return compare(*args, **kwargs)
+
+        def timed_features(image):
+            t = time.perf_counter()
+            out = extract(image)
+            feature_s[0] += time.perf_counter() - t
+            return out
+
+        comparison.compare_images_and_display_metrics = counted
+        comparison.extract_features = timed_features
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        avg, ci = comparison.process_all_images([str(folder)], save_csv=True)
+        wall = time.perf_counter() - t0
+        counts = kernels_mod.launch_counts()
+        dims = (folder / "_dimensions.csv").read_text().splitlines()
+        processed = {line.split(";")[0]: line.split(";")[5] for line in
+                     (folder / "_metrics.csv").read_text().splitlines()[1:]}
+        if pairs[0] != COMPARISON_PAIRS or len(dims) != 1 + COMPARISON_PAIRS or \
+                processed["MSE"] != f"{float(COMPARISON_PAIRS)}":
+            raise RuntimeError(f"process_all_images ({key}) processed {pairs[0]} pairs, "
+                               f"{len(dims) - 1} rows of dimensions, {processed['MSE']} in its CSV; "
+                               f"{COMPARISON_PAIRS} expected")
+        want_launches = 2 * COMPARISON_PAIRS * len(shapes) if conv_kernel else 0
+        if counts["conv3x3"] != want_launches or counts["conv3x3_wgrad"]:
+            raise RuntimeError(f"process_all_images ({key}): launches {counts}, "
+                               f"{want_launches} convolution launches expected")
+        if conv_kernel:
+            launches = counts["conv3x3"]
+        files = {}
+        for name in outputs:
+            files[name] = (folder / name).read_bytes()
+            (folder / name).replace(work / f"{key}{name}")
+        runs[key] = {"avg": avg, "ci": ci, "files": files, "wall_s": wall,
+                     "features_s": feature_s[0]}
+        emit("image_comparison_run", run=key, pairs=pairs[0], wall_s=wall,
+             wall_s_per_pair=wall / COMPARISON_PAIRS, features_s=feature_s[0],
+             host_share=1.0 - feature_s[0] / wall, launches=counts["conv3x3"],
+             angles_axis_aligned=len(COMPARISON_AXIS_ALIGNED), card=card_line())
+        del comparison
+        torch.cuda.empty_cache()
+
+    # the card's runs against the CPU's: the host computes everything but the features
+    device_keys = ("Cosine Similarity", "Euclidean Distance")
+    ref = runs["cpu"]
+    worst = {}
+    for key in ("cuda", "cuda_conv_kernel"):
+        run = runs[key]
+        if list(run["avg"]) != list(ref["avg"]):
+            raise RuntimeError(f"{key}: metric names {list(run['avg'])}")
+        if run["files"]["_dimensions.csv"] != ref["files"]["_dimensions.csv"]:
+            raise RuntimeError(f"{key}: _dimensions.csv differs from the CPU run's")
+        for name, value in run["avg"].items():
+            want, ci, want_ci = ref["avg"][name], run["ci"][name], ref["ci"][name]
+            if name in device_keys:
+                rel = max(abs(value - want) / abs(want),
+                          *(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ci, want_ci)))
+                worst[f"{key} {name}"] = rel
+                if not rel <= 1e-4:
+                    raise RuntimeError(f"{key} {name}: {value} against the CPU's {want}")
+            elif value != want or tuple(ci) != tuple(want_ci):
+                raise RuntimeError(f"{key} {name}: {value} {ci} against the CPU's {want} {want_ci}")
+    torch.backends.cudnn.allow_tf32 = False
+    emit("image_comparison_path", ok=True, pairs=COMPARISON_PAIRS, runs=list(runs),
+         metrics_cpu=ref["avg"], feature_rel_err=worst, dimensions_csv_identical=True,
+         conv_kernel_launches=launches, launches_per_feature_vector=len(shapes))
+    return {"errs": errs, "launches": launches,
+            "vgg16_shapes": [(s, shapes.count(s)) for s in distinct], "forward_b1_ms": forward_ms,
+            "wall_s_per_pair": {k: r["wall_s"] / COMPARISON_PAIRS for k, r in runs.items()},
+            "host_share": {k: 1.0 - r["features_s"] / r["wall_s"] for k, r in runs.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -5031,6 +5262,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dims-timings",
                     str(WORK / "dims_timings.json")], check=True, timeout=600)
+    # 6t. the GT-vs-synthesis comparison suite: VGG16 on the card (cuDNN and the convolution
+    # kernel) and on the CPU, the geometry on the host
+    comparison = image_comparison_path(torch, np, kernels_mod, WORK / "image_comparison")
+    errs = {name: {k: max(v, comparison["errs"][name][k]) for k, v in by_type.items()}
+            for name, by_type in errs.items()}
+    torch.cuda.empty_cache()
 
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
@@ -5112,6 +5349,7 @@ def main() -> int:
     timed_conv = {tuple(r["shape"]) for r in rows["conv3x3"]}
     spec = {"gn_shapes": [[list(sh), n] for sh, n in s2d["gn_shapes"] if sh not in timed_gn],
             "conv_shapes": [[list(sh), n] for sh, n in s2d["conv_shapes"] if sh not in timed_conv],
+            "vgg16_shapes": [[list(sh), n] for sh, n in comparison["vgg16_shapes"]],
             "ckpt": str(ckpt), "ldm_cfg": str(cfg_path),
             "ldm_ckpt": ldm_train["bfloat16"]["checkpoint"], "t": time.perf_counter() - T0}
     (WORK / "knob_timings.json").write_text(json.dumps(spec))
@@ -5293,7 +5531,9 @@ def main() -> int:
                                     for r in (0, 1)
                                     for cli in ("train_vae", "sample_diffusion", "run_pti")},
                                  **{key: n[name] for key, n in dims["launches"].items()},
-                                 **{key: n[name] for key, n in pti_vmap.items()}},
+                                 **{key: n[name] for key, n in pti_vmap.items()},
+                                 "image_comparison_conv_kernel":
+                                     comparison["launches"] if name == "conv3x3" else 0},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **({"rel_rms_err": errs[name]["bfloat16_rel"]}
                if name in ("flash_attention", "flash_attention_bwd") else {}),
@@ -5320,6 +5560,15 @@ def main() -> int:
                 "ar_latent": [{k: r[k] for k in ("shape", "role", "kernel", "tile", "ms", "fma_ms",
                                                  "library_ms", "bound_ms") if k in r}
                               for r in rows[name] if r["path"] == "ar"]}
+               if name == "conv3x3" else {}),
+            # VGG16's f32 convolutions in the comparison suite (conv_kernel=True), per call
+            **({"vgg16": {"shapes": [{k: v for k, v in r.items() if k not in ("path", "dtype", "role")}
+                                     for r in rows[name] if r["path"] == "vgg16"],
+                          "forward_b1_ms": comparison["forward_b1_ms"],
+                          "scope": "f32 forward per call after an L2 flush, device ms (ms, "
+                                   "plain_ms, library_ms) and event ms; library: F.conv2d "
+                                   "channels-last, TF32 off; forward_b1_ms: VGG16 features of "
+                                   "one image, cuDNN and the kernel"}}
                if name == "conv3x3" else {}),
         })
     for wide_name, (name, source, replaces, scope) in wide_described.items():

@@ -1,6 +1,7 @@
 """Latent-space analysis (counterpart of ``pti_ldm_vae_tpu/analysis``):
-cached encoding, PCA -> t-SNE on the device, plots and distance statistics.
-``ImageComparison`` (OpenCV geometry and VGG16 features) is not ported."""
+cached encoding, PCA -> t-SNE on the device, plots and distance statistics;
+and the GT-vs-synthesis comparison suite ``ImageComparison`` (contour
+geometry on the host, VGG16 features on the device)."""
 
 from .common import (
     collect_image_paths,
@@ -26,8 +27,10 @@ from .latent_space import (
     extract_patient_id_from_filename,
     load_image_paths,
 )
+from .metrics import ImageComparison
 
 __all__ = [
+    "ImageComparison",
     "LatentCache",
     "LatentSpaceAnalyzer",
     "collect_image_paths",

@@ -7,14 +7,17 @@ mask-aware display normalization (background stays black, sub-1e-3 values
 suppressed). The projection scatter and the AR-channel grid stand in for the
 JAX package's matplotlib fallbacks (``analysis/latent_space.py:277-304``,
 ``cli/analyze_ar_channels.py:84-118``): the same markers and filled-vs-open
-rule, drawn into RGB arrays. Host-side numpy."""
+rule, drawn into RGB arrays; the comparison suite's metric histograms stand
+in for ``analysis/metrics.py:plot_metric_distributions_with_ci``. Host-side
+numpy."""
 
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["normalize_batch_for_display", "draw_scatter", "draw_channel_grid",
-           "channel_grid_shape", "normalize_unit", "hex_to_rgb", "SCATTER_SHAPE"]
+           "draw_histogram_panels", "channel_grid_shape", "normalize_unit", "hex_to_rgb",
+           "SCATTER_SHAPE"]
 
 
 def normalize_batch_for_display(
@@ -191,4 +194,59 @@ def draw_channel_grid(original: np.ndarray, reconstruction: np.ndarray, latents:
     place(1, _panel(reconstruction, "gray", p))
     for c in range(latents.shape[0]):
         place(GRID_COLUMNS + c, _panel(latents[c], "viridis", p), c in framed)
+    return np.clip(np.round(canvas), 0, 255).astype(np.uint8)
+
+
+HISTOGRAM_PANEL = (400, 500)  # (height, width) of one panel: matplotlib's 15 x 4 in, 3 a row, dpi 100
+HISTOGRAM_COLUMNS = 3
+HISTOGRAM_BINS = 20
+HISTOGRAM_MARGIN = 40
+_BAR_RGB = hex_to_rgb("#ADD8E6")  # matplotlib's "lightblue"
+_BAR_ALPHA = 0.7
+
+
+def draw_histogram_panels(panels) -> np.ndarray:
+    """Histograms, ``HISTOGRAM_COLUMNS`` a row, as a uint8 RGB image (white
+    background, a black frame per panel, no text): ``panels`` is a list of
+    ``(data, lines)``, ``data`` a 1-D array binned in ``HISTOGRAM_BINS`` equal
+    bins over its range (``np.histogram``'s), drawn as light-blue bars with
+    black edges, and ``lines`` a list of ``(x, "#RRGGBB", dashed)`` vertical
+    lines; each panel's x range holds the bins and the lines, padded by 5%."""
+    ph, pw = HISTOGRAM_PANEL
+    rows = max(1, -(-len(panels) // HISTOGRAM_COLUMNS))
+    canvas = np.full((rows * ph, HISTOGRAM_COLUMNS * pw, 3), 255.0, np.float32)
+    m = HISTOGRAM_MARGIN
+    for slot, (data, lines) in enumerate(panels):
+        top, left = (slot // HISTOGRAM_COLUMNS) * ph, (slot % HISTOGRAM_COLUMNS) * pw
+        y0, y1, x0, x1 = top + m, top + ph - m, left + m, left + pw - m
+        counts, edges = np.histogram(np.asarray(data, np.float64), bins=HISTOGRAM_BINS)
+        xs = np.concatenate([edges, [x for x, _, _ in lines if np.isfinite(x)]])
+        lo, hi = float(xs.min()), float(xs.max())
+        span = hi - lo if hi > lo else 1.0
+        lo, span = lo - 0.05 * span, 1.1 * span
+
+        def col(x):
+            return int(round(x0 + (x - lo) / span * (x1 - x0 - 1)))
+
+        top_count = max(int(counts.max()), 1)
+        for n, a, b in zip(counts, edges[:-1], edges[1:]):
+            if not n:
+                continue
+            c0, c1 = col(a), col(b)
+            r0 = int(round(y1 - 1 - n / (1.05 * top_count) * (y1 - y0 - 1)))
+            region = canvas[r0:y1, c0:c1 + 1]
+            region[:] = (1.0 - _BAR_ALPHA) * region + _BAR_ALPHA * _BAR_RGB
+            canvas[r0, c0:c1 + 1] = 0.0
+            canvas[r0:y1, c0] = canvas[r0:y1, c1] = 0.0
+        for x, color, dashed in lines:
+            if not np.isfinite(x):
+                continue
+            c = col(x)
+            if x0 <= c < x1:
+                rows_on = np.arange(y0, y1)
+                if dashed:
+                    rows_on = rows_on[(rows_on - y0) % 12 < 8]
+                canvas[rows_on, max(c - 1, x0):c + 1] = hex_to_rgb(color)
+        canvas[y0 - 1, x0 - 1:x1 + 1] = canvas[y1, x0 - 1:x1 + 1] = 0.0
+        canvas[y0 - 1:y1 + 1, x0 - 1] = canvas[y0 - 1:y1 + 1, x1] = 0.0
     return np.clip(np.round(canvas), 0, 255).astype(np.uint8)

@@ -38,7 +38,8 @@ def test_port_has_modules():
                      "analysis/common.py", "cli/analyze_static.py",
                      "cli/analyze_interactive.py", "cli/analyze_ar_channels.py",
                      "checkpoint/paths.py", "native/__init__.py", "utils/profiling.py",
-                     "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py"):
+                     "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+                     "analysis/metrics.py", "data/augmentation.py", "utils/imgproc.py"):
         assert expected in names
     assert (PORT / "native" / "ptidata.cpp").exists()
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
@@ -85,9 +86,11 @@ def test_port_imports_with_jax_blocked():
 
 def test_analysis_imports_without_the_optional_host_packages():
     """The card's machine has none of scikit-learn, matplotlib, plotly, dash,
-    umap-learn and OpenCV: the analysis package and its three CLIs import
-    with them blocked, and import none of them."""
-    blocked = ("sklearn", "matplotlib", "plotly", "dash", "umap", "cv2")
+    umap-learn, OpenCV, pandas and albumentations: the analysis package, its
+    three CLIs, the comparison suite and the paired augmentation import with
+    them blocked, and import none of them."""
+    blocked = ("sklearn", "matplotlib", "plotly", "dash", "umap", "cv2", "pandas",
+               "albumentations")
     code = (
         "import sys\n"
         f"BLOCKED = {blocked!r}\n"
@@ -99,7 +102,9 @@ def test_analysis_imports_without_the_optional_host_packages():
         "import importlib\n"
         "for m in ('pti_ldm_vae_tpu_torch.analysis', 'pti_ldm_vae_tpu_torch.cli.analyze_static',\n"
         "          'pti_ldm_vae_tpu_torch.cli.analyze_interactive',\n"
-        "          'pti_ldm_vae_tpu_torch.cli.analyze_ar_channels'):\n"
+        "          'pti_ldm_vae_tpu_torch.cli.analyze_ar_channels',\n"
+        "          'pti_ldm_vae_tpu_torch.analysis.metrics',\n"
+        "          'pti_ldm_vae_tpu_torch.data.augmentation'):\n"
         "    importlib.import_module(m)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "print('ok')")

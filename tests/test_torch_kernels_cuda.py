@@ -516,6 +516,47 @@ def test_conv3x3_skips_the_gradients_nobody_wants(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_at_vgg16_shapes(cuda, dtype):
+    """The comparison suite's VGG16 with ``conv_kernel=True``: its 9 distinct
+    convolution shapes at 224², from the 3-channel input to 14² x 512."""
+    from pti_ldm_vae_tpu_torch.analysis.metrics import vgg16_conv_shapes
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    shapes = sorted(set(vgg16_conv_shapes()), key=vgg16_conv_shapes().index)
+    assert len(shapes) == 9
+    for shape in shapes:
+        x, wmat = _conv_inputs(shape, dtype, cuda, gen)
+        reset_launch_counts()
+        got = conv3x3(x, wmat)
+        assert _conv_counts() == _conv_launches(dtype, shape[3]), shape
+        want = conv3x3_plain(x.float(), wmat.to(dtype).float())
+        torch.testing.assert_close(got.float(), want, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
+
+
+@pytest.mark.cuda
+def test_vgg16_features_on_the_card(cuda, monkeypatch):
+    """VGG16 features of one image on the card, cuDNN's and the kernel's (13
+    launches), against the CPU's, within 1e-4 of the largest magnitude, with
+    TF32 allowed as PyTorch allows it by default (the model turns it off for
+    its own convolutions and back on after them)."""
+    from pti_ldm_vae_tpu_torch.analysis.metrics import vgg16_features_fn
+
+    monkeypatch.setenv("PTI_VGG16_WEIGHTS", "none")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(1, 224, 224, 3, generator=gen).numpy()
+    want = vgg16_features_fn("cpu")(x)
+    bar = 1e-4 * abs(want).max()
+    assert abs(vgg16_features_fn("cuda")(x) - want).max() <= bar
+    assert torch.backends.cudnn.allow_tf32
+    with_kernel = vgg16_features_fn("cuda", conv_kernel=True)
+    reset_launch_counts()
+    got = with_kernel(x)
+    assert launch_counts()["conv3x3"] == 13 and abs(got - want).max() <= bar
+
+
+@pytest.mark.cuda
 def test_bf16_routes_follow_the_rules(cuda):
     assert conv_forward_kernel(torch.bfloat16, 24) == "wgmma"
     # a thin Cin is padded with zero channels onto the tensor cores, up to the widest Cin whose
