@@ -318,6 +318,26 @@ result line):
    within 1e-4 of their largest entry; rank 0's launches those of the one
    process; a gloo step's ms (correctness only: gloo stages CUDA tensors
    through the host);
+7c. spatial and tensor parallelism (phase ``model_parallel_path``, two
+   processes of their own, ``chip_smoke.py --mp-child SPEC RANK``:
+   ``mp_child``): rank 0 holds the four split GroupNorm+SiLU entries
+   (statistics, apply, backward reduce, backward dx) to their plain versions
+   at the flagship's per-shard shapes under spatial 2 at 256² b8 ([8, 128,
+   256, 32] ... [8, 16, 32, 128]) in both types and times them in bf16
+   beside the fused kernels at the unsharded shapes; then one process, and
+   two gloo ranks on the one card under ``{"spatial": 2}`` and under
+   ``{"tensor": 2}`` (``data`` 1: the same rows on both ranks), run
+   ``train_vae`` bf16 ``--conv-kernel`` on copies of
+   ``config/vae_dente_no_adv.json`` (2 steps at b8) and
+   ``config/vae_dente_2.json`` (one adversarial step), one f32 generator
+   and one f32 adversarial step from the same weights, batch and noise, and
+   bf16 generator steps at 256² and 512² b8 (the latter under spatial only).
+   Checks: the f32 steps' loss terms and parameters at the ``ddp_path``
+   bars, the bf16 runs' logged losses within 1e-2 relative, every run's
+   launch counts (under spatial the split entries run, as many as the fused
+   kernels in one process, and the fused ones not; under tensor the one
+   process's counts); it reports each rank's peak GB beside the one process's
+   and the steps' CUDA-event ms (correctness only under gloo);
 8. the ``kernels`` line (six kernels, covering the seven ``pallas_call``
    sites, and the wide-head flash kernels as two more entries, launched on
    the kl1e3 path; launches by path, the diffusion CLIs' included, and the four
@@ -528,6 +548,22 @@ DDP_PARAM_BAR = 2e-3  # of each parameter tensor's largest change (the train-ste
 DDP_PARAM_SHARE = 0.99  # of all parameter entries (see ddp_compare)
 DDP_FILE_BAR = 1e-4  # sampled images and PTI outputs, of their largest entry, f32
 DDP_TIMEOUT_S = 480
+# phase model_parallel_path: two gloo ranks on the one card, spatial 2 and tensor 2
+MP_MODEL = 2
+MP_GROUPS = 16  # the flagship's norm_num_groups
+MP_IMAGES = 18  # 16 train images (2 steps of 8) and 2 validation images
+MP_ADV_IMAGES = 10  # with DDP_B_SPLIT: 8 train images, one adversarial step
+MP_LR = 2.5e-5
+# train_vae runs (bf16, the convolution kernels): config, extra flags, steps
+MP_RUNS = {"no_adv": (CONFIG, ["--conv-kernel"], 2), "adv": (ADV_CONFIG, ["--conv-kernel"], 1)}
+MP_SPLIT_ENTRIES = ("groupnorm_silu_split_stats", "groupnorm_silu_split_apply",
+                    "groupnorm_silu_split_bwd_reduce", "groupnorm_silu_split_bwd_dx")
+MP_STEP_SIDES = (256, 512)  # bf16 train steps: peak GB per rank against one process
+MP_STEP_ITERS = 2
+MP_TIMED_ITERS = 5
+# a bf16 run's logged losses against one process's, relative: one bf16 rounding is 2^-8
+MP_BF16_LOSS_BAR = 1e-2
+MP_TIMEOUT_S = 600
 # phase dims_path: the flagship's widths at spatial_dims 3 and 1
 DIMS_BATCH = 2
 DIMS_SIDE = 64  # b2 x 64³ volumes (latent 8³: the mid blocks' 512 tokens)
@@ -4160,6 +4196,473 @@ def ddp_path(torch, np, ae_def: dict, ckpt: Path, ldm_cfg: Path, ldm_ckpt: str,
     return {rank: json.loads((WORK / f"ddp_rank{rank}.json").read_text()) for rank in (0, 1)}
 
 
+# ---- spatial and tensor parallelism (phase model_parallel_path) ------------------------------
+
+def mp_shard_shapes(gn_shapes) -> list[tuple[tuple[int, ...], int]]:
+    """The flagship pass's GroupNorm+SiLU shapes as one rank of spatial 2 sees
+    them (half the height), with their calls per pass."""
+    return [((b, h // MP_MODEL, w, c), n) for (b, h, w, c), n in gn_shapes]
+
+
+def mp_split_inputs(torch, shape, dtype, gen):
+    c = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    return x, g, scale, bias
+
+
+def mp_split_checks(torch, shapes) -> dict:
+    """The four split GroupNorm+SiLU entries against their plain versions on the
+    card at the per-shard shapes, in both types (statistics as if the other
+    shard held the same rows): y and dx at the kernel bars, the sums at rtol
+    1e-4 with atol 1e-4 * sqrt(terms); the reductions run twice and must give
+    the same bits. Returns each entry's largest error by type."""
+    import importlib
+
+    gn = importlib.import_module("pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {name: {} for name in MP_SPLIT_ENTRIES}
+    for dtype in (torch.bfloat16, torch.float32):
+        key, tol = dtype_key(dtype), F32_TOL if dtype == torch.float32 else BF16_TOL
+        worst = dict.fromkeys(MP_SPLIT_ENTRIES, 0.0)
+        for shape, _ in shapes:
+            b, h, w, c = shape
+            groups = MP_GROUPS
+            x, g, scale, bias = mp_split_inputs(torch, shape, dtype, gen)
+            xf, gf = x.float(), g.float()
+            count = MP_MODEL * h * w * (c // groups)
+            n = h * w * c // groups
+            stats = gn.split_stats(x, groups)
+            want = gn.groupnorm_silu_split_stats_plain(xf, groups)
+            sums = dict(rtol=1e-4, atol=1e-4 * n ** 0.5)
+            e = check_close(f"split_stats {shape} {key}", stats, want, sums)
+            if not torch.equal(stats, gn.split_stats(x, groups)):
+                raise RuntimeError(f"split_stats {shape} {key}: two runs differ")
+            worst["groupnorm_silu_split_stats"] = max(worst["groupnorm_silu_split_stats"], e)
+            mean, inv = gn.split_moments(MP_MODEL * want, count, 1e-6)
+            e = check_close(f"split_apply {shape} {key}",
+                            gn.split_apply(x, scale, bias, mean, inv, groups),
+                            gn.groupnorm_silu_split_apply_plain(xf, scale, bias, mean, inv, groups),
+                            tol)
+            worst["groupnorm_silu_split_apply"] = max(worst["groupnorm_silu_split_apply"], e)
+            r = gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups)
+            r_want = gn.groupnorm_silu_split_bwd_reduce_plain(xf, gf, scale, bias, mean, inv,
+                                                              groups)
+            e = check_close(f"split_bwd_reduce {shape} {key}", r, r_want,
+                            dict(rtol=1e-4, atol=1e-4 * (h * w) ** 0.5))
+            if not torch.equal(r, gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups)):
+                raise RuntimeError(f"split_bwd_reduce {shape} {key}: two runs differ")
+            worst["groupnorm_silu_split_bwd_reduce"] = max(
+                worst["groupnorm_silu_split_bwd_reduce"], e)
+            r_all = MP_MODEL * r_want
+            e = check_close(f"split_bwd_dx {shape} {key}",
+                            gn.split_bwd_dx(x, g, scale, bias, mean, inv, r_all, groups, count),
+                            gn.groupnorm_silu_split_bwd_dx_plain(xf, gf, scale, bias, mean, inv,
+                                                                 r_all, groups, count), tol)
+            worst["groupnorm_silu_split_bwd_dx"] = max(worst["groupnorm_silu_split_bwd_dx"], e)
+        for name in MP_SPLIT_ENTRIES:
+            errs[name][key] = worst[name]
+    return errs
+
+
+def mp_split_timings(torch, shapes, flush) -> dict:
+    """Per split entry and per-shard shape, in bf16 (the path's type): device ms per call
+    after an L2 flush, its plain version's, ``torch.var_mean`` for the
+    statistics (the one library call that computes them; none computes the
+    others), the bound, and the fused kernel's ms on the same unsharded shape
+    (twice the height: forward for the two forward entries, backward for the
+    two backward ones). Rows, and the bf16 sums over one pass's calls."""
+    import importlib
+
+    gn = importlib.import_module("pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for dtype in (torch.bfloat16,):
+        for shape, n in shapes:
+            b, h, w, c = shape
+            groups = MP_GROUPS
+            x, g, scale, bias = mp_split_inputs(torch, shape, dtype, gen)
+            whole = torch.cat([x, x], dim=1)
+            g_whole = torch.cat([g, g], dim=1)
+            stats = gn.split_stats(x, groups)
+            mean, inv = gn.split_moments(MP_MODEL * stats, MP_MODEL * h * w * (c // groups), 1e-6)
+            r = MP_MODEL * gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups)
+            count = MP_MODEL * h * w * (c // groups)
+            _, mean_w, inv_w = gn._launch_forward(whole, scale, bias, groups, 1e-6, True)
+            nbytes = x.numel() * x.element_size()
+            xg = x.view(b, -1, groups, c // groups)
+            cases = {
+                "groupnorm_silu_split_stats": (
+                    lambda: gn.split_stats(x, groups),
+                    lambda: gn.groupnorm_silu_split_stats_plain(x, groups),
+                    lambda: torch.var_mean(xg.float(), dim=(1, 3)), bound(3 * x.numel(), "float32", nbytes),
+                    lambda: gn._launch_forward(whole, scale, bias, groups, 1e-6, False)),
+                "groupnorm_silu_split_apply": (
+                    lambda: gn.split_apply(x, scale, bias, mean, inv, groups),
+                    lambda: gn.groupnorm_silu_split_apply_plain(x, scale, bias, mean, inv, groups),
+                    None, bound(6 * x.numel(), "float32", 2 * nbytes),
+                    lambda: gn._launch_forward(whole, scale, bias, groups, 1e-6, False)),
+                "groupnorm_silu_split_bwd_reduce": (
+                    lambda: gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups),
+                    lambda: gn.groupnorm_silu_split_bwd_reduce_plain(x, g, scale, bias, mean, inv,
+                                                                     groups),
+                    None, bound(16 * x.numel(), "float32", 2 * nbytes),
+                    lambda: gn._launch_backward(whole, scale, bias, mean_w, inv_w, g_whole, groups)),
+                "groupnorm_silu_split_bwd_dx": (
+                    lambda: gn.split_bwd_dx(x, g, scale, bias, mean, inv, r, groups, count),
+                    lambda: gn.groupnorm_silu_split_bwd_dx_plain(x, g, scale, bias, mean, inv, r,
+                                                                 groups, count),
+                    None, bound(20 * x.numel(), "float32", 3 * nbytes),
+                    lambda: gn._launch_backward(whole, scale, bias, mean_w, inv_w, g_whole, groups)),
+            }
+            for name, (ours, plain, library, (bound_ms, bound_by), fused) in cases.items():
+                row = {"name": name, "shape": list(shape), "dtype": dtype_key(dtype),
+                       "per_pass": n, **_timed(flush, "", ours, MP_TIMED_ITERS),
+                       **_timed(flush, "plain_", plain, MP_TIMED_ITERS),
+                       "library_ms": (_timed(flush, "", library, MP_TIMED_ITERS)["ms"]
+                                      if library is not None else None),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "fused_unsharded_ms": _timed(flush, "", fused, MP_TIMED_ITERS)["ms"]}
+                rows.append(row)
+                emit("model_parallel_path", part="split_timing", **row)
+    totals = {}
+    for name in MP_SPLIT_ENTRIES:
+        bf = [r for r in rows if r["name"] == name and r["dtype"] == "bfloat16"]
+        totals[name] = {k: (None if any(r[k] is None for r in bf)
+                            else sum(r[k] * r["per_pass"] for r in bf))
+                        for k in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms",
+                                  "fused_unsharded_ms")}
+        totals[name]["bound_by"] = bf[0]["bound_by"]
+    return {"rows": rows, "totals": totals}
+
+
+def mp_train(torch, kernels_mod, cfg_path: Path, extra: list[str], steps: int) -> dict:
+    """``cli.train_vae`` for one epoch through its own ``main`` (under the
+    active group, if any): launch counts (the split entries' too), peak GB of
+    this process, wall seconds, and on rank 0 the logged losses."""
+    from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_main
+    from pti_ldm_vae_tpu_torch.parallel import process_rank
+
+    kernels_mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_main(["-c", str(cfg_path), "--max-epochs", "1", "--no-wandb",
+                         "--num-workers", "4", "--seed", str(TRAIN_SEED), "--device", "cuda:0",
+                         *extra])
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0, "launches": kernels_mod.launch_counts(),
+           "split_launches": kernels_mod.split_launch_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if result["total_step"] != steps:
+        raise RuntimeError(f"{cfg_path.name}: {result['total_step']} steps, expected {steps}")
+    if process_rank() == 0:
+        run_dir = Path(json.loads(cfg_path.read_text())["run_dir"])
+        rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        out["losses"] = [{k: v for k, v in r.items() if k.startswith(("train/", "val/"))
+                          and k != "train/step"} for r in rows
+                         if "train/loss_total" in r or "val/loss_total" in r]
+    return out
+
+
+def mp_f32_step(torch, kind: str | None, adv: bool) -> dict:
+    """One f32 ``conv_kernel`` train step of the flagship at 256² b8 from the
+    seeded init (the generator step, or with ``adv`` the adversarial one with
+    ``config/vae_dente_2.json``'s PatchGAN), the batch and the posterior noise
+    drawn alike on every rank: under a ``kind`` mesh of the active group this
+    rank's tile or blocks. The loss terms, and the whole parameters after."""
+    from pti_ldm_vae_tpu_torch.checkpoint.manager import whole_state
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from pti_ldm_vae_tpu_torch.parallel.spatial import spatial_split
+    from pti_ldm_vae_tpu_torch.parallel.tensor import tensor_parallel_params
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+
+    train = load_config(ADV_CONFIG if adv else CONFIG)["autoencoder_train"]
+    ae_def = load_config(CONFIG)["autoencoder_def"]
+    if kind is not None:
+        make_mesh(kind, MP_MODEL)
+    try:
+        torch.manual_seed(TRAIN_SEED)
+        model = autoencoder_from_config(ae_def, conv_kernel=True).to(
+            device="cuda", memory_format=torch.channels_last)
+        disc = PatchDiscriminator(num_layers_d=3, channels=32, generator=torch.Generator()
+                                  .manual_seed(TRAIN_SEED + 1)).to(
+            device="cuda", memory_format=torch.channels_last) if adv else None
+        if kind == "tensor":
+            for module in (model, disc):
+                if module is not None:
+                    tensor_parallel_params(module)
+        state = create_train_state(model, lr=MP_LR, model_d=disc)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.rand(BATCH, IMAGE, IMAGE, 1, device="cuda", generator=gen)
+        if kind == "spatial":
+            x = spatial_split(x).contiguous()
+        lcfg = LossConfig(recon_loss=train.get("recon_loss", "l1"),
+                          kl_weight=float(train["kl_weight"]),
+                          perceptual_weight=float(train["perceptual_weight"]),
+                          adv_weight=float(train.get("adv_weight", 0.5)))
+        _, metrics = make_train_step(model, disc, lcfg, adv_active=adv)(
+            state, x, torch.ones(BATCH, device="cuda"), None, init_lpips_params(0, "cuda"),
+            generator=gen)
+        whole = whole_state(state)
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "params": whole["model_g"], "params_d": whole.get("model_d")}
+    finally:
+        set_mesh(None)
+
+
+def mp_compare(torch, ae_def: dict, single: dict, sharded: dict) -> dict:
+    """An f32 step under a mesh against the one-process step from the same
+    weights, batch and noise: the loss terms within ``DDP_LOSS_BAR``
+    relative; the parameters' changes from their init within 2 lr everywhere
+    and within ``DDP_PARAM_BAR`` of their tensor's largest change on at least
+    ``DDP_PARAM_SHARE`` of all entries (the ``ddp_path`` bars: an Adam step
+    from a fresh state moves an entry by about lr x sign(g), see
+    ``ddp_compare``; an entry that takes the other sign differs by 2 lr, plus
+    the rounding of its own update); the discriminator's too."""
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.discriminator import PatchDiscriminator
+
+    loss_err = max(abs(sharded["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in single["metrics"].items() if v)
+    torch.manual_seed(TRAIN_SEED)
+    inits = {"params": autoencoder_from_config(ae_def).state_dict()}
+    if single["params_d"] is not None:
+        inits["params_d"] = PatchDiscriminator(num_layers_d=3, channels=32, generator=torch.Generator()
+                                               .manual_seed(TRAIN_SEED + 1)).state_dict()
+    near = total = 0
+    worst_step = 0.0
+    for tag, init in inits.items():
+        if sharded[tag].keys() != single[tag].keys():
+            raise RuntimeError(f"{tag}: the whole parameters' keys differ from one process's")
+        for k, w in single[tag].items():
+            moved, got = w - init[k], sharded[tag][k] - init[k]
+            worst_step = max(worst_step, float((got - moved).abs().max()) / (2 * MP_LR))
+            near += int(((got - moved).abs() <= DDP_PARAM_BAR * float(moved.abs().max())).sum())
+            total += moved.numel()
+    share = near / total
+    # 2 lr with 0.1% for the rounding of the parameters' own f32 update (as the CPU tests)
+    if loss_err > DDP_LOSS_BAR or share < DDP_PARAM_SHARE or worst_step > 1.001:
+        raise RuntimeError(f"loss rel err {loss_err}; parameters: {share} of the entries within "
+                           f"the bar, worst change / (2 lr) {worst_step}")
+    return {"loss_max_rel_err": loss_err, "param_share_within_bar": share,
+            "param_worst_change_over_2lr": worst_step}
+
+
+def mp_step(torch, side: int, kind: str | None, iters: int) -> dict:
+    """One bf16 ``--conv-kernel`` generator step of the flagship at ``side``²
+    b8 (``make_train_step``; under a ``kind`` mesh of the active group, this
+    rank's tile or blocks): this process's peak GB over the step, and the
+    CUDA-event ms of a step over ``iters`` steps after one."""
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.models.lpips import init_lpips_params
+    from pti_ldm_vae_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from pti_ldm_vae_tpu_torch.parallel.spatial import spatial_split
+    from pti_ldm_vae_tpu_torch.parallel.tensor import tensor_parallel_params
+    from pti_ldm_vae_tpu_torch.train.state import create_train_state
+    from pti_ldm_vae_tpu_torch.train.steps import LossConfig, make_train_step
+
+    ae_def = load_config(CONFIG)["autoencoder_def"]
+    if kind is not None:
+        make_mesh(kind, MP_MODEL)
+    try:
+        torch.manual_seed(3)
+        model = autoencoder_from_config(ae_def, compute_dtype=torch.bfloat16, conv_kernel=True).to(
+            device="cuda", memory_format=torch.channels_last)
+        if kind == "tensor":
+            tensor_parallel_params(model)
+        state = create_train_state(model, lr=2.5e-5)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        x = torch.randn(BATCH, side, side, 1, device="cuda", generator=gen)
+        if kind == "spatial":
+            x = spatial_split(x).contiguous()
+        mask = torch.ones(BATCH, device="cuda")
+        step = make_train_step(model, None, LossConfig(), adv_active=False)
+        lp = init_lpips_params(0, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, x, mask, None, lp, generator=gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            step(state, x, mask, None, lp, generator=gen)
+        end.record()
+        end.synchronize()
+        return {"peak_gb": peak, "step_event_ms": start.elapsed_time(end) / iters}
+    finally:
+        set_mesh(None)
+        del state
+        torch.cuda.empty_cache()
+
+
+def mp_launches_check(name: str, kind: str, one: dict, run: dict) -> None:
+    """Under spatial sharding every GroupNorm+SiLU takes the split entries
+    (each forward call one statistics and one apply launch, each backward one
+    reduce and one dx) and no fused launch; under tensor sharding a channel
+    block holds whole groups, so the fused kernels launch as in one process.
+    The other kernels launch as in one process."""
+    want = dict(one["launches"])
+    if kind == "spatial":
+        want_split = {"groupnorm_silu_split_stats": want["groupnorm_silu"],
+                      "groupnorm_silu_split_apply": want["groupnorm_silu"],
+                      "groupnorm_silu_split_bwd_reduce": want["groupnorm_silu_bwd"],
+                      "groupnorm_silu_split_bwd_dx": want["groupnorm_silu_bwd"]}
+        want["groupnorm_silu"] = want["groupnorm_silu_bwd"] = 0
+    else:
+        want_split = dict.fromkeys(MP_SPLIT_ENTRIES, 0)
+    got, split = run["launches"], run["split_launches"]
+    if got != want or split != want_split or (kind == "spatial" and not all(split.values())):
+        raise RuntimeError(f"{name}: launches {got} {split}, expected {want} {want_split}")
+
+
+def mp_child(spec_path: str, rank_arg: str) -> int:
+    """``chip_smoke.py --mp-child SPEC RANK``: one of the two processes of
+    phase ``model_parallel_path``. Rank 0 first checks and times the four
+    split GroupNorm+SiLU entries at the flagship's per-shard shapes, then runs
+    the one-process runs the sharded ones are held to: ``train_vae`` bf16
+    ``--conv-kernel`` on the flagship (2 steps at b8, ``vae_dente_no_adv``)
+    and on ``vae_dente_2`` (one adversarial step), the f32 generator and
+    adversarial steps, and bf16 steps at 256² and 512² b8 (peak GB, event
+    ms). Both ranks then start a gloo group of two on the one card and run
+    each of those under ``{"spatial": 2}`` and ``{"tensor": 2}`` (the 512²
+    step under spatial only). Rank 0 holds the f32 steps to the one-process
+    ones at the ``ddp_path`` bars, the bf16 runs' logged losses within
+    ``MP_BF16_LOSS_BAR`` of the one-process run's, and every run's launch
+    counts (``mp_launches_check``), and writes the results beside ``SPEC``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.models.autoencoder_kl import autoencoder_from_config
+    from pti_ldm_vae_tpu_torch.ops import kernels as kernels_mod
+
+    spec = json.loads(Path(spec_path).read_text())
+    global T0
+    T0 -= spec["t"]
+    rank = int(rank_arg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    ae_def = load_config(CONFIG)["autoencoder_def"]
+    cfgs = {k: Path(v) for k, v in spec["cfg"].items()}
+
+    def runs(kind: str | None) -> dict:
+        """The CLI runs, the f32 steps and the timed bf16 steps of one form."""
+        tag = kind or "single"
+        return {
+            "train_vae": {run: mp_train(torch, kernels_mod, cfgs[f"{run}_{tag}"], extra, steps)
+                          for run, (_, extra, steps) in MP_RUNS.items()},
+            "f32_step": {name: mp_f32_step(torch, kind, adv)
+                         for name, adv in (("generator", False), ("adversarial", True))},
+            "bf16_step": {str(side): mp_step(torch, side, kind, MP_STEP_ITERS)
+                          for side in MP_STEP_SIDES if kind != "tensor" or side == IMAGE},
+        }
+
+    out: dict = {}
+    if rank == 0:
+        shapes = mp_shard_shapes(gn_path_shapes(autoencoder_from_config(ae_def), torch))
+        out["split_errs"] = mp_split_checks(torch, shapes)
+        emit("model_parallel_path", part="split_checks", shapes=[list(s) for s, _ in shapes],
+             max_abs_err=out["split_errs"])
+        flush = torch.empty(128 * 2**20 // 4, device="cuda")
+        out["split_timings"] = mp_split_timings(torch, shapes, flush)["totals"]
+        del flush
+        single = runs(None)
+        emit("model_parallel_path", part="one_process",
+             train_vae={run: {k: r[k] for k in ("wall_s", "launches", "peak_gb")}
+                        for run, r in single["train_vae"].items()},
+             bf16_step=single["bf16_step"])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+                            world_size=MP_MODEL)
+    try:
+        sharded = {kind: runs(kind) for kind in ("spatial", "tensor")}
+    finally:
+        dist.destroy_process_group()
+    keep = ("wall_s", "launches", "split_launches", "peak_gb")
+    out["sharded"] = {kind: {"train_vae": {run: {k: r[k] for k in keep}
+                                           for run, r in res["train_vae"].items()},
+                             "bf16_step": res["bf16_step"]} for kind, res in sharded.items()}
+    if rank == 0:
+        out["single"] = {"train_vae": {run: {k: r[k] for k in keep}
+                                       for run, r in single["train_vae"].items()},
+                         "bf16_step": single["bf16_step"]}
+        compare = {}
+        for kind, res in sharded.items():
+            for run, r in res["train_vae"].items():
+                one = single["train_vae"][run]
+                mp_launches_check(f"train_vae {run} {kind}", kind, one, r)
+                rows = list(zip(r["losses"], one["losses"]))
+                if len(rows) != len(one["losses"]) or any(g.keys() != w.keys() for g, w in rows):
+                    raise RuntimeError(f"train_vae {run} {kind}: logged rows differ")
+                err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in rows for k in w)
+                if not err <= MP_BF16_LOSS_BAR:
+                    raise RuntimeError(f"train_vae {run} {kind}: losses {err} relative from one "
+                                       f"process's (bar {MP_BF16_LOSS_BAR})")
+                compare[f"train_vae_{run}_{kind}"] = {"loss_max_rel_err": err}
+            for name, step in res["f32_step"].items():
+                compare[f"f32_{name}_{kind}"] = mp_compare(torch, ae_def,
+                                                           single["f32_step"][name], step)
+        out["compare"] = compare
+        emit("model_parallel_path", part="sharded", compare=compare, runs=out["sharded"])
+    (Path(spec["work"]) / f"mp_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def model_parallel_path(torch, np) -> dict:
+    """Phase ``model_parallel_path``: the two processes of ``mp_child`` (rank 0
+    and 1), started together and waited for; either failing fails the phase.
+    Returns both ranks' results."""
+    write_inputs(np, WORK / "mp_data" / "dente", MP_IMAGES)
+    write_inputs(np, WORK / "mp_data_adv" / "dente", MP_ADV_IMAGES)
+    cfgs = {}
+    for run, (base, _, _) in MP_RUNS.items():
+        for kind in ("single", "spatial", "tensor"):
+            cfg = json.loads(base.read_text())
+            adv = base == ADV_CONFIG
+            cfg["data_base_dir"] = str(WORK / ("mp_data_adv" if adv else "mp_data"))
+            cfg["run_dir"] = str(WORK / f"mp_run_{run}_{kind}")
+            cfg["autoencoder_train"]["lr"] = MP_LR
+            if adv:
+                cfg["train_split"] = DDP_B_SPLIT
+                cfg["autoencoder_train"]["adv_warmup_epochs"] = -1  # epoch 0 is adversarial
+            if kind != "single":
+                cfg["parallelism"] = {kind: MP_MODEL}
+            cfgs[f"{run}_{kind}"] = str(WORK / f"mp_{run}_{kind}.json")
+            Path(cfgs[f"{run}_{kind}"]).write_text(json.dumps(cfg))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spec = {"work": str(WORK), "cfg": cfgs, "port": port, "t": time.perf_counter() - T0}
+    (WORK / "mp_spec.json").write_text(json.dumps(spec))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mp-child",
+                               str(WORK / "mp_spec.json"), str(rank)]) for rank in (0, 1)]
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    try:
+        # a rank that fails leaves the other waiting for it: stop at the first failure
+        while (codes := [p.poll() for p in procs]) != [0, 0] and time.perf_counter() < deadline:
+            if any(code not in (None, 0) for code in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0, 0]:
+        raise RuntimeError(f"model_parallel_path: the ranks exited with {codes}")
+    return {rank: json.loads((WORK / f"mp_rank{rank}.json").read_text()) for rank in (0, 1)}
+
+
 # ---- 1-D and 3-D models, PTI's vmap form (phases dims_path, pti_vmap) ------------------------
 
 def dims_def(ae_def: dict, spatial_dims: int) -> dict:
@@ -5364,6 +5867,8 @@ def main() -> int:
     # then two gloo ranks on the one card (ddp_child), in two processes of their own
     ddp = ddp_path(torch, np, ae_def, ckpt, cfg_path, ldm_train["bfloat16"]["checkpoint"],
                    WORK / "data")
+    # 7c. spatial and tensor parallelism: two gloo ranks on the one card (mp_child)
+    mp = model_parallel_path(torch, np)
 
     # 8. kernels line, card line, result line
     def totals(name: str, path: str = "vae") -> dict:
@@ -5584,6 +6089,32 @@ def main() -> int:
             **wide_totals(name), "scope": scope,
             "d512": per_call(name, "d512").get("bfloat16", {}),
         })
+    split_replaces = {"groupnorm_silu_split_stats": f"{gn_pallas}:121",
+                      "groupnorm_silu_split_apply": f"{gn_pallas}:121",
+                      "groupnorm_silu_split_bwd_reduce": f"{gn_pallas}:221",
+                      "groupnorm_silu_split_bwd_dx": f"{gn_pallas}:248"}
+    mp_spatial = mp[0]["sharded"]["spatial"]["train_vae"]
+    for name, replaces in split_replaces.items():
+        forward = name in ("groupnorm_silu_split_stats", "groupnorm_silu_split_apply")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pti_ldm_vae_tpu_torch/csrc/groupnorm_silu_"
+                      f"{'fwd' if forward else 'bwd'}.cu",
+            "replaces": replaces,
+            "launches": mp_spatial["no_adv"]["split_launches"][name],
+            "launches_by_path": {f"train_vae_{run}_spatial2_rank{r}":
+                                 mp[r]["sharded"]["spatial"]["train_vae"][run]["split_launches"][name]
+                                 for run in MP_RUNS for r in (0, 1)},
+            "max_abs_err": mp[0]["split_errs"][name]["bfloat16"],
+            "max_abs_err_f32": mp[0]["split_errs"][name]["float32"],
+            **mp[0]["split_timings"][name],
+            "scope": "bf16, device ms summed over the 42 calls of one b8 pass at spatial 2's "
+                     "per-shard shapes ([8, 128, 256, 32] ... [8, 16, 32, 128]); "
+                     "launches: entry calls, of which a statistics or backward-reduce call is "
+                     "two device launches (per-tile partial sums, then their fold); "
+                     "fused_unsharded_ms: the fused kernel at the same calls' unsharded shapes; "
+                     "library: torch.var_mean for the statistics, none for the others",
+        })
     print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5597,6 +6128,8 @@ if __name__ == "__main__":
         sys.exit(timings_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ddp-child"]:
         sys.exit(ddp_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mp-child"]:
+        sys.exit(mp_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--dims-timings"]:
         sys.exit(dims_timings_child(sys.argv[2]))
     sys.exit(main())

@@ -43,9 +43,16 @@ from typing import Any
 import torch
 
 from ..parallel.mesh import barrier_sync
+from ..parallel.tensor import (
+    full_optimizer_state,
+    full_state_dict,
+    shard_optimizer_state,
+    shard_state_dict,
+    tensor,
+)
 from ..train.state import GanTrainState
 
-__all__ = ["CheckpointManager", "save_atomic"]
+__all__ = ["CheckpointManager", "load_whole", "save_atomic", "whole_state"]
 
 _FULL = re.compile(r"^checkpoint_epoch(\d+)\.pth$")
 
@@ -65,6 +72,37 @@ def _cpu(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_cpu(v) for v in tree)
     return tree
+
+
+def whole_state(state: GanTrainState) -> dict[str, Any]:
+    """The models' and optimizers' state dicts on the host, whole: under
+    tensor sharding gathered over the model group (a collective: every rank
+    of the group calls it). Keys ``model_g``, ``optimizer_g`` and, with a
+    discriminator, ``model_d``, ``optimizer_d``."""
+    pairs = [("g", state.model_g, state.optimizer_g)]
+    if state.model_d is not None:
+        pairs.append(("d", state.model_d, state.optimizer_d))
+    out = {}
+    for tag, model, optimizer in pairs:
+        if tensor():
+            out[f"model_{tag}"] = full_state_dict(model)
+            out[f"optimizer_{tag}"] = full_optimizer_state(model, optimizer)
+        else:
+            out[f"model_{tag}"], out[f"optimizer_{tag}"] = model.state_dict(), optimizer.state_dict()
+    return _cpu(out)
+
+
+def load_whole(model: torch.nn.Module, model_sd: dict, optimizer: torch.optim.Optimizer | None = None,
+               optimizer_sd: dict | None = None) -> None:
+    """Load whole state dicts (the unsharded run's files) into a model and
+    its optimizer, cut to this rank's blocks under tensor sharding."""
+    if tensor():
+        model_sd = shard_state_dict(model, model_sd)
+        if optimizer_sd is not None:
+            optimizer_sd = shard_optimizer_state(model, optimizer_sd)
+    model.load_state_dict(model_sd, strict=True)
+    if optimizer is not None and optimizer_sd is not None:
+        optimizer.load_state_dict(optimizer_sd)
 
 
 class CheckpointManager:
@@ -104,18 +142,19 @@ class CheckpointManager:
         improvement, write the per-epoch best + full resume state and delete
         the previous best. Returns the new best val loss. Every rank calls
         it; rank 0 writes, then all meet at a barrier."""
-        if self.rank == 0:
-            self._write_epoch(state, epoch, val_loss, best_val_loss, total_step)
+        if self.rank == 0 or tensor():
+            whole = whole_state(state)
+            if self.rank == 0:
+                self._write_epoch(whole, epoch, val_loss, best_val_loss, total_step)
         barrier_sync("checkpoint")
         if not val_loss < best_val_loss:
             return best_val_loss
         self.best_epoch_saved = epoch
         return float(val_loss)
 
-    def _write_epoch(self, state: GanTrainState, epoch: int, val_loss: float,
+    def _write_epoch(self, whole: dict[str, Any], epoch: int, val_loss: float,
                      best_val_loss: float, total_step: int) -> None:
-        model_sd = _cpu(state.model_g.state_dict())
-        disc_sd = _cpu(state.model_d.state_dict()) if state.model_d is not None else None
+        model_sd, disc_sd = whole["model_g"], whole.get("model_d")
         self._write(model_sd, "autoencoder_last.pth")
         if disc_sd is not None:
             self._write(disc_sd, "discriminator_last.pth")
@@ -126,7 +165,7 @@ class CheckpointManager:
         self._write(model_sd, f"autoencoder_epoch{epoch}.pth")
         full = {
             "autoencoder_state_dict": model_sd,
-            "optimizer_g_state_dict": _cpu(state.optimizer_g.state_dict()),
+            "optimizer_g_state_dict": whole["optimizer_g"],
             "epoch": int(epoch),
             "best_val_loss": float(val_loss),
             "total_step": int(total_step),
@@ -134,7 +173,7 @@ class CheckpointManager:
         if disc_sd is not None:
             self._write(disc_sd, f"discriminator_epoch{epoch}.pth")
             full["discriminator_state_dict"] = disc_sd
-            full["optimizer_d_state_dict"] = _cpu(state.optimizer_d.state_dict())
+            full["optimizer_d_state_dict"] = whole["optimizer_d"]
         self._write(full, f"checkpoint_epoch{epoch}.pth")
         prev_best = self.best_epoch_saved
         if prev_best is not None and prev_best != epoch:
@@ -158,12 +197,11 @@ class CheckpointManager:
             return None
         device = next(state.model_g.parameters()).device
         raw = torch.load(path, map_location=device, weights_only=True)
-        state.model_g.load_state_dict(raw["autoencoder_state_dict"], strict=True)
-        state.optimizer_g.load_state_dict(raw["optimizer_g_state_dict"])
+        load_whole(state.model_g, raw["autoencoder_state_dict"], state.optimizer_g,
+                   raw["optimizer_g_state_dict"])
         if state.model_d is not None and raw.get("discriminator_state_dict"):
-            state.model_d.load_state_dict(raw["discriminator_state_dict"], strict=True)
-            if raw.get("optimizer_d_state_dict"):
-                state.optimizer_d.load_state_dict(raw["optimizer_d_state_dict"])
+            load_whole(state.model_d, raw["discriminator_state_dict"], state.optimizer_d,
+                       raw.get("optimizer_d_state_dict"))
         meta = {
             "epoch": int(raw["epoch"]),
             "best_val_loss": float(raw.get("best_val_loss", 100.0)),

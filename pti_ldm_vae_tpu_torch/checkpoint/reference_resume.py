@@ -10,7 +10,8 @@ weights with ``strict=True``, ``exp_avg`` / ``exp_avg_sq`` / ``step`` straight
 into the optimizers (parameters are indexed by their position in
 ``model.parameters()``, which is the state dict's key order: these models
 carry no buffers). A run started under the torch reference continues here
-mid-optimizer-trajectory.
+mid-optimizer-trajectory. Under tensor sharding each rank loads its blocks of
+the whole tensors (``checkpoint/manager.py:load_whole``).
 """
 
 from __future__ import annotations
@@ -39,17 +40,17 @@ def load_reference_checkpoint(path: str, state: GanTrainState) -> dict:
         if key not in raw:
             raise KeyError(f"{path} is not a reference full checkpoint (missing {key!r}; "
                            f"have {sorted(raw)[:6]})")
-    state.model_g.load_state_dict(monai_state_dict(raw), strict=True)
-    state.optimizer_g.load_state_dict(raw["optimizer_g_state_dict"])
+    from .manager import load_whole
+
+    load_whole(state.model_g, monai_state_dict(raw), state.optimizer_g,
+               raw["optimizer_g_state_dict"])
     steps = [int(entry["step"]) for entry in raw["optimizer_g_state_dict"].get("state", {}).values()]
     count_g = max(steps, default=0)
     state.step = count_g
 
     disc_sd = raw.get("discriminator_state_dict")
     if state.model_d is not None and disc_sd:
-        state.model_d.load_state_dict(disc_sd, strict=True)
-        if raw.get("optimizer_d_state_dict"):
-            state.optimizer_d.load_state_dict(raw["optimizer_d_state_dict"])
+        load_whole(state.model_d, disc_sd, state.optimizer_d, raw.get("optimizer_d_state_dict"))
     return {
         "epoch": int(raw["epoch"]),
         "best_val_loss": float(raw.get("best_val_loss", 100.0)),

@@ -263,4 +263,166 @@ __device__ __forceinline__ float* cluster_fold(float (&a)[V], float (&b)[V], uns
   return gather;
 }
 
+
+// ---- the split form (spatial sharding: statistics summed across shards) -----
+//
+// An image's rows may lie on several ranks (its height cut into tiles), so
+// its group statistics are the sum of every rank's partial sums. The split
+// form computes them in four launches around the caller's all-reduce: per
+// (image, group) the local f32 sums of x and x^2 (forward, stats), then y
+// from the given mean / inverse std (forward, apply); per (image, channel)
+// the local sums of dn and dn * xhat (backward, reduce), then dx from the
+// given all-reduced sums (backward, dx). Work split of all four: block
+// (t, b) owns rows [t * rows_per_tile, (t + 1) * rows_per_tile) of image b
+// and every channel; its threads form NV = C / V columns of V channels (one
+// 16-byte vector, or V = 1 for tensors not aligned to 16 bytes) and RIT =
+// threads / NV rows, thread (tr, j) taking column j of rows tr, tr + RIT, ...
+// A thread's channels are fixed, so per-channel coefficients sit in its
+// registers. The two reductions are two-stage and atomic-free: a block folds
+// its threads' per-channel sums through shared memory in thread-row order
+// into [B, T, 2, C] f32 partials; a second kernel sums those over the tiles
+// in tile order (and, for the statistics, over the channels of a group).
+namespace split {
+
+struct Args {
+  const void* x;
+  const void* g;       // backward: the upstream gradient
+  void* out;           // y or dx
+  const float* scale;  // [C]
+  const float* bias;
+  const float* mean;   // [B, G]
+  const float* inv;
+  const float* r;      // dx: the all-reduced [B, 2, C] sums
+  float* partial;      // reductions: [B, T, 2, C]
+  int hw, c, cpg, tiles, rows_per_tile, nv;
+  float count;         // dx: elements of a group over the whole image
+};
+
+// Per-channel constants of this thread's V channels of image b.
+template <int V>
+struct Coef {
+  float mean[V], inv[V], gam[V], bet[V];
+  __device__ __forceinline__ void load(const Args& a, int b, int ch0) {
+    const int groups = a.c / a.cpg;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int grp = b * groups + (ch0 + v) / a.cpg;
+      mean[v] = a.mean[grp];
+      inv[v] = a.inv[grp];
+      gam[v] = a.scale[ch0 + v];
+      bet[v] = a.bias[ch0 + v];
+    }
+  }
+};
+
+// Block (blockIdx.x, blockIdx.y): its image, first row, row count and this
+// thread's column / first row.
+struct Tile {
+  int b, row0, nrows, tr, j, rit;
+};
+
+__device__ __forceinline__ Tile tile(const Args& a) {
+  Tile t;
+  t.b = blockIdx.y;
+  t.row0 = blockIdx.x * a.rows_per_tile;
+  t.nrows = max(0, min(a.rows_per_tile, a.hw - t.row0));
+  t.rit = blockDim.x / a.nv;
+  t.tr = threadIdx.x / a.nv;
+  t.j = threadIdx.x % a.nv;
+  return t;
+}
+
+// Stage 1 of a reduction: Op::add(s1, s2, x, g, coef) per element of the
+// block's rows; the block's per-channel sums to partial[b][t][0 / 1][c].
+// Dynamic shared memory: 2 * threads * V floats.
+template <typename T, int V, typename Op>
+__global__ void __launch_bounds__(kMaxThreads) reduce_kernel(Args a) {
+  using VT = Vec<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // [2][RIT][C]
+  const Tile t = tile(a);
+  const int ch0 = t.j * V;
+  Coef<V> cf;
+  if constexpr (Op::kNeedsCoef) cf.load(a, t.b, ch0);
+  const int64_t base = (static_cast<int64_t>(t.b) * a.hw + t.row0) * a.c + ch0;
+  const T* x = static_cast<const T*>(a.x) + base;
+  const T* g = Op::kNeedsCoef ? static_cast<const T*>(a.g) + base : nullptr;
+  float s1[V], s2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) s1[v] = s2[v] = 0.f;
+  if (t.tr < t.nrows) {
+    for (int row = t.tr; row < t.nrows; row += t.rit) {
+      const int64_t off = static_cast<int64_t>(row) * a.c;
+      float xv[V], gv[V];
+      VT::unpack(xv, VT::raw_global(x + off));
+      if constexpr (Op::kNeedsCoef) VT::unpack(gv, VT::raw_global(g + off));
+      Op::add(s1, s2, xv, gv, cf);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    red[t.tr * a.c + ch0 + v] = s1[v];
+    red[(t.rit + t.tr) * a.c + ch0 + v] = s2[v];
+  }
+  __syncthreads();
+  float* out = a.partial + (static_cast<int64_t>(t.b) * a.tiles + blockIdx.x) * 2 * a.c;
+  for (int e = threadIdx.x; e < 2 * a.c; e += blockDim.x) {  // e < C: s1, else s2
+    const int which = e / a.c, ch = e - which * a.c;
+    const float* col = red + which * t.rit * a.c + ch;
+    float s = 0.f;
+    for (int r = 0; r < t.rit; ++r) s += col[r * a.c];
+    out[e] = s;
+  }
+}
+
+// Stage 2: partial [B, T, 2, C] summed over the tiles in order; with
+// fold_groups, also over each group's channels in order (channel outer, tile
+// inner), out [B, G, 2]; else out [B, 2, C]. One thread per output.
+static __global__ void fold_kernel(const float* partial, float* out, int b, int tiles, int c, int cpg,
+                            int fold_groups) {
+  const int n = fold_groups ? b * (c / cpg) * 2 : b * 2 * c;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  if (fold_groups) {
+    const int which = e % 2, grp = (e / 2) % (c / cpg), img = e / (2 * (c / cpg));
+    float s = 0.f;
+    for (int k = 0; k < cpg; ++k) {
+      const int ch = grp * cpg + k;
+      for (int tt = 0; tt < tiles; ++tt)
+        s += partial[((static_cast<int64_t>(img) * tiles + tt) * 2 + which) * c + ch];
+    }
+    out[e] = s;
+  } else {
+    const int ch = e % c, which = (e / c) % 2, img = e / (2 * c);
+    float s = 0.f;
+    for (int tt = 0; tt < tiles; ++tt)
+      s += partial[((static_cast<int64_t>(img) * tiles + tt) * 2 + which) * c + ch];
+    out[e] = s;
+  }
+}
+
+// Launches stage 1 then stage 2 on one stream; cudaGetLastError() after each.
+template <typename T, int V, typename Op>
+cudaError_t reduce(const Args& a, int b, int threads, float* out, int fold_groups,
+                   cudaStream_t stream) {
+  const int smem = 2 * threads * V * static_cast<int>(sizeof(float));
+  reduce_kernel<T, V, Op><<<dim3(a.tiles, b), threads, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = fold_groups ? b * (a.c / a.cpg) * 2 : b * 2 * a.c;
+  fold_kernel<<<(n + 255) / 256, 256, 0, stream>>>(a.partial, out, b, a.tiles, a.c, a.cpg,
+                                                   fold_groups);
+  return cudaGetLastError();
+}
+
+// Whether the host's cut agrees with the kernels' assumptions.
+inline bool args_ok(int c, int cpg, int vec, int threads, int tiles, int rows_per_tile, int hw) {
+  if (vec < 1 || c % vec || c % cpg || threads > kMaxThreads) return false;
+  const int nv = c / vec;
+  return nv <= threads && threads % nv == 0 && tiles >= 1 &&
+         static_cast<int64_t>(tiles) * rows_per_tile >= hw;
+}
+
+}  // namespace split
+
 }  // namespace gn

@@ -285,3 +285,152 @@ extern "C" int groupnorm_silu_bwd(const void* x, const void* g, void* dx, const 
     return static_cast<int>(launch<__nv_bfloat16, 1>(a, b, threads, smem_bytes, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// ---- the split form (see groupnorm_silu.cuh, namespace gn::split) -----------
+//
+// For an image whose rows lie on several ranks (spatial sharding), the
+// backward is two entries around the caller's all-reduce of the sums, as the
+// TPU backward is two kernels (_bwd_reduce_kernel, _bwd_dx_kernel):
+//
+//   groupnorm_silu_split_bwd_reduce: per (image, channel) r1 = sum dn and
+//     r2 = sum dn * xhat over this rank's rows, [B, 2, C] f32 (two launches:
+//     per-tile partials, then their fold over the tiles in order); they are
+//     also this rank's partials of dbeta and dgamma;
+//   groupnorm_silu_split_bwd_dx: from the all-reduced [B, 2, C] sums, A_g and
+//     B_g per group (gamma-weighted, channels in order, as the fused kernel
+//     folds them) and dx = inv * (dn * gamma - A_g / m - xhat * B_g / m),
+//     m = the group's elements over the whole image (the count argument).
+//
+// Bound on an H100: bytes. The reduce reads x and g once; the dx reads them
+// again and writes dx: 5/3 of the fused kernel's bytes. Both return
+// cudaGetLastError() after their launches (cudaErrorInvalidValue on
+// arguments that disagree with the cut).
+
+namespace {
+
+// xv <- xhat, gv <- dn (the fused kernel's arithmetic)
+template <int V>
+__device__ __forceinline__ void split_grads(float (&xv)[V], float (&gv)[V],
+                                            const gn::split::Coef<V>& cf) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float xh = (xv[v] - cf.mean[v]) * cf.inv[v];
+    const float n = fmaf(xh, cf.gam[v], cf.bet[v]);
+    const float sig = gn::sigmoid(n);
+    xv[v] = xh;
+    gv[v] = gv[v] * sig * fmaf(n, 1.f - sig, 1.f);
+  }
+}
+
+struct BwdReduceOp {
+  static constexpr bool kNeedsCoef = true;
+  template <int V>
+  __device__ __forceinline__ static void add(float (&s1)[V], float (&s2)[V], const float (&x)[V],
+                                             const float (&g)[V], const gn::split::Coef<V>& cf) {
+    float xv[V], gv[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      xv[v] = x[v];
+      gv[v] = g[v];
+    }
+    split_grads<V>(xv, gv, cf);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s1[v] += gv[v];
+      s2[v] = fmaf(gv[v], xv[v], s2[v]);
+    }
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(gn::kMaxThreads) split_dx_kernel(gn::split::Args a) {
+  using VT = Vec<T, V>;
+  const gn::split::Tile t = gn::split::tile(a);
+  const int ch0 = t.j * V;
+  gn::split::Coef<V> cf;
+  cf.load(a, t.b, ch0);
+  const float* r1 = a.r + static_cast<int64_t>(t.b) * 2 * a.c;
+  const float* r2 = r1 + a.c;
+  float ac[V], bc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int first = (ch0 + v) / a.cpg * a.cpg;
+    float ag = 0.f, bg = 0.f;
+    for (int k = 0; k < a.cpg; ++k) {
+      const float gk = a.scale[first + k];
+      ag = fmaf(gk, r1[first + k], ag);
+      bg = fmaf(gk, r2[first + k], bg);
+    }
+    ac[v] = ag / a.count;
+    bc[v] = bg / a.count;
+  }
+  const int64_t base = (static_cast<int64_t>(t.b) * a.hw + t.row0) * a.c + ch0;
+  const T* x = static_cast<const T*>(a.x) + base;
+  const T* g = static_cast<const T*>(a.g) + base;
+  T* dx = static_cast<T*>(a.out) + base;
+  for (int row = t.tr; row < t.nrows; row += t.rit) {
+    const int64_t o = static_cast<int64_t>(row) * a.c;
+    float xv[V], gv[V];
+    VT::unpack(xv, VT::raw_global(x + o));
+    VT::unpack(gv, VT::raw_global(g + o));
+    split_grads<V>(xv, gv, cf);
+#pragma unroll
+    for (int v = 0; v < V; ++v) xv[v] = cf.inv[v] * (gv[v] * cf.gam[v] - ac[v] - xv[v] * bc[v]);
+    VT::store_global(dx + o, xv);
+  }
+}
+
+gn::split::Args split_args(const void* x, const void* g, void* out, const float* scale,
+                           const float* bias, const float* mean, const float* inv, const float* r,
+                           float* partial, int hw, int c, int cg, int tiles, int rows_per_tile,
+                           int vec, float count) {
+  return gn::split::Args{x, g, out, scale, bias, mean, inv, r, partial,
+                         hw, c, cg, tiles, rows_per_tile, c / vec, count};
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; vec: 16 / sizeof(element) or 1.
+extern "C" int groupnorm_silu_split_bwd_reduce(const void* x, const void* g, const float* scale,
+                                               const float* bias, const float* mean,
+                                               const float* inv, float* partial, float* r_out,
+                                               int b, int hw, int c, int cg, int tiles,
+                                               int rows_per_tile, int vec, int threads, int dtype,
+                                               void* stream) {
+  if (!gn::split::args_ok(c, cg, vec, threads, tiles, rows_per_tile, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gn::split::Args a = split_args(x, g, nullptr, scale, bias, mean, inv, nullptr, partial, hw,
+                                       c, cg, tiles, rows_per_tile, vec, 0.f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4)
+    return static_cast<int>(gn::split::reduce<float, 4, BwdReduceOp>(a, b, threads, r_out, 0, s));
+  if (dtype == 0 && vec == 1)
+    return static_cast<int>(gn::split::reduce<float, 1, BwdReduceOp>(a, b, threads, r_out, 0, s));
+  if (dtype == 1 && vec == 8)
+    return static_cast<int>(
+        gn::split::reduce<__nv_bfloat16, 8, BwdReduceOp>(a, b, threads, r_out, 0, s));
+  if (dtype == 1 && vec == 1)
+    return static_cast<int>(
+        gn::split::reduce<__nv_bfloat16, 1, BwdReduceOp>(a, b, threads, r_out, 0, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int groupnorm_silu_split_bwd_dx(const void* x, const void* g, void* dx,
+                                           const float* scale, const float* bias,
+                                           const float* mean, const float* inv, const float* r,
+                                           int b, int hw, int c, int cg, int tiles,
+                                           int rows_per_tile, int vec, int threads, int dtype,
+                                           float count, void* stream) {
+  if (!gn::split::args_ok(c, cg, vec, threads, tiles, rows_per_tile, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gn::split::Args a = split_args(x, g, dx, scale, bias, mean, inv, r, nullptr, hw, c, cg,
+                                       tiles, rows_per_tile, vec, count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles, b);
+  if (dtype == 0 && vec == 4) split_dx_kernel<float, 4><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 0 && vec == 1) split_dx_kernel<float, 1><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 1 && vec == 8) split_dx_kernel<__nv_bfloat16, 8><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 1 && vec == 1) split_dx_kernel<__nv_bfloat16, 1><<<grid, threads, 0, s>>>(a);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

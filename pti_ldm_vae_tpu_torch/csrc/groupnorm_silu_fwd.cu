@@ -248,3 +248,115 @@ extern "C" int groupnorm_silu_fwd(const void* x, void* y, const float* scale, co
     return static_cast<int>(launch<__nv_bfloat16, 1>(a, b, threads, smem_bytes, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// ---- the split form (see groupnorm_silu.cuh, namespace gn::split) -----------
+//
+// For an image whose rows lie on several ranks (spatial sharding), the
+// forward is two entries around the caller's all-reduce of the statistics:
+//
+//   groupnorm_silu_split_stats: per (image, group) the f32 sums of x and x^2
+//     over this rank's rows, [B, G, 2] (two launches: per-tile partials, then
+//     their fold in a fixed order);
+//   groupnorm_silu_split_apply: from the given [B, G] mean and inverse std
+//     (the one-pass formula on the all-reduced sums, computed by the caller),
+//     y = silu(x * mul + add) with mul = inv * gamma, add = beta - mean * mul,
+//     in f32, rounded once to x's dtype: the fused kernel's arithmetic.
+//
+// Replaces, with the backward's two split entries, the TPU kernel
+// pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py (_forward, body _kernel) where
+// the image is cut by height. Bound on an H100: bytes. The statistics read x
+// once; the apply reads x and writes y once. Summed, the split forward moves
+// 1.5x the fused kernel's bytes (x is read twice), the price of the
+// all-reduce between the two reads. Both return cudaGetLastError() after
+// their launches (cudaErrorInvalidValue on arguments that disagree with the
+// cut); any other value than 0 is a failure.
+
+namespace {
+
+struct StatsOp {
+  static constexpr bool kNeedsCoef = false;
+  template <int V>
+  __device__ __forceinline__ static void add(float (&s1)[V], float (&s2)[V], const float (&xv)[V],
+                                             const float (&)[V], const gn::split::Coef<V>&) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s1[v] += xv[v];
+      s2[v] = fmaf(xv[v], xv[v], s2[v]);
+    }
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(gn::kMaxThreads) split_apply_kernel(gn::split::Args a) {
+  using VT = Vec<T, V>;
+  const gn::split::Tile t = gn::split::tile(a);
+  const int ch0 = t.j * V;
+  gn::split::Coef<V> cf;
+  cf.load(a, t.b, ch0);
+  float mul[V], off[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    mul[v] = cf.inv[v] * cf.gam[v];
+    off[v] = cf.bet[v] - cf.mean[v] * mul[v];
+  }
+  const int64_t base = (static_cast<int64_t>(t.b) * a.hw + t.row0) * a.c + ch0;
+  const T* x = static_cast<const T*>(a.x) + base;
+  T* y = static_cast<T*>(a.out) + base;
+  for (int row = t.tr; row < t.nrows; row += t.rit) {
+    const int64_t o = static_cast<int64_t>(row) * a.c;
+    float v_[V];
+    VT::unpack(v_, VT::raw_global(x + o));
+#pragma unroll
+    for (int v = 0; v < V; ++v) v_[v] = gn::silu(fmaf(v_[v], mul[v], off[v]));
+    VT::store_global(y + o, v_);
+  }
+}
+
+gn::split::Args split_args(const void* x, const void* g, void* out, const float* scale,
+                           const float* bias, const float* mean, const float* inv, const float* r,
+                           float* partial, int hw, int c, int cg, int tiles, int rows_per_tile,
+                           int vec, float count) {
+  return gn::split::Args{x, g, out, scale, bias, mean, inv, r, partial,
+                         hw, c, cg, tiles, rows_per_tile, c / vec, count};
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; vec: 16 / sizeof(element) or 1.
+extern "C" int groupnorm_silu_split_stats(const void* x, float* partial, float* stats, int b, int hw,
+                                          int c, int cg, int tiles, int rows_per_tile, int vec,
+                                          int threads, int dtype, void* stream) {
+  if (!gn::split::args_ok(c, cg, vec, threads, tiles, rows_per_tile, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gn::split::Args a = split_args(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, partial, hw, c, cg, tiles, rows_per_tile, vec, 0.f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4)
+    return static_cast<int>(gn::split::reduce<float, 4, StatsOp>(a, b, threads, stats, 1, s));
+  if (dtype == 0 && vec == 1)
+    return static_cast<int>(gn::split::reduce<float, 1, StatsOp>(a, b, threads, stats, 1, s));
+  if (dtype == 1 && vec == 8)
+    return static_cast<int>(gn::split::reduce<__nv_bfloat16, 8, StatsOp>(a, b, threads, stats, 1, s));
+  if (dtype == 1 && vec == 1)
+    return static_cast<int>(gn::split::reduce<__nv_bfloat16, 1, StatsOp>(a, b, threads, stats, 1, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int groupnorm_silu_split_apply(const void* x, void* y, const float* scale,
+                                          const float* bias, const float* mean, const float* inv,
+                                          int b, int hw, int c, int cg, int tiles,
+                                          int rows_per_tile, int vec, int threads, int dtype,
+                                          void* stream) {
+  if (!gn::split::args_ok(c, cg, vec, threads, tiles, rows_per_tile, hw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gn::split::Args a = split_args(x, nullptr, y, scale, bias, mean, inv, nullptr, nullptr, hw,
+                                       c, cg, tiles, rows_per_tile, vec, 0.f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles, b);
+  if (dtype == 0 && vec == 4) split_apply_kernel<float, 4><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 0 && vec == 1) split_apply_kernel<float, 1><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 1 && vec == 8) split_apply_kernel<__nv_bfloat16, 8><<<grid, threads, 0, s>>>(a);
+  else if (dtype == 1 && vec == 1) split_apply_kernel<__nv_bfloat16, 1><<<grid, threads, 0, s>>>(a);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -49,6 +49,20 @@ transformed at apply time (``ops/space_to_depth.py``); the GroupNorm+SiLU and
 backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping them,
 as the JAX package wraps the same blocks in ``nn.remat``; the kernels then
 launch again for the recomputed forward.
+
+Under a model-parallel mesh (``parallel/``) the same modules run on shards.
+Spatial (``parallel/spatial.py``): the tensors are height tiles; a 3x3
+stride-1 convolution takes a halo row from each neighbour (cuDNN unpadded in
+height, or the convolution kernel on the haloed tile with its edge rows
+cropped), the downsample one from below, GroupNorm+SiLU sums its statistics
+over the model group (the split kernels), the attention blocks gather their
+input and keep their rows, and ``sampling`` keeps its tile of the global
+draw. Tensor (``parallel/tensor.py``): a sharded weight computes its block
+of output channels from the gathered input, a replicated one the whole
+output; GroupNorm runs on whole groups of a channel block, else on the
+gathered channels; the attention head gathers q, k and v; ``encode`` and
+``decode`` hand back whole channels. Both compose with ``s2d_stem``
+(channel-major phases keep a rank's channel block contiguous) and ``remat``.
 """
 
 from __future__ import annotations
@@ -73,7 +87,9 @@ from ..ops.space_to_depth import (
     s2d_repeat_channels,
     space_to_depth,
 )
-from ..parallel.mesh import local_randn
+from ..parallel.mesh import local_randn, model_rank
+from ..parallel.spatial import gather_height, group_norm_silu_tiles, halo_rows, spatial
+from ..parallel.tensor import channels_in, tensor
 
 __all__ = ["AutoencoderKL", "autoencoder_from_config", "channels_last_format"]
 
@@ -123,13 +139,20 @@ class Convolution(nn.Module):
         cd = self.compute_dtype
         weight, bias = self.conv.weight, self.conv.bias
         stride, padding = self.conv.stride, self.conv.padding
+        if tensor():  # this rank's output channels (all of them when not sharded)
+            x = channels_in(x, self.conv.in_channels * (4 if s2d else 1),
+                            partitioned=weight.shape[0] != self.conv.out_channels)
         if s2d and stride[0] == 2:
             weight, stride = s2d_downsample_kernel(weight), 1
         elif s2d:
             to_s2d = s2d_conv3x3_kernel if self.conv.kernel_size[0] == 3 else s2d_conv1x1_kernel
             weight, bias = to_s2d(weight), s2d_repeat_channels(bias)
+        rows = spatial() and padding[0] == 1  # a height tile: halo rows replace the padding
+        if rows:
+            x, padding = halo_rows(x, 1, 1), (0, padding[1])
         if self.conv_kernel:
-            return conv3x3(x.to(cd), weight, bias)
+            y = conv3x3(x.to(cd), weight, bias)
+            return y[:, 1:-1] if rows else y
         return conv_channel_last(x.to(cd), weight.to(cd), bias.to(cd), stride, padding)
 
 
@@ -141,16 +164,37 @@ class GroupNormOp(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.channels = channels
         self.num_groups, self.eps, self.silu, self.norm_stats = num_groups, eps, silu, norm_stats
 
     def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         """``s2d``: ``x`` is in the space-to-depth domain, where each group's
         elements are the same and ``weight`` / ``bias`` repeat 4x."""
         weight, bias = self.weight, self.bias
+        groups = self.num_groups
+        if tensor():
+            groups, x, weight, bias = self._channel_block(x, 4 if s2d else 1)
         if s2d:
             weight, bias = s2d_repeat_channels(weight), s2d_repeat_channels(bias)
-        fn = group_norm_silu if self.silu else group_norm
-        return fn(x, weight, bias, num_groups=self.num_groups, eps=self.eps, stats=self.norm_stats)
+        if not self.silu:
+            return group_norm(x, weight, bias, num_groups=groups, eps=self.eps,
+                              stats=self.norm_stats)
+        # a height tile under spatial sharding (the attention blocks' norms see whole heights)
+        norm = group_norm_silu_tiles if spatial() else group_norm_silu
+        return norm(x, weight, bias, num_groups=groups, eps=self.eps, stats=self.norm_stats)
+
+    def _channel_block(self, x: torch.Tensor, phases: int):
+        """Under tensor sharding: ``(groups, x, weight, bias)`` of this rank's
+        channel block where it holds whole groups (its weight block), else of
+        the gathered channels (the whole weight)."""
+        full, weight, bias = self.channels * phases, self.weight, self.bias
+        per_group = full // self.num_groups
+        if x.shape[-1] != full and weight.shape[0] != self.channels and x.shape[-1] % per_group == 0:
+            return x.shape[-1] // per_group, x, weight, bias
+        if weight.shape[0] != self.channels:
+            weight, bias = channels_in(weight, self.channels, False), channels_in(
+                bias, self.channels, False)
+        return self.num_groups, channels_in(x, full, False), weight, bias
 
 
 class ResBlock(nn.Module):
@@ -186,6 +230,8 @@ class SABlock(nn.Module):
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    if tensor():  # this rank's output features from all input features
+        x = channels_in(x, layer.in_features, partitioned=layer.weight.shape[0] != layer.out_features)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -201,14 +247,22 @@ class SpatialAttentionBlock(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, cd = x.shape[0], x.shape[-1], self.compute_dtype
-        seq = self.norm(x).reshape(b, -1, c)
-        q = _linear(seq, self.attn.to_q, cd)
-        k = _linear(seq, self.attn.to_k, cd)
-        v = _linear(seq, self.attn.to_v, cd)
+        """Under spatial sharding the block runs on the model group's gathered
+        tiles (every token) and keeps this rank's rows; under tensor sharding
+        the single head takes the gathered q, k and v."""
+        rows = spatial()
+        h = gather_height(x, partitioned=True) if rows else x
+        b, c, cd = h.shape[0], self.attn.to_q.in_features, self.compute_dtype
+        normed = self.norm(h)
+        seq = normed.reshape(b, -1, normed.shape[-1])
+        q, k, v = (_linear(seq, proj, cd) for proj in (self.attn.to_q, self.attn.to_k,
+                                                         self.attn.to_v))
+        if tensor():
+            q, k, v = (channels_in(t, c, False) for t in (q, k, v))
         out = multi_head_attention(q, k, v, num_heads=1)
         out = _linear(out, self.attn.out_proj, cd)
-        return x.to(cd) + out.reshape(x.shape)
+        y = h.to(cd) + out.reshape(*h.shape[:-1], out.shape[-1])
+        return y.narrow(1, model_rank() * x.shape[1], x.shape[1]) if rows else y
 
 
 class Downsample(nn.Module):
@@ -221,6 +275,10 @@ class Downsample(nn.Module):
                                 spatial_dims=spatial_dims)
 
     def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        """Under spatial sharding the padding row below a tile is the next
+        tile's first row (zeros below the image)."""
+        if spatial():
+            return self.conv(F.pad(halo_rows(x, 0, 1), (0, 0, 0, 1)), s2d)
         return self.conv(F.pad(x, (0, 0) + (0, 1) * (x.dim() - 2)), s2d)
 
 
@@ -436,6 +494,7 @@ class AutoencoderKL(nn.Module):
                       attention_levels=attn, norm_stats=norm_stats, compute_dtype=compute_dtype,
                       conv_kernel=conv_kernel, remat=remat, spatial_dims=spatial_dims)
         self.spatial_dims = spatial_dims
+        self.latent_channels, self.out_channels = latent_channels, out_channels
         self.compute_dtype = compute_dtype
         self.conv_kernel = conv_kernel
         self.encoder = Encoder(in_channels, channels, latent_channels,
@@ -453,22 +512,29 @@ class AutoencoderKL(nn.Module):
         """Returns (z_mu, z_sigma), both f32; logvar clamped to [-30, 20] like MONAI."""
         h = self.encoder(x.to(self.compute_dtype))
         z_mu = self.quant_conv_mu(h)
-        z_log_var = self.quant_conv_log_sigma(h).float().clamp(LOGVAR_CLAMP_MIN, LOGVAR_CLAMP_MAX)
+        z_log_var = self.quant_conv_log_sigma(h)
+        if tensor():  # every consumer (sampling, KL, AR) takes all latent channels
+            z_mu, z_log_var = (channels_in(t, self.latent_channels, False) for t in (z_mu, z_log_var))
+        z_log_var = z_log_var.float().clamp(LOGVAR_CLAMP_MIN, LOGVAR_CLAMP_MAX)
         return z_mu.float(), torch.exp(0.5 * z_log_var)
 
     def sampling(self, z_mu: torch.Tensor, z_sigma: torch.Tensor, eps: torch.Tensor | None = None,
                  generator: torch.Generator | None = None) -> torch.Tensor:
         """``z_mu + eps * z_sigma``; ``eps`` standard normal from ``generator``
         unless given (under a process group: this rank's rows of the global
-        batch's draw, ``parallel/mesh.py:local_randn``)."""
+        batch's draw, ``parallel/mesh.py:local_randn``, and under spatial
+        sharding its height tile of them)."""
         if eps is None:
             eps = local_randn(tuple(z_mu.shape), generator=generator, dtype=z_mu.dtype,
-                              device=z_mu.device)
+                              device=z_mu.device, model_axis=1 if spatial() else None)
         return z_mu + eps * z_sigma
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = self.post_quant_conv(z.to(self.compute_dtype))
-        return self.decoder(z).float()
+        out = self.decoder(z)
+        if tensor():
+            out = channels_in(out, self.out_channels, False)
+        return out.float()
 
     def forward(self, x: torch.Tensor, eps: torch.Tensor | None = None,
                 generator: torch.Generator | None = None

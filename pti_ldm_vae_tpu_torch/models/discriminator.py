@@ -19,6 +19,13 @@ drawn from an explicit ``torch.Generator``.
 Tensors are channel-last ([B, *spatial, C]) at the module's boundary and
 between layers; a convolution views its input as channels-first as the
 autoencoder's do (``nn.Conv{1,2,3}d`` parameters, cuDNN).
+
+Under tensor sharding (``parallel/tensor.py``) a layer with a sharded weight
+computes its block of output channels from the gathered input, the
+InstanceNorm runs per channel on the block, and the last layer (one output
+channel, replicated) gathers its input: the logits are whole on every rank.
+Under spatial sharding the discriminator runs on the gathered full-height
+images (``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import instance_norm
+from ..parallel.tensor import channels_in, tensor
 from .autoencoder_kl import conv_channel_last
 
 __all__ = ["PatchDiscriminator"]
@@ -86,9 +94,11 @@ class PatchDiscriminator(nn.Module):
 
     def _apply_conv(self, block: _Conv, h: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        bias = None if block.conv.bias is None else block.conv.bias.to(cd)
-        return conv_channel_last(h, block.conv.weight.to(cd), bias, block.conv.stride,
-                                 block.conv.padding)
+        conv = block.conv
+        if tensor():
+            h = channels_in(h, conv.in_channels, partitioned=conv.weight.shape[0] != conv.out_channels)
+        bias = None if conv.bias is None else conv.bias.to(cd)
+        return conv_channel_last(h, conv.weight.to(cd), bias, conv.stride, conv.padding)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         slope = self.negative_slope

@@ -4,7 +4,9 @@
   thread-block-cluster launch each, ``csrc/groupnorm_silu_fwd.cu`` and
   ``csrc/groupnorm_silu_bwd.cu`` (replace
   ``pti_ldm_vae_tpu/ops/pallas/groupnorm_silu.py``: ``_forward`` and both
-  kernels of ``_bwd_pallas``)
+  kernels of ``_bwd_pallas``), and their split form for spatially sharded
+  images: four entries of the same sources (statistics, apply, backward
+  reduce, backward dx) around the caller's all-reduce
 - ``flash_attention``: CUDA C++ flash-attention forward and backward,
   ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
   (bf16, tensor cores, head dims up to 128),
@@ -23,13 +25,20 @@
 Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
 kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
 plain versions. Under ``torch.func.vmap`` / ``grad`` the Functions' ``vmap``
-rules launch the same kernels (``_vmap.py``). ``launch_counts()`` reads the six counts by kernel name,
-``reset_launch_counts()`` sets them to 0.
+rules launch the same kernels (``_vmap.py``). ``launch_counts()`` reads the
+six counts by kernel name, ``split_launch_counts()`` the split entries',
+``reset_launch_counts()`` sets all of them to 0.
 """
 
 from .conv3x3 import conv3x3, conv3x3_bwd_plain, conv3x3_plain
 from .flash_attention import flash_attention, flash_attention_bwd_plain, flash_attention_plain
-from .groupnorm_silu import groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain
+from .groupnorm_silu import (
+    SPLIT_ENTRIES,
+    groupnorm_silu,
+    groupnorm_silu_bwd_plain,
+    groupnorm_silu_plain,
+    groupnorm_silu_split,
+)
 
 # kernel name -> (wrapper, the attribute that counts its launches)
 COUNTERS = {
@@ -52,14 +61,21 @@ __all__ = [
     "groupnorm_silu",
     "groupnorm_silu_bwd_plain",
     "groupnorm_silu_plain",
+    "groupnorm_silu_split",
     "launch_counts",
     "reset_launch_counts",
+    "split_launch_counts",
 ]
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset, by kernel name."""
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def split_launch_counts() -> dict[str, int]:
+    """Launches of the split GroupNorm+SiLU entries since the last reset."""
+    return dict(groupnorm_silu.split_launches)
 
 
 def reset_launch_counts() -> None:
@@ -70,6 +86,7 @@ def reset_launch_counts() -> None:
     ``padded_launches``: shares of ``conv3x3.launches``)."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    groupnorm_silu.split_launches = dict.fromkeys(SPLIT_ENTRIES, 0)
     flash_attention.padded_launches = 0
     flash_attention.wide_launches = 0
     flash_attention.wide_bwd_launches = 0

@@ -47,6 +47,22 @@ the TPU kernel's (which has no clamp at all), ignores the clamp's
 zero-gradient region. It therefore differs from autograd of the plain
 forward only for a group whose values are all equal.
 
+The split form (``groupnorm_silu_split``), for an image whose rows lie on
+several ranks (spatial sharding), is the TPU backward's two-kernel shape
+applied to both directions, four entries of the same two sources around the
+caller's all-reduce: the per-(image, group) partial sums of x and x^2
+(``groupnorm_silu_split_stats``), the normalisation, affine and SiLU from
+the mean and inverse std of the all-reduced sums
+(``groupnorm_silu_split_apply``), the per-(image, channel) partial sums of
+dn and dn * xhat (``groupnorm_silu_split_bwd_reduce``), and dx from the
+all-reduced sums (``groupnorm_silu_split_bwd_dx``). Each launches over
+(row tile, image) blocks of all channels with a two-stage, atomic-free
+reduction (``split_plan``); each has its plain version here, and counts its
+launches (``groupnorm_silu.split_launches``, keyed by entry). The one-pass
+formula ``var = max(E[x^2] - E[x]^2, 0)`` on the summed partials is the
+fused kernel's arithmetic up to the order of the sums. The fused kernels
+stay the unsharded path.
+
 ``groupnorm_silu`` launches the kernels for CUDA tensors (or raises) and runs
 the plain versions, forward and backward formula, for CPU tensors; nothing
 falls back from one to the other. ``groupnorm_silu.launches`` counts forward
@@ -67,7 +83,10 @@ import torch
 from ._vmap import fold, front, transformed, unfold
 
 __all__ = ["groupnorm_silu", "groupnorm_silu_plain", "groupnorm_silu_bwd_plain", "GnPlan",
-           "gn_plan", "gn_smem_bytes", "SOURCES"]
+           "gn_plan", "gn_smem_bytes", "SOURCES", "SPLIT_ENTRIES", "SplitPlan", "split_plan",
+           "groupnorm_silu_split", "groupnorm_silu_split_stats_plain",
+           "groupnorm_silu_split_apply_plain", "groupnorm_silu_split_bwd_reduce_plain",
+           "groupnorm_silu_split_bwd_dx_plain", "split_moments"]
 
 _FWD_SOURCE = "groupnorm_silu_fwd.cu"
 _BWD_SOURCE = "groupnorm_silu_bwd.cu"
@@ -132,26 +151,93 @@ def _plain_backward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, r [B, 2, C])`` of the plain backward, ``r[:, 0]`` = r1 and
     ``r[:, 1]`` = r2 per image: the kernel's own output."""
+    r = groupnorm_silu_split_bwd_reduce_plain(x, g, scale, bias, mean_g, inv_g, num_groups)
+    count = x[0, ..., 0].numel() * (x.shape[-1] // num_groups)
+    dx = groupnorm_silu_split_bwd_dx_plain(x, g, scale, bias, mean_g, inv_g, r, num_groups, count)
+    return dx, r
+
+
+def _dn_xhat(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             mean_g: torch.Tensor, inv_g: torch.Tensor, num_groups: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(xhat, dn, inv_c)`` in f32, ``[B, HW, C]`` (``inv_c`` ``[B, 1, C]``)."""
     b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
     xf = x.float().reshape(b, -1, c)
     gf = g.float().reshape(b, -1, c)
-    count = xf.shape[1] * cg
     gamma, beta = scale.float(), bias.float()
     mean_c = mean_g.float().repeat_interleave(cg, dim=1)[:, None, :]  # [B, 1, C]
     inv_c = inv_g.float().repeat_interleave(cg, dim=1)[:, None, :]
     xhat = (xf - mean_c) * inv_c
     n = xhat * gamma + beta
     sig = torch.sigmoid(n)
-    dn = gf * sig * (1.0 + n * (1.0 - sig))
-    r1 = dn.sum(dim=1)  # [B, C]
-    r2 = (dn * xhat).sum(dim=1)
-    a_g = (r1 * gamma).reshape(b, num_groups, cg).sum(dim=2) / count  # [B, G]
-    b_g = (r2 * gamma).reshape(b, num_groups, cg).sum(dim=2) / count
+    return xhat, gf * sig * (1.0 + n * (1.0 - sig)), inv_c
+
+
+def groupnorm_silu_split_stats_plain(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Plain version of ``groupnorm_silu_split_stats``: per (image, group) the
+    f32 sums of x and x^2 over this tensor's rows, ``[B, G, 2]``."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+    xg = x.float().reshape(b, -1, num_groups, c // num_groups)
+    return torch.stack([xg.sum(dim=(1, 3)), xg.square().sum(dim=(1, 3))], dim=-1)
+
+
+def split_moments(stats: torch.Tensor, count: float, eps: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, inv)`` ``[B, G]`` from the whole image's ``[B, G, 2]`` sums of
+    ``count`` elements a group: the one-pass variance clamped at 0, as the
+    fused kernels and the JAX ``ops/norm.py`` compute it."""
+    mean = stats[..., 0] / count
+    var = torch.clamp(stats[..., 1] / count - mean.square(), min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def groupnorm_silu_split_apply_plain(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean_g: torch.Tensor,
+    inv_g: torch.Tensor, num_groups: int,
+) -> torch.Tensor:
+    """Plain version of ``groupnorm_silu_split_apply``: ``silu(x * mul + add)``
+    with ``mul = inv * gamma``, ``add = beta - mean * mul`` in f32, one
+    rounding to ``x.dtype``."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    mul = inv_g.float().repeat_interleave(cg, dim=1)[:, None, :] * scale.float()  # [B, 1, C]
+    add = bias.float() - mean_g.float().repeat_interleave(cg, dim=1)[:, None, :] * mul
+    y = x.float().reshape(b, -1, c) * mul + add
+    return (y * torch.sigmoid(y)).reshape(x.shape).to(x.dtype)
+
+
+def groupnorm_silu_split_bwd_reduce_plain(
+    x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+    mean_g: torch.Tensor, inv_g: torch.Tensor, num_groups: int,
+) -> torch.Tensor:
+    """Plain version of ``groupnorm_silu_split_bwd_reduce``: per (image,
+    channel) ``r1 = sum dn`` and ``r2 = sum dn * xhat`` over this tensor's
+    rows, ``[B, 2, C]`` f32."""
+    xhat, dn, _ = _dn_xhat(x, g, scale, bias, mean_g, inv_g, num_groups)
+    return torch.stack([dn.sum(dim=1), (dn * xhat).sum(dim=1)], dim=1)
+
+
+def groupnorm_silu_split_bwd_dx_plain(
+    x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+    mean_g: torch.Tensor, inv_g: torch.Tensor, r: torch.Tensor, num_groups: int, count: float,
+) -> torch.Tensor:
+    """Plain version of ``groupnorm_silu_split_bwd_dx``: ``dx = inv * (dn *
+    gamma - A_g / m - xhat * B_g / m)`` from the whole image's ``[B, 2, C]``
+    sums ``r`` and ``m = count`` elements a group, rounded once to
+    ``x.dtype``."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    gamma = scale.float()
+    xhat, dn, inv_c = _dn_xhat(x, g, scale, bias, mean_g, inv_g, num_groups)
+    a_g = (r[:, 0] * gamma).reshape(b, num_groups, cg).sum(dim=2) / count  # [B, G]
+    b_g = (r[:, 1] * gamma).reshape(b, num_groups, cg).sum(dim=2) / count
     a_c = a_g.repeat_interleave(cg, dim=1)[:, None, :]
     b_c = b_g.repeat_interleave(cg, dim=1)[:, None, :]
     dx = inv_c * (dn * gamma - a_c - xhat * b_c)
-    return dx.reshape(x.shape).to(x.dtype), torch.stack([r1, r2], dim=1)
+    return dx.reshape(x.shape).to(x.dtype)
 
 
 class GnPlan(NamedTuple):
@@ -536,3 +622,214 @@ def groupnorm_silu(
 
 groupnorm_silu.launches = 0
 groupnorm_silu.bwd_launches = 0
+
+
+# ---- the split form -------------------------------------------------------------------
+
+# entry -> source; the calls of each are counted in groupnorm_silu.split_launches[entry], one
+# a call: a statistics or backward-reduce call is two device launches (per-tile partial sums,
+# then their fold in tile order)
+SPLIT_ENTRIES = {
+    "groupnorm_silu_split_stats": _FWD_SOURCE,
+    "groupnorm_silu_split_apply": _FWD_SOURCE,
+    "groupnorm_silu_split_bwd_reduce": _BWD_SOURCE,
+    "groupnorm_silu_split_bwd_dx": _BWD_SOURCE,
+}
+SPLIT_TARGET_BLOCKS = 264  # two blocks per SM of an H100
+SPLIT_MIN_ROWS_PER_THREAD = 4  # a tile stays at least this many rows per thread row
+
+
+class SplitPlan(NamedTuple):
+    """How a split-form call is cut: ``vec`` channels per thread and access
+    (one 16-byte vector, or 1), ``threads`` per block (``C / vec`` columns
+    times as many thread rows as fit in ``MAX_THREADS``), ``tiles`` blocks
+    per image of ``rows_per_tile`` pixel rows each."""
+
+    vec: int
+    threads: int
+    tiles: int
+    rows_per_tile: int
+
+
+def split_plan(b: int, hw: int, c: int, dtype: torch.dtype, aligned: bool = True) -> SplitPlan:
+    """The cut of a split-form call on ``[b, hw, c]`` (a pure function): about
+    ``SPLIT_TARGET_BLOCKS`` blocks over the batch, each thread row keeping at
+    least ``SPLIT_MIN_ROWS_PER_THREAD`` rows."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"groupnorm_silu takes float32 or bfloat16, got {dtype}")
+    esize = 4 if dtype == torch.float32 else 2
+    vec = 16 // esize if aligned and c * esize % 16 == 0 else 1
+    nv = c // vec
+    if nv > MAX_THREADS:
+        raise ValueError(f"the split form takes at most {MAX_THREADS} columns of {vec} "
+                         f"channels; got {c} channels")
+    threads = nv * (MAX_THREADS // nv)
+    rit = threads // nv
+    tiles = max(1, min(-(-hw // (rit * SPLIT_MIN_ROWS_PER_THREAD)), -(-SPLIT_TARGET_BLOCKS // b)))
+    rows = -(-hw // tiles)
+    return SplitPlan(vec, threads, -(-hw // rows), rows)
+
+
+@functools.cache
+def _split_library(source: str) -> ctypes.CDLL:
+    lib = _library(source)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if source == _FWD_SOURCE:
+        lib.groupnorm_silu_split_stats.argtypes = [p] * 3 + [i] * 9 + [p]
+        lib.groupnorm_silu_split_apply.argtypes = [p] * 6 + [i] * 9 + [p]
+    else:
+        lib.groupnorm_silu_split_bwd_reduce.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.groupnorm_silu_split_bwd_dx.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, p]
+    for entry, src in SPLIT_ENTRIES.items():
+        if src == source:
+            getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+def _split_launch(entry: str, x: torch.Tensor, num_groups: int, tensors: list[torch.Tensor],
+                  extra: list | None = None, plan: SplitPlan | None = None) -> None:
+    """One split-form entry on CUDA tensors: ``tensors``' addresses (its
+    tensor arguments, in order), then the cut (``split_plan``'s unless given),
+    the dtype and ``extra``."""
+    b, h, w, c = x.shape
+    plan = plan or split_plan(b, h * w, c, x.dtype, _aligned(*tensors))
+    with torch.cuda.device(x.device):
+        err = getattr(_split_library(SPLIT_ENTRIES[entry]), entry)(
+            *(t.data_ptr() for t in tensors), b, h * w, c, c // num_groups, plan.tiles, plan.rows_per_tile, plan.vec,
+            plan.threads, _DTYPE_CODES[x.dtype], *(extra or []),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({plan})")
+    groupnorm_silu.split_launches[entry] += 1
+
+
+def _split_check(x: torch.Tensor, num_groups: int, *others: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[-1] % num_groups:
+        raise ValueError(f"expected NHWC with C divisible by {num_groups}, got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"groupnorm_silu takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("groupnorm_silu takes a contiguous NHWC tensor")
+    for t in others:
+        if t.device != x.device:
+            raise ValueError(f"a tensor on {t.device}, x on {x.device}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def split_stats(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """``[B, G, 2]`` f32 sums of x and x^2 over ``x``'s rows: the kernel on
+    CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_split_stats_plain(x, num_groups)
+    _split_check(x, num_groups)
+    b, h, w, c = x.shape
+    plan = split_plan(b, h * w, c, x.dtype, _aligned(x))
+    partial = torch.empty((b, plan.tiles, 2, c), device=x.device, dtype=torch.float32)
+    stats = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
+    _split_launch("groupnorm_silu_split_stats", x, num_groups, [x, partial, stats], plan=plan)
+    return stats
+
+
+def split_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean_g: torch.Tensor,
+                inv_g: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """``silu`` of the normalised, scaled and shifted ``x`` from the given
+    ``[B, G]`` mean and inverse std: the kernel on CUDA, the plain version on
+    the CPU."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_split_apply_plain(x, scale, bias, mean_g, inv_g, num_groups)
+    _split_check(x, num_groups, scale, bias, mean_g, inv_g)
+    y = torch.empty_like(x)
+    scale, bias, mean_g, inv_g = map(_f32, (scale, bias, mean_g, inv_g))
+    _split_launch("groupnorm_silu_split_apply", x, num_groups,
+                  [x, y, scale, bias, mean_g, inv_g])
+    return y
+
+
+def split_bwd_reduce(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     mean_g: torch.Tensor, inv_g: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """``[B, 2, C]`` f32 sums of dn and dn * xhat over ``x``'s rows: the
+    kernel on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_split_bwd_reduce_plain(x, g, scale, bias, mean_g, inv_g, num_groups)
+    g = g.to(x.dtype).contiguous()
+    _split_check(x, num_groups, g, scale, bias, mean_g, inv_g)
+    b, h, w, c = x.shape
+    plan = split_plan(b, h * w, c, x.dtype, _aligned(x, g))
+    partial = torch.empty((b, plan.tiles, 2, c), device=x.device, dtype=torch.float32)
+    r = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    scale, bias, mean_g, inv_g = map(_f32, (scale, bias, mean_g, inv_g))
+    _split_launch("groupnorm_silu_split_bwd_reduce", x, num_groups,
+                  [x, g, scale, bias, mean_g, inv_g, partial, r], plan=plan)
+    return r
+
+
+def split_bwd_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 mean_g: torch.Tensor, inv_g: torch.Tensor, r: torch.Tensor, num_groups: int,
+                 count: float) -> torch.Tensor:
+    """``dx`` from the whole image's ``[B, 2, C]`` sums ``r`` and ``count``
+    elements a group: the kernel on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_split_bwd_dx_plain(x, g, scale, bias, mean_g, inv_g, r, num_groups,
+                                                 count)
+    g = g.to(x.dtype).contiguous()
+    _split_check(x, num_groups, g, scale, bias, mean_g, inv_g, r)
+    dx = torch.empty_like(x)
+    scale, bias, mean_g, inv_g, r = map(_f32, (scale, bias, mean_g, inv_g, r))
+    _split_launch("groupnorm_silu_split_bwd_dx", x, num_groups,
+                  [x, g, dx, scale, bias, mean_g, inv_g, r], extra=[float(count)])
+    return dx
+
+
+class _SplitGroupNormSiLU(torch.autograd.Function):
+    """GroupNorm + SiLU of one shard of each image: the statistics and the
+    backward's sums are this shard's, summed in place over the shards by
+    ``allreduce_`` before they are used; ``count`` is a group's elements
+    over the whole image."""
+
+    @staticmethod
+    def forward(x, scale, bias, num_groups, eps, allreduce_, count):
+        stats = allreduce_(split_stats(x, num_groups))
+        mean_g, inv_g = split_moments(stats, count, eps)
+        return split_apply(x, scale, bias, mean_g, inv_g, num_groups), mean_g, inv_g
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, num_groups, _, allreduce_, count = inputs
+        _, mean_g, inv_g = output
+        ctx.mark_non_differentiable(mean_g, inv_g)
+        ctx.save_for_backward(x, scale, bias, mean_g, inv_g)
+        ctx.num_groups, ctx.allreduce_, ctx.count = num_groups, allreduce_, count
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_inv):
+        x, scale, bias, mean_g, inv_g = ctx.saved_tensors
+        r = split_bwd_reduce(x, g, scale, bias, mean_g, inv_g, ctx.num_groups)
+        r_all = ctx.allreduce_(r.clone())
+        dx = split_bwd_dx(x, g, scale, bias, mean_g, inv_g, r_all, ctx.num_groups, ctx.count)
+        r = r.sum(dim=0)  # this shard's partials: dbeta = sum_b r1, dgamma = sum_b r2
+        return dx, r[1].to(scale.dtype), r[0].to(bias.dtype), None, None, None, None
+
+
+def groupnorm_silu_split(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float,
+    allreduce_, hw_total: int,
+) -> torch.Tensor:
+    """``silu(group_norm(image))`` of an NHWC ``[B, h, W, C]`` shard of
+    images of ``hw_total`` pixels, differentiable in ``x``, ``scale`` and
+    ``bias``: ``allreduce_(t)`` sums ``t`` in place over the shards (and
+    returns it). The split kernels for CUDA tensors, their plain versions for
+    CPU tensors. ``scale`` and ``bias`` receive this shard's partial
+    gradients; the caller sums them over the shards."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"groupnorm_silu runs on cuda or cpu, got {x.device}")
+    count = float(hw_total * (x.shape[-1] // num_groups))
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+        return _SplitGroupNormSiLU.apply(x, scale, bias, num_groups, eps, allreduce_, count)[0]
+    with torch.no_grad():
+        return _SplitGroupNormSiLU.forward(x, scale, bias, num_groups, eps, allreduce_, count)[0]
+
+
+groupnorm_silu.split_launches = dict.fromkeys(SPLIT_ENTRIES, 0)

@@ -44,6 +44,7 @@ __all__ = [
     "s2d_conv3x3_kernel",
     "s2d_downsample_kernel",
     "s2d_repeat_channels",
+    "shard_height_multiple",
     "space_to_depth",
 ]
 
@@ -80,6 +81,15 @@ def s2d_auto_mode(workload: str, batch: int | None) -> bool | str:
     if dec:
         return "decoder"
     return False
+
+
+def shard_height_multiple(levels: int, s2d_stem: bool | str) -> int:
+    """What a height tile of a spatially sharded model must be a multiple of
+    (``parallel/spatial.py``): each of the ``levels - 1`` downsamples halves a
+    tile, and its (0,1)-padded stride-2 window lines up with the tile's
+    neighbours only on an even height; the s2d forms halve a tile once more,
+    so they ask for twice as much."""
+    return 2 ** max(levels - 1, 0) * (2 if s2d_stem else 1)
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:

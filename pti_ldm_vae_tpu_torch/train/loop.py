@@ -37,9 +37,20 @@ checkpointing of the ResBlocks and attention blocks), ``norm_stats`` and
 ``s2d_stem`` (default ``"auto"``, resolved here on the batch with the train
 profile of ``ops/space_to_depth.py:s2d_auto_mode``; ``"encoder"``,
 ``"decoder"`` and booleans pass as they are; ``"auto"`` decides on the
-per-rank batch). ``parallelism``: ``data``, when given, must equal the
-number of ranks; ``spatial`` and ``tensor`` above 1 raise (not ported:
-ROADMAP A.13). ``profile_port`` raises: torch has no live profiler endpoint.
+per-rank batch). ``profile_port`` raises: torch has no live profiler
+endpoint.
+
+``parallelism`` (JAX ``train/loop.py:111-134``): ``{"spatial": M}`` shards
+image height over ``M`` ranks (``parallel/spatial.py``), ``{"tensor": M}``
+channels (``parallel/tensor.py``); ``data`` defaults to ``world // M``
+(:func:`check_parallelism`). Rank ``r = d * M + m``: the ``M`` ranks of model
+group ``d`` load the same rows (the loader's ``rank::world`` schedule runs on
+``d`` over ``data``), so the global batch is ``data x batch_size`` rows and
+the LR scales by ``data``; with ``data = 1`` the run is the one-process run.
+Under tensor sharding the parameters are cut after every rank took rank 0's
+initial values, before the optimizers are built. The triplet panel,
+validation dumps, metrics and checkpoints are the unsharded run's (the
+height tiles stitched, the channel blocks gathered).
 """
 
 from __future__ import annotations
@@ -67,10 +78,17 @@ from ..ops.space_to_depth import s2d_auto_mode
 from ..parallel.mesh import (
     barrier_sync,
     broadcast_module,
+    data_rank,
+    data_size,
     first_local_rows,
+    make_mesh,
     process_rank,
+    set_mesh,
     world_size,
 )
+from ..parallel.spatial import shard_batch_spatial, spatial
+from ..parallel.tensor import tensor_parallel_params
+from ..ops.space_to_depth import shard_height_multiple
 from ..utils.determinism import set_determinism
 from ..utils.logging import MetricLogger, init_wandb_config
 from ..utils.profiling import start_profiler_server, trace_if
@@ -119,23 +137,40 @@ def build_ar_spec(cfg: dict[str, Any], ar: dict[str, Any]) -> ARVaeSpec | None:
         latent_dim=cfg["autoencoder_def"]["latent_channels"])
 
 
-def _not_ported(what: str, later: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet; it comes with {later}")
-
-
-def check_parallelism(block: dict[str, Any] | None, world: int) -> None:
-    """The config's ``parallelism`` block against the process group: ``data``
-    is the number of ranks (one card each); spatial and tensor sharding are
-    not ported."""
+def check_parallelism(block: dict[str, Any] | None, world: int, *,
+                      patch_size: tuple[int, ...] | None = None, levels: int = 1,
+                      s2d: bool | str = False) -> tuple[str | None, int, int]:
+    """The config's ``parallelism`` block against the process group, as the
+    JAX trainer checks it (``train/loop.py:111-131``): ``spatial`` and
+    ``tensor`` above 1 together raise (both ride the model axis); the model
+    axis must divide the world; ``data`` defaults to ``world // model`` and
+    must give ``data x model == world``. A rank drives one card, so the JAX
+    case of fewer devices than the mesh (a sub-mesh of one process's chips)
+    does not arise: every rank is in the mesh. Under spatial sharding the
+    shard height ``patch_size[0] / M`` must divide by what the levels' halving
+    needs (``ops/space_to_depth.py:shard_height_multiple``). Returns ``(kind,
+    model, data)``, kind None without model parallelism."""
     block = block or {}
-    for axis in ("spatial", "tensor"):
-        if int(block.get(axis, 1)) > 1:
-            raise _not_ported(f"parallelism '{axis}'", "ROADMAP A.13 (spatial and tensor "
-                              "parallelism)")
-    data = block.get("data")
-    if data is not None and int(data) != world:
-        raise ValueError(f"parallelism data={data} but the process group has {world} rank(s): "
-                         "launch one process per card with torchrun --nproc_per_node")
+    spatial_m, tensor_m = int(block.get("spatial", 1)), int(block.get("tensor", 1))
+    if spatial_m > 1 and tensor_m > 1:
+        raise ValueError("parallelism 'spatial' and 'tensor' are mutually exclusive "
+                         "(both shard over the model axis)")
+    model = max(spatial_m, tensor_m)
+    if world % model:
+        raise ValueError(f"spatial/tensor={model} does not divide {world} rank(s)")
+    data = int(block.get("data", world // model))
+    if data * model != world:
+        raise ValueError(f"parallelism data={data} x model={model} but the process group has "
+                         f"{world} rank(s): launch one process per card with torchrun "
+                         "--nproc_per_node")
+    if spatial_m > 1 and patch_size is not None:
+        need = shard_height_multiple(levels, s2d)
+        if patch_size[0] % (spatial_m * need):
+            raise ValueError(f"spatial={spatial_m} cuts height {patch_size[0]} into shards of "
+                             f"{patch_size[0] / spatial_m:g} rows; {levels} levels"
+                             f"{' with s2d_stem' if s2d else ''} need a multiple of {need}")
+    kind = "spatial" if spatial_m > 1 else "tensor" if tensor_m > 1 else None
+    return kind, model, data
 
 
 class VAETrainer:
@@ -185,7 +220,6 @@ class VAETrainer:
             raise ValueError(f"the discriminator's spatial_dims (top-level, {disc_dims}) differs "
                              f"from autoencoder_def's ({cfg['autoencoder_def'].get('spatial_dims', 2)})")
         ar_spec = build_ar_spec(cfg, self.ar)
-        check_parallelism(cfg.get("parallelism"), self.world)
         # "auto" resolves here from the train profile on the (one rank's)
         # batch: the model's own "auto" gate is the inference profile
         s2d_stem = cfg.get("s2d_stem", "auto")
@@ -193,6 +227,13 @@ class VAETrainer:
             s2d_stem = s2d_auto_mode("train", self.batch_size)
         elif s2d_stem not in ("encoder", "decoder"):
             s2d_stem = resolve_bool(s2d_stem)
+        kind, model_par, _ = check_parallelism(
+            cfg.get("parallelism"), self.world, patch_size=self.patch_size,
+            levels=len(cfg["autoencoder_def"]["channels"]), s2d=s2d_stem)
+        # a model axis splits the ranks into data x model groups (every rank makes them)
+        set_mesh(make_mesh(kind, model_par) if kind is not None else None)
+        self.sharded = kind is not None
+        self.data_rank, self.data = data_rank(), data_size()
 
         if mixed_precision is None:
             mixed_precision = self.device.type == "cuda"
@@ -228,8 +269,8 @@ class VAETrainer:
             cache_rate=cache_rate,
             ar_vae_enabled=self.ar["enabled"],
             regularized_attributes=self.ar["block"] or None,
-            rank=self.rank,
-            world_size=self.world,
+            rank=self.data_rank,
+            world_size=self.data,
         )
         split_payload = {
             "seed": seed,
@@ -265,8 +306,11 @@ class VAETrainer:
         for module in (self.model, self.disc):
             if module is not None:
                 broadcast_module(module)
+                if kind == "tensor":  # channel blocks, as JAX shards before its optimizer
+                    tensor_parallel_params(module)
+        # the LR scales by the number of distinct batches a step sees
         self.state = create_train_state(self.model, lr=float(train_cfg["lr"]),
-                                        world_size=self.world, model_d=self.disc)
+                                        world_size=self.data, model_d=self.disc)
 
         # ---- losses -------------------------------------------------------
         self.lcfg = LossConfig(
@@ -329,7 +373,10 @@ class VAETrainer:
 
     # -- helpers --------------------------------------------------------------
     def _device_batch(self, batch) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-        """Images, mask and (AR-VAE) attributes of a host batch on the device."""
+        """Images, mask and (AR-VAE) attributes of a host batch on the device
+        (under spatial sharding this rank's height tile of the images)."""
+        if spatial():
+            batch = shard_batch_spatial(batch)
         images = torch.from_numpy(batch["image"]).to(self.device, non_blocking=True)
         mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
         attributes = None
@@ -342,10 +389,12 @@ class VAETrainer:
         return bool(self.adv_enabled and epoch > self.adv_warmup_epochs)
 
     def close(self) -> None:
-        """Stop the loaders' decode threads and close the metric sink."""
+        """Stop the loaders' decode threads, close the metric sink and leave
+        the mesh."""
         self.train_loader.close()
         self.val_loader.close()
         self.logger.finish()
+        set_mesh(None)
 
     # -- epochs -----------------------------------------------------------------
     def train_epoch(self, epoch: int) -> None:
@@ -374,24 +423,30 @@ class VAETrainer:
                 buffered.append((self.total_step, metrics))
             if step == 0:
                 batch0 = (metrics, images[:1])
-        if batch0 is not None and self.rank == 0:
+        if batch0 is not None:
             metrics0, img0 = batch0
-            # KL-explosion debug stats (reference ``train_vae.py:432-442``)
-            print(
-                f"[DEBUG] Train batch0 stats | z_mu mean={float(metrics0['debug/z_mu_mean']):.4f} | "
-                f"z_sigma mean={float(metrics0['debug/z_sigma_mean']):.4f} | "
-                f"kl_loss={float(metrics0['train/kl_loss']):.4f}"
-            )
-            self._log_train_triplet(img0, epoch)
+            # every rank of a model group stitches or gathers the panel; rank 0 writes it
+            triplet = self._train_triplet(img0) if self.rank == 0 or self.sharded else None
+            if self.rank == 0:
+                # KL-explosion debug stats (reference ``train_vae.py:432-442``)
+                print(
+                    f"[DEBUG] Train batch0 stats | z_mu mean="
+                    f"{float(metrics0['debug/z_mu_mean']):.4f} | "
+                    f"z_sigma mean={float(metrics0['debug/z_sigma_mean']):.4f} | "
+                    f"kl_loss={float(metrics0['train/kl_loss']):.4f}"
+                )
+                self.logger.log_images("train/triplets", [(triplet * 255).astype(np.uint8)],
+                                       step=self.total_step)
         for step_num, metrics in buffered:
             payload = {k: float(v) for k, v in metrics.items() if not k.startswith("debug/")}
             payload["train/step"] = step_num
             self.logger.log(payload, step=step_num)
 
-    def _log_train_triplet(self, img: torch.Tensor, epoch: int) -> None:
+    def _train_triplet(self, img: torch.Tensor) -> np.ndarray:
         """[original | reconstruction | diff] panel for the epoch's first
         image, rot90 k=3 display convention (reference ``train_vae.py:479-493``);
-        the reconstruction uses end-of-epoch weights."""
+        the reconstruction uses end-of-epoch weights. Under a mesh every rank
+        calls it (the model runs sharded)."""
         recon = first_local_rows(self._triplet_infer(img))
         img = first_local_rows(img)
         diff = np.abs(img - recon)
@@ -400,9 +455,7 @@ class VAETrainer:
             normalize_batch_for_display(recon),
             normalize_batch_for_display(diff),
         ], axis=2)[0, :, :, 0]
-        triplet = np.rot90(panels, k=3)
-        self.logger.log_images("train/triplets", [(triplet * 255).astype(np.uint8)],
-                               step=self.total_step)
+        return np.rot90(panels, k=3)
 
     def validate(self, epoch: int) -> float:
         """Returns the epoch-mean reconstruction loss (the best-model
@@ -412,8 +465,8 @@ class VAETrainer:
         sums: dict[str, torch.Tensor] | None = None
         n_batches = 0
         start_epoch_to_save, save_every = 10, 5
-        do_save_images = (self.rank == 0 and epoch >= start_epoch_to_save
-                          and epoch % save_every == 0)
+        save_epoch = epoch >= start_epoch_to_save and epoch % save_every == 0
+        do_save_images = self.rank == 0 and save_epoch
         epoch_dir = self.run_dir / "validation_samples" / f"epoch_{epoch}"
         if do_save_images:
             for sub in ("originale", "reconstruction", "diff"):
@@ -427,11 +480,14 @@ class VAETrainer:
             # sums accumulate on the device; one host read after the loop
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
             n_batches += 1
-            if do_save_images:
-                dumps.append((step, images[0, :, :, 0], recon[0, :, :, 0]))
+            if do_save_images or (save_epoch and spatial()):
+                dumps.append((step, images[:1], recon[:1]))
 
         for step, img_dev, rec_dev in dumps:
-            img, rec = first_local_rows(img_dev), first_local_rows(rec_dev)
+            # every rank of a model group stitches its tiles; rank 0 writes
+            img, rec = first_local_rows(img_dev)[0, :, :, 0], first_local_rows(rec_dev)[0, :, :, 0]
+            if not do_save_images:
+                continue
             diff = np.abs(img - rec)
             # rot90 k=3 display convention (reference ``train_vae.py:616-618``)
             write_tif(str(epoch_dir / "originale" / f"step{step:03}.tif"), np.rot90(img, k=3))

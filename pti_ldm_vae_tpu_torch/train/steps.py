@@ -28,6 +28,18 @@ global batch: every masked mean divides by the global count of valid rows
 batch, each optimizer sums the ranks' gradients before its update
 (``state.py``), and the metrics are the global batch's. With no group the
 arithmetic is the single-device one, bit for bit.
+
+Under spatial sharding (``parallel/spatial.py``) the images, the
+reconstruction and the latents are height tiles: the per-sample means of the
+reconstruction term, the KL sums and the AR-VAE term's pooled latents are
+summed over the model group (``sum_over_model``, each rank's partial taking
+the sum's gradient once), and LPIPS and the discriminator run on the model
+group's gathered full-height reconstruction and target, alike on every rank
+(the gather hands each rank its own rows' gradient). Under tensor sharding
+(``parallel/tensor.py``) the model hands back whole reconstructions and
+latents, and the step is the data-parallel one. Every loss term is then the
+same on the ranks of a model group, and the metrics are summed over the
+data group.
 """
 
 from __future__ import annotations
@@ -42,7 +54,17 @@ from ..losses.ar_vae import compute_ar_vae_loss
 from ..losses.composite import compute_total_loss
 from ..models.autoencoder_kl import AutoencoderKL
 from ..models.lpips import lpips_distance_per_sample, lpips_distance_per_sample_3d
-from ..parallel.mesh import allreduce_metrics, global_count, grouped, masked_mean, world_size
+from ..parallel.mesh import (
+    allreduce_metrics,
+    data_size,
+    global_count,
+    grouped,
+    masked_mean,
+    model_size,
+    reduce_model_,
+    sum_over_model,
+)
+from ..parallel.spatial import gather_height, spatial
 from .state import GanTrainState
 
 __all__ = ["LossConfig", "make_train_step", "make_eval_step", "make_inference_fn"]
@@ -63,10 +85,19 @@ class LossConfig:
     use_perceptual: bool = True
 
 
+def _over_image(per_tile: torch.Tensor, mean: bool) -> torch.Tensor:
+    """A per-sample sum (``mean=False``) or mean over a height tile's pixels
+    as the whole image's under spatial sharding; as it is otherwise."""
+    if not spatial():
+        return per_tile
+    total = sum_over_model(per_tile)
+    return total / model_size() if mean else total
+
+
 def _per_sample_recon(pred: torch.Tensor, target: torch.Tensor, kind: str) -> torch.Tensor:
     diff = pred.float() - target.float()
     per = diff.abs() if kind != "l2" else diff.square()
-    return per.mean(dim=tuple(range(1, per.dim())))
+    return _over_image(per.mean(dim=tuple(range(1, per.dim()))), mean=True)
 
 
 def _per_sample_kl(z_mu: torch.Tensor, z_sigma: torch.Tensor, mode: str) -> torch.Tensor:
@@ -76,7 +107,8 @@ def _per_sample_kl(z_mu: torch.Tensor, z_sigma: torch.Tensor, mode: str) -> torc
     if mode == "corrected":
         second = torch.log(second.square() + 1e-8)
     dims = tuple(range(1, second.dim()))
-    return -0.5 * torch.sum(1.0 + second - z_mu.square() - torch.exp(second), dim=dims)
+    return _over_image(-0.5 * torch.sum(1.0 + second - z_mu.square() - torch.exp(second),
+                                        dim=dims), mean=False)
 
 
 def _per_sample_lsgan(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -88,9 +120,10 @@ def _discriminator_loss(disc, recon: torch.Tensor, images: torch.Tensor,
                         mask: torch.Tensor, count: torch.Tensor | None = None) -> torch.Tensor:
     """0.5 * (fake -> 0 + real -> 1) on the detached reconstruction, masked
     means over the padded batch (reference ``train_vae.py:449-455``);
-    ``count`` as in ``_generator_losses``."""
-    logits_fake = disc(recon.detach())[-1]
-    logits_real = disc(images)[-1]
+    ``count`` as in ``_generator_losses``. Under spatial sharding on the
+    model group's gathered full-height images."""
+    logits_fake = disc(gather_height(recon.detach()))[-1]
+    logits_real = disc(gather_height(images))[-1]
     fake = masked_mean(_per_sample_lsgan(logits_fake, 0.0), mask, count)
     real = masked_mean(_per_sample_lsgan(logits_real, 1.0), mask, count)
     return 0.5 * (fake + real)
@@ -115,6 +148,8 @@ def _generator_losses(
     ``count`` is the global number of valid rows (``global_count``; this
     batch's when None)."""
     recon, z_mu, z_sigma = model(images, eps, generator)
+    # the loss networks' input: under spatial sharding the gathered full height
+    recon_full, images_full = gather_height(recon), gather_height(images)
 
     recons_loss = masked_mean(_per_sample_recon(recon, images, lcfg.recon_loss), mask, count)
     kl_loss = masked_mean(_per_sample_kl(z_mu, z_sigma, lcfg.kl_mode), mask, count)
@@ -128,13 +163,13 @@ def _generator_losses(
                 f"rank-{recon.dim()} reconstruction; set perceptual_weight=0 / "
                 f"use_perceptual=False for spatial_dims=1")
         lpips_fn = lpips_distance_per_sample_3d if recon.dim() == 5 else lpips_distance_per_sample
-        p_loss = masked_mean(lpips_fn(lpips_params, recon, images, model.compute_dtype), mask,
-                             count)
+        p_loss = masked_mean(lpips_fn(lpips_params, recon_full, images_full, model.compute_dtype),
+                             mask, count)
     else:
         p_loss = zero
 
     if disc is not None:
-        adv_gen = masked_mean(_per_sample_lsgan(disc(recon)[-1], 1.0), mask, count)
+        adv_gen = masked_mean(_per_sample_lsgan(disc(recon_full)[-1], 1.0), mask, count)
     else:
         adv_gen = zero
 
@@ -142,8 +177,10 @@ def _generator_losses(
     if lcfg.ar_vae_enabled:
         if attributes is None:
             raise ValueError("the AR-VAE term needs the batch's attributes")
+        # under spatial sharding the tiles' pooled latents, summed into the images'
+        pooled = _over_image(z_mu.mean(dim=(1, 2)), mean=True) if spatial() else z_mu
         ar_loss, ar_per_attr, _ = compute_ar_vae_loss(
-            z_mu, attributes, lcfg.ar_spec, generator=generator, pair_indices=pair_indices,
+            pooled, attributes, lcfg.ar_spec, generator=generator, pair_indices=pair_indices,
             sample_mask=mask)
 
     total = _total(lcfg, recons_loss, kl_loss, p_loss, adv_gen, ar_loss)
@@ -172,20 +209,26 @@ def _global_terms(lcfg: LossConfig, total: torch.Tensor, aux: dict, disc_loss: t
     shares summed (one all-reduce), the AR-VAE terms (already the gathered
     batch's) as they are, and the total recomposed from them. The debug
     means are over the rows of every rank (the ranks' batches are equally
-    padded). Without a group: the terms as computed, ``total`` itself."""
+    padded; under model parallelism first over the model group's equal
+    shards). Without a group: the terms as computed, ``total`` itself."""
     ar = {"ar_loss": aux["ar_loss"],
           **{f"ar_loss_{name}": v for name, v in aux["ar_per_attr"].items()}}
     terms = allreduce_metrics({
         "recon_loss": aux["recon_loss"], "kl_loss": aux["kl_loss"],
         "perceptual_loss": aux["perceptual_loss"], "adv_gen_loss": aux["adv_gen_loss"],
         "adv_disc_loss": disc_loss,
-        "z_mu_mean": aux["z_mu"].mean() / world_size(),
-        "z_sigma_mean": aux["z_sigma"].mean() / world_size(), **ar,
+        "z_mu_mean": _model_mean(aux["z_mu"].detach().mean()) / data_size(),
+        "z_sigma_mean": _model_mean(aux["z_sigma"].detach().mean()) / data_size(), **ar,
     }, replicated=ar)
     terms["loss_total"] = (_total(lcfg, terms["recon_loss"], terms["kl_loss"],
                                   terms["perceptual_loss"], terms["adv_gen_loss"],
                                   terms["ar_loss"]) if grouped() else total)
     return terms
+
+
+def _model_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the model group's equal shards of a shard's mean."""
+    return reduce_model_(x.clone()) / model_size() if model_size() > 1 else x
 
 
 def make_train_step(model: AutoencoderKL, disc, lcfg: LossConfig, *, adv_active: bool) -> Callable:

@@ -45,6 +45,7 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
     groupnorm_silu,
     groupnorm_silu_bwd_plain,
     groupnorm_silu_plain,
+    groupnorm_silu_split,
     launch_counts,
     reset_launch_counts,
 )
@@ -979,3 +980,74 @@ def test_vmap_rules_launch_the_kernels(cuda, case):
         want_g = torch.stack([gr[j] for _, gr in loop])
         torch.testing.assert_close(got_g, want_g, rtol=1e-4,
                                    atol=1e-4 * float(want_g.abs().max()))
+
+
+# the flagship's per-shard GroupNorm+SiLU shapes under spatial 2 at 256² b8 (level 0 down to
+# the mid blocks), a ragged shape, and an unaligned one (the one-channel-a-thread route)
+SPLIT_SHAPES = [(8, 128, 256, 32), (8, 64, 128, 64), (8, 32, 64, 128), (8, 16, 32, 128),
+                (3, 5, 7, 48), (2, 8, 6, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_split_entries_match_plain(cuda, dtype):
+    """The four split entries, each against its plain version on the same
+    inputs; every launch counted once, and the reductions bit-identical run to
+    run (two-stage, no atomics). Sums over n terms of size ~1: rtol 1e-4,
+    atol 1e-4 * sqrt(n)."""
+    gn = importlib.import_module("pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for b, h, w, c in SPLIT_SHAPES:
+        groups = 16 if c % 16 == 0 else 4
+        x = torch.randn(b, h, w, c, device=cuda, generator=gen).to(dtype)
+        g = torch.randn(b, h, w, c, device=cuda, generator=gen).to(dtype)
+        scale = 1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)
+        bias = 0.1 * torch.randn(c, device=cuda, generator=gen)
+        xf, gf = x.float(), g.float()
+        count = 2 * h * w * (c // groups)  # as if the image had a second tile
+        reset_launch_counts()
+        stats = gn.split_stats(x, groups)
+        want = gn.groupnorm_silu_split_stats_plain(xf, groups)
+        n = h * w * c // groups
+        torch.testing.assert_close(stats, want, rtol=1e-4, atol=1e-4 * n ** 0.5)
+        assert torch.equal(stats, gn.split_stats(x, groups))
+        mean, inv = gn.split_moments(2 * want, count, 1e-6)
+        y = gn.split_apply(x, scale, bias, mean, inv, groups)
+        y_want = gn.groupnorm_silu_split_apply_plain(xf, scale, bias, mean, inv, groups)
+        bar = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+        torch.testing.assert_close(y.float(), y_want, **bar)
+        r = gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups)
+        r_want = gn.groupnorm_silu_split_bwd_reduce_plain(xf, gf, scale, bias, mean, inv, groups)
+        torch.testing.assert_close(r, r_want, rtol=1e-4, atol=1e-4 * (h * w) ** 0.5)
+        assert torch.equal(r, gn.split_bwd_reduce(x, g, scale, bias, mean, inv, groups))
+        dx = gn.split_bwd_dx(x, g, scale, bias, mean, inv, 2 * r_want, groups, count)
+        dx_want = gn.groupnorm_silu_split_bwd_dx_plain(xf, gf, scale, bias, mean, inv,
+                                                       2 * r_want, groups, count)
+        torch.testing.assert_close(dx.float(), dx_want, **bar)
+        assert gn.groupnorm_silu.split_launches == {
+            "groupnorm_silu_split_stats": 2, "groupnorm_silu_split_apply": 1,
+            "groupnorm_silu_split_bwd_reduce": 2, "groupnorm_silu_split_bwd_dx": 1}, (b, h, w, c)
+        assert not any(launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_split_of_one_shard_matches_the_fused_kernels(cuda, dtype):
+    """With one shard (the all-reduce the identity) the split form computes
+    what the fused kernels compute: outputs and all three gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for b, h, w, c in SPLIT_SHAPES[:4]:
+        x = torch.randn(b, h, w, c, device=cuda, generator=gen).to(dtype).requires_grad_()
+        scale = (1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        g = torch.randn(b, h, w, c, device=cuda, generator=gen).to(dtype)
+        y = groupnorm_silu_split(x, scale, bias, 16, 1e-6, lambda t: t, h * w)
+        got = torch.autograd.grad(y, (x, scale, bias), g)
+        y_fused = groupnorm_silu(x, scale, bias, 16, 1e-6)
+        want = torch.autograd.grad(y_fused, (x, scale, bias), g)
+        bar = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+        torch.testing.assert_close(y.float(), y_fused.float(), **bar)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **bar)
+        n = (b * h * w) ** 0.5
+        for a, e in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4 * n)

@@ -86,7 +86,7 @@ def worker(mode: str, root: str) -> None:
         for name in ("data3", "spatial2"):
             try:
                 train_main(_train_args(root / f"{name}.json", 4))
-            except (ValueError, NotImplementedError) as exc:
+            except ValueError as exc:
                 refused[name] = [type(exc).__name__, str(exc)]
         (root / f"refused_rank{rank}.json").write_text(json.dumps(refused))
         train_main(_train_args(root / "ddp.json", 4))
@@ -118,7 +118,7 @@ def vae_runs(tmp_path_factory):
         img[:4] = 0.0
         write_tif(str(data / f"dente_{i:03d}.tif"), img)
     _vae_config(root, "data3", parallelism={"data": 3})
-    _vae_config(root, "spatial2", parallelism={"spatial": 2})
+    _vae_config(root, "spatial2", parallelism={"spatial": 2, "tensor": 2})
     _vae_config(root, "ddp", parallelism={"data": 2})
     _torchrun("train_vae", root)
     # one process, the global batch, twice the LR
@@ -178,17 +178,18 @@ def test_parallelism_block_is_checked_on_every_rank(vae_runs):
     for rank in (0, 1):
         refused = json.loads((vae_runs / f"refused_rank{rank}.json").read_text())
         assert refused["data3"][0] == "ValueError" and "data=3" in refused["data3"][1]
-        assert refused["spatial2"][0] == "NotImplementedError"
-        assert "A.13" in refused["spatial2"][1]
+        assert refused["spatial2"][0] == "ValueError"
+        assert "mutually exclusive" in refused["spatial2"][1]
     assert not (vae_runs / "runs" / "data3").exists()
     assert not (vae_runs / "runs" / "spatial2").exists()
 
 
-@pytest.mark.parametrize("block,error", [({"data": 2}, ValueError),
-                                         ({"tensor": 2}, NotImplementedError),
-                                         ({"spatial": 4, "data": 1}, NotImplementedError)])
+@pytest.mark.parametrize("block,error", [({"data": 2}, "data=2"),
+                                         ({"tensor": 2}, "tensor=2 does not divide 1"),
+                                         ({"spatial": 4, "data": 1},
+                                          "tensor=4 does not divide 1")])
 def test_parallelism_block_without_a_group(block, error):
-    with pytest.raises(error, match="A.13" if error is NotImplementedError else "data=2"):
+    with pytest.raises(ValueError, match=error):
         check_parallelism(block, 1)
 
 

@@ -175,7 +175,9 @@ def test_resume_without_checkpoint_raises(workspace, tmp_path):
 
 
 # AR-VAE is ported: switched on without an attribute mapping it is refused
-# (ValueError) as early as the features that are not ported yet
+# (ValueError) before anything is written, as is a parallelism block that the
+# process group cannot form (model parallelism is ported: a spatial axis of 2
+# needs 2 ranks)
 _NO_MAPPING = "attribute_latent_mapping must be provided"
 
 
@@ -184,7 +186,8 @@ _NO_MAPPING = "attribute_latent_mapping must be provided"
      ValueError, "spatial_dims"),
     (lambda c: c["autoencoder_train"].update(ar_vae_enabled=True), ValueError, _NO_MAPPING),
     (lambda c: c.update(regularized_attributes={"enabled": True}), ValueError, _NO_MAPPING),
-    (lambda c: c.update(parallelism={"spatial": 2}), NotImplementedError, "parallelism"),
+    (lambda c: c.update(parallelism={"spatial": 2}), ValueError,
+     "spatial/tensor=2 does not divide 1"),
 ], ids=["adv", "ar_train", "ar_block", "parallelism"])
 def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     root, _ = workspace
