@@ -248,6 +248,20 @@ result line):
    byte; device and event ms of the VGG16 b1 forward (cuDNN, kernel), wall
    seconds a pair and the host's share (each convolution shape's f32
    forward is timed in the timings child of phase 7, path ``vgg16``);
+6u. ``profile_port_path``: the flagship trainer at b128 behind the live
+   profiler endpoint (``profile_port_path``): the seven rows' kernels against
+   their plain versions at the b128 step's largest shapes in bf16
+   (GroupNorm+SiLU 128x256²x32, flash [128, 1, 1024, 128], the convolution
+   128x256²x32 -> 32, forward and backward); ``train_vae --batch-size 128
+   --conv-kernel --profile-port P --max-epochs 2`` as a child process on a
+   copy of ``config/vae_dente_no_adv.json`` (data and run directories
+   redirected) over 430 seeded 300² TIFs (4 steps an epoch, the last padded
+   and masked); two captures through ``utils/profiling.py:capture`` (one
+   step, then about two), each trace holding the port's kernels by name in
+   whole-step counts and no 3x3 convolution on cuDNN; the run's launch
+   counts, finite losses and checkpoint; then, in that child after the run
+   (``chip_smoke.py --profile-port-child OUT ARGS``), the b128 bf16 step's
+   event / device ms, idle share, imgs/s and peak GB;
 7. timing after warm-up, L2 flushed before each call: device time
    (torch.profiler, the sum of the call's kernels) and CUDA-event time (which
    also holds waits for the host) of each kernel, its plain version and the
@@ -368,6 +382,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1119,12 +1134,13 @@ def conv_inputs(torch, shape, gen, balanced: bool = False):
 
 
 def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, seed: int = 0,
-                  ragged: bool = True, balanced: bool = False,
+                  ragged: bool = True, balanced: bool = False, dtypes: tuple = (),
                   phase: str = "kernel_checks") -> dict[str, dict]:
     """Every kernel against its plain version (phase 3): GroupNorm+SiLU at
     ``gn_cases`` [(shape, groups, dtypes)], flash attention at
     ``flash_shapes``, the convolution at ``conv_shapes`` and, with
-    ``ragged``, the two ragged ones; inputs drawn in that order from a
+    ``ragged``, the two ragged ones, flash and convolution in ``dtypes``
+    (f32 and bf16 when empty); inputs drawn in that order from a
     generator seeded with ``seed`` (``balanced``: see ``conv_inputs``);
     returns the largest error per kernel and type (and, under
     ``"bfloat16_rel"``, flash attention's largest rms error over the
@@ -1149,6 +1165,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     from pti_ldm_vae_tpu_torch.ops.kernels.groupnorm_silu import _plain_forward, gn_plan
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
     errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_rel": 0.0} for name in KERNEL_NAMES}
     routes: dict[str, dict] = {"groupnorm_silu": {}, "flash_attention": {},
                                "flash_attention_bwd": {}, "conv3x3": {}, "conv3x3_wgrad": {}}
@@ -1207,7 +1224,7 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
 
     for shape in flash_shapes:
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             qd, kd, vd, gd = q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
             # a head dim the route is not built for runs padded to the next one it takes
@@ -1235,7 +1252,8 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
     for shape in [s for s, _ in conv_shapes] + ragged_conv:
         x, wmat, g = conv_inputs(torch, shape, gen, balanced)
         sum_tol = dict(rtol=1e-4, atol=1e-5 * (shape[0] * shape[1] * shape[2]) ** 0.5)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype in dtypes:
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
             key, tag = dtype_key(dtype), f"{shape} {dtype_key(dtype)}"
             xd, gd = x.to(dtype), g.to(dtype)
             wd = wmat.to(dtype).float()  # the matrix as the kernels see it
@@ -2928,10 +2946,11 @@ def time_analysis(torch, np, ckpt: Path, flush, folders: tuple[Path, Path]) -> N
 def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool = False,
                     adv_active: bool = False, ar_spec=None, adv_weight: float = 3.0,
                     knobs: dict | None = None, lpips_split: bool = True,
-                    iters: int = 6, warmup: int = 3, trace_iters: int = 3) -> dict:
-    """Event ms, device ms, peak GB and the device ms by kind of one b8 train
-    step at 256²; the LPIPS share is the device ms a step without the
-    perceptual term saves (``lpips_split``). ``conv_kernel``: the 3x3
+                    iters: int = 6, warmup: int = 3, trace_iters: int = 3,
+                    batch: int = BATCH) -> dict:
+    """Event ms, device ms, peak GB and the device ms by kind of one train
+    step at 256², b8 unless ``batch`` says otherwise; the LPIPS share is the
+    device ms a step without the perceptual term saves (``lpips_split``). ``conv_kernel``: the 3x3
     convolutions through the convolution kernels; ``adv_active``: the
     adversarial step (PatchGAN at ``adv_weight``); ``ar_spec``: with the
     AR-VAE term (gamma 0.5) on random attributes; ``knobs``: the model's
@@ -2958,10 +2977,10 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
             device="cuda", memory_format=torch.channels_last)
     state = create_train_state(model, lr=2.5e-5, model_d=disc)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(BATCH, 256, 256, 1, device="cuda", generator=gen)
-    mask = torch.ones(BATCH, device="cuda")
+    x = torch.randn(batch, 256, 256, 1, device="cuda", generator=gen)
+    mask = torch.ones(batch, device="cuda")
     attrs = None if ar_spec is None else {
-        name: torch.rand(BATCH, device="cuda", generator=gen) for name in ar_spec.names}
+        name: torch.rand(batch, device="cuda", generator=gen) for name in ar_spec.names}
     lp = init_lpips_params(0, "cuda")
     ar = dict(ar_vae_enabled=ar_spec is not None, ar_spec=ar_spec, ar_gamma=0.5)
     out, peak = {}, 0.0
@@ -2983,8 +3002,9 @@ def time_train_step(torch, ae_def: dict, flush, exact: bool, conv_kernel: bool =
     return {"dtype": dtype_key(dtype), "conv_kernel": conv_kernel, "adv_active": adv_active,
             "ar_vae": ar_spec is not None, "channels": list(ae_def["channels"]),
             **({"knobs": knobs} if knobs else {}),
+            **({"batch": batch} if batch != BATCH else {}),
             "event_ms": full["event_ms"], "device_ms": full["device_ms"],
-            "imgs_per_s": BATCH * 1e3 / full["event_ms"],
+            "imgs_per_s": batch * 1e3 / full["event_ms"],
             "device_idle_share": 1.0 - full["device_ms"] / full["event_ms"],
             **extra, "peak_memory_gb": peak, "device_ms_by_kind": kinds}
 
@@ -5398,6 +5418,233 @@ def image_comparison_path(torch, np, kernels_mod, work: Path) -> dict:
             "host_share": {k: 1.0 - r["features_s"] / r["wall_s"] for k, r in runs.items()}}
 
 
+PROFILE_BATCH = 128  # the trainer's throughput batch (JAX tools/smoke_trainer_b128.py)
+PROFILE_IMAGES = 430  # 387 train (4 steps of b128, the last with 3 real rows), 43 validation
+PROFILE_EPOCHS = 2
+PROFILE_STEPS_PER_EPOCH = 4
+PROFILE_TIMEOUT_S = 300  # the child run, first line to exit
+PROFILE_CAPTURE_TIMEOUT_S = 120  # one capture: window start, length and export
+# the kernels line's names -> the CUDA kernels' names in a trace (bf16, --conv-kernel)
+PROFILE_TRACE_KERNELS = {"groupnorm_silu": "groupnorm_silu_fwd_kernel",
+                         "groupnorm_silu_bwd": "groupnorm_silu_bwd_kernel",
+                         "flash_attention": "flash_fwd_wgmma_kernel",
+                         "flash_attention_bwd": "flash_bwd_wgmma_kernel",
+                         "conv3x3": "conv3x3_wgmma_kernel",
+                         "conv3x3_wgrad": "conv3x3_wgrad_wgmma_kernel"}
+
+
+def profile_port_child(out_path: str, args: list[str]) -> int:
+    """``chip_smoke.py --profile-port-child OUT ARGS...``: the training entry
+    point as ``python -m pti_ldm_vae_tpu_torch.cli.train_vae ARGS`` runs it
+    (``runpy`` as ``-m`` does), with every launch count set to 0 just
+    before, and written to ``OUT`` just after with the run's peak GB; then,
+    in this process (traces in the script's own would add to the load past
+    which torch.profiler loses device events), the flagship's bf16 generator
+    step with the convolution kernels at b128 (``time_train_step``: CUDA
+    events over 3 calls, a device-only trace of 2, peak GB) into ``OUT`` too."""
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from pti_ldm_vae_tpu_torch.config import load_config
+    from pti_ldm_vae_tpu_torch.ops import kernels as kernels_mod
+
+    kernels_mod.reset_launch_counts()
+    sys.argv = ["train_vae", *args]
+    runpy.run_module("pti_ldm_vae_tpu_torch.cli.train_vae", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    out = {"launches": kernels_mod.launch_counts(), "conv_shares": conv_shares(kernels_mod),
+           "wide_launches": wide_launches(kernels_mod),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    Path(out_path).write_text(json.dumps(out))
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(32 * 2**20, device="cuda", dtype=torch.float32)
+    out["train_step_b128"] = time_train_step(
+        torch, load_config(CONFIG)["autoencoder_def"], flush, False, conv_kernel=True,
+        lpips_split=False, iters=3, warmup=1, trace_iters=2, batch=PROFILE_BATCH)
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def profile_window(path: Path) -> dict:
+    """What one captured Chrome trace holds: its steps (``ProfilerStep#``
+    spans), the device's kernel events, each path kernel's count and device ms by its CUDA
+    name, device ms (the kernels' summed durations), the window's span from
+    the first step's start to the last device event's end, and the idle
+    share of that span (1 - the union of kernel intervals over it). Fails
+    when the trace holds no device event, when a path kernel is missing, or
+    when the counts are not those of whole train steps and forward passes
+    with every 3x3 convolution on the kernels (a 3x3 convolution on cuDNN
+    would leave the convolution kernels' count short)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    # the host's step spans (Kineto also draws each on the device's timeline)
+    steps = sorted((e for e in events if str(e.get("name", "")).startswith("ProfilerStep#")
+                    and e.get("cat") == "user_annotation"), key=lambda e: e["ts"])
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not steps or not kernels:
+        raise RuntimeError(f"{path.name}: {len(steps)} steps and {len(kernels)} device kernel "
+                           "events: a window without device events")
+    named = {name: sum(cuda in k["name"] for k in kernels)
+             for name, cuda in PROFILE_TRACE_KERNELS.items()}
+    n = len(steps)
+    passes = named["groupnorm_silu"] // GN_PER_RECONSTRUCT  # train steps and forward passes
+    want = {"groupnorm_silu": GN_PER_RECONSTRUCT * passes,
+            "groupnorm_silu_bwd": GN_PER_RECONSTRUCT * n,
+            "flash_attention": FLASH_PER_RECONSTRUCT * passes,
+            "flash_attention_bwd": FLASH_PER_RECONSTRUCT * n,
+            "conv3x3": CONV_PER_RECONSTRUCT * passes + CONV_DGRAD_PER_STEP * n,
+            "conv3x3_wgrad": CONV_PER_RECONSTRUCT * n}
+    if named != want or passes < n:
+        raise RuntimeError(f"{path.name}: {n} steps, kernels {named}, "
+                           f"expected {want} (cuDNN 3x3 convolutions or a missing kernel)")
+    start = steps[0]["ts"]
+    intervals = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+    end = max(max(e for _, e in intervals), steps[-1]["ts"] + steps[-1]["dur"])
+    busy, cursor = 0.0, start
+    for a, b in intervals:  # the union of the kernels' intervals inside the span
+        a, b = max(a, cursor), min(b, end)
+        if b > a:
+            busy += b - a
+            cursor = b
+    span_ms, device_ms = (end - start) / 1e3, sum(k["dur"] for k in kernels) / 1e3
+    named_ms = {name: sum(k["dur"] for k in kernels if cuda in k["name"]) / 1e3
+                for name, cuda in PROFILE_TRACE_KERNELS.items()}
+    return {"file": path.name, "bytes": path.stat().st_size, "steps": n,
+            "forward_only_passes": passes - n, "kernel_events": len(kernels), "named": named,
+            "named_device_ms": named_ms,
+            "span_ms": span_ms, "device_ms": device_ms, "device_ms_per_pass": device_ms / passes,
+            "step_span_ms": [e["dur"] / 1e3 for e in steps],
+            "device_idle_share": 1.0 - busy / 1e3 / span_ms,
+            "imgs_per_s": PROFILE_BATCH * n * 1e3 / span_ms}
+
+
+def profile_port_path(torch, np, kernels_mod, work: Path) -> dict:
+    """Phase ``profile_port_path``: the flagship trainer at b128 with the live
+    profiler endpoint. (a) The seven rows' kernels against their plain
+    versions at the largest b128 shapes the step gives them, in bf16, the
+    step's type: GroupNorm+SiLU at 128x256²x32 (16 groups) forward and
+    backward, flash at [128, 1, 1024, 128] forward and backward, the 3x3
+    convolution 128x256²x32 -> 32 forward, input and filter gradient (the b8
+    bars). (b) ``train_vae`` as a child process (``profile_port_child``) on a
+    copy of ``config/vae_dente_no_adv.json`` with only ``data_base_dir`` and
+    ``run_dir`` redirected, ``--batch-size 128 --conv-kernel --profile-port
+    P --max-epochs 2`` in bf16 on 430 seeded 300² TIFs (4 steps of b128 an
+    epoch, the last padded and masked, and one validation step); once its
+    server is up, two captures through ``utils/profiling.py:capture``: one
+    of 1 ms (one step: the first one served, step 1), then, once epoch 0 has
+    ended, one of 2.5x that step's device ms (about two steps of epoch 1).
+    Each trace must hold device events of every path kernel by its CUDA name
+    and counts of whole steps with no 3x3 convolution on cuDNN
+    (``profile_window``); the run's launch counts, its
+    losses and its checkpoint as the training path's. (c) The b128 bf16
+    generator step with the convolution kernels, timed in that child after
+    the run, CUDA events and a device-only trace: event / device ms, idle
+    share, imgs/s, peak GB."""
+    from pti_ldm_vae_tpu_torch.utils.profiling import capture
+
+    t_phase = time.perf_counter()
+    gn_shape = (PROFILE_BATCH, IMAGE, IMAGE, 32)
+    errs = check_kernels(torch, [(gn_shape, 16, (torch.bfloat16,))],
+                         ((PROFILE_BATCH, 1, 1024, 128),), [((*gn_shape, 32), 0)], kernels_mod,
+                         seed=3, ragged=False, dtypes=(torch.bfloat16,),
+                         phase="kernel_checks_b128")
+    torch.cuda.empty_cache()
+
+    data = work / "data"
+    write_inputs(np, data / "dente", PROFILE_IMAGES)
+    cfg = json.loads(CONFIG.read_text())
+    cfg["data_base_dir"], cfg["run_dir"] = str(data), str(work / "run")
+    (work / "cfg.json").write_text(json.dumps(cfg))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    args = ["-c", str(work / "cfg.json"), "--batch-size", str(PROFILE_BATCH), "--conv-kernel",
+            "--profile-port", str(port), "--max-epochs", str(PROFILE_EPOCHS), "--no-wandb",
+            "--num-workers", str(LOADER_WORKERS), "--seed", str(TRAIN_SEED)]
+    log_lines: list[str] = []
+    t_child = time.perf_counter()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--profile-port-child",
+                              str(work / "child.json"), *args], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             env={**os.environ, "PYTHONUNBUFFERED": "1"})  # lines as printed
+    reader = threading.Thread(target=lambda: log_lines.extend(child.stdout), daemon=True)
+    reader.start()
+    windows = []
+    try:
+        deadline = time.perf_counter() + PROFILE_TIMEOUT_S
+        while not any(line.startswith(f"[INFO] profiler server on 127.0.0.1:{port}")
+                      for line in log_lines):
+            if child.poll() is not None or time.perf_counter() > deadline:
+                raise RuntimeError(f"train_vae's profiler server did not come up (rc "
+                                   f"{child.poll()}): {''.join(log_lines[-20:])}")
+            time.sleep(0.05)
+        t_up = time.perf_counter() - t_child
+        duration_ms = 1.0
+        for i in range(2):
+            if i:  # the second in epoch 1's steps, clear of epoch 0's validation and checkpoint
+                while not any(line.startswith("Epoch 0 val_loss") for line in log_lines):
+                    if child.poll() is not None or time.perf_counter() > deadline:
+                        raise RuntimeError(f"train_vae b128 did not end epoch 0 (rc "
+                                           f"{child.poll()}): {''.join(log_lines[-20:])}")
+                    time.sleep(0.01)
+            t0 = time.perf_counter()
+            path = capture(port, duration_ms, work / "traces", timeout_s=PROFILE_CAPTURE_TIMEOUT_S)
+            window = profile_window(path)
+            windows.append({"duration_ms": duration_ms, "wall_s": time.perf_counter() - t0,
+                            **window})
+            # about two steps: the first step's span holds its one-time costs, its device ms
+            # not; a step recorded with its host ops takes up to ~1.8x its device ms
+            duration_ms = 2.5 * window["device_ms_per_pass"]
+        if windows[0]["steps"] != 1 or windows[1]["steps"] < 2:
+            raise RuntimeError(f"windows of {[w['steps'] for w in windows]} steps")
+        rc = child.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        reader.join(timeout=30)
+        (work / "child.log").write_text("".join(log_lines))
+    wall = time.perf_counter() - t_child
+    if rc != 0:
+        raise RuntimeError(f"train_vae b128 exited {rc}: {''.join(log_lines[-30:])}")
+    child_out = json.loads((work / "child.json").read_text())
+    train_steps = PROFILE_EPOCHS * PROFILE_STEPS_PER_EPOCH
+    forward_only = PROFILE_EPOCHS * (EVAL_STEPS_PER_EPOCH + 1)  # eval steps, triplet panels
+    want = expected_launches(train_steps, forward_only, conv_kernel=True)
+    want_shares = expected_conv_shares(train_steps, forward_only)
+    if child_out["launches"] != want or child_out["conv_shares"] != want_shares or any(
+            child_out["wide_launches"].values()):
+        raise RuntimeError(f"train_vae b128 launches {child_out}, expected {want}, {want_shares}")
+    rows = [json.loads(line) for line in (work / "run" / "metrics.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss_total" in r]
+    val_rows = [r for r in rows if "val/loss_total" in r]
+    bad = [r for r in train_rows + val_rows
+           if not all(np.isfinite(v) for k, v in r.items() if k.startswith(("train/", "val/")))]
+    split = json.loads((work / "run" / "splits" / "vae_split.json").read_text())
+    weights = work / "run" / "trained_weights"
+    if (len(train_rows), len(val_rows)) != (train_steps, PROFILE_EPOCHS) or bad or (
+            len(split["train_files"]), len(split["val_files"])) != (387, 43) or not (
+            weights / "autoencoder_last.pth").is_file():
+        raise RuntimeError(f"train_vae b128: {len(train_rows)} train rows, {len(val_rows)} val "
+                           f"rows, non-finite {bad[:2]}, split {len(split['train_files'])} / "
+                           f"{len(split['val_files'])}, "
+                           f"{sorted(p.name for p in weights.iterdir())}")
+    step = child_out["train_step_b128"]
+    return {"errs": errs, "launches": child_out["launches"],
+            "conv_shares": child_out["conv_shares"], "card": card_line(),
+            "batch": PROFILE_BATCH, "images": PROFILE_IMAGES,
+            "epochs": PROFILE_EPOCHS, "steps_per_epoch": PROFILE_STEPS_PER_EPOCH, "port": port,
+            "server_up_s": t_up, "child_wall_s": wall, "child_peak_gb": child_out["peak_gb"],
+            "windows": windows, "train_step_b128": step,
+            "first_train": {k: v for k, v in train_rows[0].items() if k.startswith("train/")},
+            "last_train": {k: v for k, v in train_rows[-1].items() if k.startswith("train/")},
+            "val_loss_total": [r["val/loss_total"] for r in val_rows],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -5771,6 +6018,12 @@ def main() -> int:
     errs = {name: {k: max(v, comparison["errs"][name][k]) for k, v in by_type.items()}
             for name, by_type in errs.items()}
     torch.cuda.empty_cache()
+    # 6u. the flagship trainer at b128 behind --profile-port: the kernels at its b128 shapes,
+    # two captures through the endpoint, the b128 step's numbers
+    profile_port = profile_port_path(torch, np, kernels_mod, WORK / "profile_port")
+    emit("profile_port_path", **{k: v for k, v in profile_port.items() if k != "errs"})
+    errs = {name: {k: max(v, profile_port["errs"][name][k]) for k, v in by_type.items()}
+            for name, by_type in errs.items()}
 
     # 7. timing
     from pti_ldm_vae_tpu_torch.utils.cli_common import load_config_and_model
@@ -6038,7 +6291,9 @@ def main() -> int:
                                  **{key: n[name] for key, n in dims["launches"].items()},
                                  **{key: n[name] for key, n in pti_vmap.items()},
                                  "image_comparison_conv_kernel":
-                                     comparison["launches"] if name == "conv3x3" else 0},
+                                     comparison["launches"] if name == "conv3x3" else 0,
+                                 "train_vae_b128_profile_port_conv_kernel":
+                                     profile_port["launches"][name]},
             "max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
             **({"rel_rms_err": errs[name]["bfloat16_rel"]}
                if name in ("flash_attention", "flash_attention_bwd") else {}),
@@ -6132,4 +6387,6 @@ if __name__ == "__main__":
         sys.exit(mp_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--dims-timings"]:
         sys.exit(dims_timings_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--profile-port-child"]:
+        sys.exit(profile_port_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

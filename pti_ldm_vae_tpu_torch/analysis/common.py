@@ -11,7 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.io import read_image
+from ..data.io import TifReader, read_image
 from ..data.transforms import preprocess_image_np
 from ..utils.cli_common import load_config_and_model, resolve_device
 from .latent_cache import LatentCache
@@ -28,7 +28,12 @@ __all__ = [
     "load_and_encode_group_with_cache",
     "save_visualization_and_legend",
     "compute_and_save_statistics",
+    "TifReader",
 ]
+
+# the reference's analyze_ar_channels imports TifReader from analysis.common,
+# where it was never defined; exported here, as the JAX package does, so that
+# the import works
 
 
 def set_seed(seed: int) -> None:

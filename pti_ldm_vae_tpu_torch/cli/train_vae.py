@@ -11,6 +11,11 @@ Data parallel, one process per card (NCCL; gloo with ``--device cpu``):
 
 ``batch_size`` is per process, so the global batch is N x ``batch_size``,
 and the LR is scaled by N (the reference's rule).
+
+Live profiling of a running job (``--profile-port 9012``; from another shell
+of the same machine)::
+
+    python -m pti_ldm_vae_tpu_torch.utils.profiling --port 9012 --duration-ms 2000 --logdir tb/
 """
 
 from __future__ import annotations
@@ -70,8 +75,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "hand-written convolution kernels (forward, input and filter "
                              "gradient) instead of cuDNN")
     parser.add_argument("--profile-port", type=int, default=None,
-                        help="Profiler server port of the JAX CLI; raises here: torch has "
-                             "no live profiler endpoint (use --trace-at-step)")
+                        help="Serve live profiler captures on 127.0.0.1:PORT (under torchrun "
+                             "PORT + LOCAL_RANK, one port per process): capture a window of "
+                             "a running job with python -m pti_ldm_vae_tpu_torch.utils.profiling "
+                             "--port PORT --duration-ms D --logdir DIR (a remote job: through "
+                             "an ssh tunnel)")
     parser.add_argument("--trace-at-step", type=int, default=None,
                         help="Capture one torch.profiler trace of this global step into "
                              "<run_dir>/traces (TensorBoard-readable)")

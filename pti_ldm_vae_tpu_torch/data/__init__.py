@@ -7,7 +7,7 @@ from .factory import (
     create_vae_dataloaders,
     create_vae_inference_dataloader,
 )
-from .io import read_image, write_png, write_tif
+from .io import TifReader, read_image, write_png, write_tif
 from .loader import ShardedDataLoader, shard_indices
 from .transforms import (
     local_normalize_by_mask,
@@ -20,6 +20,7 @@ from .transforms import (
 __all__ = [
     "RegressionLoader",
     "ShardedDataLoader",
+    "TifReader",
     "create_regression_dataloaders",
     "create_regression_eval_dataloader",
     "create_regression_inference_dataloader",

@@ -22,7 +22,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_image", "write_tif", "write_png"]
+__all__ = ["TifReader", "read_image", "write_tif", "write_png"]
 
 # TIFF tags
 _WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
@@ -182,6 +182,13 @@ def read_image(path: str) -> np.ndarray:
     except _Unsupported:
         img = _read_with_package(path)
     return np.asarray(img).astype(np.float32)
+
+
+class TifReader:
+    """Callable reader, API parity with reference ``transforms.py:64-77``."""
+
+    def __call__(self, path: str) -> np.ndarray:
+        return read_image(path)
 
 
 def write_tif(path: str, array: np.ndarray) -> None:

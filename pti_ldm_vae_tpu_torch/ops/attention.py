@@ -12,7 +12,7 @@ import torch
 
 from .kernels.flash_attention import flash_attention
 
-__all__ = ["multi_head_attention"]
+__all__ = ["multi_head_attention", "attention_flops"]
 
 
 def multi_head_attention(
@@ -30,3 +30,8 @@ def multi_head_attention(
 
     out = flash_attention(heads(q), heads(k), heads(v))
     return out.transpose(1, 2).reshape(b, s, c)
+
+
+def attention_flops(batch: int, seq: int, channels: int) -> int:
+    """FLOPs of one self-attention (scores + weighted sum), for rooflines."""
+    return 2 * 2 * batch * seq * seq * channels

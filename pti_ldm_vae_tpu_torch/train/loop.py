@@ -32,13 +32,27 @@ per-attribute terms are logged as ``train/ar_loss_*`` and ``val/ar_loss_*``.
 into ``run_dir/traces`` (``utils/profiling.py:trace_if``; the device is
 synchronized inside the traced block, so the step's kernels end within it).
 
+``profile_port=P`` serves live captures, the JAX trainer's
+``jax.profiler.start_server`` (``utils/profiling.py:start_profiler_server``):
+a listener on ``127.0.0.1`` takes requests for a window of D ms, and the
+train loop records the window itself, from the first train-step boundary
+after the request through the step at which D ms have passed, then sends the
+trace back (``python -m pti_ldm_vae_tpu_torch.utils.profiling --port P
+--duration-ms D --logdir DIR``). With no request pending a boundary costs one
+attribute read, so the run's numbers are the bits of a run without the
+flag. Every process serves one port, as every JAX process starts its own
+server: under torchrun that is ``P + LOCAL_RANK``, since one machine holds
+several of the port's processes (each its own card), and rank 0 prints the
+ports of its machine. A window never overlaps the ``trace_at_step`` step: a
+recording window ends at the boundary before it, and a request pending there
+opens at the boundary after it.
+
 Top-level model knobs as in the JAX trainer: ``remat`` (activation
 checkpointing of the ResBlocks and attention blocks), ``norm_stats`` and
 ``s2d_stem`` (default ``"auto"``, resolved here on the batch with the train
 profile of ``ops/space_to_depth.py:s2d_auto_mode``; ``"encoder"``,
 ``"decoder"`` and booleans pass as they are; ``"auto"`` decides on the
-per-rank batch). ``profile_port`` raises: torch has no live profiler
-endpoint.
+per-rank batch).
 
 ``parallelism`` (JAX ``train/loop.py:111-134``): ``{"spatial": M}`` shards
 image height over ``M`` ranks (``parallel/spatial.py``), ``{"tensor": M}``
@@ -56,6 +70,7 @@ height tiles stitched, the channel blocks gathered).
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 from typing import Any
@@ -86,6 +101,7 @@ from ..parallel.mesh import (
     set_mesh,
     world_size,
 )
+from ..parallel.multihost import torchrun_local_rank
 from ..parallel.spatial import shard_batch_spatial, spatial
 from ..parallel.tensor import tensor_parallel_params
 from ..ops.space_to_depth import shard_height_multiple
@@ -196,9 +212,8 @@ class VAETrainer:
         self.rank = process_rank()
         self.world = world_size()
         self.device = torch.device(device)
-        if profile_port:
-            start_profiler_server(profile_port)
         self.trace_at_step = trace_at_step
+        self.profiler_server = None
 
         train_cfg = cfg["autoencoder_train"]
         self.batch_size = int(train_cfg["batch_size"])
@@ -370,6 +385,20 @@ class VAETrainer:
         run_config["perceptual_pretrained"] = self.perceptual_pretrained
         self.logger = MetricLogger(str(self.run_dir), rank=self.rank, wandb_cfg=wandb_cfg,
                                    run_config=run_config)
+        if profile_port:
+            # one port per process of this machine (the module docstring)
+            port = profile_port + (torchrun_local_rank() or 0)
+            try:
+                self.profiler_server = start_profiler_server(port, device=self.device)
+            except OSError:
+                self.close()
+                raise
+            if self.rank == 0:
+                local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+                ports = str(port) if local == 1 else f"{port}-{port + local - 1}"
+                print(f"[INFO] profiler server on 127.0.0.1:{ports} (port + local rank); capture "
+                      f"with python -m pti_ldm_vae_tpu_torch.utils.profiling --port {port} "
+                      "--duration-ms D --logdir DIR")
 
     # -- helpers --------------------------------------------------------------
     def _device_batch(self, batch) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
@@ -390,7 +419,9 @@ class VAETrainer:
 
     def close(self) -> None:
         """Stop the loaders' decode threads, close the metric sink and leave
-        the mesh."""
+        the mesh; an open profiler window ends and the profiler port closes."""
+        if self.profiler_server is not None:
+            self.profiler_server.close()
         self.train_loader.close()
         self.val_loader.close()
         self.logger.finish()
@@ -406,10 +437,13 @@ class VAETrainer:
         # the batch-0 debug print and triplet panel are deferred the same way.
         buffered: list[tuple[int, dict]] = []
         batch0: tuple[dict, torch.Tensor] | None = None
+        server = self.profiler_server
         for step, batch in enumerate(self.train_loader):
-            images, mask, attributes = self._device_batch(batch)
             traced = (self.rank == 0 and self.trace_at_step is not None
                       and self.total_step + 1 == self.trace_at_step)
+            if server is not None and server.request is not None:  # a capture is open
+                server.step_boundary(self.total_step + 1, hold=traced)
+            images, mask, attributes = self._device_batch(batch)
             with trace_if(self.run_dir / "traces", enabled=traced):
                 _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
                                      generator=self.generator)

@@ -1,11 +1,12 @@
 """Display normalization for dumps (counterpart of
-``pti_ldm_vae_tpu/utils/visualization.py:normalize_batch_for_display``), and
-the analysis CLIs' plots drawn with numpy.
+``pti_ldm_vae_tpu/utils/visualization.py``), and the analysis CLIs' plots
+drawn with numpy.
 
-Reference ``src/pti_ldm_vae/utils/visualization.py:6-40``: percentile [2, 98]
+Reference ``src/pti_ldm_vae/utils/visualization.py``: percentile [2, 98]
 mask-aware display normalization (background stays black, sub-1e-3 values
-suppressed). The projection scatter and the AR-channel grid stand in for the
-JAX package's matplotlib fallbacks (``analysis/latent_space.py:277-304``,
+suppressed), uint8 normalization and 2-D / 3-D-slice -> RGB helpers. The
+projection scatter and the AR-channel grid stand in for the JAX package's
+matplotlib fallbacks (``analysis/latent_space.py:277-304``,
 ``cli/analyze_ar_channels.py:84-118``): the same markers and filled-vs-open
 rule, drawn into RGB arrays; the comparison suite's metric histograms stand
 in for ``analysis/metrics.py:plot_metric_distributions_with_ci``. Host-side
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["normalize_batch_for_display", "draw_scatter", "draw_channel_grid",
+__all__ = ["normalize_batch_for_display", "normalize_image_to_uint8", "visualize_2d_image",
+           "visualize_one_slice_in_3d_image", "draw_scatter", "draw_channel_grid",
            "draw_histogram_panels", "channel_grid_shape", "normalize_unit", "hex_to_rgb",
            "SCATTER_SHAPE"]
 
@@ -64,6 +66,31 @@ _VIRIDIS = np.array([
     (68, 1, 84), (72, 40, 120), (62, 73, 137), (49, 104, 142), (38, 130, 142),
     (31, 158, 137), (53, 183, 121), (110, 206, 88), (181, 222, 43), (253, 231, 37),
 ], np.float32)
+
+
+def normalize_image_to_uint8(image: np.ndarray) -> np.ndarray:
+    """[min, max] -> uint8 [0, 255] (reference ``visualization.py:43-57``)."""
+    draw = np.asarray(image, dtype=np.float32).copy()
+    if draw.min() < 0:
+        draw -= draw.min()
+    if draw.max() > 0.1:
+        draw /= draw.max()
+    return (255 * draw).astype(np.uint8)
+
+
+def visualize_2d_image(image: np.ndarray) -> np.ndarray:
+    """(H, W) -> RGB uint8 (reference ``visualization.py:60-71``)."""
+    draw = normalize_image_to_uint8(np.asarray(image))
+    return np.stack([draw, draw, draw], axis=-1)
+
+
+def visualize_one_slice_in_3d_image(image: np.ndarray, axis: int = 2) -> np.ndarray:
+    """Center slice of a 3-D volume -> RGB (reference ``visualization.py:74-101``)."""
+    image = np.asarray(image)
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis should be in [0, 1, 2], got {axis}")
+    center = image.shape[axis] // 2
+    return visualize_2d_image(np.take(image, center, axis=axis))
 
 
 def hex_to_rgb(color: str) -> np.ndarray:

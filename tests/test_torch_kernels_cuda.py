@@ -1051,3 +1051,86 @@ def test_groupnorm_silu_split_of_one_shard_matches_the_fused_kernels(cuda, dtype
         n = (b * h * w) ** 0.5
         for a, e in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4 * n)
+
+
+# the largest shapes a bf16 flagship train step at b128 (256², --conv-kernel) gives the seven
+# rows: GroupNorm+SiLU (rows 1-3), flash (rows 4-5), the 3x3 convolution (rows 6-7)
+B128_SHAPES = {"groupnorm_silu": (128, 256, 256, 32), "flash_attention": (128, 1, 1024, 128),
+               "conv3x3": (128, 256, 256, 32, 32)}
+B128_CHUNK = 32  # images a plain-version call takes, to bound its f32 temporaries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(B128_SHAPES))
+def test_path_kernels_at_b128_match_plain(cuda, kernel):
+    """The b128 step's largest shapes, bf16, forward and backward, against the
+    plain f32 versions on the same rounded inputs at the b8 bars; every result
+    twice, the same bits."""
+    shape = B128_SHAPES[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    dtype = torch.bfloat16
+    chunks = range(0, shape[0], B128_CHUNK)
+    reset_launch_counts()
+    if kernel == "groupnorm_silu":
+        b, h, w, c = shape
+        x = torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+        scale = (1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=cuda, generator=gen)).requires_grad_()
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        runs = [torch.autograd.grad(y, (x, scale, bias), g) + (y.detach(),)
+                for y in (groupnorm_silu(x, scale, bias, 16, 1e-6) for _ in range(2))]
+        assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        dx, dscale, dbias, y = runs[0]
+        want_dscale = torch.zeros_like(dscale)
+        want_dbias = torch.zeros_like(dbias)
+        for i in chunks:
+            xs, gs = x.detach()[i:i + B128_CHUNK].float(), g[i:i + B128_CHUNK].float()
+            want_y, mean_g, inv_g = _plain_forward(xs, scale.detach(), bias.detach(), 16, 1e-6)
+            torch.testing.assert_close(y[i:i + B128_CHUNK].float(), want_y, **_tol(dtype))
+            want = groupnorm_silu_bwd_plain(xs, scale.detach(), bias.detach(), mean_g, inv_g, gs,
+                                            16)
+            torch.testing.assert_close(dx[i:i + B128_CHUNK].float(), want[0], **_tol(dtype))
+            want_dscale += want[1]
+            want_dbias += want[2]
+        sum_tol = dict(rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)
+        torch.testing.assert_close(dscale, want_dscale, **sum_tol)
+        torch.testing.assert_close(dbias, want_dbias, **sum_tol)
+        assert (launch_counts()["groupnorm_silu"], launch_counts()["groupnorm_silu_bwd"]) == (2, 2)
+    elif kernel == "flash_attention":
+        q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        runs = [torch.autograd.grad(o, (q, k, v), g) + (o.detach(),)
+                for o in (flash_attention(q, k, v) for _ in range(2))]
+        assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        assert (forward_kernel(dtype, 128), backward_kernel(dtype, 128)) == ("wgmma", "wgmma")
+        for i in chunks:
+            qs, ks, vs = (t.detach()[i:i + B128_CHUNK].float() for t in (q, k, v))
+            gs = g[i:i + B128_CHUNK].float()
+            _flash_close(runs[0][3][i:i + B128_CHUNK], flash_attention_plain(qs, ks, vs), dtype)
+            for got, want in zip(runs[0][:3], flash_attention_bwd_plain(qs, ks, vs, gs)):
+                _flash_close(got[i:i + B128_CHUNK], want, dtype)
+        counts = launch_counts()
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 2)
+    else:
+        b, h, w, cin, cout = shape
+        x, wmat = _conv_inputs(shape, dtype, cuda, gen)
+        x.requires_grad_()
+        wmat.requires_grad_()
+        g = (torch.randn(b, h, w, cout, device=cuda, generator=gen) * (cin / cout) ** 0.5).to(dtype)
+        runs = [torch.autograd.grad(y, (x, wmat), g) + (y.detach(),)
+                for y in (conv3x3(x, wmat) for _ in range(2))]
+        assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        assert _conv_counts() == (4, 0, 0)  # two forwards, two input gradients: all on wgmma
+        assert launch_counts()["conv3x3_wgrad"] == 2 and wgrad_kernel(dtype, cin, cout) == "wgmma"
+        dx, dw, y = runs[0]
+        wd = wmat.detach().to(dtype).float()
+        want_dw = torch.zeros_like(dw)
+        for i in chunks:
+            xs, gs = x.detach()[i:i + B128_CHUNK].float(), g[i:i + B128_CHUNK].float()
+            torch.testing.assert_close(y[i:i + B128_CHUNK].float(), conv3x3_plain(xs, wd),
+                                       **_tol(dtype))
+            want_dx, want_dw_chunk = conv3x3_bwd_plain(xs, wd, gs)
+            torch.testing.assert_close(dx[i:i + B128_CHUNK].float(), want_dx, **_tol(dtype))
+            want_dw += want_dw_chunk
+        torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-5 * (b * h * w) ** 0.5)

@@ -199,17 +199,6 @@ def test_unported_features_raise(workspace, tmp_path, patch, error, match):
     assert not (tmp_path / "run").exists()  # refused before anything is written
 
 
-@pytest.mark.parametrize("flags", [["--profile-port", "9999"]])
-def test_unported_flags_fail_loudly(workspace, tmp_path, flags):
-    root, _ = workspace
-    cfg = _config(root)
-    cfg["run_dir"] = str(tmp_path / "run")
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["-c", str(path), "--device", "cpu", "--no-wandb", *flags])
-
-
 def _knobs(model):
     return {"remat": (model.encoder.remat, model.decoder.remat),
             "s2d_stem": (model.encoder.s2d_stem, model.decoder.s2d_stem),
