@@ -19,7 +19,10 @@ Counterpart of ``pti_ldm_vae_tpu/data/loader.py``:
   given per-image attributes aligned with ``paths``): the final partial batch
   is zero-padded to ``batch_size`` with a per-sample validity mask and
   attribute values of 0.0 (or dropped with ``drop_last``), exactly as the JAX
-  loader does, and a background thread keeps two batches prefetched.
+  loader does, and a background thread keeps two batches prefetched; while
+  a profiler records, each request is a ``loader.wait`` span
+  (``utils/profiling.py``) whose ``arg`` is the number of batches ready at
+  the request (0: the consumer waits for the producer).
 
 Device placement is the caller's job.
 """
@@ -34,6 +37,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 
 from .. import native
+from ..utils.profiling import span
 from .io import read_image
 from .transforms import preprocess_image_np
 
@@ -161,7 +165,8 @@ class ShardedDataLoader:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         while True:
-            item = q.get()
+            with span("loader.wait", arg=q.qsize):
+                item = q.get()
             if item is sentinel:
                 thread.join()
                 if error:

@@ -32,6 +32,16 @@ per-attribute terms are logged as ``train/ar_loss_*`` and ``val/ar_loss_*``.
 into ``run_dir/traces`` (``utils/profiling.py:trace_if``; the device is
 synchronized inside the traced block, so the step's kernels end within it).
 
+While a ``torch.profiler`` records (``trace_at_step``, a ``profile_port``
+window, a caller's own profile), the loop records spans of its host work
+(``utils/profiling.py:span``): ``train.step`` around each batch's copy and
+step (``step`` and ``arg`` the global step), ``h2d`` around each batch's
+copy to the device (``arg`` its bytes; inside ``train.step`` or
+``val.epoch``), ``train.epoch_end`` around the epoch's triplet panel, debug
+print and metric flush, ``val.epoch`` around the whole of :meth:`validate`
+and ``ckpt.save`` around each epoch's checkpoint write; the loader adds
+``loader.wait``. With no profiler recording, a span costs one flag read.
+
 ``profile_port=P`` serves live captures, the JAX trainer's
 ``jax.profiler.start_server`` (``utils/profiling.py:start_profiler_server``):
 a listener on ``127.0.0.1`` takes requests for a window of D ms, and the
@@ -107,7 +117,7 @@ from ..parallel.tensor import tensor_parallel_params
 from ..ops.space_to_depth import shard_height_multiple
 from ..utils.determinism import set_determinism
 from ..utils.logging import MetricLogger, init_wandb_config
-from ..utils.profiling import start_profiler_server, trace_if
+from ..utils.profiling import span, start_profiler_server, trace_if
 from ..utils.visualization import normalize_batch_for_display
 from .state import create_train_state
 from .steps import LossConfig, make_eval_step, make_inference_fn, make_train_step
@@ -187,6 +197,12 @@ def check_parallelism(block: dict[str, Any] | None, world: int, *,
                              f"{' with s2d_stem' if s2d else ''} need a multiple of {need}")
     kind = "spatial" if spatial_m > 1 else "tensor" if tensor_m > 1 else None
     return kind, model, data
+
+
+def _host_bytes(batch: dict[str, Any]) -> int:
+    """Bytes of a host batch's arrays (images, mask, attributes)."""
+    arrays = [batch["image"], batch["mask"], *batch.get("attributes", {}).values()]
+    return sum(a.nbytes for a in arrays)
 
 
 class VAETrainer:
@@ -406,12 +422,13 @@ class VAETrainer:
         (under spatial sharding this rank's height tile of the images)."""
         if spatial():
             batch = shard_batch_spatial(batch)
-        images = torch.from_numpy(batch["image"]).to(self.device, non_blocking=True)
-        mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
-        attributes = None
-        if "attributes" in batch:
-            attributes = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                          for k, v in batch["attributes"].items()}
+        with span("h2d", arg=lambda: _host_bytes(batch)):
+            images = torch.from_numpy(batch["image"]).to(self.device, non_blocking=True)
+            mask = torch.from_numpy(batch["mask"]).to(self.device, non_blocking=True)
+            attributes = None
+            if "attributes" in batch:
+                attributes = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                              for k, v in batch["attributes"].items()}
         return images, mask, attributes
 
     def _adv_active(self, epoch: int) -> bool:
@@ -443,8 +460,9 @@ class VAETrainer:
                       and self.total_step + 1 == self.trace_at_step)
             if server is not None and server.request is not None:  # a capture is open
                 server.step_boundary(self.total_step + 1, hold=traced)
-            images, mask, attributes = self._device_batch(batch)
-            with trace_if(self.run_dir / "traces", enabled=traced):
+            with trace_if(self.run_dir / "traces", enabled=traced), \
+                    span("train.step", step=self.total_step + 1, arg=self.total_step + 1):
+                images, mask, attributes = self._device_batch(batch)
                 _, metrics = step_fn(self.state, images, mask, attributes, self.lpips_params,
                                      generator=self.generator)
                 if traced and self.device.type == "cuda":
@@ -457,6 +475,13 @@ class VAETrainer:
                 buffered.append((self.total_step, metrics))
             if step == 0:
                 batch0 = (metrics, images[:1])
+        with span("train.epoch_end", step=self.total_step):
+            self._flush_epoch(batch0, buffered)
+
+    def _flush_epoch(self, batch0: tuple[dict, torch.Tensor] | None,
+                     buffered: list[tuple[int, dict]]) -> None:
+        """The epoch's deferred host work: the triplet panel and debug print
+        of its first batch, then its buffered metrics."""
         if batch0 is not None:
             metrics0, img0 = batch0
             # every rank of a model group stitches or gathers the panel; rank 0 writes it
@@ -494,6 +519,10 @@ class VAETrainer:
     def validate(self, epoch: int) -> float:
         """Returns the epoch-mean reconstruction loss (the best-model
         criterion, reference ``validate`` -> ``val_recon_epoch_loss``)."""
+        with span("val.epoch", step=self.total_step):
+            return self._validate(epoch)
+
+    def _validate(self, epoch: int) -> float:
         self.model.eval()
         eval_fn = self._eval_steps[self._adv_active(epoch)]
         sums: dict[str, torch.Tensor] | None = None
@@ -570,13 +599,14 @@ class VAETrainer:
                     if self.rank == 0:
                         print(f"Epoch {epoch} val_loss: {val_loss:.4f} | Time: {elapsed:.1f}s")
                     self.logger.log({"time_per_epoch": elapsed, "epoch": epoch})
-                    self.best_val_loss = self.ckpt.save_epoch(
-                        state=self.state,
-                        epoch=epoch,
-                        val_loss=val_loss,
-                        best_val_loss=self.best_val_loss,
-                        total_step=self.total_step,
-                    )
+                    with span("ckpt.save", step=self.total_step):
+                        self.best_val_loss = self.ckpt.save_epoch(
+                            state=self.state,
+                            epoch=epoch,
+                            val_loss=val_loss,
+                            best_val_loss=self.best_val_loss,
+                            total_step=self.total_step,
+                        )
         finally:
             self.close()
         return {"best_val_loss": self.best_val_loss, "total_step": self.total_step}

@@ -1,19 +1,34 @@
-"""Tracing, step timing and the live profiler endpoint (counterpart of
-``pti_ldm_vae_tpu/utils/profiling.py``).
+"""Tracing, the program's spans and the live profiler endpoint (counterpart
+of ``pti_ldm_vae_tpu/utils/profiling.py``).
 
 Usage::
 
     with trace_if(run_dir / "traces", enabled=step == 20):
         train_step(...)
 
-    timer = StepTimer()
-    ...
-    timer.tick()   # per-step wall clock; .summary() for p50/p90/mean
+    with span("train.step", step=n, arg=n):   # recorded only while a profiler records
+        ...
+    spans = take_spans()                        # [Span(name, start_ns, end_ns, parent, step, arg)]
 
 ``trace_if`` runs ``torch.profiler`` over the block (CPU activity, and CUDA
 activity when a card is in use) and writes a Chrome trace that TensorBoard's
 profiler plugin reads (``tensorboard_trace_handler``) into ``log_dir``: the
 kernels of the block appear there by name.
+
+``span`` marks where the program's host time goes: the training loop, the
+loader and validation open one around each piece of their work (README,
+"Live profiling"). Spans are recorded only while a ``torch.profiler`` records
+on the calling thread; otherwise a span costs one read of the profiler's
+flag and records nothing. A recorded span keeps its name, its start and end
+on :func:`now_ns` (the wall clock ``torch.profiler`` stamps its events with,
+read through the monotonic counter, so a span and a kernel of the same trace
+sit side by side with no conversion), the index of the span enclosing it on
+the same thread (``parent``), the trainer's global step (``step``, taken from
+the parent when not given) and one optional number (``arg``). While the
+profiler also records CPU activity, each span is a ``record_function`` range
+of its name as well, so the Chrome trace shows it beside the kernels; under a
+profile of the device's activity alone it adds no host event. The spans stay
+in memory until :func:`take_spans` hands them over and clears the list.
 
 ``start_profiler_server(port)`` is the counterpart of
 ``jax.profiler.start_server``: a daemon thread listens on ``127.0.0.1:port``
@@ -67,18 +82,96 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 
 __all__ = ["start_profiler_server", "ProfilerServer", "capture", "CaptureError", "trace_if",
-           "StepTimer"]
+           "Span", "span", "take_spans", "now_ns"]
 
 HOST = "127.0.0.1"
 IO_TIMEOUT_S = 30.0  # reading a request, writing a reply
 DEFAULT_TIMEOUT_S = 120.0  # a capture's whole wait: its window's start, length and export
 _MAX_REQUEST = 4096
 _REPLY_SLACK_S = 5.0
+
+
+# -- the program's spans --------------------------------------------------------------
+_WALL_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
+_recording = torch._C._autograd._profiler_enabled  # this thread's profiler is on
+# a range in a CPU-activity trace; adds nothing where no RecordFunction callback is active
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def now_ns() -> int:
+    """The wall clock in ns (``torch.profiler``'s), read through the monotonic counter."""
+    return time.perf_counter_ns() + _WALL_OFFSET_NS
+
+
+class Span(NamedTuple):
+    """A recorded span. ``end_ns`` is 0 while the span is open; ``parent``
+    indexes the list :func:`take_spans` returns (None at the top)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    step: int | None
+    arg: float | None
+
+
+_lock = threading.Lock()
+_spans: list[list] = []  # [name, start_ns, end_ns, parent's record, step, arg] while recording
+_open = threading.local()  # per thread: the stack of open records
+
+
+class _Span:
+    """A span being recorded (:func:`span`)."""
+
+    __slots__ = ("name", "step", "arg", "_record", "_range")
+
+    def __init__(self, name: str, step: int | None, arg: float | Callable[[], float] | None):
+        self.name, self.step, self.arg = name, step, arg
+
+    def __enter__(self) -> None:
+        stack = _open.__dict__.setdefault("stack", [])
+        parent = stack[-1] if stack else None
+        step = self.step if self.step is not None or parent is None else parent[4]
+        arg = self.arg() if callable(self.arg) else self.arg
+        self._record = [self.name, now_ns(), 0, parent, step, arg]
+        stack.append(self._record)
+        with _lock:
+            _spans.append(self._record)
+        self._range = _range(self.name)
+        self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+        self._record[2] = now_ns()
+        _open.stack.pop()
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, *, step: int | None = None,
+         arg: float | Callable[[], float] | None = None):
+    """A context that records the enclosed block as the span ``name`` while
+    a profiler records on this thread (module docstring), else does nothing.
+    ``arg`` is a number, or a function returning one, called only while
+    recording."""
+    return _Span(name, step, arg) if _recording() else _OFF
+
+
+def take_spans() -> list[Span]:
+    """The spans recorded since the last take, in the order they opened; the
+    list is cleared. A span whose parent was taken before has no parent."""
+    global _spans
+    with _lock:
+        taken, _spans = _spans, []
+    index = {id(record): i for i, record in enumerate(taken)}
+    return [Span(name, start, end, index.get(id(parent)), step, arg)
+            for name, start, end, parent, step, arg in taken]
 
 
 class CaptureError(RuntimeError):
@@ -369,36 +462,6 @@ def trace_if(log_dir: str | os.PathLike, *, enabled: bool = True):
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
         yield
-
-
-class StepTimer:
-    """Wall-clock step timing with percentile summary."""
-
-    def __init__(self):
-        self._times: list[float] = []
-        self._last = time.perf_counter()
-
-    def reset(self) -> None:
-        self._last = time.perf_counter()
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        dt = now - self._last
-        self._last = now
-        self._times.append(dt)
-        return dt
-
-    def summary(self) -> dict[str, float]:
-        if not self._times:
-            return {}
-        arr = np.asarray(self._times)
-        return {
-            "steps": int(arr.size),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p90_s": float(np.percentile(arr, 90)),
-            "max_s": float(arr.max()),
-        }
 
 
 def main(argv=None) -> Path:

@@ -1,9 +1,11 @@
-"""The port's profiling utilities (CPU): ``StepTimer`` against the JAX
-package's on a patched clock, ``trace_if`` on ``torch.profiler``, the live
-endpoint of ``start_profiler_server`` (windows recorded by the loop's own
-thread, its errors, the ``--trace-at-step`` rule) and the trainer's
-``--trace-at-step`` / ``--profile-port``. Every socket wait has a time limit
-of 30 s or less, and every thread join one of 120 s or less."""
+"""The port's profiling utilities (CPU): the span recorder (nothing without
+a profiler; the trainer's and loader's spans, their parents, steps and queue
+depths under one; the shared clock with ``torch.profiler``; ``take_spans``),
+``trace_if`` on ``torch.profiler``, the live endpoint of
+``start_profiler_server`` (windows recorded by the loop's own thread, its
+errors, the ``--trace-at-step`` rule) and the trainer's ``--trace-at-step`` /
+``--profile-port``. Every socket wait has a time limit of 30 s or less, and
+every thread join one of 120 s or less."""
 
 import gzip
 import json
@@ -16,35 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from pti_ldm_vae_tpu.utils import profiling as jax_profiling
 from pti_ldm_vae_tpu_torch.cli.train_vae import main as train_vae
+from pti_ldm_vae_tpu_torch.data.loader import ShardedDataLoader
 from pti_ldm_vae_tpu_torch.data.io import write_tif
 from pti_ldm_vae_tpu_torch.utils import profiling
-
-
-def _clock(monkeypatch, module, ticks):
-    values = iter(ticks)
-    monkeypatch.setattr(module.time, "perf_counter", lambda: next(values))
-
-
-def test_step_timer_summary_equals_jax(monkeypatch):
-    ticks = [10.0, 10.5, 11.25, 11.5, 13.0, 13.125, 14.0, 14.75]  # init, 5 ticks, reset, tick
-    _clock(monkeypatch, profiling, ticks)
-    ours = profiling.StepTimer()
-    for _ in range(5):
-        ours.tick()
-    ours.reset()
-    ours.tick()
-    _clock(monkeypatch, jax_profiling, ticks)
-    theirs = jax_profiling.StepTimer()
-    for _ in range(5):
-        theirs.tick()
-    theirs.reset()
-    theirs.tick()
-    assert ours.summary() == theirs.summary()
-    assert ours.summary()["steps"] == 6
-    monkeypatch.undo()
-    assert profiling.StepTimer().summary() == {}
 
 
 def test_a_disabled_trace_writes_nothing(tmp_path):
@@ -325,6 +302,7 @@ def test_train_vae_traces_the_asked_step(tmp_path, capsys, monkeypatch):
     names = {e.get("name", "") for e in events}
     # one step: the forward's convolutions and the backward's autograd nodes
     assert any("conv" in n for n in names) and any("Backward" in n for n in names)
+    assert {"train.step", "h2d"} <= names  # the step's spans, its copy included
 
 
 def test_train_vae_profile_port_serves_two_captures(tmp_path, capsys, monkeypatch):
@@ -348,6 +326,7 @@ def test_train_vae_profile_port_serves_two_captures(tmp_path, capsys, monkeypatc
         assert any(n.startswith("aten::") and "conv" in n for n in names)
         assert any("Backward" in n for n in names)
         assert any(n.startswith("ProfilerStep#") for n in names)
+        assert "train.step" in names and "h2d" in names
 
 
 def _losses(run_dir: Path) -> list[dict]:
@@ -364,3 +343,99 @@ def test_train_vae_profile_port_without_a_request_changes_no_bit(tmp_path, monke
     ours = torch.load(tmp_path / "served" / "trained_weights" / "autoencoder_last.pth")
     theirs = torch.load(tmp_path / "plain" / "trained_weights" / "autoencoder_last.pth")
     assert all(torch.equal(ours[k], theirs[k]) for k in theirs)
+
+
+# -- the program's spans ------------------------------------------------------------------
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_a_run_with_no_profiler_records_no_spans(tmp_path, monkeypatch):
+    monkeypatch.setenv("PTI_LPIPS_WEIGHTS", "none")
+    profiling.take_spans()
+    calls = []
+    with profiling.span("outer", arg=lambda: calls.append(1) or 1.0):
+        _toy_run(tmp_path, [])
+    assert profiling.take_spans() == [] and calls == []  # not even the argument is worked out
+
+
+def test_a_profiled_run_records_the_loops_spans(tmp_path, monkeypatch):
+    monkeypatch.setenv("PTI_LPIPS_WEIGHTS", "none")
+    batches = ShardedDataLoader._batches
+
+    def slow_start(self):  # the first batch of an epoch comes well after its first request
+        time.sleep(0.5)
+        yield from batches(self)
+
+    monkeypatch.setattr(ShardedDataLoader, "_batches", slow_start)
+    profiling.take_spans()
+    with _cpu_profile() as prof:
+        result = _toy_run(tmp_path, [], epochs=2)
+    spans = profiling.take_spans()
+    assert result["total_step"] == 6  # 6 train images in batches of 2, 2 epochs
+    names = [s.name for s in spans]
+    assert set(names) == {"loader.wait", "train.step", "h2d", "train.epoch_end", "val.epoch",
+                          "ckpt.save"}
+    assert all(0 < s.start_ns <= s.end_ns for s in spans)
+    # every span is a range of the CPU trace too
+    events = [e.name for e in prof.events()]
+    assert all(events.count(n) == names.count(n) for n in set(names))
+    steps = [s for s in spans if s.name == "train.step"]
+    assert [(s.step, s.arg, s.parent) for s in steps] == [(n, n, None) for n in range(1, 7)]
+    for i, s in enumerate(spans):
+        if s.parent is not None:  # a child lies inside its parent and shares its step
+            up = spans[s.parent]
+            assert up.start_ns <= s.start_ns <= s.end_ns <= up.end_ns and s.step == up.step
+    h2d = [s for s in spans if s.name == "h2d"]
+    assert [spans[s.parent].name for s in h2d] == ["train.step"] * 3 + ["val.epoch"] + \
+        ["train.step"] * 3 + ["val.epoch"]
+    assert all(s.arg == 2 * 32 * 32 * 4 + 2 * 4 for s in h2d)  # images and mask, f32
+    tops = [s.name for s in spans if s.parent is None and s.name != "loader.wait"]
+    assert tops == (["train.step"] * 3 + ["train.epoch_end", "val.epoch", "ckpt.save"]) * 2
+    ends = [s for s in spans if s.name in ("train.epoch_end", "val.epoch", "ckpt.save")]
+    assert [s.step for s in ends] == [3, 3, 3, 6, 6, 6]
+    # each epoch's first request, train or validation, finds the prefetch queue empty
+    waits = [(s.parent is None, s.arg) for s in spans if s.name == "loader.wait"]
+    train_waits = [arg for top, arg in waits if top]
+    val_waits = [arg for top, arg in waits if not top]
+    assert len(train_waits) == 2 * 4 and len(val_waits) == 2 * 2  # each epoch's last: its end
+    assert train_waits[0] == train_waits[4] == 0 and val_waits[0] == val_waits[2] == 0
+    assert all(spans[s.parent].name == "val.epoch" for s in spans
+               if s.name == "loader.wait" and s.parent is not None)
+
+
+def test_a_range_inside_a_span_lies_within_it_on_the_shared_clock():
+    profiling.take_spans()
+    with _cpu_profile() as prof:
+        with profiling.span("outer"):
+            time.sleep(0.005)
+            with torch.profiler.record_function("inner"):
+                torch.ones(64, 64).sum()
+            time.sleep(0.005)
+    (outer,) = profiling.take_spans()
+    inner = [e for e in prof.profiler.kineto_results.events() if e.name() == "inner"]
+    assert len(inner) == 1
+    assert outer.start_ns < inner[0].start_ns() <= inner[0].end_ns() < outer.end_ns
+    assert abs(profiling.now_ns() - time.time_ns()) < 5e7  # the wall clock
+
+
+def test_spans_nest_by_thread_and_take_clears_the_list():
+    profiling.take_spans()
+    with _cpu_profile():
+        with profiling.span("a", step=7):
+            with profiling.span("b", arg=lambda: 3):
+                pass
+            with profiling.span("c", step=8, arg=0.5):
+                pass
+        with profiling.span("d"):
+            pass
+    spans = profiling.take_spans()
+    assert [(s.name, s.parent, s.step, s.arg) for s in spans] == [
+        ("a", None, 7, None), ("b", 0, 7, 3), ("c", 0, 8, 0.5), ("d", None, None, None)]
+    assert profiling.take_spans() == []
+    with _cpu_profile():
+        with profiling.span("open"):
+            assert [s.end_ns for s in profiling.take_spans()] == [0]  # taken while open
+            with profiling.span("after"):
+                pass
+    assert [(s.name, s.parent) for s in profiling.take_spans()] == [("after", None)]
