@@ -858,7 +858,7 @@ def conv_path_shapes(model, torch) -> list[tuple[tuple[int, ...], int]]:
 # kinds of device kernels, first match wins (lower-cased kernel names)
 KINDS = (
     ("conv3x3_wgrad", ("conv3x3_wgrad_kernel", "conv3x3_wgrad_wgmma_kernel")),
-    ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
+    ("conv3x3", ("conv3x3_kernel", "conv3x3_wgmma_kernel", "conv3x3_stream_wgmma_kernel")),
     ("groupnorm_silu_fwd", ("groupnorm_silu_fwd_kernel",)),
     ("groupnorm_silu_bwd", ("groupnorm_silu_bwd_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel",
@@ -941,7 +941,8 @@ def wgmma_occupancy(torch, shapes) -> dict:
     runtime reports them for this card, of the tensor-core convolution kernel
     at the tile each of ``shapes`` (forward and, with the channels swapped,
     input gradient) takes, with the tiles, the persistent blocks and the tiles
-    per block that follow; of the tensor-core filter gradient at the tile and
+    per block that follow (the streamed-weight kernel's one tile where the
+    shape takes it); of the tensor-core filter gradient at the tile and
     slab count each shape takes; and of every flash-attention instantiation,
     forward and backward, the wide-head kernels at ``WIDE_HEAD_DIMS`` held to
     the wrapper's formulas and to a block's 232,448 bytes."""
@@ -950,6 +951,7 @@ def wgmma_occupancy(torch, shapes) -> dict:
     from pti_ldm_vae_tpu_torch.ops.kernels import _build
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import forward_kernel as conv_forward_kernel
     from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
+        stream_smem_bytes,
         wgmma_smem_bytes,
         wgmma_tile,
         wgrad_kernel,
@@ -973,8 +975,18 @@ def wgmma_occupancy(torch, shapes) -> dict:
     # is padded with zero channels to a multiple of 8 first)
     for shape in shapes:
         b, h, w, cin, cout = shape
-        if conv_forward_kernel(torch.bfloat16, cin) != "wgmma":
+        route = conv_forward_kernel(torch.bfloat16, cin, cout)
+        if route == "fma":
             raise RuntimeError(f"conv3x3 {shape}: bf16 does not take the tensor-core kernel")
+        if route == "wgmma_stream":  # one fixed tile, one block per SM
+            err = _build.load("conv3x3_stream_wgmma.cu").conv3x3_stream_wgmma_occupancy(
+                ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0 or smem.value != stream_smem_bytes() or blocks.value < 1:
+                raise RuntimeError(f"conv3x3_stream_wgmma_occupancy: CUDA error {err}, "
+                                   f"{smem.value} bytes against {stream_smem_bytes()}")
+            out[f"conv3x3_stream_wgmma {list(shape)}"] = {
+                "smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+            continue
         cin = -(-cin // 8) * 8
         mt, tn, kc = wgmma_tile(b, h, w, cin, cout, n_sm)
         err = conv.conv3x3_wgmma_occupancy(mt, tn, kc, cin, ctypes.byref(smem), ctypes.byref(blocks))
@@ -1258,8 +1270,16 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
             xd, gd = x.to(dtype), g.to(dtype)
             wd = wmat.to(dtype).float()  # the matrix as the kernels see it
             # which kernel the forward and the input gradient (Cout in Cin's place) take
-            routes["conv3x3"][tag] = [conv_forward_kernel(dtype, shape[3]),
-                                      conv_forward_kernel(dtype, shape[4])]
+            routes["conv3x3"][tag] = [conv_forward_kernel(dtype, shape[3], shape[4]),
+                                      conv_forward_kernel(dtype, shape[4], shape[3])]
+            # every bf16 shape on the tensor cores (a thin or ragged Cin, RAGGED_CONV's 3 and 5
+            # too, through zero channels up to 8), streaming the weights where the padded Cin is
+            # above 176 and Cout at least 64; every f32 one on the FMA kernel
+            want_route = (["fma", "fma"] if dtype == torch.float32 else
+                          ["wgmma_stream" if -(-c_in // 8) * 8 > 176 and c_out >= 64 else "wgmma"
+                           for c_in, c_out in ((shape[3], shape[4]), (shape[4], shape[3]))])
+            if routes["conv3x3"][tag] != want_route:
+                raise RuntimeError(f"conv3x3 {tag} went to {routes['conv3x3'][tag]}")
             routes["conv3x3_wgrad"][tag] = wgrad_kernel(dtype, shape[3], shape[4])
             got = kernels_mod.conv3x3(xd, wmat)
             if not torch.equal(got, kernels_mod.conv3x3(xd, wmat)):
@@ -1284,12 +1304,6 @@ def check_kernels(torch, gn_cases, flash_shapes, conv_shapes, kernels_mod, *, se
             del grads, dx, dw, want_dx, want_dw, leaves
         del x, wmat, g
     torch.cuda.empty_cache()
-    # forward and input gradient: every bf16 shape on wgmma (a thin or ragged Cin, RAGGED_CONV's
-    # 3 and 5 too, through zero channels up to 8; Cin 256 on 32 output columns a block), every
-    # f32 one on the FMA kernel
-    for tag, route in routes["conv3x3"].items():
-        if route != (["wgmma", "wgmma"] if "bfloat16" in tag else ["fma", "fma"]):
-            raise RuntimeError(f"conv3x3 {tag} went to {route}")
     if ragged and routes["conv3x3"][f"{RAGGED_CONV} bfloat16"] != ["wgmma", "wgmma"]:
         raise RuntimeError("the ragged 3 -> 5 convolution did not take the tensor-core kernel")
     # any S: bf16 on wgmma up to head dim 128 and on the wide wgmma kernels above; f32 on the
@@ -3017,8 +3031,9 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
     kernel, each beside its bound, its plain version and the library call
     (``F.conv2d`` on channels-last tensors with TF32 off; its backward for the
     one operand). ``kernel`` names the kernel the wrapper's rule picks for the
-    call (``wgmma``: a tensor-core kernel, ``fma``: an f32-FMA one); ``tile``
-    the tensor-core kernel's ``(cin, mt, tn, kc)``, its ``cin`` padded to a
+    call (``wgmma``: the resident-slab tensor-core kernel, ``wgmma_stream``:
+    the streamed-weight one, ``fma``: an f32-FMA one); ``tile`` the
+    tensor-core kernel's ``(cin, mt, tn, kc)``, its ``cin`` padded to a
     multiple of 8. A bf16 forward or input gradient that took the f32-FMA
     kernel before the tensor-core kernel took every ``Cin`` (``Cin`` above
     128 or no multiple of 8) is also timed on that kernel, on the same
@@ -3037,6 +3052,7 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
         _forward_library,
         _launch_forward,
         _launch_wgrad,
+        STREAM_TILE,
         _sm_count,
         conv3x3_bwd_plain,
         conv3x3_plain,
@@ -3054,9 +3070,9 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
         [9*Cin, Cout], beside the FMA kernel where it served bf16 before."""
         b, h, w, cin = x.shape
         cout = wmat.shape[1]
-        kernel = forward_kernel(x.dtype, cin)
+        kernel = forward_kernel(x.dtype, cin, cout)
         cin_k = -(-cin // 8) * 8
-        yardstick = x.dtype == torch.bfloat16 and kernel == "wgmma" and (cin % 8 or cin > 128)
+        yardstick = x.dtype == torch.bfloat16 and kernel != "fma" and (cin % 8 or cin > 128)
         y_fma = torch.empty(b, h, w, cout, device="cuda", dtype=x.dtype)
 
         def fma():  # the route bf16 took here before the tensor-core kernel took every Cin
@@ -3069,7 +3085,8 @@ def time_conv3x3(torch, conv_shapes, flush, gen, rows: dict[str, list], path: st
         fma_turns = [timed("", fma)["ms"]] if yardstick else []
         row = {**head, "role": role, "per_pass": n, "kernel": kernel,
                **({"tile": [cin_k, *wgmma_tile(b, h, w, cin_k, cout, _sm_count(x.device))]}
-                  if kernel == "wgmma" else {}),
+                  if kernel == "wgmma" else {"tile": [cin_k, *STREAM_TILE]}
+                  if kernel == "wgmma_stream" else {}),
                **timed("", lambda: _launch_forward(x, wmat)),
                **timed("plain_", lambda: conv3x3_plain(x, wmat)),
                **timed("library_", library)}
@@ -4539,8 +4556,10 @@ def mp_launches_check(name: str, kind: str, one: dict, run: dict) -> None:
         want["groupnorm_silu"] = want["groupnorm_silu_bwd"] = 0
     else:
         want_split = dict.fromkeys(MP_SPLIT_ENTRIES, 0)
-    got, split = run["launches"], run["split_launches"]
-    if got != want or split != want_split or (kind == "spatial" and not all(split.values())):
+    got, split = run["launches"], dict(run["split_launches"])
+    streamed = split.pop("conv3x3_stream")  # a share of conv3x3's launches, as in one process
+    if (got != want or split != want_split or streamed != one["split_launches"]["conv3x3_stream"]
+            or (kind == "spatial" and not all(split.values()))):
         raise RuntimeError(f"{name}: launches {got} {split}, expected {want} {want_split}")
 
 
@@ -5721,7 +5740,8 @@ def main() -> int:
             KL1E3_PASS["gn"], KL1E3_PASS["conv"]):
         raise RuntimeError(f"kl1e3 shapes {kl_gn_shapes}, {kl_conv_shapes} do not add up to "
                            f"{KL1E3_PASS}")
-    if any(conv_forward_kernel(torch.bfloat16, cin) != "wgmma" for cin in (1, 4, 10, 256)):
+    if any(conv_forward_kernel(torch.bfloat16, cin, cout) == "fma"
+           for cin, cout in ((1, 64), (4, 128), (10, 256), (256, 10), (256, 256))):
         raise RuntimeError("Cin 1, 4, 10 and 256 must take the tensor-core convolution in bf16")
     for per_pass, shapes in ((FLAGSHIP_PASS, conv_shapes), (KL1E3_PASS, kl_conv_shapes)):
         thin = (sum(n for s, n in shapes if s[3] % 8), sum(n for s, n in shapes if s[4] % 8))
@@ -6194,7 +6214,8 @@ def main() -> int:
         "conv3x3": ("cuda", "pti_ldm_vae_tpu_torch/csrc/conv3x3_wgmma.cu",
                     "pti_ldm_vae_tpu/ops/pallas/conv2d.py:120",
                     "bf16 (the tensor-core kernel at every Cin up to 1520, a thin Cin padded with "
-                    "zero channels; the kernel of source_f32 takes f32 inputs), device ms summed "
+                    "zero channels, csrc/conv3x3_stream_wgmma.cu where Cin > 176 and Cout >= 64; "
+                    "the kernel of source_f32 takes f32 inputs), device ms summed "
                     "over the 47 forward and 46 input-gradient launches of one b8 train step with "
                     "conv_kernel=True; fma_ms: the same calls with the thin ones on the kernel of "
                     "source_f32, as before; library_ms: F.conv2d and its "

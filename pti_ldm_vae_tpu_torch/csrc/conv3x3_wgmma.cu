@@ -44,9 +44,10 @@
 //   (TN 64). At Cin 256 that restaging (~180 MB of L2 reads at 8 x 64^2 x 256
 //   -> 256), the narrow m64n32k16 products (their A operand is read from
 //   shared memory once per 32 output columns instead of 64) and the copies'
-//   waits bound the kernel (PERF.md, row 6, measures it; a second ring that
-//   streams the slab at TN 64, or a second consumer warpgroup, are the
-//   alternatives).
+//   waits bound the kernel (PERF.md, row 6, measures it). So those shapes
+//   (Cin above 176, Cout 64 or more) go to conv3x3_stream_wgmma.cu instead,
+//   which streams the weights through a TMA ring at 128 output columns; this
+//   kernel keeps Cin up to 176 and the narrow Cout.
 // - A comes from the halo tile, with no im2col copy. Per step of KC input
 //   channels (16, 32 or 64) the block stages the 10 x (8*MT+2) halo of its
 //   tile as KC/8 planes of 8 channels, [plane][halo row][halo column][8

@@ -17,7 +17,8 @@
   ``pti_ldm_vae_tpu/ops/pallas/flash_attention.py``: ``_forward`` and
   ``_bwd_pallas``)
 - ``conv3x3``: CUDA C++ 3x3 stride-1 SAME convolution, forward and input
-  gradient ``csrc/conv3x3_wgmma.cu`` / ``csrc/conv3x3.cu`` and filter
+  gradient ``csrc/conv3x3_wgmma.cu`` (its streamed-weight form for wide
+  ``Cin``, ``csrc/conv3x3_stream_wgmma.cu``) / ``csrc/conv3x3.cu`` and filter
   gradient ``csrc/conv3x3_wgrad_wgmma.cu`` / ``csrc/conv3x3_wgrad.cu`` (bf16
   tensor cores / f32 FMAs) (replace ``pti_ldm_vae_tpu/ops/pallas/conv2d.py``:
   ``_conv3x3_fwd_pallas`` and ``_conv3x3_dw_pallas``)
@@ -26,8 +27,9 @@ Each wrapper is differentiable (a ``torch.autograd.Function``), launches its
 kernels for CUDA tensors and counts the launches; for CPU tensors it runs the
 plain versions. Under ``torch.func.vmap`` / ``grad`` the Functions' ``vmap``
 rules launch the same kernels (``_vmap.py``). ``launch_counts()`` reads the
-six counts by kernel name, ``split_launch_counts()`` the split entries',
-``reset_launch_counts()`` sets all of them to 0.
+six counts by kernel name, ``split_launch_counts()`` the split entries' and
+the convolution's streamed-weight launches, ``reset_launch_counts()`` sets all
+of them to 0.
 """
 
 from .conv3x3 import conv3x3, conv3x3_bwd_plain, conv3x3_plain
@@ -74,16 +76,19 @@ def launch_counts() -> dict[str, int]:
 
 
 def split_launch_counts() -> dict[str, int]:
-    """Launches of the split GroupNorm+SiLU entries since the last reset."""
-    return dict(groupnorm_silu.split_launches)
+    """Launches since the last reset of the split GroupNorm+SiLU entries, by
+    entry, and ``conv3x3_stream``: the convolution's launches (a share of
+    ``conv3x3``) that took the streamed-weight kernel."""
+    return {**groupnorm_silu.split_launches, "conv3x3_stream": conv3x3.stream_launches}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0, and the padded and the wide
     flash-attention launches (``flash_attention.padded_launches``,
     ``wide_launches``, ``wide_bwd_launches``: shares of its two counts) and
-    the convolution's FMA and padded launches (``conv3x3.fma_launches``,
-    ``padded_launches``: shares of ``conv3x3.launches``)."""
+    the convolution's FMA, streamed-weight and padded launches
+    (``conv3x3.fma_launches``, ``stream_launches``, ``padded_launches``:
+    shares of ``conv3x3.launches``)."""
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     groupnorm_silu.split_launches = dict.fromkeys(SPLIT_ENTRIES, 0)
@@ -91,4 +96,5 @@ def reset_launch_counts() -> None:
     flash_attention.wide_launches = 0
     flash_attention.wide_bwd_launches = 0
     conv3x3.fma_launches = 0
+    conv3x3.stream_launches = 0
     conv3x3.padded_launches = 0

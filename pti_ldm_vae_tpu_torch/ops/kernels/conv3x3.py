@@ -19,13 +19,17 @@ launch fails.
 
 - forward / input gradient: ``csrc/conv3x3_wgmma.cu`` for bf16 operands with
   any ``Cin`` up to ``WGMMA_MAX_CIN`` = 1520 (``wgmma`` on bf16 tiles, f32
-  sums, asynchronous staging; the matrix's columns padded with zeros to a
-  multiple of 8 by ``pad_columns``; a ``Cin`` that is no multiple of 8 — the
-  1-channel stem, the 4- and 10-channel latents, a 20-channel ``conv_out``'s
-  input gradient — padded with zero channels by ``pad_channels`` and
-  ``pad_weight_channels``); ``csrc/conv3x3.cu`` (f32 FMAs, every shape) for
-  f32 operands, for bf16 operands whose base address is not 16-byte aligned,
-  and for a bf16 ``Cin`` above 1520;
+  sums, asynchronous staging, a block's weight slab resident in shared
+  memory; the matrix's columns padded with zeros to a multiple of 8 by
+  ``pad_columns``; a ``Cin`` that is no multiple of 8 — the 1-channel stem,
+  the 4- and 10-channel latents, a 20-channel ``conv_out``'s input gradient —
+  padded with zero channels by ``pad_channels`` and ``pad_weight_channels``),
+  but ``csrc/conv3x3_stream_wgmma.cu`` where that slab would narrow the
+  block below 64 output columns and ``Cout`` is at least 64 (TMA-fed,
+  warp-specialised, the weights streamed: ``Cin`` 256 and wider);
+  ``csrc/conv3x3.cu`` (f32 FMAs, every shape) for f32 operands, for bf16
+  operands whose base address is not 16-byte aligned, and for a bf16 ``Cin``
+  above 1520;
 - filter gradient: ``csrc/conv3x3_wgrad_wgmma.cu`` for bf16 operands
   (``wgmma`` with both operands read MN-major from staged tiles; a thin side,
   ``Cin`` or ``Cout`` no multiple of 8, padded with zero channels by
@@ -45,9 +49,10 @@ for CPU tensors; nothing falls back from one to the other.
 ``conv3x3.launches`` counts launches of the forward kernels (forward and input
 gradient, tensor-core and FMA alike), ``conv3x3.wgrad_launches`` those of the
 filter-gradient kernel; of ``launches``, ``conv3x3.fma_launches`` went to the
-FMA kernel and ``conv3x3.padded_launches`` to the tensor-core kernel on
-zero-padded channels. Under ``torch.func.vmap`` the forward and the input
-gradient fold the vmapped axis into the batch (one launch) where the weight
+FMA kernel, ``conv3x3.stream_launches`` to the streamed-weight kernel and
+``conv3x3.padded_launches`` to a tensor-core kernel on zero-padded channels.
+Under ``torch.func.vmap`` the forward and the input gradient fold the
+vmapped axis into the batch (one launch) where the weight
 is shared, and launch once per image where each image has its own; the
 filter gradient, a sum over the batch, launches once per image
 (``_vmap.py``).
@@ -65,16 +70,17 @@ from ._vmap import fold, front, transformed, unfold
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_bwd_plain", "flip_transpose", "forward_kernel",
            "pad_channels", "pad_columns", "pad_weight_channels", "unpad_wgrad", "WGMMA_MAX_CIN",
-           "wgmma_smem_bytes", "wgmma_tile",
+           "wgmma_smem_bytes", "wgmma_tile", "streams_weights", "stream_smem_bytes", "STREAM_TILE",
            "wgrad_kernel", "wgrad_slabs", "WGRAD_FMA_SLAB_PIXELS",
            "wgrad_warpgroups", "wgrad_wgmma_slabs", "wgrad_wgmma_smem_bytes", "SOURCES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "conv3x3.cu"
 _WGMMA_SOURCE = "conv3x3_wgmma.cu"
+_STREAM_SOURCE = "conv3x3_stream_wgmma.cu"
 _WGRAD_SOURCE = "conv3x3_wgrad.cu"
 _WGRAD_WGMMA_SOURCE = "conv3x3_wgrad_wgmma.cu"
-SOURCES = (_WGMMA_SOURCE, _FWD_SOURCE, _WGRAD_WGMMA_SOURCE, _WGRAD_SOURCE)
+SOURCES = (_WGMMA_SOURCE, _STREAM_SOURCE, _FWD_SOURCE, _WGRAD_WGMMA_SOURCE, _WGRAD_SOURCE)
 
 # the FMA filter gradient's tiling (csrc/conv3x3_wgrad.cu), which sizes the partial sums
 _TILE_H, _TILE_W, _WGRAD_CI = 4, 32, 16
@@ -100,26 +106,64 @@ def flip_transpose(wmat: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
 WGMMA_MAX_CIN = 1520
 
 
-def forward_kernel(dtype: torch.dtype, cin: int, aligned: bool = True) -> str:
-    """Which kernel computes the forward / input gradient: ``"wgmma"`` (the
-    tensor-core kernel, ``csrc/conv3x3_wgmma.cu``) for bf16 operands whose
-    base addresses are 16-byte aligned and whose ``Cin`` is at most
-    ``WGMMA_MAX_CIN`` (a block keeps its ``[9, Cin, TN]`` weight slab in
-    shared memory, ``TN`` narrowed down to 8 as ``Cin`` grows: ``wgmma_tile``),
-    else ``"fma"`` (``csrc/conv3x3.cu``): f32 operands, unaligned bf16 views,
-    which 16-byte copies cannot read, and a wider ``Cin``.
+def forward_kernel(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) -> str:
+    """Which kernel computes a forward / input gradient of ``cin`` -> ``cout``
+    channels: the tensor cores for bf16 operands whose base addresses are
+    16-byte aligned and whose ``Cin`` is at most ``WGMMA_MAX_CIN`` —
+    ``"wgmma_stream"`` (``csrc/conv3x3_stream_wgmma.cu``, the weights streamed
+    through shared memory) where ``streams_weights(cin, cout)``, else
+    ``"wgmma"`` (``csrc/conv3x3_wgmma.cu``, a block's ``[9, Cin, TN]`` weight
+    slab resident in shared memory, ``TN`` narrowed down to 8 as ``Cin``
+    grows: ``wgmma_tile``); else ``"fma"`` (``csrc/conv3x3.cu``): f32
+    operands, unaligned bf16 views, which 16-byte copies cannot read, and a
+    wider ``Cin``.
 
-    The kernel reads 8 channels per 16-byte piece, so a ``Cin`` that is no
-    multiple of 8 (the 1-channel stem and the output conv's input gradient,
-    the 4- and 10-channel latents, the 20-channel ``conv_out``'s input
-    gradient) is padded with zero channels by the wrapper: ``x`` (or ``dy``)
-    by ``pad_channels``, each tap's rows of the matrix by
+    The tensor-core kernels read 8 channels per 16-byte piece, so a ``Cin``
+    that is no multiple of 8 (the 1-channel stem and the output conv's input
+    gradient, the 4- and 10-channel latents, the 20-channel ``conv_out``'s
+    input gradient) is padded with zero channels by the wrapper: ``x`` (or
+    ``dy``) by ``pad_channels``, each tap's rows of the matrix by
     ``pad_weight_channels``; products with zero channels add nothing. The copy
     is one pass over the thin tensor, as in the filter gradient
     (``wgrad_kernel``)."""
-    if dtype == torch.bfloat16 and aligned and cin <= WGMMA_MAX_CIN:
-        return "wgmma"
-    return "fma"
+    if dtype != torch.bfloat16 or not aligned or cin > WGMMA_MAX_CIN:
+        return "fma"
+    return "wgmma_stream" if streams_weights(cin, cout) else "wgmma"
+
+
+def streams_weights(cin: int, cout: int) -> bool:
+    """Whether a bf16 call of ``cin`` -> ``cout`` channels takes the
+    streamed-weight kernel: where the resident slab of ``csrc/conv3x3_wgmma.cu``
+    would narrow its block below 64 output columns (``Cin``, padded to a
+    multiple of 8, above 176: the slab of 64 columns no longer fits in shared
+    memory) and ``Cout`` fills at least 64 of the new kernel's 128 columns.
+    There each halo tile is staged once for 128 output channels instead of
+    once per 32 (``Cin`` 256), 16 or 8 of them, and the products are
+    m64n128k16 instead of m64n32k16 or narrower. Both kernels were timed on
+    an H100 at every kl1e3 and s2d shape (``tools/check_wgmma_kernels.py
+    --conv --time``, ``PERF.md`` §6): the streamed weights win at every
+    ``Cin`` 256 call, 2.2-2.5x, but not at every ``Cin`` 128 one, which keeps
+    its slab kernel."""
+    cin_k = _ceil_div(cin, 8) * 8
+    return wgmma_smem_bytes(cin_k, 1, 64, 16) > _WGMMA_MAX_SMEM and cout >= 64
+
+
+# the streamed-weight kernel's fixed tile (csrc/conv3x3_stream_wgmma.cu): patches of 8 x 8
+# pixels side by side, output channels, input channels per K-chunk
+STREAM_TILE = (4, 128, 64)
+_STREAM_HALO_STAGES, _STREAM_WEIGHT_STAGES = 2, 7
+
+
+def stream_smem_bytes() -> int:
+    """Shared memory per block of the streamed-weight kernel (``kSmemBytes``
+    of ``csrc/conv3x3_stream_wgmma.cu``): 1024 bytes of alignment slack for
+    the 128-byte swizzle, the ring of ``[64, 128]`` weight tiles, the ring of
+    halo stages (8 planes of 10 x 34 pixels, each rounded up to 128 bytes)
+    and two mbarriers (8 bytes each) per stage."""
+    mt, tn, kc = STREAM_TILE
+    plane = _ceil_div(10 * (8 * mt + 2) * 16, 128) * 128
+    return (1024 + _STREAM_WEIGHT_STAGES * kc * tn * 2 + _STREAM_HALO_STAGES * (kc // 8) * plane
+            + 8 * 2 * (_STREAM_HALO_STAGES + _STREAM_WEIGHT_STAGES))
 
 
 def pad_columns(wmat: torch.Tensor) -> torch.Tensor:
@@ -229,6 +273,17 @@ def _wgmma_library() -> ctypes.CDLL:
 
 
 @functools.cache
+def _stream_library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load(_STREAM_SOURCE)
+    fn = lib.conv3x3_stream_wgmma_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -265,14 +320,19 @@ def _launch_forward(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
     if y.numel() == 0:
         return y
     aligned = x.data_ptr() % 16 == 0 and wmat.data_ptr() % 16 == 0
-    kernel = forward_kernel(x.dtype, cin, aligned)
-    padded = kernel == "wgmma" and cin % 8 != 0
+    kernel = forward_kernel(x.dtype, cin, cout, aligned)
+    padded = kernel != "fma" and cin % 8 != 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if kernel == "wgmma":
+        if kernel != "fma":
             x, wmat = pad_channels(x), pad_weight_channels(wmat, cin)
             wpad = pad_columns(wmat)
             cin_k = x.shape[-1]
+        if kernel == "wgmma_stream":
+            err = _stream_library().conv3x3_stream_wgmma_fwd(
+                x.data_ptr(), wpad.data_ptr(), y.data_ptr(), b, h, w, cin_k, cout, wpad.shape[1],
+                stream)
+        elif kernel == "wgmma":
             mt, tn, kc = wgmma_tile(b, h, w, cin_k, cout, _sm_count(x.device))
             err = _wgmma_library().conv3x3_wgmma_fwd(
                 x.data_ptr(), wpad.data_ptr(), y.data_ptr(), b, h, w, cin_k, cout, wpad.shape[1],
@@ -285,6 +345,7 @@ def _launch_forward(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"conv3x3 forward ({kernel} kernel) launch failed: CUDA error {err}")
     conv3x3.launches += 1
     conv3x3.fma_launches += kernel == "fma"
+    conv3x3.stream_launches += kernel == "wgmma_stream"
     conv3x3.padded_launches += padded
     return y
 
@@ -546,4 +607,5 @@ def conv3x3(x: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
 conv3x3.launches = 0
 conv3x3.wgrad_launches = 0
 conv3x3.fma_launches = 0
+conv3x3.stream_launches = 0
 conv3x3.padded_launches = 0

@@ -26,6 +26,9 @@ from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
     pad_channels,
     pad_columns,
     pad_weight_channels,
+    STREAM_TILE,
+    stream_smem_bytes,
+    streams_weights,
     wgmma_smem_bytes,
     wgmma_tile,
 )
@@ -82,25 +85,32 @@ def _id(shape):
 def test_conv_forward_kernel_rule(shape):
     cin, cout = shape[3], shape[4]
     # f32 never leaves the FMA kernel, as forward or as input gradient
-    assert forward_kernel(torch.float32, cin) == "fma"
-    assert forward_kernel(torch.float32, cout) == "fma"
-    # bf16: the tensor-core kernel at every channel count of the paths, a thin or ragged
-    # one through zero channels up to a multiple of 8
-    assert forward_kernel(torch.bfloat16, cin) == "wgmma"
-    assert forward_kernel(torch.bfloat16, cout) == "wgmma"
+    assert forward_kernel(torch.float32, cin, cout) == "fma"
+    assert forward_kernel(torch.float32, cout, cin) == "fma"
+    # bf16: a tensor-core kernel at every channel count of the paths, a thin or ragged
+    # one through zero channels up to a multiple of 8; the streamed-weight one exactly at the
+    # kl1e3 model's Cin 256 calls with Cout >= 64 (the flagship's, s2d's and the ragged shapes
+    # have Cin <= 128 throughout)
+    calls = ((cin, cout), (cout, cin))
+    for (c_in, c_out), streamed in zip(calls, STREAMED.get(shape, (False, False))):
+        assert streams_weights(c_in, c_out) == streamed, (c_in, c_out)
+        assert forward_kernel(torch.bfloat16, c_in, c_out) == ("wgmma_stream" if streamed else "wgmma")
     # an unaligned base address keeps any shape on the FMA kernel
-    assert forward_kernel(torch.bfloat16, cin, aligned=False) == "fma"
+    assert forward_kernel(torch.bfloat16, cin, cout, aligned=False) == "fma"
+    assert forward_kernel(torch.bfloat16, cout, cin, aligned=False) == "fma"
 
 
 def test_conv_forward_kernel_rule_on_the_path():
-    forward = [forward_kernel(torch.bfloat16, s[3]) for s in PATH_SHAPES + KL1E3_SHAPES]
-    dgrad = [forward_kernel(torch.bfloat16, s[4]) for s in PATH_SHAPES + KL1E3_SHAPES]
+    calls = [(s[3], s[4]) for s in PATH_SHAPES + KL1E3_SHAPES]
+    forward = [forward_kernel(torch.bfloat16, cin, cout) for cin, cout in calls]
+    dgrad = [forward_kernel(torch.bfloat16, cout, cin) for cin, cout in calls]
     # the 1-channel stems, the 4- and 10-channel latents and Cin 256 take the tensor cores too
-    assert set(forward) == set(dgrad) == {"wgmma"}
-    assert forward_kernel(torch.bfloat16, RAGGED_THIN[3]) == "wgmma"
-    assert forward_kernel(torch.bfloat16, RAGGED_WGMMA[3]) == "wgmma"
-    assert forward_kernel(torch.float16, 32) == "fma"  # (the wrapper refuses the dtype)
-    assert forward_kernel(torch.bfloat16, 128) == "wgmma" and forward_kernel(torch.bfloat16, 136) == "wgmma"
+    assert set(forward) == set(dgrad) == {"wgmma", "wgmma_stream"}
+    assert forward_kernel(torch.bfloat16, RAGGED_THIN[3], RAGGED_THIN[4]) == "wgmma"
+    assert forward_kernel(torch.bfloat16, RAGGED_WGMMA[3], RAGGED_WGMMA[4]) == "wgmma"
+    assert forward_kernel(torch.float16, 32, 32) == "fma"  # (the wrapper refuses the dtype)
+    assert forward_kernel(torch.bfloat16, 128, 256) == "wgmma"
+    assert forward_kernel(torch.bfloat16, 136, 256) == "wgmma"
 
 
 @pytest.mark.parametrize("cin", [1, 4, 8, 10, 20, 256, 512, 1000, 1513, WGMMA_MAX_CIN])
@@ -108,9 +118,11 @@ def test_conv_forward_kernel_rule_up_to_the_limit(cin):
     """Every bf16 ``Cin`` up to ``WGMMA_MAX_CIN`` takes the tensor cores, the
     next one does not; the limit is the widest ``Cin`` (padded) whose slab
     fits at the narrowest tile, 8 output channels beside a ring of 16."""
-    assert forward_kernel(torch.bfloat16, cin) == "wgmma"
-    assert forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 1) == "fma"
-    assert forward_kernel(torch.bfloat16, 2048) == "fma"
+    assert forward_kernel(torch.bfloat16, cin, 8) == "wgmma"
+    assert forward_kernel(torch.bfloat16, cin, 64) == ("wgmma_stream" if cin > 176 else "wgmma")
+    for cout in (8, 64, 256):
+        assert forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 1, cout) == "fma"
+        assert forward_kernel(torch.bfloat16, 2048, cout) == "fma"
     assert WGMMA_MAX_CIN % 8 == 0
     assert wgmma_smem_bytes(WGMMA_MAX_CIN, 1, 8, 16) == 231_152 <= SMEM_MAX
     assert wgmma_smem_bytes(WGMMA_MAX_CIN + 8, 1, 8, 16) == 233_456 > SMEM_MAX
@@ -165,36 +177,112 @@ def test_wgmma_tile_at_the_levels_of_the_flagship():
     assert wgmma_tile(2, 37, 70, 24, 40, N_SM) == (1, 64, 16)
 
 
-def test_wgmma_tile_at_the_levels_of_the_kl1e3_model():
+# every forward and input gradient of a kl1e3 pass: the streamed-weight kernel ("stream") where
+# Cin 256 would narrow the resident slab to 32 output columns and Cout is 64 or more, else the
+# slab kernel's (mt, tn, kc, bytes); a thin Cin is padded to 8 or 16 first
+KL1E3_TILES = {  # (B, H, W, Cin, Cout): forward, input gradient
+    (8, 128, 128, 256, 256): ("stream", "stream"),
+    (8, 256, 256, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
+    (8, 128, 128, 256, 128): ("stream", (4, 64, 32, 224_064)),
+    (8, 256, 256, 128, 64): ((4, 64, 32, 224_064), (4, 64, 64, 216_576)),
+    (8, 256, 256, 64, 64): ((4, 64, 64, 216_576), (4, 64, 64, 216_576)),
+    (8, 128, 128, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
+    (8, 64, 64, 256, 256): ("stream", "stream"),
+    (8, 128, 128, 64, 128): ((4, 64, 64, 216_576), (4, 64, 32, 224_064)),
+    (8, 64, 64, 128, 256): ((4, 64, 32, 224_064), "stream"),
+    (8, 64, 64, 256, 10): ((4, 16, 16, 110_208), (4, 64, 16, 61_920)),
+    (8, 64, 64, 10, 256): ((4, 64, 16, 61_920), (4, 16, 16, 110_208)),
+    (8, 256, 256, 1, 64): ((4, 64, 16, 61_920), (4, 8, 32, 77_648)),
+    (8, 256, 256, 64, 1): ((4, 8, 32, 77_648), (4, 64, 16, 61_920)),
+}
+
+
+# which bf16 calls of a kl1e3 pass stream their weights: (forward, input gradient)
+STREAMED = {s: tuple(t == "stream" for t in KL1E3_TILES[s]) for s in KL1E3_SHAPES}
+
+
+@pytest.mark.parametrize("shape", KL1E3_SHAPES + ["wider"], ids=lambda s: _id(s) if s != "wider" else s)
+def test_wgmma_tile_at_the_levels_of_the_kl1e3_model(shape):
     """Every forward and input gradient of a kl1e3 pass, with the bytes each
-    block asks for: ``Cin`` 256 narrows the block to 32 output channels (its
-    slab 148,032 bytes; 64 would need 296,064), a thin ``Cin`` is padded to 8
-    or 16 first."""
-    want = {  # (B, H, W, Cin, Cout): forward (mt, tn, kc, bytes), input gradient (the same)
-        (8, 128, 128, 256, 256): ((4, 32, 32, 219_392), (4, 32, 32, 219_392)),
-        (8, 256, 256, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
-        (8, 128, 128, 256, 128): ((4, 32, 32, 219_392), (4, 64, 32, 224_064)),
-        (8, 256, 256, 128, 64): ((4, 64, 32, 224_064), (4, 64, 64, 216_576)),
-        (8, 256, 256, 64, 64): ((4, 64, 64, 216_576), (4, 64, 64, 216_576)),
-        (8, 128, 128, 128, 128): ((4, 64, 32, 224_064), (4, 64, 32, 224_064)),
-        (8, 64, 64, 256, 256): ((4, 32, 32, 219_392), (4, 32, 32, 219_392)),
-        (8, 128, 128, 64, 128): ((4, 64, 64, 216_576), (4, 64, 32, 224_064)),
-        (8, 64, 64, 128, 256): ((4, 64, 32, 224_064), (4, 32, 32, 219_392)),
-        (8, 64, 64, 256, 10): ((4, 16, 16, 110_208), (4, 64, 16, 61_920)),
-        (8, 64, 64, 10, 256): ((4, 64, 16, 61_920), (4, 16, 16, 110_208)),
-        (8, 256, 256, 1, 64): ((4, 64, 16, 61_920), (4, 8, 32, 77_648)),
-        (8, 256, 256, 64, 1): ((4, 8, 32, 77_648), (4, 64, 16, 61_920)),
-    }
-    assert sorted(want) == sorted(KL1E3_SHAPES)
-    for (b, h, w, cin, cout), (fwd, dgrad) in want.items():
-        for (c_in, c_out), tile in (((cin, cout), fwd), ((cout, cin), dgrad)):
-            got = wgmma_tile(b, h, w, _kernel_cin(c_in), c_out, N_SM)
-            assert (*got, wgmma_smem_bytes(_kernel_cin(c_in), *got)) == tile, (b, h, w, c_in, c_out)
-            assert tile[3] <= SMEM_MAX
-    # wider channel counts: Cin 512 on 16 output channels, the limit on 8
-    assert wgmma_tile(8, 32, 32, 512, 512, N_SM) == (4, 16, 32)
-    assert wgmma_smem_bytes(512, 4, 16, 32) == 217_056
-    assert wgmma_tile(8, 32, 32, WGMMA_MAX_CIN, 256, N_SM) == (1, 8, 16)
+    block asks for: at ``Cin`` 256 and ``Cout`` >= 64 the call streams its
+    weights (the resident slab would narrow the block to 32 output columns:
+    148,032 bytes; 64 would need 296,064); at ``Cin`` 256 -> 10 it keeps the
+    slab at 16 columns; a thin ``Cin`` is padded to 8 or 16 first."""
+    assert sorted(KL1E3_TILES) == sorted(KL1E3_SHAPES)
+    if shape == "wider":  # Cin 512 streams too; the slab kernel would take 16 output columns
+        assert forward_kernel(torch.bfloat16, 512, 512) == "wgmma_stream"
+        assert wgmma_tile(8, 32, 32, 512, 512, N_SM) == (4, 16, 32)
+        assert wgmma_smem_bytes(512, 4, 16, 32) == 217_056
+        assert forward_kernel(torch.bfloat16, WGMMA_MAX_CIN, 256) == "wgmma_stream"
+        assert wgmma_tile(8, 32, 32, WGMMA_MAX_CIN, 256, N_SM) == (1, 8, 16)
+        return
+    b, h, w, cin, cout = shape
+    for (c_in, c_out), want in zip(((cin, cout), (cout, cin)), KL1E3_TILES[shape]):
+        route = forward_kernel(torch.bfloat16, c_in, c_out)
+        if want == "stream":
+            assert route == "wgmma_stream", (shape, c_in, c_out)
+            assert stream_smem_bytes() <= SMEM_MAX
+            continue
+        assert route == "wgmma", (shape, c_in, c_out)
+        got = wgmma_tile(b, h, w, _kernel_cin(c_in), c_out, N_SM)
+        assert (*got, wgmma_smem_bytes(_kernel_cin(c_in), *got)) == want, (shape, c_in, c_out)
+        assert want[3] <= SMEM_MAX
+
+
+@pytest.mark.parametrize("cin,cout,want", [
+    (176, 256, False), (184, 256, True), (177, 64, True), (256, 63, False), (256, 64, True),
+    (256, 10, False), (128, 256, False), (WGMMA_MAX_CIN, 64, True), (8, 512, False)])
+def test_streams_weights_where_the_slab_would_narrow(cin, cout, want):
+    """The rule reads ``(Cin, Cout)`` alone: the padded ``Cin`` above 176,
+    where 64 output columns of slab no longer fit beside the smallest ring,
+    and ``Cout`` at least 64."""
+    assert streams_weights(cin, cout) == want
+    cin_k = _kernel_cin(cin)
+    assert (wgmma_smem_bytes(cin_k, 1, 64, 16) > SMEM_MAX and cout >= 64) == want
+    assert wgmma_tile(8, 64, 64, cin_k, max(cout, 64), N_SM)[1] < 64 or not want
+
+
+def _stream_constants():
+    """The integer constants ``constexpr int kName = N;`` of the streamed-weight kernel's source."""
+    import re
+
+    text = (_build.CSRC_DIR / "conv3x3_stream_wgmma.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def test_stream_smem_bytes_matches_the_kernel_constants():
+    """``stream_smem_bytes`` and ``STREAM_TILE`` against the constants of
+    ``csrc/conv3x3_stream_wgmma.cu``: alignment slack, 7 weight stages of 64 x
+    128 bf16, 2 halo stages of 8 planes of 10 x 34 pixels (5,440 bytes, each
+    slot rounded up to 5,504), two 8-byte mbarriers per stage; one block per SM."""
+    k = _stream_constants()
+    assert STREAM_TILE == (k["kPatches"], k["kTileN"], k["kChunk"])
+    assert (k["kHaloStages"], k["kWeightStages"], k["kAlign"]) == (2, 7, 1024)
+    plane = -(-10 * (8 * k["kPatches"] + 2) * 16 // 128) * 128
+    assert plane == 5504
+    want = (k["kAlign"] + k["kWeightStages"] * k["kChunk"] * k["kTileN"] * 2
+            + k["kHaloStages"] * (k["kChunk"] // 8) * plane
+            + 8 * 2 * (k["kHaloStages"] + k["kWeightStages"]))
+    assert stream_smem_bytes() == want == 1024 + 7 * 16_384 + 2 * 44_032 + 144 == 203_920
+    assert stream_smem_bytes() <= SMEM_MAX and (228 * 1024) // (stream_smem_bytes() + 1024) == 1
+    # a producer warpgroup and two consumer warpgroups; the registers they trade add up
+    assert k["kConsumers"] == 2 and (1 + k["kConsumers"]) * 128 == 384
+    assert 128 * 40 + 256 * 232 <= 65_536
+
+
+def test_stream_launches_are_reset_and_split_out():
+    from pti_ldm_vae_tpu_torch.ops import kernels
+
+    kernels.conv3x3.stream_launches = 3
+    kernels.conv3x3.launches = 5
+    assert kernels.split_launch_counts()["conv3x3_stream"] == 3
+    assert kernels.launch_counts()["conv3x3"] == 5
+    kernels.reset_launch_counts()
+    assert kernels.conv3x3.stream_launches == 0 and kernels.split_launch_counts()["conv3x3_stream"] == 0
+    # the plain version on CPU tensors launches nothing
+    x = torch.zeros(1, 8, 8, 256)
+    kernels.conv3x3(x, torch.zeros(9 * 256, 64))
+    assert kernels.conv3x3.stream_launches == 0 and kernels.launch_counts()["conv3x3"] == 0
 
 
 def test_wgmma_smem_bytes_matches_the_kernel_formula():
@@ -316,6 +404,95 @@ def test_kernel_layout_model_matches_plain(shape, mt, tn, kc):
     got = _model_of_the_kernel(xk, wk, mt, tn, kc)
     assert not got[..., cout:].any()  # the padded columns are outputs that stay zero
     np.testing.assert_allclose(got[..., :cout], want, rtol=1e-4, atol=1e-5)
+
+
+def _swizzle128(offset):
+    """The 128-byte swizzle of TMA and wgmma on a 1024-aligned stage: the
+    16-byte chunk index (bits 4-6) XOR the 128-byte row index (bits 7-9)."""
+    return offset ^ (((offset >> 7) & 7) << 4)
+
+
+def _model_of_the_stream_kernel(x, wmat, cout):
+    """The streamed-weight kernel's data path in numpy, on the operands as the
+    kernel receives them (``Cin`` a multiple of 8, the matrix's columns padded
+    to a multiple of 8), with the constants and descriptor arithmetic of
+    ``csrc/conv3x3_stream_wgmma.cu``: per tile (4 patches by 128 output
+    channels) and chunk of 64 input channels, the halo written as TMA writes
+    its per-plane boxes (zero outside the image and past ``Cin``), each tap's
+    [64, 128] weight tile written in two 64-column halves with the 128-byte
+    swizzle (zero past ``Cin`` and past ``ldw``), and per k16 step and patch
+    one product whose A rows are read at the no-swizzle descriptor's strides
+    and whose B rows at the swizzled descriptor's (LBO from one half to the
+    other, SBO from 8 rows of depth to the next), each consumer warpgroup on
+    its own two patches; the epilogue maps accumulator row r of patch p to
+    pixel (r // 8, 8p + r % 8)."""
+    k = _stream_constants()
+    b, h, w, cin = x.shape
+    ldw = wmat.shape[1]
+    patches, tile_n, chunk = k["kPatches"], k["kTileN"], k["kChunk"]
+    hc = 8 * patches + 2  # kHaloCols
+    plane_bytes, half_bytes = -(-10 * hc * 16 // 128) * 128, chunk * 128
+    w3 = wmat.reshape(9, cin, ldw)
+    y = np.zeros((b, h, w, cout), np.float32)
+    for co0 in range(0, cout, tile_n):
+        for img in range(b):
+            for th0 in range(0, h, 8):
+                for tw0 in range(0, w, 8 * patches):
+                    acc = np.zeros((patches, 64, tile_n), np.float32)
+                    for c0 in range(0, cin, chunk):
+                        halo = np.zeros(chunk // 8 * plane_bytes // 2, np.float32)  # 2-byte cells
+                        for p in range(chunk // 8):
+                            for r in range(10):
+                                for c in range(hc):
+                                    gh, gw, ci = th0 - 1 + r, tw0 - 1 + c, c0 + 8 * p
+                                    if 0 <= gh < h and 0 <= gw < w and ci < cin:
+                                        at = (p * plane_bytes + (r * hc + c) * 16) // 2
+                                        halo[at:at + 8] = x[img, gh, gw, ci:ci + 8]
+                        for tap in range(9):
+                            ky, kx = divmod(tap, 3)
+                            stage = np.zeros(tile_n // 64 * half_bytes // 2, np.float32)
+                            for half in range(tile_n // 64):
+                                for row in range(chunk):
+                                    for j in range(64):
+                                        ci, co = c0 + row, co0 + 64 * half + j
+                                        if ci < cin and co < ldw:
+                                            byte = _swizzle128(half * half_bytes + row * 128 + 2 * j)
+                                            stage[byte // 2] = w3[tap, ci, co]
+                            for kk in range(chunk // 16):
+                                kd, nd = np.arange(16)[:, None], np.arange(tile_n)[None, :]
+                                b_start = kk * 16 * 128  # + the stage's 1024-aligned base
+                                b_bytes = (b_start + (nd // 64) * half_bytes + (kd // 8) * 1024
+                                           + (kd % 8) * 128 + (nd % 64) * 2)
+                                b_mat = stage[_swizzle128(b_bytes) // 2]
+                                for consumer in range(2):
+                                    for m in range(2):
+                                        pm = 2 * consumer + m
+                                        a_start = 2 * kk * plane_bytes + (ky * hc + 8 * pm + kx) * 16
+                                        md, kd2 = np.arange(64)[:, None], np.arange(16)[None, :]
+                                        a_bytes = (a_start + (kd2 // 8) * plane_bytes
+                                                   + (md // 8) * hc * 16 + (md % 8) * 16
+                                                   + (kd2 % 8) * 2)
+                                        acc[pm] += halo[a_bytes // 2] @ b_mat
+                    for pm in range(patches):
+                        for r in range(64):
+                            gh, gw = th0 + r // 8, tw0 + 8 * pm + r % 8
+                            live = min(tile_n, cout - co0)
+                            if gh < h and gw < w:
+                                y[img, gh, gw, co0:co0 + live] = acc[pm, r, :live]
+    return y
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 32, 64, 64), (1, 9, 35, 72, 136), (2, 11, 13, 24, 67)],
+                         ids=["one_tile", "ragged_two_chunks_two_groups", "ragged_cin24_cout67"])
+def test_stream_kernel_layout_model_matches_plain(shape):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+    wmat = (rng.normal(size=(9 * cin, cout)) * (9 * cin) ** -0.5).astype(np.float32)
+    want = conv3x3_plain(torch.from_numpy(x), torch.from_numpy(wmat)).numpy()
+    xk, wk = _as_the_kernel_gets_them(x, wmat)
+    got = _model_of_the_stream_kernel(xk, wk, cout)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("cin", [1, 4, 10, 20])
@@ -490,6 +667,7 @@ def test_flash_fma_split_fits_shared_memory_at_any_head_dim(head_dim):
 
 def test_new_sources_are_built_with_the_rest():
     assert "conv3x3_wgmma.cu" in CONV_SOURCES and "conv3x3.cu" in CONV_SOURCES
+    assert "conv3x3_stream_wgmma.cu" in CONV_SOURCES
     assert "flash_attention_wgmma.cu" in FLASH_SOURCES and "flash_attention.cu" in FLASH_SOURCES
     assert "conv3x3_wgrad_wgmma.cu" in CONV_SOURCES and "conv3x3_wgrad.cu" in CONV_SOURCES
     assert "flash_attention_bwd_wgmma.cu" in FLASH_SOURCES and "flash_attention_bwd.cu" in FLASH_SOURCES
@@ -498,7 +676,8 @@ def test_new_sources_are_built_with_the_rest():
         assert (_build.CSRC_DIR / source).is_file()
 
 
-@pytest.mark.parametrize("source", ["conv3x3_wgmma.cu", "flash_attention_wgmma.cu",
+@pytest.mark.parametrize("source", ["conv3x3_wgmma.cu", "conv3x3_stream_wgmma.cu",
+                                    "flash_attention_wgmma.cu",
                                     "conv3x3_wgrad_wgmma.cu", "flash_attention_bwd_wgmma.cu",
                                     "flash_attention_wide_wgmma.cu",
                                     "flash_attention_bwd_wide_wgmma.cu"])
@@ -528,3 +707,14 @@ def test_build_hash_follows_nested_includes(tmp_path, monkeypatch):
     before = _build.library_path("a.cu")
     (csrc / "c.cuh").write_text("// leaf, edited\n")
     assert _build.library_path("a.cu") != before
+
+
+@pytest.mark.parametrize("variant", ["no_weights", "no_halo", "no_loads", "one_tap", "no_store",
+                                     "none_of_them"])
+def test_stream_ablation_variants_still_apply(variant):
+    """``tools/ablate_conv3x3_stream.py`` edits the streamed-weight kernel's
+    source by string replacement: each edit must still find its one place."""
+    from tools import ablate_conv3x3_stream as ablate
+
+    source = (_build.CSRC_DIR / "conv3x3_stream_wgmma.cu").read_text()
+    assert ablate.VARIANTS[variant](source) != source

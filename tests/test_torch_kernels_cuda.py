@@ -52,6 +52,8 @@ from pti_ldm_vae_tpu_torch.ops.kernels import (
 from pti_ldm_vae_tpu_torch.ops.kernels.conv3x3 import (
     WGMMA_MAX_CIN,
     _launch_wgrad,
+    flip_transpose,
+    stream_smem_bytes,
     wgmma_smem_bytes,
     wgmma_tile,
     wgrad_kernel,
@@ -441,17 +443,21 @@ CONV_SHAPES = [(2, 64, 64, 32, 32), (1, 20, 12, 3, 5), (2, 40, 70, 1, 32), (2, 3
                (1, 16, 16, WGMMA_MAX_CIN + 8, 8)]
 
 
-def _conv_launches(dtype, *cins):
-    """(launches, FMA launches, padded launches) of forward-kernel calls whose
-    Cin are ``cins``: bf16 on the tensor cores up to WGMMA_MAX_CIN, a Cin that
-    is no multiple of 8 padded; f32 on the FMA kernel."""
-    fma = sum(conv_forward_kernel(dtype, c) == "fma" for c in cins)
-    padded = sum(conv_forward_kernel(dtype, c) == "wgmma" and c % 8 != 0 for c in cins)
-    return len(cins), fma, padded
+def _conv_launches(dtype, *calls):
+    """(launches, FMA launches, padded launches, streamed-weight launches) of
+    forward-kernel calls whose (Cin, Cout) are ``calls``: bf16 on the tensor
+    cores up to WGMMA_MAX_CIN (streaming the weights at Cin above 176 and Cout
+    of 64 or more), a Cin that is no multiple of 8 padded; f32 on the FMA
+    kernel."""
+    routes = [(conv_forward_kernel(dtype, cin, cout), cin) for cin, cout in calls]
+    fma = sum(r == "fma" for r, _ in routes)
+    padded = sum(r != "fma" and cin % 8 != 0 for r, cin in routes)
+    return len(calls), fma, padded, sum(r == "wgmma_stream" for r, _ in routes)
 
 
 def _conv_counts():
-    return launch_counts()["conv3x3"], conv3x3.fma_launches, conv3x3.padded_launches
+    return (launch_counts()["conv3x3"], conv3x3.fma_launches, conv3x3.padded_launches,
+            conv3x3.stream_launches)
 
 
 def _conv_inputs(shape, dtype, device, gen):
@@ -470,7 +476,7 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype):
         reset_launch_counts()
         # a strided input, as the nearest upsample hands one over
         got = conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), wmat)
-        assert _conv_counts() == _conv_launches(dtype, shape[3]), shape
+        assert _conv_counts() == _conv_launches(dtype, shape[3:]), shape
         assert got.dtype == dtype and got.is_contiguous()
         assert torch.equal(got, conv3x3(x, wmat))  # two runs, the same bits
         want = conv3x3_plain(x.float(), wmat.to(dtype).float())
@@ -493,7 +499,7 @@ def test_conv3x3_backward_kernels_match_plain(cuda, dtype):
         counts = launch_counts()
         assert (counts["conv3x3"], counts["conv3x3_wgrad"]) == (2, 1)  # forward + dgrad, wgrad
         # the input gradient runs the forward kernel with Cout in Cin's place, padded alike
-        assert _conv_counts() == _conv_launches(dtype, cin, cout), shape
+        assert _conv_counts() == _conv_launches(dtype, (cin, cout), (cout, cin)), shape
         assert dx.dtype == dtype and dw.dtype == torch.float32 and dw.shape == wmat.shape
         want_dx, want_dw = conv3x3_bwd_plain(x.detach().float(), wmat.detach().to(dtype).float(),
                                              g.float())
@@ -530,7 +536,7 @@ def test_conv3x3_kernel_at_vgg16_shapes(cuda, dtype):
         x, wmat = _conv_inputs(shape, dtype, cuda, gen)
         reset_launch_counts()
         got = conv3x3(x, wmat)
-        assert _conv_counts() == _conv_launches(dtype, shape[3]), shape
+        assert _conv_counts() == _conv_launches(dtype, shape[3:]), shape
         want = conv3x3_plain(x.float(), wmat.to(dtype).float())
         torch.testing.assert_close(got.float(), want, **_tol(dtype), msg=lambda m: f"{shape}: {m}")
 
@@ -559,14 +565,17 @@ def test_vgg16_features_on_the_card(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_bf16_routes_follow_the_rules(cuda):
-    assert conv_forward_kernel(torch.bfloat16, 24) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, 24, 40) == "wgmma"
     # a thin Cin is padded with zero channels onto the tensor cores, up to the widest Cin whose
-    # weight slab fits; f32 stays on the FMA kernel
-    assert conv_forward_kernel(torch.bfloat16, 3) == "wgmma"
-    assert conv_forward_kernel(torch.bfloat16, 256) == conv_forward_kernel(torch.bfloat16, 10) == "wgmma"
-    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN) == "wgmma"
-    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 8) == "fma"
-    assert conv_forward_kernel(torch.float32, 24) == "fma"
+    # weight slab fits at 8 output columns; Cin 256 and wider stream the weights where Cout is
+    # 64 or more; f32 stays on the FMA kernel
+    assert conv_forward_kernel(torch.bfloat16, 3, 5) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, 256, 10) == conv_forward_kernel(torch.bfloat16, 10, 256) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, 256, 256) == "wgmma_stream"
+    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN, 8) == "wgmma"
+    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN, 64) == "wgmma_stream"
+    assert conv_forward_kernel(torch.bfloat16, WGMMA_MAX_CIN + 8, 8) == "fma"
+    assert conv_forward_kernel(torch.float32, 24, 40) == "fma"
     # an unaligned bf16 view goes to the FMA kernel and still agrees
     gen = torch.Generator(device=cuda).manual_seed(6)
     flat = torch.randn(2 * 16 * 16 * 16 + 1, device=cuda, generator=gen).bfloat16()
@@ -575,7 +584,7 @@ def test_bf16_routes_follow_the_rules(cuda):
     wmat = torch.randn(144, 8, device=cuda, generator=gen) / 12
     reset_launch_counts()
     got = conv3x3(x, wmat)
-    assert _conv_counts() == (1, 1, 0)
+    assert _conv_counts() == (1, 1, 0, 0)
     want = conv3x3_plain(x.float(), wmat.bfloat16().float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
 
@@ -601,6 +610,63 @@ def test_conv3x3_wgmma_occupancy_matches_the_formula(cuda):
     # a Cin past the limit is refused
     assert lib.conv3x3_wgmma_occupancy(1, 8, 16, WGMMA_MAX_CIN + 8, ctypes.byref(smem),
                                        ctypes.byref(blocks)) != 0
+
+
+# every call of a kl1e3 pass at b8 whose Cin is 256 and Cout 64 or more, which streams its
+# weights: the forwards and input gradients of 128² and 64² 256 -> 256, the forward of 128²
+# 256 -> 128 and the input gradient of 64² 128 -> 256 (Cin 256 -> Cout 128 there); then
+# ragged ones: H and W no multiples of 8 with Cout no multiple of the 128-column tile (200),
+# Cin no multiple of the 64-channel chunk with an odd Cout (264 -> 67), Cin 512, and the
+# widest Cin of the tensor cores
+STREAM_SHAPES = [(8, 128, 128, 256, 256), (8, 128, 128, 256, 128), (8, 64, 64, 256, 256),
+                 (8, 64, 64, 128, 256), (2, 37, 45, 256, 200), (1, 19, 21, 264, 67),
+                 (1, 32, 32, 512, 64), (1, 12, 20, WGMMA_MAX_CIN, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_stream_kernel_matches_plain(cuda, shape):
+    """The streamed-weight kernel in bf16 against the plain version, as the
+    forward and through autograd as the input gradient, at the bf16 bar of the
+    other convolution tests; two runs give the same bits, and
+    ``stream_launches`` counts the calls that took it."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, h, w, cin, cout = shape
+    x, wmat = _conv_inputs(shape, torch.bfloat16, cuda, gen)
+    x.requires_grad_()
+    g = (torch.randn(b, h, w, cout, device=cuda, generator=gen) * (cin / cout) ** 0.5).bfloat16()
+    reset_launch_counts()
+    y = conv3x3(x, wmat)
+    (dx,) = torch.autograd.grad(y, x, g)
+    calls = ((cin, cout), (cout, cin))
+    streamed = sum(conv_forward_kernel(torch.bfloat16, *c) == "wgmma_stream" for c in calls)
+    assert streamed >= 1 and _conv_counts() == _conv_launches(torch.bfloat16, *calls)
+    assert conv3x3.stream_launches == streamed
+    wd = wmat.to(torch.bfloat16).float()
+    torch.testing.assert_close(y.detach().float(), conv3x3_plain(x.detach().float(), wd),
+                               **_tol(torch.bfloat16), msg=lambda m: f"forward {shape}: {m}")
+    torch.testing.assert_close(dx.float(), conv3x3_plain(g.float(), flip_transpose(wd, cin, cout)),
+                               **_tol(torch.bfloat16), msg=lambda m: f"input gradient {shape}: {m}")
+    (again,) = torch.autograd.grad(conv3x3(x, wmat), x, g)
+    with torch.no_grad():
+        assert torch.equal(conv3x3(x, wmat), y.detach())
+    assert torch.equal(again, dx)
+    assert conv3x3.stream_launches == 2 * streamed + (conv_forward_kernel(
+        torch.bfloat16, cin, cout) == "wgmma_stream")
+
+
+@pytest.mark.cuda
+def test_conv3x3_stream_occupancy_matches_the_formula(cuda):
+    """The streamed-weight kernel's shared memory as the CUDA runtime takes
+    it, against ``stream_smem_bytes``: one block of 384 threads per SM."""
+    import ctypes
+
+    from pti_ldm_vae_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("conv3x3_stream_wgmma.cu")
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    assert lib.conv3x3_stream_wgmma_occupancy(ctypes.byref(smem), ctypes.byref(blocks)) == 0
+    assert smem.value == stream_smem_bytes() and blocks.value == 1
 
 
 # the filter gradient's bf16 shapes of a flagship pass (all on the tensor-core kernel, the
@@ -794,7 +860,7 @@ def test_kernels_at_the_s2d_shapes(cuda, dtype):
         reset_launch_counts()
         y = conv3x3(x, wmat)
         dx, _ = torch.autograd.grad(y, (x, wmat), g, retain_graph=True)
-        assert _conv_counts() == _conv_launches(dtype, cin, cout), shape
+        assert _conv_counts() == _conv_launches(dtype, (cin, cout), (cout, cin)), shape
         (dw,) = torch.autograd.grad(y, wmat, g_unit.to(dtype))
         wd = wmat.detach().to(dtype).float()
         torch.testing.assert_close(y.detach().float(), conv3x3_plain(x.detach().float(), wd),
@@ -1121,7 +1187,8 @@ def test_path_kernels_at_b128_match_plain(cuda, kernel):
         runs = [torch.autograd.grad(y, (x, wmat), g) + (y.detach(),)
                 for y in (conv3x3(x, wmat) for _ in range(2))]
         assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
-        assert _conv_counts() == (4, 0, 0)  # two forwards, two input gradients: all on wgmma
+        # two forwards, two input gradients: all on the slab kernel (Cin <= 128)
+        assert _conv_counts() == (4, 0, 0, 0)
         assert launch_counts()["conv3x3_wgrad"] == 2 and wgrad_kernel(dtype, cin, cout) == "wgmma"
         dx, dw, y = runs[0]
         wd = wmat.detach().to(dtype).float()

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Quick check of the six tensor-core kernels on one CUDA card.
+"""Quick check of the seven tensor-core kernels on one CUDA card.
 
     python3 tools/check_wgmma_kernels.py [--time] [--tiles] [--wide | --conv]
 
-Builds ``csrc/conv3x3_wgmma.cu``, ``csrc/flash_attention_wgmma.cu``,
-``csrc/conv3x3_wgrad_wgmma.cu``, ``csrc/flash_attention_bwd_wgmma.cu`` and
-the wide-head flash kernels ``csrc/flash_attention_wide_wgmma.cu`` and
+Builds ``csrc/conv3x3_wgmma.cu``, ``csrc/conv3x3_stream_wgmma.cu``,
+``csrc/flash_attention_wgmma.cu``, ``csrc/conv3x3_wgrad_wgmma.cu``,
+``csrc/flash_attention_bwd_wgmma.cu`` and the wide-head flash kernels
+``csrc/flash_attention_wide_wgmma.cu`` and
 ``csrc/flash_attention_bwd_wide_wgmma.cu`` (and the f32-FMA kernels beside
-them; a few seconds), prints what ``ptxas`` reports for the six, and holds
+them; a few seconds), prints what ``ptxas`` reports for the seven, and holds
 each against its plain PyTorch version at the
 flagship path's shapes and at ragged ones: the forward kernels and the
 attention backward in bf16 at atol 2e-2 on the same rounded inputs (flash
@@ -30,14 +31,21 @@ the wide kernels) and SDPA, and with ``--tiles`` the backward's signed and rms
 error against a float64 reference beside the FMA kernels'; then the head dims
 the wrapper pads in bf16, through ``flash_attention`` and autograd (the
 padded call's scale is the caller's ``D^-0.5``). ``--conv``: only the
-convolution forward kernel (after the build and ``ptxas``), at the flagship's
+convolution forward kernels (after the build and ``ptxas``), at the flagship's
 shapes, at every forward and input gradient of a
-``config/ar_vae_dente_kl1e3.json`` pass (``Cin`` 256 on 32 output columns a
-block, the thin ``Cin`` 1 and 10 padded with zero channels), at ``Cin`` 512
-and at ``WGMMA_MAX_CIN``; with ``--time`` each beside the f32-FMA kernel on
-the same bf16 inputs in turns (FMA, tensor cores, tensor cores, FMA) and
-``F.conv2d``, with ``--tiles`` at every ``(mt, tn, kc)`` that fits and is no
-wider than the width that covers ``Cout``. ``chip_smoke.py`` is the full run.
+``config/ar_vae_dente_kl1e3.json`` pass (``Cin`` 256 with ``Cout`` >= 64 on
+the streamed-weight kernel, ``csrc/conv3x3_stream_wgmma.cu``, the thin ``Cin``
+1 and 10 padded with zero channels), at ``Cin`` 512 and at ``WGMMA_MAX_CIN``,
+through the route the wrapper picks and, wherever ``Cout`` >= 64, through both
+tensor-core kernels (the resident-slab one at its ``wgmma_tile``); with
+``--time`` each beside the f32-FMA kernel on the same bf16 inputs in turns
+(FMA, tensor cores, tensor cores, FMA), ``F.conv2d`` and the bound, and both
+tensor-core kernels and ``F.conv2d`` with the L2 flushed before each call (in
+turns: slab, stream, stream, slab; where the two kernels cross over), with
+``--tiles`` the slab kernel at every ``(mt, tn, kc)`` that fits and is no
+wider than the width that covers ``Cout``, and both kernels' mean signed and
+rms error against a float64 convolution of image 0 beside one bf16
+rounding's. ``chip_smoke.py`` is the full run.
 """
 
 from __future__ import annotations
@@ -64,7 +72,9 @@ CONV_SHAPES = [(1, 8, 8, 16, 8), (1, 8, 8, 16, 64), (1, 16, 32, 32, 32), (2, 37,
                (8, 64, 64, 128, 256), (8, 64, 64, 256, 128), (8, 64, 64, 256, 10),
                (8, 64, 64, 10, 256), (8, 256, 256, 1, 64), (8, 256, 256, 64, 1),
                # wider: 16 and 8 output columns a block
-               (8, 32, 32, 512, 512), (2, 32, 32, 1520, 64)]
+               (8, 32, 32, 512, 512), (2, 32, 32, 1520, 64),
+               # the flagship's space-to-depth stem and output conv at 128²
+               (8, 128, 128, 4, 128), (8, 128, 128, 128, 4)]
 FLASH_SHAPES = [(1, 1, 64, 16), (1, 1, 64, 128), (2, 2, 200, 32), (2, 2, 1000, 64),
                 (8, 1, 1024, 16), (8, 1, 1024, 32), (8, 1, 1024, 64), (8, 1, 1024, 128),
                 (2, 1, 200, 128), (1, 3, 77, 32)]
@@ -76,9 +86,9 @@ WGRAD_SHAPES = [(1, 8, 8, 8, 8), (2, 37, 70, 24, 40), (1, 11, 19, 72, 16), (1, 2
                 (8, 64, 64, 128, 128), (8, 64, 64, 64, 128), (8, 128, 128, 32, 64),
                 (8, 128, 128, 64, 64), (8, 128, 128, 128, 64), (8, 128, 128, 128, 128),
                 (8, 256, 256, 32, 32), (8, 256, 256, 64, 32), (8, 256, 256, 64, 64)]
-WGMMA_SOURCES = ("conv3x3_wgmma.cu", "flash_attention_wgmma.cu", "conv3x3_wgrad_wgmma.cu",
-                 "flash_attention_bwd_wgmma.cu", "flash_attention_wide_wgmma.cu",
-                 "flash_attention_bwd_wide_wgmma.cu")
+WGMMA_SOURCES = ("conv3x3_wgmma.cu", "conv3x3_stream_wgmma.cu", "flash_attention_wgmma.cu",
+                 "conv3x3_wgrad_wgmma.cu", "flash_attention_bwd_wgmma.cu",
+                 "flash_attention_wide_wgmma.cu", "flash_attention_bwd_wide_wgmma.cu")
 # the wide-head flash kernels: every slice / residency mode (192 and 256 keep their A tiles
 # whole, 320 and 512 stream them in the backward, 640 and 1024 also q in the forward), ragged
 # lengths, and the two timed shapes (config/ar_vae_dente_kl1e3.json's mid blocks at b8, and a
@@ -101,9 +111,11 @@ def emit(**fields) -> None:
     print(json.dumps(fields, separators=(",", ":")), flush=True)
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
+def device_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Device time per call of ``fn()``: the summed time of its kernels in a
-    ``torch.profiler`` trace (no launch overhead, no L2 flush between calls)."""
+    ``torch.profiler`` trace (no launch overhead). With ``flush`` (a tensor
+    larger than the L2) the L2 is flushed before each call by zeroing it, and
+    that fill kernel is left out of the sum; without, the L2 stays warm."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -113,10 +125,13 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     for _ in range(3):  # a trace now and then comes back without its device events: take it again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
         total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+                       if e.device_type == DeviceType.CUDA
+                       and (flush is None or "fill" not in e.name.lower()))
         if total_us > 0:
             return total_us / 1e3 / iters
     raise RuntimeError("torch.profiler recorded no device kernel in three traces")
@@ -285,11 +300,14 @@ def main() -> int:
         emit(ok=ok, device=torch.cuda.get_device_name(0))
         return 0 if ok else 1
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = torch.empty(32 * 2**20, device="cuda")  # 128 MB: more than the 50 MB L2
+    slab_lib, stream_lib = conv_mod._wgmma_library(), conv_mod._stream_library()
     for shape in CONV_SHAPES:
         b, h, w, cin, cout = shape
         x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
         wmat = (torch.randn(9 * cin, cout, device="cuda", generator=gen) * (9 * cin) ** -0.5).bfloat16()
-        assert conv_mod.forward_kernel(x.dtype, cin) == "wgmma"
+        route = conv_mod.forward_kernel(x.dtype, cin, cout)
+        assert route in ("wgmma", "wgmma_stream")
         got = conv_mod._launch_forward(x, wmat).float()
         again = conv_mod._launch_forward(x, wmat).float()
         torch.cuda.synchronize()
@@ -298,9 +316,25 @@ def main() -> int:
         # the kernel's operands: a thin Cin padded with zero channels, columns to a multiple of 8
         x_k, cin_k = conv_mod.pad_channels(x), -(-cin // 8) * 8
         w_k = conv_mod.pad_columns(conv_mod.pad_weight_channels(wmat, cin))
-        picked = conv_mod.wgmma_tile(b, h, w, cin_k, cout, n_sm)
-        row = {"conv3x3_wgmma": list(shape), "cin_kernel": cin_k, "picked": list(picked),
-               "smem_bytes": conv_mod.wgmma_smem_bytes(cin_k, *picked),
+        picked = (conv_mod.wgmma_tile(b, h, w, cin_k, cout, n_sm) if route == "wgmma"
+                  else conv_mod.STREAM_TILE)
+        stream = torch.cuda.current_stream().cuda_stream
+        y_other = torch.empty(b, h, w, cout, device="cuda", dtype=torch.bfloat16)
+        slab_tile = conv_mod.wgmma_tile(b, h, w, cin_k, cout, n_sm)
+
+        def slab_call(mt, tn, kc):  # the resident-slab kernel, at any tile that fits
+            return slab_lib.conv3x3_wgmma_fwd(x_k.data_ptr(), w_k.data_ptr(), y_other.data_ptr(), b, h,
+                                              w, cin_k, cout, w_k.shape[1], mt, tn, kc, stream)
+
+        def stream_call():  # the streamed-weight kernel, whichever route the rule picks
+            return stream_lib.conv3x3_stream_wgmma_fwd(x_k.data_ptr(), w_k.data_ptr(),
+                                                       y_other.data_ptr(), b, h, w, cin_k, cout,
+                                                       w_k.shape[1], stream)
+
+        row = {"conv3x3_wgmma": list(shape), "route": route, "cin_kernel": cin_k,
+               "picked": list(picked),
+               "smem_bytes": (conv_mod.wgmma_smem_bytes(cin_k, *picked) if route == "wgmma"
+                              else conv_mod.stream_smem_bytes()),
                "max_abs_err": float(err.max()), "bit_identical": torch.equal(got, again)}
         if not (float(err.max()) <= 2e-2 and row["bit_identical"]):
             ok = False
@@ -308,7 +342,32 @@ def main() -> int:
             row.update(bad_share=float((err > 2e-2).float().mean()), first_bad=bad[:12].tolist(),
                        got=[float(got[tuple(i)]) for i in bad[:6]],
                        want=[float(want[tuple(i)]) for i in bad[:6]])
-        stream = torch.cuda.current_stream().cuda_stream
+        # the other tensor-core kernel on the same operands, where both take the shape: the
+        # streamed-weight kernel wherever Cout >= 64, the slab kernel at its own tile
+        if cout >= 64 and cin_k >= 16:
+            slab_out = torch.empty_like(y_other)
+            err_slab = slab_lib.conv3x3_wgmma_fwd(x_k.data_ptr(), w_k.data_ptr(), slab_out.data_ptr(),
+                                                  b, h, w, cin_k, cout, w_k.shape[1], *slab_tile, stream)
+            if err_slab or stream_call():
+                raise RuntimeError(f"conv3x3 {shape}: a launch failed")
+            torch.cuda.synchronize()
+            for name, out in (("slab", slab_out), ("stream", y_other)):
+                other_err = float((out.float() - want).abs().max())
+                row[f"{name}_max_abs_err"] = other_err
+                ok = ok and other_err <= 2e-2
+            if "--tiles" in sys.argv[1:] and b * h * w <= 8 * 128 * 128:
+                # float64 reference on image 0: the mean signed error and the rms error of each
+                # accumulation order, over the reference's rms, beside one bf16 rounding's
+                ref = torch.nn.functional.conv2d(
+                    x[:1].double().permute(0, 3, 1, 2),
+                    wmat.double().reshape(3, 3, cin, cout).permute(3, 2, 0, 1), padding=1
+                ).permute(0, 2, 3, 1)
+                scale = float(ref.pow(2).mean().sqrt())
+                for name, out in (("slab", slab_out), ("stream", y_other),
+                                  ("bf16_rounding", ref.bfloat16())):
+                    diff = out[:1].double() - ref
+                    row[f"{name}_signed_rms_f64"] = [float(diff.mean()) / scale,
+                                                     float(diff.pow(2).mean().sqrt()) / scale]
         if timed:
             x_lib = x.permute(0, 3, 1, 2)
             w_lib = (wmat.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
@@ -324,31 +383,43 @@ def main() -> int:
             fma_ms = [device_ms(torch, fma_call)]
             ms = [device_ms(torch, lambda: conv_mod._launch_forward(x, wmat)) for _ in range(2)]
             fma_ms.append(device_ms(torch, fma_call))
+            flops = 2 * 9 * cin * cout * b * h * w
+            nbytes = 2 * (x.numel() + wmat.numel() + b * h * w * cout)
             row.update(ms=ms, fma_ms=fma_ms,
                        library_ms=device_ms(torch, lambda: F.conv2d(x_lib, w_lib, padding=1)),
-                       tflops=2 * 9 * cin * cout * b * h * w / (min(ms) * 1e-3) / 1e12)
+                       tflops=flops / (min(ms) * 1e-3) / 1e12,
+                       bound_ms=max(flops / 989e12, nbytes / 3.35e12) * 1e3)
+            if cout >= 64 and cin_k >= 16:
+                # both tensor-core kernels and cuDNN with the L2 flushed before each call (the
+                # 128 MB write's own kernel left out), in turns: slab, stream, stream, slab
+                slab_ms = [device_ms(torch, lambda: slab_call(*slab_tile), 10, flush)]
+                stream_ms = [device_ms(torch, stream_call, 10, flush) for _ in range(2)]
+                slab_ms.append(device_ms(torch, lambda: slab_call(*slab_tile), 10, flush))
+                row.update(flushed_slab_ms=slab_ms, flushed_stream_ms=stream_ms,
+                           flushed_library_ms=device_ms(
+                               torch, lambda: F.conv2d(x_lib, w_lib, padding=1), 10, flush),
+                           stream_over_slab=min(stream_ms) / min(slab_ms))
         if "--tiles" in sys.argv[1:]:  # every tile that fits, beside the one ``wgmma_tile`` picks
-            lib = conv_mod._wgmma_library()
-            y = torch.empty(b, h, w, cout, device="cuda", dtype=torch.bfloat16)
             cover = next((tn for tn in (8, 16, 32) if cout <= tn), 64)
             by_tile, other_bits = {}, []
+            slab_bits = None
             for tn in (tn for tn in (64, 32, 16, 8) if tn <= cover):
                 for kc in (16, 32, 64):
                     for mt in (4, 2, 1):
                         if kc > max(cin_k, 16) or conv_mod.wgmma_smem_bytes(cin_k, mt, tn, kc) > 232448:
                             continue
                         tag = f"mt{mt} tn{tn} kc{kc}"
-                        by_tile[tag] = round(device_ms(torch, lambda: lib.conv3x3_wgmma_fwd(
-                            x_k.data_ptr(), w_k.data_ptr(), y.data_ptr(), b, h, w, cin_k, cout,
-                            w_k.shape[1], mt, tn, kc, stream)), 5)
+                        by_tile[tag] = round(device_ms(torch, lambda: slab_call(mt, tn, kc)), 5)
                         torch.cuda.synchronize()
-                        # every tile sums a pixel's products in the same order: the same bits
-                        if not torch.equal(y.float(), got):
+                        # every tile of the slab kernel sums a pixel's products in the same order
+                        if slab_bits is None:
+                            slab_bits = y_other.clone()
+                        elif not torch.equal(y_other, slab_bits):
                             other_bits.append(tag)
-                            ok = ok and float((y.float() - want).abs().max()) <= 2e-2
+                            ok = ok and float((y_other.float() - want).abs().max()) <= 2e-2
             fastest = min(by_tile, key=by_tile.get)
             row.update(ms_by_tile=by_tile, fastest=fastest, tiles_with_other_bits=other_bits,
-                       picked_over_fastest=by_tile["mt{} tn{} kc{}".format(*picked)] / by_tile[fastest])
+                       picked_over_fastest=by_tile["mt{} tn{} kc{}".format(*slab_tile)] / by_tile[fastest])
         emit(**row)
         if not ok:
             return 1
